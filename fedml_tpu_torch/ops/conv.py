@@ -1,0 +1,345 @@
+"""Multi-weight 2D convolution (port of ``fedml_tpu/ops/conv.py``).
+
+The simulator runs ``torch.func.vmap`` of the local update over the cohort,
+so every conv of a client sees that client's own weights. Left to
+``F.conv2d``, vmap lowers such a call to a grouped convolution. The JAX
+package met the same problem on the TPU and wrote ``conv2d_pallas``; here
+the same op is two hand-written CUDA kernels (``csrc/conv3x3.cu``):
+
+- :func:`conv3x3` — the differentiable 3x3 / stride-1 / SAME conv, NHWC
+  activations with HWIO weights, the counterpart of ``conv2d_pallas``. It
+  is a ``torch.autograd.Function`` with a ``vmap`` rule, so it runs under
+  ``vmap(grad(...))``: the rule folds the vmapped axis into the kernels'
+  leading lane axis, with one weight set per lane. Its gradient is dx =
+  :func:`conv3x3` of dy with the spatially flipped, channel-transposed
+  kernel, and dw from the weight-gradient kernel.
+- :func:`conv3x3_lanes` / :func:`conv3x3_dw_lanes` — the kernel wrappers on
+  lane-stacked tensors, each with a ``.launches`` counter. On a CUDA tensor
+  they launch the kernel (or raise); on a CPU tensor they run the plain
+  versions :func:`conv3x3_plain` / :func:`conv3x3_dw_plain`.
+- :func:`conv2d_im2col` — conv as patches @ weights (1x1 convs, the stride-2
+  3x3 convs and ``impl="im2col"``); its product is ``torch.matmul``, as the
+  JAX package leaves it to XLA outside any Pallas kernel.
+- :class:`Conv` — the ``nn.Module`` counterpart of the JAX ``Conv``, with the
+  same ``kernel`` leaf and the same dispatch by ``impl`` and shape.
+
+The contract is a tolerance, not bits: the kernels sum in another order
+than the plain versions. The weight-gradient kernel repeats bit for bit
+(fixed-order reduction of its partial sums).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import _build
+
+# --- im2col ------------------------------------------------------------------
+
+
+def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
+    out = -(-size // s)  # ceil
+    pad = max(0, (out - 1) * s + k - size)
+    return pad // 2, pad - pad // 2
+
+
+def extract_patches(x: torch.Tensor, kh: int, kw: int, stride: int,
+                    padding: str) -> torch.Tensor:
+    """[B, H, W, C] -> [B, Ho, Wo, kh*kw*C] by strided slices and a concat,
+    feature order (dy, dx, ci), which matches ``w.reshape(kh*kw*ci, co)``
+    for ``w`` of shape [kh, kw, ci, co]."""
+    b, h, w, c = x.shape
+    if padding == "SAME":
+        (pt, pb), (pl, pr) = _same_pads(h, kh, stride), _same_pads(w, kw, stride)
+        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+        h, w = h + pt + pb, w + pl + pr
+    elif padding != "VALID":
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    ho, wo = (h - kh) // stride + 1, (w - kw) // stride + 1
+    taps = [x[:, dy:dy + (ho - 1) * stride + 1:stride, dx:dx + (wo - 1) * stride + 1:stride, :]
+            for dy in range(kh) for dx in range(kw)]
+    return torch.cat(taps, dim=-1)
+
+
+def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                  padding: str = "SAME") -> torch.Tensor:
+    """Conv as patches @ weight matrix: [B, H, W, Ci] x [kh, kw, Ci, Co]."""
+    kh, kw, ci, co = w.shape
+    if kh == kw == 1:
+        if stride > 1:
+            x = x[:, ::stride, ::stride, :]
+        return torch.matmul(x, w[0, 0])
+    p = extract_patches(x, kh, kw, stride, padding)
+    return torch.matmul(p, w.reshape(kh * kw * ci, co))
+
+
+# --- the plain versions of the two kernels ----------------------------------
+
+
+def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernel: per lane, 3x3 SAME
+    patches of x (L, B, H, W, Ci) @ w (L, 3, 3, Ci, Co) viewed as
+    (9 Ci, Co) -> (L, B, H, W, Co)."""
+    L, B, H, W, Ci = x.shape
+    p = extract_patches(x.reshape(L * B, H, W, Ci), 3, 3, 1, "SAME")
+    y = torch.matmul(p.reshape(L, B * H * W, 9 * Ci), w.reshape(L, 9 * Ci, w.shape[-1]))
+    return y.reshape(L, B, H, W, -1)
+
+
+def conv3x3_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the weight-gradient kernel: per lane,
+    patches(x)^T @ dy summed over (B, H, W) -> (L, 3, 3, Ci, Co)."""
+    L, B, H, W, Ci = x.shape
+    Co = dy.shape[-1]
+    p = extract_patches(x.reshape(L * B, H, W, Ci), 3, 3, 1, "SAME")
+    dw = torch.matmul(p.reshape(L, B * H * W, 9 * Ci).transpose(1, 2),
+                      dy.reshape(L, B * H * W, Co))
+    return dw.reshape(L, 3, 3, Ci, Co)
+
+
+# --- the kernel wrappers ------------------------------------------------------
+
+SLICE = 16                # contraction elements staged per step (csrc kSlice)
+TILE = 4096               # outputs of one block (kTile)
+TARGET_BLOCKS = 132 * 8   # about eight blocks per H100 SM
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def block_cols(co: int) -> int:
+    """Output channels of one block's tile (csrc ``block_cols``)."""
+    return 16 if co <= 16 else 32 if co <= 32 else 64
+
+
+def dw_split_plan(L: int, P: int, ci: int, co: int) -> Tuple[int, int]:
+    """(span, splits): each lane's P = B*H*W pixels are cut into ``splits``
+    spans of ``span`` (a multiple of SLICE) so that lanes x tiles x splits
+    fills the card even where the (9 Ci, Co) output is one tile."""
+    bn = block_cols(co)
+    tiles = _cdiv(9 * ci, TILE // bn) * _cdiv(co, bn)
+    splits = min(max(1, _cdiv(TARGET_BLOCKS, tiles * L)), _cdiv(P, SLICE), 65535)
+    span = _cdiv(_cdiv(P, splits), SLICE) * SLICE
+    return span, _cdiv(P, span)
+
+
+def _lane_stride(t: torch.Tensor, name: str) -> int:
+    """Floats between lanes of a (L, ...) tensor: 0 where one lane is
+    broadcast (an ``expand``), else the per-lane size. Raises on layouts
+    the kernels do not take."""
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.shape[0] > 1 and t.stride(0) == 0 and t[0].is_contiguous():
+        return 0
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous or a lane broadcast")
+    return t[0].numel() if t.shape[0] > 1 else 0
+
+
+def _check_lanes(x: torch.Tensor, other: torch.Tensor, x_name: str, o_name: str) -> None:
+    if x.dim() != 5 or other.dim() != 5 or x.shape[0] != other.shape[0] or x.shape[0] < 1:
+        raise ValueError(f"{x_name} and {o_name} must be 5-D with the same lane count, got "
+                         f"{tuple(x.shape)} and {tuple(other.shape)}")
+    if x.device != other.device:
+        raise ValueError(f"{x_name} and {o_name} lie on {x.device} and {other.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if x.device.type == "cuda" and x.shape[-1] % SLICE == 0 and x.data_ptr() % 16:
+        # the kernels read such x with float4 loads
+        raise ValueError(f"{x_name} must be 16-byte aligned")
+
+
+def conv3x3_lanes(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Forward kernel: x (L, B, H, W, Ci), w (L, 3, 3, Ci, Co) float32 ->
+    (L, B, H, W, Co). Either operand may be one lane broadcast over L."""
+    _check_lanes(x, w, "x", "w")
+    L, B, H, W, Ci = x.shape
+    if tuple(w.shape[1:4]) != (3, 3, Ci):
+        raise ValueError(f"w must be (L, 3, 3, {Ci}, Co), got {tuple(w.shape)}")
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w)
+    x_lane, w_lane = _lane_stride(x, "x"), _lane_stride(w, "w")
+    Co = w.shape[-1]
+    y = torch.empty((L, B, H, W, Co), dtype=torch.float32, device=x.device)
+    fn = _build.load("conv3x3").fedml_conv3x3_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + \
+        [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), L, B, H, W, Ci, Co, x_lane, w_lane,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fedml_conv3x3_fwd")
+    conv3x3_lanes.launches += 1
+    return y
+
+
+conv3x3_lanes.launches = 0
+
+
+def conv3x3_dw_lanes(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Weight-gradient kernel: x (L, B, H, W, Ci), dy (L, B, H, W, Co)
+    float32 -> dw (L, 3, 3, Ci, Co). x may be one lane broadcast over L."""
+    _check_lanes(x, dy, "x", "dy")
+    L, B, H, W, Ci = x.shape
+    if tuple(dy.shape[1:4]) != (B, H, W):
+        raise ValueError(f"dy must be (L, {B}, {H}, {W}, Co), got {tuple(dy.shape)}")
+    if x.device.type == "cpu":
+        return conv3x3_dw_plain(x, dy)
+    x_lane = _lane_stride(x, "x")
+    if _lane_stride(dy, "dy") == 0 and L > 1:
+        dy = dy.contiguous()
+    Co = dy.shape[-1]
+    span, splits = dw_split_plan(L, B * H * W, Ci, Co)
+    part = torch.empty((L, splits, 9 * Ci, Co), dtype=torch.float32, device=x.device)
+    dw = torch.empty((L, 3, 3, Ci, Co), dtype=torch.float32, device=x.device)
+    fn = _build.load("conv3x3").fedml_conv3x3_dw
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+        [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), L, B, H, W, Ci, Co,
+             x_lane, span, splits, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fedml_conv3x3_dw")
+    conv3x3_dw_lanes.launches += 1
+    return dw
+
+
+conv3x3_dw_lanes.launches = 0
+
+
+# --- the differentiable, vmappable op ----------------------------------------
+
+
+def _fold(batch_size: int, in_dims, *ts):
+    """The vmap rules' view of their operands: the vmapped axis moved to the
+    front as the kernels' lane axis; an operand that is not vmapped becomes
+    one lane broadcast over the batch."""
+    out = []
+    for t, d in zip(ts, in_dims):
+        if d is None:
+            t = t.contiguous().expand(batch_size, *t.shape)
+        else:
+            t = t.movedim(d, 0).contiguous()
+        out.append(t)
+    return out
+
+
+def _flip(w: torch.Tensor) -> torch.Tensor:
+    """The kernel whose conv of dy is dx: spatially flipped, channels
+    transposed (conv.py:232)."""
+    return w.flip(0, 1).transpose(2, 3)
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(x, w):
+        return conv3x3_lanes(x.contiguous()[None], w.contiguous()[None])[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = _Conv3x3.apply(g, _flip(w)) if ctx.needs_input_grad[0] else None
+        dw = _Conv3x3Dw.apply(x, g) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+    @staticmethod
+    def vmap(info, in_dims, x, w):
+        return conv3x3_lanes(*_fold(info.batch_size, in_dims, x, w)), 0
+
+
+class _Conv3x3Dw(torch.autograd.Function):
+    @staticmethod
+    def forward(x, g):
+        return conv3x3_dw_lanes(x.contiguous()[None], g.contiguous()[None])[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, gw):
+        raise NotImplementedError("conv3x3 has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, x, g):
+        return conv3x3_dw_lanes(*_fold(info.batch_size, in_dims, x, g)), 0
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3x3 / stride-1 / SAME conv of x (B, H, W, Ci) with w (3, 3, Ci, Co)
+    -> (B, H, W, Co); differentiable and vmappable (see module docstring)."""
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[-1]):
+        raise ValueError(f"conv3x3 takes x (B, H, W, Ci) and w (3, 3, Ci, Co), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    return _Conv3x3.apply(x, w)
+
+
+# --- module -------------------------------------------------------------------
+
+IMPLS = ("xla", "im2col", "pallas")
+
+
+def _supported(x_shape, w_shape, stride: int, padding: str) -> bool:
+    return (padding == "SAME" and stride == 1 and tuple(w_shape[:2]) == (3, 3)
+            and len(x_shape) == 4)
+
+
+def _conv_cudnn(x: torch.Tensor, w: torch.Tensor, s: int, padding: str) -> torch.Tensor:
+    """``lax.conv_general_dilated`` on NHWC/HWIO: ``F.conv2d`` (cuDNN on the
+    card) with the SAME pads computed as XLA does, asymmetric at stride 2."""
+    kh, kw = w.shape[:2]
+    x = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        (pt, pb), (pl, pr) = _same_pads(x.shape[2], kh, s), _same_pads(x.shape[3], kw, s)
+        x = F.pad(x, (pl, pr, pt, pb))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    return F.conv2d(x, w.permute(3, 2, 0, 1), stride=s).permute(0, 2, 3, 1)
+
+
+class Conv(nn.Module):
+    """The JAX ``Conv`` module (no bias, NHWC, no dilation) with a
+    selectable compute path; its one leaf is ``kernel`` (kh, kw, ci, co).
+
+    impl:
+      - "xla":    ``F.conv2d`` (cuDNN), the counterpart of
+                  ``lax.conv_general_dilated``; a grouped conv under
+                  per-lane weight vmap
+      - "im2col": patches + matmul
+      - "pallas": the CUDA kernels (:func:`conv3x3`) for 3x3/s1/SAME; other
+                  shapes take im2col
+    1x1 convs always take the matmul path.
+    """
+
+    def __init__(self, features_in: int, features: int,
+                 kernel_size: Sequence[int] = (3, 3),
+                 strides: Union[int, Sequence[int]] = 1, padding: str = "SAME",
+                 impl: str = "xla"):
+        super().__init__()
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        if not isinstance(strides, int):
+            if len(set(strides)) != 1:
+                raise ValueError(f"Conv supports only isotropic strides, got {strides}")
+            strides = strides[0]
+        kh, kw = kernel_size
+        self.stride, self.padding, self.impl = int(strides), padding, impl
+        self.kernel = nn.Parameter(torch.empty(kh, kw, features_in, features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, s = self.kernel, self.stride
+        if tuple(w.shape[:2]) == (1, 1):
+            return conv2d_im2col(x, w, s, self.padding)  # 1x1 == matmul
+        if self.impl == "pallas" and _supported(x.shape, w.shape, s, self.padding):
+            return conv3x3(x, w)
+        if self.impl in ("im2col", "pallas"):
+            return conv2d_im2col(x, w, s, self.padding)
+        return _conv_cudnn(x, w, s, self.padding)

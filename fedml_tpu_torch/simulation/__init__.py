@@ -30,7 +30,7 @@ _UNPORTED = (
     ("fedprox_mu", None, "3"), ("dp_l2_clip", None, "3"),
     ("dp_noise_multiplier", 0, "3"), ("model_axis_size", 1, "10"),
     ("packed_lanes", None, "4"), ("server_tester", None, "4"),
-    ("client_dropout_rate", 0, "4"),
+    ("client_dropout_rate", 0, "4"), ("norm", "group", "7"),
 )
 
 

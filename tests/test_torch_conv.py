@@ -1,0 +1,207 @@
+"""Port vs JAX package: the multi-weight 3x3 conv (``ops/conv.py``).
+
+The port's ``conv3x3`` (on the CPU its plain version, through the same
+autograd/vmap plumbing that launches the CUDA kernels on the card) is held
+against the JAX ``conv2d_pallas`` run in Pallas interpret mode and against
+``lax.conv_general_dilated``: forward, dx and dw, ragged channels and odd
+sizes, and ``vmap(grad)`` over per-lane x and w and with w unbatched.
+The CUDA kernels are held to the plain versions on the card (``cuda``
+marker; skips without one).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.func import grad, vmap
+
+jax.config.update("jax_default_matmul_precision", "highest")
+
+from fedml_tpu.ops import conv as jconv  # noqa: E402
+from fedml_tpu_torch.ops import conv as tconv  # noqa: E402
+
+# f32 sums of <= 9*Ci*... terms in another order than XLA's: ~1e-6 of the
+# magnitudes; absolute tolerances below are for O(1) inputs
+FWD_ATOL = 1e-5
+GRAD_RTOL = 1e-5
+
+
+@pytest.fixture()
+def interp_pallas(monkeypatch):
+    from jax.experimental import pallas as pl
+
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+
+
+def _lax(x, w, s=1, pad="SAME"):
+    return jax.lax.conv_general_dilated(x, w, (s, s), pad,
+                                        dimension_numbers=("NHWC", "HWIO", "NHWC"))
+
+
+def _inputs(seed, *shape_x_w):
+    rng = np.random.default_rng(seed)
+    (b, h, w, ci, co) = shape_x_w
+    x = rng.standard_normal((b, h, w, ci)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, ci, co)) * 0.3).astype(np.float32)
+    return x, k
+
+
+def _close(got, want, rtol):
+    """|got - want| within rtol of want's largest magnitude."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * max(1.0, np.abs(want).max()))
+
+
+SHAPES = [(2, 8, 8, 5, 7), (2, 7, 9, 3, 16), (1, 5, 6, 16, 16), (3, 4, 4, 32, 8)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_forward_matches_pallas_and_lax(interp_pallas, shape):
+    x, k = _inputs(0, *shape)
+    want_p = jconv.conv2d_pallas(jnp.asarray(x), jnp.asarray(k), 1, "SAME")
+    want_l = _lax(jnp.asarray(x), jnp.asarray(k))
+    got = tconv.conv3x3(torch.from_numpy(x), torch.from_numpy(k)).numpy()
+    np.testing.assert_allclose(got, want_p, atol=FWD_ATOL)
+    np.testing.assert_allclose(got, want_l, atol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_dx_and_dw_match_pallas_and_lax(interp_pallas, shape):
+    x, k = _inputs(1, *shape)
+
+    def jloss(conv):
+        return lambda x, w: (conv(x, w) ** 2).sum()
+
+    jp = jax.grad(jloss(lambda x, w: jconv.conv2d_pallas(x, w, 1, "SAME")), (0, 1))(
+        jnp.asarray(x), jnp.asarray(k))
+    jl = jax.grad(jloss(_lax), (0, 1))(jnp.asarray(x), jnp.asarray(k))
+    tx = torch.from_numpy(x).requires_grad_()
+    tk = torch.from_numpy(k).requires_grad_()
+    (tconv.conv3x3(tx, tk) ** 2).sum().backward()
+    for got, want_p, want_l in zip((tx.grad, tk.grad), jp, jl):
+        _close(got.numpy(), want_p, GRAD_RTOL)
+        _close(got.numpy(), want_l, GRAD_RTOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 3, 4, 1, 1), (2, 8, 8, 3, 4, 1, 2),
+                                   (2, 9, 9, 4, 6, 3, 2), (2, 8, 8, 16, 32, 3, 2),
+                                   (2, 11, 11, 2, 3, 5, 2), (2, 10, 10, 4, 4, 3, 1)])
+def test_im2col_matches_jax(shape):
+    b, h, w, ci, co, ksz, s = shape
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((b, h, w, ci)).astype(np.float32)
+    k = (rng.standard_normal((ksz, ksz, ci, co)) * 0.3).astype(np.float32)
+    want = jconv.conv2d_im2col(jnp.asarray(x), jnp.asarray(k), s, "SAME")
+    got = tconv.conv2d_im2col(torch.from_numpy(x), torch.from_numpy(k), s, "SAME").numpy()
+    np.testing.assert_allclose(got, want, atol=FWD_ATOL)
+    np.testing.assert_allclose(got, _lax(jnp.asarray(x), jnp.asarray(k), s), atol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("w_batched", [True, False])
+def test_vmap_grad_matches_jax_pallas(interp_pallas, w_batched):
+    """The simulator's case: vmap over clients of grad, with per-lane x and
+    w (every later step) or one shared w (the first step); dw per lane."""
+    L = 3
+    rng = np.random.default_rng(3)
+    xs = rng.standard_normal((L, 2, 6, 7, 16)).astype(np.float32)
+    ws = (rng.standard_normal((L, 3, 3, 16, 5)) * 0.3).astype(np.float32)
+    if not w_batched:
+        ws = ws[0]
+    w_dim = 0 if w_batched else None
+
+    def jloss(w, x):
+        return (jconv.conv2d_pallas(x, w, 1, "SAME") ** 2).sum()
+
+    def tloss(w, x):
+        return (tconv.conv3x3(x, w) ** 2).sum()
+
+    jg = jax.vmap(jax.grad(jloss, (0, 1)), in_axes=(w_dim, 0))(jnp.asarray(ws), jnp.asarray(xs))
+    tg = vmap(grad(tloss, argnums=(0, 1)), in_dims=(w_dim, 0))(torch.from_numpy(ws),
+                                                                torch.from_numpy(xs))
+    assert tuple(tg[0].shape) == (L, 3, 3, 16, 5)
+    for got, want in zip(tg, jg):
+        _close(got.numpy(), want, GRAD_RTOL)
+
+
+def test_lanes_wrappers_take_a_broadcast_lane():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((3, 2, 5, 5, 4)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((1, 3, 3, 4, 6)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((3, 2, 5, 5, 6)).astype(np.float32))
+    got = tconv.conv3x3_lanes(x, w.expand(3, 3, 3, 4, 6))
+    for lane in range(3):
+        torch.testing.assert_close(got[lane], tconv.conv3x3(x[lane], w[0]))
+    dw = tconv.conv3x3_dw_lanes(x[:1].expand(3, 2, 5, 5, 4), dy)
+    torch.testing.assert_close(dw[2], tconv.conv3x3_dw_lanes(x[:1], dy[2:]).squeeze(0))
+    with pytest.raises(ValueError):
+        tconv.conv3x3_lanes(x, w)  # lane counts differ
+
+
+def test_conv_module_dispatch(monkeypatch):
+    """impl='pallas' sends 3x3/s1/SAME to conv3x3 and nothing else; every
+    impl computes the same conv from the same ``kernel``."""
+    seen = []
+    real = tconv.conv3x3
+    monkeypatch.setattr(tconv, "conv3x3", lambda x, w: seen.append(tuple(w.shape)) or real(x, w))
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 8, 8, 4)).astype(np.float32))
+    for ksz, s in ((3, 1), (3, 2), (1, 1), (1, 2)):
+        outs = []
+        for impl in tconv.IMPLS:
+            m = tconv.Conv(4, 6, (ksz, ksz), s, impl=impl)
+            torch.manual_seed(0)
+            torch.nn.init.normal_(m.kernel)
+            outs.append(m(x).detach())
+        for o in outs[1:]:
+            torch.testing.assert_close(o, outs[0], rtol=1e-5, atol=1e-5)
+    assert seen == [(3, 3, 4, 6)]
+    with pytest.raises(ValueError):
+        tconv.Conv(4, 6, impl="cudnn")
+
+
+@pytest.mark.parametrize("L,P,ci,co", [(10, 65536, 3, 16), (10, 65536, 16, 16),
+                                       (10, 16384, 32, 32), (10, 4096, 64, 64),
+                                       (3, 315, 5, 7), (1, 1, 1, 1)])
+def test_dw_split_plan_covers_the_contraction(L, P, ci, co):
+    span, splits = tconv.dw_split_plan(L, P, ci, co)
+    assert span % tconv.SLICE == 0 and 1 <= splits <= 65535
+    assert (splits - 1) * span < P <= splits * span
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.ones(1, 2, 4, 4, 3, device="meta")
+    with pytest.raises(ValueError):
+        tconv.conv3x3_lanes(x, torch.ones(1, 3, 3, 3, 4, device="meta"))
+    with pytest.raises(ValueError):
+        tconv.conv3x3_dw_lanes(x, torch.ones(1, 2, 4, 4, 4, device="meta"))
+
+
+# |kernel - plain| / (the same product on |x|, |w|): each output is a sum of
+# at most 9*Ci (forward) or B*H*W (dw) fp32 products in another order; the
+# rounding of each partial sum is at most 6e-8 of the magnitudes, and the
+# H100 measured <= 3.1e-7. 1e-5 leaves margin yet catches a wrong tap or
+# channel, which errs by O(1) of the magnitude.
+CARD_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,B,H,W,ci,co", [(10, 64, 32, 32, 3, 16), (10, 64, 32, 32, 16, 16),
+                                           (10, 64, 16, 16, 32, 32), (10, 64, 8, 8, 64, 64),
+                                           (1, 256, 8, 8, 64, 64), (3, 5, 7, 9, 5, 7)])
+def test_conv_kernels_match_plain_on_card(L, B, H, W, ci, co):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(L, B, H, W, ci, generator=g).cuda()
+    w = torch.randn(L, 3, 3, ci, co, generator=g).cuda()
+    dy = torch.randn(L, B, H, W, co, generator=g).cuda()
+    y = tconv.conv3x3_lanes(x, w)
+    mag = tconv.conv3x3_plain(x.abs(), w.abs())
+    assert ((y - tconv.conv3x3_plain(x, w)).abs() / mag).max().item() < CARD_TOL
+    dw = tconv.conv3x3_dw_lanes(x, dy)
+    mag = tconv.conv3x3_dw_plain(x.abs(), dy.abs())
+    assert ((dw - tconv.conv3x3_dw_plain(x, dy)).abs() / mag).max().item() < CARD_TOL
+    assert torch.equal(dw, tconv.conv3x3_dw_lanes(x, dy))  # fixed-order reduction

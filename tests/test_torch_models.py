@@ -89,6 +89,10 @@ def test_unported_models_and_optimizers_raise():
     with pytest.raises(NotImplementedError, match="dropout"):
         tmodels.create(_Args("cnn"), 10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.create(_Args("resnet56"), 10)
+        tmodels.create(_Args("resnet18_gn"), 10, (32, 32, 3))
+    resnet_bn = _Args("resnet56")
+    resnet_bn.norm = "batch"  # BatchNorm's batch_stats are not ported
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmodels.create(resnet_bn, 10, (32, 32, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LocalTrainConfig(momentum=0.9)
