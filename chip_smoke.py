@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port (fedml_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase below
+    python3 chip_smoke.py kernels    # phases 1-3 only (no result line)
 
 Phases, each printing one JSON line; any failure ends the run with a
 non-zero exit code and no result line:
@@ -350,6 +351,15 @@ def _normalised_err(got, want, mag):
     return ((got - want).abs() / mag.clamp_min(1e-30)).max().item()
 
 
+def _conv_ops(shape):
+    """Operations (2 per multiply-add) of a 3x3 SAME conv, or of its weight
+    gradient, counting only the taps that read the image: along an axis of
+    n pixels, 3n - 2 of the 3n (pixel, tap) pairs fall inside it and the
+    other two read the zero padding, which the function does not need."""
+    L, B, H, W, ci, co = shape
+    return 2 * L * B * ci * co * (3 * H - 2) * (3 * W - 2)
+
+
 def _bound(ops, nbytes):
     b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return {"bound_ms": max(b, o), "bound_by": "bytes" if b >= o else "operations"}
@@ -375,7 +385,7 @@ def check_conv(dev):
         if not (err <= CONV_TOL and lib_err <= CONV_TOL):
             raise AssertionError(f"conv3x3 at {shape}: normalised error {err} "
                                  f"(cuDNN {lib_err}) > {CONV_TOL}")
-        ops = 2 * L * B * H * W * 9 * ci * co
+        ops = _conv_ops(shape)
         nbytes = (L * B * H * W * (ci + co) + L * 9 * ci * co) * 4
         row = {"ms": time_ms(lambda: C.conv3x3_lanes(x, w)),
                "plain_ms": time_ms(lambda: C.conv3x3_plain(x, w)),
@@ -423,7 +433,7 @@ def check_conv_dw(dev):
                                  f"(cuDNN {lib_err}) > {CONV_TOL}")
         if not torch.equal(dw, C.conv3x3_dw_lanes(x, dy)):
             raise AssertionError(f"conv3x3_dw at {shape} is not repeatable")
-        ops = 2 * L * B * H * W * 9 * ci * co
+        ops = _conv_ops(shape)
         nbytes = (L * B * H * W * (ci + co) + L * 9 * ci * co) * 4
         row = {"ms": time_ms(lambda: C.conv3x3_dw_lanes(x, dy)),
                "plain_ms": time_ms(lambda: C.conv3x3_dw_plain(x, dy)),
@@ -543,17 +553,21 @@ def phase_resnet_main():
 
 
 def phase_resnet_profile(rounds=2):
-    """Where a ResNet-56 round's time goes: two warm rounds (the process is
-    warm from resnet_main)."""
+    """Where a ResNet-56 round's time goes: two warm rounds after a warm-up
+    run of the same simulator."""
     import fedml_tpu_torch as ft
     from fedml_tpu_torch.simulation import build_simulator
 
     sim, _ = build_simulator(ft.init(resnet_args(comm_round=rounds)))
+    sim.run(None, log_fn=None)  # warm-up
     emit("resnet_profile", **profile_rounds(sim, rounds, (
         "conv3x3_fwd_kernel", "conv3x3_dw_partial_kernel", "conv3x3_dw_reduce_kernel")))
 
 
-def main():
+def main(argv):
+    if argv not in ([], ["kernels"]):
+        print("usage: python3 chip_smoke.py [kernels]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -563,6 +577,8 @@ def main():
     smi = phase_device()
     phase_build()
     entries = [check_quant(dev), check_gram(dev), check_conv(dev), check_conv_dw(dev)]
+    if argv == ["kernels"]:
+        return 0
     check_fused_krum(dev)
     phase_small()
     launches = phase_main()
@@ -582,4 +598,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
