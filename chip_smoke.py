@@ -12,7 +12,9 @@ non-zero exit code and no result line:
    the main paths' shapes and a few ragged ones, with timings of the
    kernel, the plain version and (where one exists) a library call: the
    codec's quantize_pack, the Gram plane, the 3x3 multi-weight conv
-   forward (conv3x3, also dx) and its weight gradient (conv3x3_dw);
+   forward (conv3x3, also dx) and its weight gradient (conv3x3_dw), and
+   flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
+   flash_dkv; SDPA as the library call);
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
 5. main — the robust FedAvg path through fedml_tpu_torch.init +
@@ -28,7 +30,14 @@ non-zero exit code and no result line:
    run_simulation with conv_impl pallas, full width and depth, 3 rounds of
    one epoch; the conv kernels' launch counts must equal those derived
    from the config;
-9. resnet_profile — torch.profiler over two warm ResNet-56 rounds.
+9. resnet_profile — torch.profiler over two warm ResNet-56 rounds;
+10. small_lm — the Cheetah LM trainer at f32, T 4096 (auto dispatch picks
+    flash) on the card against the same run on the CPU (plain versions);
+11. lm_main — the Cheetah trainer at the LM slice's configuration (vocab
+    32000, dim 1024, 16 heads, 12 layers, bf16, full remat, chunked CE,
+    B 2, T 8192) for 5 steps; causal flash on every layer, with 24
+    forward, 12 dq and 12 dk/dv launches per step;
+12. lm_profile — torch.profiler over two warm steps of that trainer.
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or fedml_tpu.
@@ -50,6 +59,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 QUANT_OPS_PER_ELEM = 25     # hash, divide, add, floor, clip, multiply per element
 # cnn_fedavg's compressible leaves (>= 64 elements), in leaf order
 MAIN_LEAF_M = (800, 51200, 64, 1605632, 512, 5120)
@@ -267,6 +277,7 @@ def phase_main():
     from fedml_tpu_torch.ops import agg_quant, agg_robust
 
     args = ft.init(config=dict(MAIN_CONFIG))
+    torch.cuda.reset_peak_memory_stats()  # the kernel checks before ran larger
     agg_quant.quantize_pack.launches = 0
     agg_robust.gram.launches = 0
     t = time.perf_counter()
@@ -292,17 +303,17 @@ def phase_main():
     return launches
 
 
-def profile_rounds(sim, rounds, ours):
-    """torch.profiler over ``sim.run`` of ``rounds`` rounds (no eval).
+def profile_run(run, n, ours, unit="round"):
+    """torch.profiler over ``run()``, which does ``n`` rounds or steps.
     Device busy time is the sum of the kernels' self device time (one
     stream, so they do not overlap); the idle share is 1 - busy / wall.
-    ``ours`` names kernels whose ms per round are reported."""
+    ``ours`` names kernels whose ms per ``unit`` are reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        sim.run(None, log_fn=None)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
 
@@ -314,13 +325,13 @@ def profile_rounds(sim, rounds, ours):
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
-    return dict(rounds=rounds, wall_ms_per_round=wall * 1e3 / rounds,
-                device_busy_ms_per_round=busy_ms / rounds,
-                idle_share=1.0 - busy_ms / (wall * 1e3),
-                our_kernels_ms_per_round={
-                    k: sum(r[1] for r in rows if k in r[0]) / 1e3 / rounds for k in ours},
-                top=[{"kernel": k[:90], "ms_per_round": us / 1e3 / rounds,
-                      "calls_per_round": n / rounds} for k, us, n in rows[:10]])
+    return {f"{unit}s": n, f"wall_ms_per_{unit}": wall * 1e3 / n,
+            f"device_busy_ms_per_{unit}": busy_ms / n,
+            "idle_share": 1.0 - busy_ms / (wall * 1e3),
+            f"our_kernels_ms_per_{unit}": {
+                k: sum(r[1] for r in rows if k in r[0]) / 1e3 / n for k in ours},
+            "top": [{"kernel": k[:90], f"ms_per_{unit}": us / 1e3 / n,
+                     f"calls_per_{unit}": c / n} for k, us, c in rows[:10]]}
 
 
 def phase_profile(rounds=3):
@@ -331,7 +342,7 @@ def phase_profile(rounds=3):
 
     sim, _ = build_simulator(ft.init(config=dict(MAIN_CONFIG, comm_round=rounds)))
     sim.run(None, log_fn=None)  # warm-up
-    emit("profile", **profile_rounds(sim, rounds, (
+    emit("profile", **profile_run(lambda: sim.run(None, log_fn=None), rounds, (
         "quantize_pack_kernel", "gram_partial_kernel", "gram_reduce_kernel")))
 
 
@@ -360,8 +371,11 @@ def _conv_ops(shape):
     return 2 * L * B * ci * co * (3 * H - 2) * (3 * W - 2)
 
 
-def _bound(ops, nbytes):
-    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def _bound(ops, nbytes, bf16_ops=0):
+    """ops take a float32 operand; bf16_ops multiply two bf16 operands, which
+    the tensor cores do exactly with float32 accumulation."""
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    o = (ops / FP32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
     return {"bound_ms": max(b, o), "bound_by": "bytes" if b >= o else "operations"}
 
 
@@ -560,8 +574,263 @@ def phase_resnet_profile(rounds=2):
 
     sim, _ = build_simulator(ft.init(resnet_args(comm_round=rounds)))
     sim.run(None, log_fn=None)  # warm-up
-    emit("resnet_profile", **profile_rounds(sim, rounds, (
+    emit("resnet_profile", **profile_run(lambda: sim.run(None, log_fn=None), rounds, (
         "conv3x3_fwd_kernel", "conv3x3_dw_partial_kernel", "conv3x3_dw_reduce_kernel")))
+
+
+# --- the Cheetah LM slice: flash attention ------------------------------------
+
+# (B, T, H, Dh), dtype, causal: the LM slice's attention first (what the main
+# path gives the kernels), then a full f32 shape with Dh 128, a ragged f32
+# causal one and a small ragged bf16 one
+FLASH_SLICE = (2, 8192, 16, 64)
+FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), ((1, 2048, 8, 128), torch.float32, False),
+               ((3, 333, 2, 64), torch.float32, True), ((2, 100, 3, 128), torch.bfloat16, True))
+# |kernel - plain| / max|plain|, plain in float32. Each output sums up to
+# T * Dh = 5e5 float32 products in another order than the plain version's
+# cuBLAS calls: a random walk of sqrt(n) * 2^-24 ~ 4e-5 of the terms'
+# magnitudes at most, so 1e-4 leaves margin; a wrong mask, tile or column
+# errs by O(1). A bf16 output is the float32 value rounded once, so it may
+# sit one bf16 step (2^-7 of its magnitude) from the rounded plain value.
+FLASH_TOL = 1e-4
+FLASH_TOL_BF16 = FLASH_TOL + 2.0 ** -7
+# share of bf16 outputs allowed to differ at all from the rounded plain value:
+# two float32 values within ~1e-6 straddle a rounding boundary ~1e-3 of the time
+# (measured at most 7.6e-4 on an H100); one wrong 64-row tile at T 8192 is
+# 7.8e-3 of the outputs
+FLASH_MISMATCH_SHARE = 0.0025
+# bf16 outputs are also held row by row (the Dh values of one (b, t, h))
+# against the row's largest plain value, since late causal rows are ~1/sqrt(T)
+# of the largest overall; rows whose values cancel to ~0 (dq's first row) are
+# held against this share of the largest overall instead
+FLASH_ROW_FLOOR = 1e-3
+
+
+def _flash_inputs(shape, dtype, gen, dev):
+    """q, k, v as views of one (B, T, 3 H Dh) projection, as the model makes
+    them, and dO."""
+    B, T, H, Dh = shape
+    qkv = torch.randn(B, T, 3 * H * Dh, generator=gen).to(dev, dtype)
+    q, k, v = (t.reshape(B, T, H, Dh) for t in qkv.split(H * Dh, dim=-1))
+    do = torch.randn(B, T, H, Dh, generator=gen).to(dev, dtype)
+    return q, k, v, do
+
+
+def _flash_err(got, want32, dtype):
+    """(normalised error, share of elements that differ from the rounded plain
+    value — bf16 outputs only, largest per-row error) of a kernel output
+    against the float32 plain value; raises past the tolerance."""
+    diff, mag = (got.float() - want32).abs(), want32.abs()
+    err = (diff.max() / mag.max().clamp_min(1e-30)).item()
+    row_err = (diff.amax(-1) / torch.maximum(mag.amax(-1), FLASH_ROW_FLOOR * mag.max())
+               ).max().item()
+    if dtype != torch.bfloat16:
+        if not err <= FLASH_TOL:
+            raise AssertionError(f"flash: normalised error {err} > {FLASH_TOL}")
+        return err, None, row_err
+    share = (got != want32.to(dtype)).float().mean().item()
+    if not (err <= FLASH_TOL_BF16 and row_err <= FLASH_TOL_BF16
+            and share <= FLASH_MISMATCH_SHARE):
+        raise AssertionError(f"flash: normalised error {err}, per row {row_err} (tol "
+                             f"{FLASH_TOL_BF16}), {share} of the bf16 elements differ "
+                             f"(at most {FLASH_MISMATCH_SHARE})")
+    return err, share, row_err
+
+
+def _flash_pairs(B, T, H, causal):
+    """(q, k) pairs that are not masked."""
+    return B * H * (T * (T + 1) // 2 if causal else T * T)
+
+
+def _flash_products(dtype, Dh):
+    """Per kernel, (products of two bf16 operands, products with a float32
+    operand) per unmasked (q, k) pair, each 2 * Dh operations. Q.K^T and
+    dO.V^T multiply the inputs; the forward scales q first, which keeps it
+    bf16 only when 1/sqrt(Dh) is a power of 2 (Dh 64). P.V, dS.K, P^T.dO and
+    dS^T.Q take a float32 probability or score."""
+    if dtype != torch.bfloat16:
+        return {"flash_fwd": (0, 2), "flash_dq": (0, 3), "flash_dkv": (0, 4)}
+    qk = int(math.log2(Dh) % 2 == 0)
+    return {"flash_fwd": (qk, 2 - qk), "flash_dq": (2, 1), "flash_dkv": (2, 2)}
+
+
+def check_flash(dev):
+    """Kernels 4a-4c (flash forward, dq, dk/dv) against their plain versions
+    at FLASH_CASES; dq, dk and dv repeat bit for bit; timings at the slice's
+    shape beside SDPA (forward for 4a; its backward, which computes dq, dk
+    and dv together, for 4b and 4c)."""
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(5)
+    entries = []
+    for shape, dtype, causal in FLASH_CASES:
+        B, T, H, Dh = shape
+        q, k, v, do = _flash_inputs(shape, dtype, gen, dev)
+        q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+        out, lse = fa.flash_forward(q, k, v, causal)
+        out_p, lse_p = fa.flash_forward_plain(q32, k32, v32, causal)
+        delta = fa.attention_delta(do, out)
+        dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal)
+        # the plain backward from the same lse and delta: it checks the kernels' arithmetic
+        dq_p = fa.flash_dq_plain(q32, k32, v32, do32, lse, delta, causal)
+        dk_p, dv_p = fa.flash_dkv_plain(q32, k32, v32, do32, lse, delta, causal)
+        torch.cuda.synchronize()
+        errs = {"out": _flash_err(out, out_p, dtype), "lse": _flash_err(lse, lse_p, torch.float32),
+                "dq": _flash_err(dq, dq_p, dtype), "dk": _flash_err(dk, dk_p, dtype),
+                "dv": _flash_err(dv, dv_p, dtype)}
+        dk2, dv2 = fa.flash_dkv(q, k, v, do, lse, delta, causal)
+        if not (torch.equal(dq, fa.flash_dq(q, k, v, do, lse, delta, causal))
+                and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"flash backward at {shape} is not repeatable")
+        row = dict(shape=list(shape), dtype=str(dtype), causal=causal, repeatable=True,
+                   normalised_err={n: e[0] for n, e in errs.items()},
+                   mismatch_share={n: e[1] for n, e in errs.items()},
+                   row_err={n: e[2] for n, e in errs.items()},
+                   tol=FLASH_TOL_BF16 if dtype == torch.bfloat16 else FLASH_TOL)
+        if shape != FLASH_SLICE:
+            emit("kernel_flash", **row)
+            continue
+        # timings at the slice's shape
+        nb = B * T * H * Dh * q.element_size()  # one (B, T, H, Dh) tensor
+        rows_b = B * H * T * 4                   # one float32 row vector (lse or delta)
+        pairs = _flash_pairs(B, T, H, causal)
+        products = _flash_products(dtype, Dh)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        sdpa_g = do.transpose(1, 2).contiguous()
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), sdpa_g,
+                                                          retain_graph=True), reps=3, rounds=3)
+        cases = (
+            ("flash_fwd", ":129", 3 * nb, nb + rows_b,
+             lambda: fa.flash_forward(q, k, v, causal),
+             lambda: fa.flash_forward_plain(q, k, v, causal),
+             time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
+                     reps=3, rounds=3), errs["out"][0], (out - out_p).abs().max()),
+            ("flash_dq", ":167", 4 * nb + 2 * rows_b, nb,
+             lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
+             lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, causal),
+             sdpa_bwd_ms, errs["dq"][0], (dq - dq_p).abs().max()),
+            ("flash_dkv", ":213", 4 * nb + 2 * rows_b, 2 * nb,
+             lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal),
+             lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, causal),
+             sdpa_bwd_ms, max(errs["dk"][0], errs["dv"][0]),
+             max((dk - dk_p).abs().max(), (dv - dv_p).abs().max())),
+        )
+        for name, line, bytes_in, bytes_out, kern, plain, lib_ms, err, abs_err in cases:
+            bf16_ops, f32_ops = (n * 2 * Dh * pairs for n in products[name])
+            entry = {"name": name, "route": "cuda",
+                     "source": "fedml_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": "fedml_tpu/ops/pallas/flash_attention.py" + line,
+                     "max_abs_err": float(abs_err), "ms": time_ms(kern, reps=3, rounds=3),
+                     "plain_ms": time_ms(plain, reps=2, rounds=3),
+                     "library_ms": lib_ms, **_bound(f32_ops, bytes_in + bytes_out, bf16_ops)}
+            entries.append(entry)
+            emit("kernel_" + name, **row, gflop=(bf16_ops + f32_ops) / 1e9,
+                 bf16_gflop=bf16_ops / 1e9,
+                 library="F.scaled_dot_product_attention " +
+                 ("forward" if name == "flash_fwd" else "backward (dq, dk and dv together)"),
+                 **{k: v for k, v in entry.items() if k not in ("name", "route", "source")})
+        del qt, kt, vt, sdpa_out
+    return entries
+
+
+def lm_data(vocab, B, T, seed=0):
+    """The Cheetah example's data (examples/cheetah_lm/main.py): each row an
+    arithmetic run of tokens from a random start; targets shifted by one."""
+    rng = np.random.default_rng(seed)
+    while True:
+        start = rng.integers(0, vocab, (B, 1))
+        seq = (start + np.arange(T + 1)) % vocab
+        yield seq[:, :-1].astype(np.int32), seq[:, 1:].astype(np.int32)
+
+
+SMALL_LM = dict(vocab_size=256, dim=64, num_heads=1, num_layers=2, max_len=4096)
+
+
+def phase_small_lm(steps=3):
+    """The trainer at f32 and T 4096, where auto dispatch picks flash, on the
+    card (the kernels) vs on the CPU (their plain versions)."""
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops.attention import auto_attention_impl
+    from fedml_tpu_torch.parallel import DistTrainConfig, DistributedLMTrainer
+
+    if auto_attention_impl(1, 1, 4096, 64, 4) != "flash":
+        raise AssertionError("auto dispatch must pick flash at T 4096")
+    cfg = DistTrainConfig(lr=3e-4, weight_decay=0.01, use_remat=True, ce_chunk=256)
+    losses, params = {}, {}
+    for device in ("cuda", "cpu"):
+        tr = DistributedLMTrainer(cfg, dtype=torch.float32, device=device, seed=0, **SMALL_LM)
+        launches = fa.flash_forward.launches
+        losses[device] = tr.train(lm_data(256, 1, 4096), steps, log_fn=None)
+        if device == "cuda" and fa.flash_forward.launches - launches != 4 * steps:
+            raise AssertionError("small_lm did not run the flash kernels")
+        params[device] = {k: p.detach().cpu() for k, p in tr.params.items()}
+    # float32 sums in another order: measured at most 8e-8 relative between
+    # the losses and 4.1e-6 between the parameters on an H100, so 1e-6 and
+    # 1e-4 (a third of lr; one Adam step moves a parameter by up to ~lr)
+    # leave >10x margin
+    diff = max((params["cuda"][k] - params["cpu"][k]).abs().max().item() for k in params["cpu"])
+    for lg, lc in zip(losses["cuda"], losses["cpu"]):
+        if not (abs(lg - lc) <= 1e-6 * abs(lc) and diff <= 1e-4):
+            raise AssertionError(f"small_lm differs: losses {losses}, parameters by {diff}")
+    emit("small_lm", config=SMALL_LM, steps=steps, cuda=losses["cuda"], cpu=losses["cpu"],
+         param_max_abs_diff=diff)
+
+
+# the LM slice: scripts/bench_lm_mfu.py's widths (vocab 32000, dim 1024, 16
+# heads, 12 layers) with max_len = T, the trainer's and the Cheetah example's
+# settings on one device; cut: 5 steps of the example's 100
+LM_MODEL = dict(vocab_size=32000, dim=1024, num_heads=16, num_layers=12, max_len=8192)
+LM_TRAIN = dict(dp=1, tp=1, sp=1, lr=3e-4, weight_decay=0.01, use_remat=True,
+                remat_policy="full", ce_chunk=256)
+LM_B, LM_T, LM_STEPS = 2, 8192, 5
+
+
+def phase_lm_main():
+    """The LM slice for LM_STEPS steps through DistributedLMTrainer.train.
+    Per step, with full remat every block runs forward twice (the forward
+    and its recompute in the backward), so the flash forward launches 2 x 12
+    times, dq and dk/dv 12 times each."""
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.parallel import DistTrainConfig, DistributedLMTrainer
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    tr = DistributedLMTrainer(DistTrainConfig(**LM_TRAIN), dtype=torch.bfloat16,
+                              device="cuda", seed=0, **LM_MODEL)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in tr.params.values())
+    fa.flash_forward.launches = fa.flash_dq.launches = fa.flash_dkv.launches = 0
+    data = lm_data(LM_MODEL["vocab_size"], LM_B, LM_T)
+    losses, step_s = [], []
+    for _ in range(LM_STEPS):
+        t = time.perf_counter()
+        losses += tr.train(data, 1, log_fn=None)  # float(loss) waits for the step
+        step_s.append(time.perf_counter() - t)
+    launches = {"flash_fwd": fa.flash_forward.launches, "flash_dq": fa.flash_dq.launches,
+                "flash_dkv": fa.flash_dkv.launches}
+    L = LM_MODEL["num_layers"]
+    want = {"flash_fwd": 2 * L * LM_STEPS, "flash_dq": L * LM_STEPS, "flash_dkv": L * LM_STEPS}
+    if launches != want:
+        raise AssertionError(f"lm_main launches {launches}, expected {want}")
+    ln_v = math.log(LM_MODEL["vocab_size"])
+    # at init the logits have unit variance, which adds ~0.5 to ln V
+    if not (all(math.isfinite(x) for x in losses) and abs(losses[0] - ln_v) < 1.5
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"lm_main losses {losses} (ln V = {ln_v})")
+    emit("lm_main", model=LM_MODEL, train=LM_TRAIN, batch=LM_B, seq_len=LM_T, steps=LM_STEPS,
+         params=n_params, setup_s=setup_s, losses=losses, ln_vocab=ln_v, step_s=step_s,
+         tokens_per_s_after_first=LM_B * LM_T * (LM_STEPS - 1) / sum(step_s[1:]),
+         launches=launches, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return tr, data, launches
+
+
+def phase_lm_profile(tr, data, steps=2):
+    """Where an LM step's time goes: two warm steps of the lm_main trainer."""
+    emit("lm_profile", **profile_run(lambda: tr.train(data, steps, log_fn=None), steps, (
+        "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"), unit="step"))
 
 
 def main(argv):
@@ -576,7 +845,8 @@ def main(argv):
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     phase_build()
-    entries = [check_quant(dev), check_gram(dev), check_conv(dev), check_conv_dw(dev)]
+    entries = [check_quant(dev), check_gram(dev), check_conv(dev), check_conv_dw(dev),
+               *check_flash(dev)]
     if argv == ["kernels"]:
         return 0
     check_fused_krum(dev)
@@ -586,6 +856,11 @@ def main(argv):
     phase_small_resnet()
     launches.update(phase_resnet_main())
     phase_resnet_profile()
+    phase_small_lm()
+    tr, data, lm_launches = phase_lm_main()
+    launches.update(lm_launches)
+    phase_lm_profile(tr, data)
+    del tr
     for e in entries:
         e["launches"] = launches[e["name"]]
         e.pop("bytes", None)

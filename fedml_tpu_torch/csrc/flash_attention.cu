@@ -1,0 +1,541 @@
+// Flash attention on (B, T, H, Dh), causal or full: the forward with its
+// per-row logsumexp, and the two backward kernels (dq; dk and dv). Inputs
+// bfloat16 or float32 with Dh 64 or 128; all arithmetic is float32.
+//
+// Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (the
+// forward, called from _flash_forward), _dq_kernel and _dkv_kernel (both
+// called from _flash_backward). The TPU kernels walk a sequential
+// (bh, q block, k block) grid and carry the softmax state in VMEM scratch
+// from one k step to the next; here one block owns one 64-row tile and walks
+// the other axis in a loop, with that state in registers.
+//
+// Arithmetic, as the TPU kernels do it: inputs are cast to float32; the
+// forward scales q before Q K^T and the backward scales the product after
+// it; masked scores are finfo(float32).min, not -inf; o = acc / max(l,
+// 1e-30) and lse = m + log(max(l, 1e-30)); the backward recomputes
+// p = exp(scale * q.k - lse) and ds = p * (dO.v - delta), with delta =
+// rowsum(dO * O) computed by the caller (XLA computes it outside the Pallas
+// kernels too).
+//
+// Bound on the H100: at the LM slice's shape (B 2, T 8192, H 16, Dh 64,
+// bf16, causal) each (q, k) pair below the diagonal costs 2*Dh operations
+// per product: the forward does two products (Q K^T, P V), dq three
+// (Q K^T, dO V^T, dS K) and dk/dv four (K Q^T, V dO^T, P^T dO, dS^T Q). That
+// is 0.27, 0.41 and 0.55 TFLOP, against ~134 MB of inputs and outputs. The
+// products of two bf16 inputs (Q K^T, with q scaled by the exact 1/8, and
+// dO V^T) are exact on the bf16 tensor cores with float32 accumulation (989
+// TFLOP/s); those with a float32 P or dS run at 67 TFLOP/s fp32. So the
+// kernels are bound by operations (2.2, 2.3 and 4.4 ms), not by bytes
+// (0.04-0.06 ms at 3.35 TB/s); this kernel runs every product as fp32 FMA.
+//
+// Design (simple and right first): 256 threads as 16 x 16. Each thread holds
+// a 4 x 4 register tile of a 64 x 64 score tile (rows ty*4 + i, columns
+// tx + 16 j) and a 4 x Dh/16 tile of the (64, Dh) accumulators (columns
+// tx*4 + 64 g + e). Tiles of q, k, v and dO are staged in shared memory as
+// float32, rows padded to Dh + 4 floats so that the float4 reads of both
+// products are free of bank conflicts; each product reads two float4s of
+// shared memory per 16 fmaf. A row's max and sum are shuffles within the
+// half-warp that holds the row. Causal tiles past the diagonal are skipped
+// whole and the diagonal tile is masked; rows and columns at or past T are
+// masked too, so T need not be a multiple of 64. Blocks of the longest
+// causal rows are launched first. dq, dk and dv each sum in one fixed order
+// and use no atomics, so all three repeat bit for bit. Tensor cores (wgmma on
+// bf16 tiles), TMA and a pipelined ring of k tiles are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 16 x 16
+constexpr int kTile = 64;      // rows of a q tile and of a k tile
+constexpr int kLP = kTile + 4; // row stride of a 64 x 64 probability tile
+constexpr float kNegInf = -3.4028234663852886e38f;  // finfo(float32).min
+
+template <int DH>
+struct Shape {
+  static constexpr int LD = DH + 4;   // row stride of a (64, Dh) tile in shared memory
+  static constexpr int NJ = DH / 16;  // accumulator columns of one thread
+  static constexpr int G = DH / 64;   // 64-wide column groups
+};
+
+__device__ __forceinline__ float at(const float4& v, int e) {
+  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float half_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Rows r0 .. r0+63 of one (b, h) slice (row stride st elements, Dh
+// contiguous) into a float tile of row stride LD, times mul; rows at or past
+// T read as zero. Eight consecutive elements per thread, 16-byte loads.
+template <typename T, int DH>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t st, int r0, int Tn,
+                                          float mul) {
+  constexpr int CH = DH / 8, LD = Shape<DH>::LD;
+  for (int idx = threadIdx.x; idx < kTile * CH; idx += kThreads) {
+    const int row = idx / CH, c = idx % CH;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r0 + row < Tn) load8(src + (int64_t)(r0 + row) * st + c * 8, v);
+    float* d = dst + row * LD + c * 8;
+    store4(d, v[0] * mul, v[1] * mul, v[2] * mul, v[3] * mul);
+    store4(d + 4, v[4] * mul, v[5] * mul, v[6] * mul, v[7] * mul);
+  }
+}
+
+// s[i][j] = sum over d (in increasing order) of a[ty*4 + i][d] * b[tx + 16 j][d]
+template <int DH>
+__device__ __forceinline__ void dot_rows(float (&s)[4][4], const float* a, const float* b, int ty,
+                                         int tx) {
+  constexpr int LD = Shape<DH>::LD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DH; d += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + (ty * 4 + i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float acc = s[i][j];
+        acc = fmaf(av[i].x, bv[j].x, acc);
+        acc = fmaf(av[i].y, bv[j].y, acc);
+        acc = fmaf(av[i].z, bv[j].z, acc);
+        acc = fmaf(av[i].w, bv[j].w, acc);
+        s[i][j] = acc;
+      }
+  }
+}
+
+// out[i][4 g + e] = sum over c (in increasing order) of p[ty*4 + i][c] * x[c][64 g + tx*4 + e]
+template <int DH>
+__device__ __forceinline__ void prob_times(float (&out)[4][Shape<DH>::NJ], const float* p,
+                                           const float* x, int ty, int tx) {
+  constexpr int LD = Shape<DH>::LD, G = Shape<DH>::G;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < 4 * G; ++n) out[i][n] = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < kTile; c += 4) {
+    float4 pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(p + (ty * 4 + i) * kLP + c);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 xv = *reinterpret_cast<const float4*>(x + (c + cc) * LD + 64 * g + tx * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pc = at(pv[i], cc);
+          out[i][4 * g + 0] = fmaf(pc, xv.x, out[i][4 * g + 0]);
+          out[i][4 * g + 1] = fmaf(pc, xv.y, out[i][4 * g + 1]);
+          out[i][4 * g + 2] = fmaf(pc, xv.z, out[i][4 * g + 2]);
+          out[i][4 * g + 3] = fmaf(pc, xv.w, out[i][4 * g + 3]);
+        }
+      }
+  }
+}
+
+// Rows ty*4 + i of a (64, Dh) accumulator tile into a contiguous (B, T, H, Dh)
+// output at rows r0 + ..., skipping rows at or past T.
+template <typename T, int DH>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[4][Shape<DH>::NJ],
+                                           const float (&div)[4], int b, int h, int H, int Tn,
+                                           int r0, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + ty * 4 + i;
+    if (row >= Tn) continue;
+    T* dst = out + (((int64_t)b * Tn + row) * H + h) * DH + tx * 4;
+#pragma unroll
+    for (int g = 0; g < Shape<DH>::G; ++g)
+      store4(dst + 64 * g, acc[i][4 * g] / div[i], acc[i][4 * g + 1] / div[i],
+             acc[i][4 * g + 2] / div[i], acc[i][4 * g + 3] / div[i]);
+  }
+}
+
+// One block per (bh, q tile): o (B, T, H, Dh) contiguous, lse (B*H, T).
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, float* __restrict__ lse, int H, int Tn, int64_t sb, int64_t st,
+                 int64_t sh, float scale, int causal) {
+  constexpr int LD = Shape<DH>::LD, NJ = Shape<DH>::NJ;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Ks = Qs + kTile * LD;
+  float* Vs = Ks + kTile * LD;
+  float* Ps = Vs + kTile * LD;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int nt = (Tn + kTile - 1) / kTile;
+  const int q0 = (nt - 1 - (int)blockIdx.y) * kTile;  // the longest causal rows first
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int64_t off = (int64_t)b * sb + (int64_t)h * sh;
+  load_tile<T, DH>(Qs, q + off, st, q0, Tn, scale);
+
+  float m[4], l[4], acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NJ; ++n) acc[i][n] = 0.f;
+  }
+  // causal: no row of this tile sees a k tile past the diagonal
+  const int nk = causal ? q0 / kTile + 1 : nt;
+  for (int ki = 0; ki < nk; ++ki) {
+    const int k0 = ki * kTile;
+    __syncthreads();  // the previous step is done with Ks, Vs and Ps
+    load_tile<T, DH>(Ks, k + off, st, k0, Tn, 1.f);
+    load_tile<T, DH>(Vs, v + off, st, k0, Tn, 1.f);
+    __syncthreads();
+    float s[4][4];
+    dot_rows<DH>(s, Qs, Ks, ty, tx);
+    float corr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+      float bm = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        if (col >= Tn || (causal && col > row)) s[i][j] = kNegInf;
+        bm = fmaxf(bm, s[i][j]);
+      }
+      const float nm = fmaxf(m[i], half_max(bm));
+      corr[i] = expf(m[i] - nm);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - nm);
+        ps += s[i][j];
+      }
+      l[i] = l[i] * corr[i] + half_sum(ps);
+      m[i] = nm;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Ps[(ty * 4 + i) * kLP + tx + 16 * j] = s[i][j];
+    }
+    __syncthreads();
+    float pv[4][NJ];
+    prob_times<DH>(pv, Ps, Vs, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int n = 0; n < NJ; ++n) acc[i][n] = acc[i][n] * corr[i] + pv[i][n];
+  }
+
+  float ls[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ls[i] = fmaxf(l[i], 1e-30f);
+    const int row = q0 + ty * 4 + i;
+    if (tx == 0 && row < Tn) lse[(int64_t)bh * Tn + row] = m[i] + logf(ls[i]);
+  }
+  store_rows<T, DH>(o, acc, ls, b, h, H, Tn, q0, ty, tx);
+}
+
+// One block per (bh, q tile): dq (B, T, H, Dh) contiguous. dout is
+// contiguous; lse and delta are (B*H, T).
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dq, int H, int Tn, int64_t sb,
+                int64_t st, int64_t sh, float scale, int causal) {
+  constexpr int LD = Shape<DH>::LD, NJ = Shape<DH>::NJ;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Os = Qs + kTile * LD;  // dO
+  float* Ks = Os + kTile * LD;
+  float* Vs = Ks + kTile * LD;
+  float* Ds = Vs + kTile * LD;  // dS
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int nt = (Tn + kTile - 1) / kTile;
+  const int q0 = (nt - 1 - (int)blockIdx.y) * kTile;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int64_t off = (int64_t)b * sb + (int64_t)h * sh;
+  const int64_t doff = ((int64_t)b * Tn * H + h) * DH;
+  load_tile<T, DH>(Qs, q + off, st, q0, Tn, 1.f);
+  load_tile<T, DH>(Os, dout + doff, (int64_t)H * DH, q0, Tn, 1.f);
+  float lr[4], dr[4], acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    lr[i] = row < Tn ? lse[(int64_t)bh * Tn + row] : 0.f;
+    dr[i] = row < Tn ? delta[(int64_t)bh * Tn + row] : 0.f;
+#pragma unroll
+    for (int n = 0; n < NJ; ++n) acc[i][n] = 0.f;
+  }
+  const int nk = causal ? q0 / kTile + 1 : nt;
+  for (int ki = 0; ki < nk; ++ki) {
+    const int k0 = ki * kTile;
+    __syncthreads();
+    load_tile<T, DH>(Ks, k + off, st, k0, Tn, 1.f);
+    load_tile<T, DH>(Vs, v + off, st, k0, Tn, 1.f);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    dot_rows<DH>(s, Qs, Ks, ty, tx);
+    dot_rows<DH>(dp, Os, Vs, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        float x = scale * s[i][j];
+        if (col >= Tn || (causal && col > row)) x = kNegInf;
+        const float p = expf(x - lr[i]);
+        Ds[(ty * 4 + i) * kLP + tx + 16 * j] = p * (dp[i][j] - dr[i]);
+      }
+    }
+    __syncthreads();
+    float t[4][NJ];
+    prob_times<DH>(t, Ds, Ks, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int n = 0; n < NJ; ++n) acc[i][n] = acc[i][n] + scale * t[i][n];
+  }
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_rows<T, DH>(dq, acc, one, b, h, H, Tn, q0, ty, tx);
+}
+
+// One block per (bh, k tile): dk and dv (B, T, H, Dh) contiguous.
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
+                 int Tn, int64_t sb, int64_t st, int64_t sh, float scale, int causal) {
+  constexpr int LD = Shape<DH>::LD, NJ = Shape<DH>::NJ;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + kTile * LD;
+  float* Qs = Vs + kTile * LD;
+  float* Os = Qs + kTile * LD;  // dO
+  float* Ps = Os + kTile * LD;  // P^T: rows are keys, columns queries
+  float* Ds = Ps + kTile * kLP; // dS^T
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int nt = (Tn + kTile - 1) / kTile;
+  const int ki = blockIdx.y;  // the keys seen by the most causal rows first
+  const int k0 = ki * kTile;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int64_t off = (int64_t)b * sb + (int64_t)h * sh;
+  const int64_t doff = ((int64_t)b * Tn * H + h) * DH;
+  load_tile<T, DH>(Ks, k + off, st, k0, Tn, 1.f);
+  load_tile<T, DH>(Vs, v + off, st, k0, Tn, 1.f);
+  float dka[4][NJ], dva[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < NJ; ++n) dka[i][n] = dva[i][n] = 0.f;
+  // causal: q tiles before the diagonal see none of these keys
+  for (int qi = causal ? ki : 0; qi < nt; ++qi) {
+    const int q0 = qi * kTile;
+    __syncthreads();
+    load_tile<T, DH>(Qs, q + off, st, q0, Tn, 1.f);
+    load_tile<T, DH>(Os, dout + doff, (int64_t)H * DH, q0, Tn, 1.f);
+    float lc[4], dc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = q0 + tx + 16 * j;
+      lc[j] = col < Tn ? lse[(int64_t)bh * Tn + col] : 0.f;
+      dc[j] = col < Tn ? delta[(int64_t)bh * Tn + col] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    dot_rows<DH>(s, Ks, Qs, ty, tx);
+    dot_rows<DH>(dp, Vs, Os, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = k0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = q0 + tx + 16 * j;
+        float x = scale * s[i][j];
+        if (causal && row > col) x = kNegInf;
+        const float p = col < Tn ? expf(x - lc[j]) : 0.f;
+        Ps[(ty * 4 + i) * kLP + tx + 16 * j] = p;
+        Ds[(ty * 4 + i) * kLP + tx + 16 * j] = p * (dp[i][j] - dc[j]);
+      }
+    }
+    __syncthreads();
+    float t[4][NJ];
+    prob_times<DH>(t, Ps, Os, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int n = 0; n < NJ; ++n) dva[i][n] = dva[i][n] + t[i][n];
+    prob_times<DH>(t, Ds, Qs, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int n = 0; n < NJ; ++n) dka[i][n] = dka[i][n] + scale * t[i][n];
+  }
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_rows<T, DH>(dk, dka, one, b, h, H, Tn, k0, ty, tx);
+  store_rows<T, DH>(dv, dva, one, b, h, H, Tn, k0, ty, tx);
+}
+
+struct Args {
+  int B, H, T;
+  int64_t sb, st, sh;
+  float scale;
+  int causal;
+};
+
+bool args_ok(int B, int H, int T) {
+  return B > 0 && H > 0 && T > 0 && (int64_t)B * H <= 0x7fffffffLL &&
+         (T + kTile - 1) / kTile <= 65535;
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int floats) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              floats * (int)sizeof(float));
+}
+
+dim3 grid(const Args& a) { return dim3((unsigned)(a.B * a.H), (unsigned)((a.T + kTile - 1) / kTile)); }
+
+template <typename T, int DH>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                       const Args& a, cudaStream_t st) {
+  const int floats = 3 * kTile * Shape<DH>::LD + kTile * kLP;
+  cudaError_t e = prepare(flash_fwd_kernel<T, DH>, floats);
+  if (e != cudaSuccess) return e;
+  flash_fwd_kernel<T, DH><<<grid(a), kThreads, floats * sizeof(float), st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, a.H, a.T, a.sb, a.st, a.sh, a.scale,
+      a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* delta, void* dq, const Args& a,
+                      cudaStream_t st) {
+  const int floats = 4 * kTile * Shape<DH>::LD + kTile * kLP;
+  cudaError_t e = prepare(flash_dq_kernel<T, DH>, floats);
+  if (e != cudaSuccess) return e;
+  flash_dq_kernel<T, DH><<<grid(a), kThreads, floats * sizeof(float), st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, a.H, a.T, a.sb,
+      a.st, a.sh, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, void* dk, void* dv, const Args& a,
+                       cudaStream_t st) {
+  const int floats = 4 * kTile * Shape<DH>::LD + 2 * kTile * kLP;
+  cudaError_t e = prepare(flash_dkv_kernel<T, DH>, floats);
+  if (e != cudaSuccess) return e;
+  flash_dkv_kernel<T, DH><<<grid(a), kThreads, floats * sizeof(float), st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, a.H, a.T,
+      a.sb, a.st, a.sh, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v (B, T, H, Dh) share the element strides (sb, st, sh) with Dh
+// contiguous and 16-byte aligned rows; o (B, T, H, Dh) and lse (B*H, T) are
+// contiguous outputs. is_bf16 picks bfloat16 (else float32) for q, k, v and
+// o. Returns the cudaError_t of the launch.
+extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                               int B, int H, int T, int Dh, int is_bf16, int causal, long long sb,
+                               long long st, long long sh, float scale, void* stream) {
+  if (!args_ok(B, H, T)) return (int)cudaErrorInvalidValue;
+  const Args a{B, H, T, sb, st, sh, scale, causal};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
+    case 128: return (int)launch_fwd<float, 64>(q, k, v, o, lse, a, s);
+    case 129: return (int)launch_fwd<__nv_bfloat16, 64>(q, k, v, o, lse, a, s);
+    case 256: return (int)launch_fwd<float, 128>(q, k, v, o, lse, a, s);
+    case 257: return (int)launch_fwd<__nv_bfloat16, 128>(q, k, v, o, lse, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dq (B, T, H, Dh) contiguous from q, k, v (strided as for the forward), dout
+// (B, T, H, Dh) contiguous, and the forward's lse and delta = rowsum(dO * O),
+// both (B*H, T) float32.
+extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v, const void* dout,
+                              const float* lse, const float* delta, void* dq, int B, int H, int T,
+                              int Dh, int is_bf16, int causal, long long sb, long long st,
+                              long long sh, float scale, void* stream) {
+  if (!args_ok(B, H, T)) return (int)cudaErrorInvalidValue;
+  const Args a{B, H, T, sb, st, sh, scale, causal};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
+    case 128: return (int)launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, a, s);
+    case 129: return (int)launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, a, s);
+    case 256: return (int)launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, a, s);
+    case 257: return (int)launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dk and dv (B, T, H, Dh) contiguous, from the same inputs as dq.
+extern "C" int fedml_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
+                               const float* lse, const float* delta, void* dk, void* dv, int B,
+                               int H, int T, int Dh, int is_bf16, int causal, long long sb,
+                               long long st, long long sh, float scale, void* stream) {
+  if (!args_ok(B, H, T)) return (int)cudaErrorInvalidValue;
+  const Args a{B, H, T, sb, st, sh, scale, causal};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
+    case 128: return (int)launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, a, s);
+    case 129: return (int)launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, a, s);
+    case 256: return (int)launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, a, s);
+    case 257: return (int)launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -52,9 +52,10 @@ def create(args, output_dim: int, in_shape: Tuple[int, ...] = (28, 28, 1)) -> nn
 
 def init_params(model: nn.Module, generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Fresh parameters with flax's default initialisers: LeCun-normal
-    (truncated at two standard deviations) ``kernel``s, zero ``bias``es,
-    GroupNorm ``scale``s at one. Drawn from ``generator`` on the CPU, so
-    the values do not depend on the device; torch cannot reproduce JAX's
+    (truncated at two standard deviations) ``kernel``s, ``Embed`` tables
+    normal (not truncated) with standard deviation 1/sqrt(features), zero
+    ``bias``es, norm ``scale``s at one. Drawn from ``generator`` on the CPU,
+    so the values do not depend on the device; torch cannot reproduce JAX's
     PRNG, so tests that compare the packages carry the JAX weights over
     (``utils.convert``)."""
     out = {}
@@ -62,9 +63,13 @@ def init_params(model: nn.Module, generator: torch.Generator) -> Dict[str, torch
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "kernel":
             t = torch.empty(p.shape)
-            fan_in = math.prod(p.shape[:-1])
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            std = math.sqrt(1.0 / math.prod(p.shape[:-1])) / 0.87962566103423978
             nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+        elif leaf == "embedding":
+            # flax's Embed: variance_scaling(1, "fan_in", "normal", out_axis=0),
+            # whose fan_in for a (num, features) table is the features
+            t = torch.empty(p.shape)
+            nn.init.normal_(t, 0.0, math.sqrt(1.0 / p.shape[-1]), generator=generator)
         elif leaf == "scale":
             t = torch.ones(p.shape)
         elif leaf == "bias":

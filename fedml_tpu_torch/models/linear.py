@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -10,15 +11,24 @@ from torch import nn
 
 class Dense(nn.Module):
     """``flax.linen.Dense`` layout: ``kernel`` (in, out), ``bias`` (out,);
-    ``y = x @ kernel + bias``."""
+    ``y = x @ kernel + bias``. With ``dtype`` set, the input, the kernel and
+    the bias are cast to it first, as flax's ``dtype`` does; the
+    parameters themselves stay float32."""
 
-    def __init__(self, features_in: int, features_out: int):
+    def __init__(self, features_in: int, features_out: int, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(features_in, features_out))
-        self.bias = nn.Parameter(torch.zeros(features_out))
+        self.bias = nn.Parameter(torch.zeros(features_out)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        kernel, bias = self.kernel, self.bias
+        if self.dtype is not None:
+            x, kernel = x.to(self.dtype), kernel.to(self.dtype)
+            bias = None if bias is None else bias.to(self.dtype)
+        y = x @ kernel
+        return y if bias is None else y + bias
 
 
 class LogisticRegression(nn.Module):

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version: ``agg_quant.quantize_pack`` (codec q8/q4 stage),
-``agg_robust.gram`` (Krum's Gram plane) and ``conv.conv3x3_lanes`` /
+``agg_robust.gram`` (Krum's Gram plane), ``conv.conv3x3_lanes`` /
 ``conv.conv3x3_dw_lanes`` (the 3x3 multi-weight conv and its weight
-gradient). Sources are in ``../csrc``."""
+gradient) and ``flash_attention.flash_forward`` / ``flash_dq`` /
+``flash_dkv`` (causal flash attention and its backward). Sources are in
+``../csrc``."""
 
-KERNELS = ("agg_quant", "agg_robust", "conv3x3")
+KERNELS = ("agg_quant", "agg_robust", "conv3x3", "flash_attention")

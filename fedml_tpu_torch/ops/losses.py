@@ -1,0 +1,35 @@
+"""LM losses (port of ``fedml_tpu/ops/losses.py``): ``softmax_cross_entropy``
+and ``chunked_lm_cross_entropy``."""
+
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over the batch. logits (..., C), labels (...) int."""
+    logz = torch.log_softmax(logits.float(), dim=-1)
+    return -logz.gather(-1, labels[..., None].long())[..., 0].mean()
+
+
+def _chunk_log_likelihood(h: torch.Tensor, t: torch.Tensor, head_kernel: torch.Tensor):
+    logz = torch.log_softmax((h @ head_kernel).float(), dim=-1)
+    return logz.gather(-1, t[..., None].long())[..., 0]
+
+
+def chunked_lm_cross_entropy(hidden: torch.Tensor, head_kernel: torch.Tensor,
+                             targets: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """Mean next-token CE without the full (B, T, V) float32 logits: the head
+    product and the log-softmax run one sequence chunk at a time, each under
+    ``torch.utils.checkpoint`` (as JAX's ``jax.checkpoint`` under
+    ``lax.map``), so the backward recomputes a chunk's logits from its saved
+    hidden slice. hidden (B, T, D), head_kernel (D, V), targets (B, T) int;
+    T must be divisible by ``chunk``."""
+    B, T, D = hidden.shape
+    if T % chunk:
+        raise ValueError(f"T={T} not divisible by chunk={chunk}")
+    ll = [checkpoint(_chunk_log_likelihood, hidden[:, c:c + chunk], targets[:, c:c + chunk],
+                     head_kernel, use_reentrant=False)
+          for c in range(0, T, chunk)]
+    return -torch.stack(ll).mean()

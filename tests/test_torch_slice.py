@@ -78,6 +78,12 @@ def test_port_runs_with_jax_blocked():
         f"cfg = {dict(SLICE, comm_round=1, device='cpu')!r}\n"
         "h = ft.run_simulation(args=ft.init(config=cfg))\n"
         "assert len(h) == 1 and h[0]['train_loss'] > 0\n"
+        "import numpy as np, torch\n"
+        "from fedml_tpu_torch.parallel import DistTrainConfig, DistributedLMTrainer\n"
+        "tr = DistributedLMTrainer(DistTrainConfig(ce_chunk=64), vocab_size=32, dim=64,\n"
+        "                          num_heads=1, num_layers=1, max_len=128, device='cpu')\n"
+        "seq = np.arange(129)[None] % 32\n"
+        "assert tr.step(seq[:, :-1], seq[:, 1:]) > 0\n"
         "print('OK')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=240)
@@ -109,6 +115,38 @@ def test_asking_for_the_card_without_one_raises(monkeypatch):
     args = fedml_tpu_torch.init(config=dict(SLICE, comm_round=1))  # device defaults to cuda
     with pytest.raises(RuntimeError, match="CUDA"):
         fedml_tpu_torch.run_simulation(args=args)
+
+
+def test_lm_trainer_without_a_card_raises(monkeypatch):
+    from fedml_tpu_torch.parallel import DistTrainConfig, DistributedLMTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):  # device defaults to cuda
+        DistributedLMTrainer(DistTrainConfig(), vocab_size=32, dim=64, num_heads=1,
+                             num_layers=1, max_len=64)
+
+
+def test_flash_wrappers_refuse_meta_tensors():
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    q = torch.ones(1, 128, 1, 64, device="meta")
+    row = torch.ones(1, 1, 128, device="meta")
+    with pytest.raises(ValueError):
+        fa.flash_forward(q, q, q, True)
+    with pytest.raises(ValueError):
+        fa.flash_dq(q, q, q, q, row, row, True)
+    with pytest.raises(ValueError):
+        fa.flash_dkv(q, q, q, q, row, row, True)
+
+
+@pytest.mark.parametrize("knob", [dict(dp=2), dict(tp=2), dict(sp=2),
+                                  dict(remat_policy="dots")])
+def test_unported_lm_trainer_options_raise(knob):
+    from fedml_tpu_torch.parallel import DistTrainConfig, DistributedLMTrainer
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DistributedLMTrainer(DistTrainConfig(**knob), vocab_size=32, dim=64, num_heads=1,
+                             num_layers=1, max_len=64, device="cpu")
 
 
 def test_cuda_wrappers_refuse_non_cuda_devices():
