@@ -14,7 +14,8 @@ non-zero exit code and no result line:
    codec's quantize_pack, the Gram plane, the 3x3 multi-weight conv
    forward (conv3x3, also dx) and its weight gradient (conv3x3_dw), and
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
-   flash_dkv; SDPA as the library call);
+   flash_dkv; SDPA as the library call; bf16 forward and dk/dv on the
+   tensor cores);
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
 5. main — the robust FedAvg path through fedml_tpu_torch.init +
@@ -372,8 +373,8 @@ def _conv_ops(shape):
 
 
 def _bound(ops, nbytes, bf16_ops=0):
-    """ops take a float32 operand; bf16_ops multiply two bf16 operands, which
-    the tensor cores do exactly with float32 accumulation."""
+    """ops run at the float32 rate; bf16_ops on the bf16 tensor cores, which
+    multiply two bf16 operands exactly with float32 sums."""
     b = nbytes / HBM_BYTES_PER_S * 1e3
     o = (ops / FP32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
     return {"bound_ms": max(b, o), "bound_by": "bytes" if b >= o else "operations"}
@@ -582,10 +583,12 @@ def phase_resnet_profile(rounds=2):
 
 # (B, T, H, Dh), dtype, causal: the LM slice's attention first (what the main
 # path gives the kernels), then a full f32 shape with Dh 128, a ragged f32
-# causal one and a small ragged bf16 one
+# causal one, a small ragged bf16 one and a ragged full bf16 one (bf16 forward
+# and dk/dv run the tensor-core kernels, f32 the FMA ones)
 FLASH_SLICE = (2, 8192, 16, 64)
 FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), ((1, 2048, 8, 128), torch.float32, False),
-               ((3, 333, 2, 64), torch.float32, True), ((2, 100, 3, 128), torch.bfloat16, True))
+               ((3, 333, 2, 64), torch.float32, True), ((2, 100, 3, 128), torch.bfloat16, True),
+               ((1, 1000, 4, 64), torch.bfloat16, False))
 # |kernel - plain| / max|plain|, plain in float32. Each output sums up to
 # T * Dh = 5e5 float32 products in another order than the plain version's
 # cuBLAS calls: a random walk of sqrt(n) * 2^-24 ~ 4e-5 of the terms'
@@ -642,16 +645,17 @@ def _flash_pairs(B, T, H, causal):
     return B * H * (T * (T + 1) // 2 if causal else T * T)
 
 
-def _flash_products(dtype, Dh):
-    """Per kernel, (products of two bf16 operands, products with a float32
-    operand) per unmasked (q, k) pair, each 2 * Dh operations. Q.K^T and
-    dO.V^T multiply the inputs; the forward scales q first, which keeps it
-    bf16 only when 1/sqrt(Dh) is a power of 2 (Dh 64). P.V, dS.K, P^T.dO and
-    dS^T.Q take a float32 probability or score."""
+def _flash_products(dtype):
+    """Per kernel, (bf16 tensor-core products, float32 products) per unmasked
+    (q, k) pair, each 2 * Dh operations. With bf16 inputs, Q.K^T and dO.V^T
+    multiply two bf16 operands, exact on the tensor cores with float32 sums
+    (the score is scaled after the product); P.V, dS.K, P^T.dO and dS^T.Q take
+    a float32 probability or score, which is exact there only as three bf16
+    terms, so each counts as three bf16 products. Float32 inputs: every
+    product runs at the float32 rate."""
     if dtype != torch.bfloat16:
         return {"flash_fwd": (0, 2), "flash_dq": (0, 3), "flash_dkv": (0, 4)}
-    qk = int(math.log2(Dh) % 2 == 0)
-    return {"flash_fwd": (qk, 2 - qk), "flash_dq": (2, 1), "flash_dkv": (2, 2)}
+    return {"flash_fwd": (1 + 3, 0), "flash_dq": (2 + 3, 0), "flash_dkv": (2 + 2 * 3, 0)}
 
 
 def check_flash(dev):
@@ -695,7 +699,7 @@ def check_flash(dev):
         nb = B * T * H * Dh * q.element_size()  # one (B, T, H, Dh) tensor
         rows_b = B * H * T * 4                   # one float32 row vector (lse or delta)
         pairs = _flash_pairs(B, T, H, causal)
-        products = _flash_products(dtype, Dh)
+        products = _flash_products(dtype)
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         sdpa_g = do.transpose(1, 2).contiguous()
@@ -719,15 +723,16 @@ def check_flash(dev):
         )
         for name, line, bytes_in, bytes_out, kern, plain, lib_ms, err, abs_err in cases:
             bf16_ops, f32_ops = (n * 2 * Dh * pairs for n in products[name])
+            lib = fa.route("fedml_" + name, dtype)[0]
             entry = {"name": name, "route": "cuda",
-                     "source": "fedml_tpu_torch/csrc/flash_attention.cu",
+                     "source": f"fedml_tpu_torch/csrc/{lib}.cu",
                      "replaces": "fedml_tpu/ops/pallas/flash_attention.py" + line,
                      "max_abs_err": float(abs_err), "ms": time_ms(kern, reps=3, rounds=3),
                      "plain_ms": time_ms(plain, reps=2, rounds=3),
                      "library_ms": lib_ms, **_bound(f32_ops, bytes_in + bytes_out, bf16_ops)}
             entries.append(entry)
             emit("kernel_" + name, **row, gflop=(bf16_ops + f32_ops) / 1e9,
-                 bf16_gflop=bf16_ops / 1e9,
+                 bf16_gflop=bf16_ops / 1e9, kernel_source=entry["source"],
                  library="F.scaled_dot_product_attention " +
                  ("forward" if name == "flash_fwd" else "backward (dq, dk and dv together)"),
                  **{k: v for k, v in entry.items() if k not in ("name", "route", "source")})
@@ -830,7 +835,7 @@ def phase_lm_main():
 def phase_lm_profile(tr, data, steps=2):
     """Where an LM step's time goes: two warm steps of the lm_main trainer."""
     emit("lm_profile", **profile_run(lambda: tr.train(data, steps, log_fn=None), steps, (
-        "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"), unit="step"))
+        "flash_fwd_wgmma_kernel", "flash_dq_kernel", "flash_dkv_wgmma_kernel"), unit="step"))
 
 
 def main(argv):

@@ -1,6 +1,8 @@
 // Flash attention on (B, T, H, Dh), causal or full: the forward with its
-// per-row logsumexp, and the two backward kernels (dq; dk and dv). Inputs
-// bfloat16 or float32 with Dh 64 or 128; all arithmetic is float32.
+// per-row logsumexp, and the two backward kernels (dq; dk and dv), all
+// products as float32 FMA. Float32 inputs run all three here, bfloat16
+// inputs only dq: the bf16 forward and dk/dv run on the tensor cores
+// (flash_attention_sm90.cu). Dh 64 or 128; all arithmetic is float32.
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (the
 // forward, called from _flash_forward), _dq_kernel and _dkv_kernel (both
@@ -20,13 +22,14 @@
 // Bound on the H100: at the LM slice's shape (B 2, T 8192, H 16, Dh 64,
 // bf16, causal) each (q, k) pair below the diagonal costs 2*Dh operations
 // per product: the forward does two products (Q K^T, P V), dq three
-// (Q K^T, dO V^T, dS K) and dk/dv four (K Q^T, V dO^T, P^T dO, dS^T Q). That
-// is 0.27, 0.41 and 0.55 TFLOP, against ~134 MB of inputs and outputs. The
-// products of two bf16 inputs (Q K^T, with q scaled by the exact 1/8, and
-// dO V^T) are exact on the bf16 tensor cores with float32 accumulation (989
-// TFLOP/s); those with a float32 P or dS run at 67 TFLOP/s fp32. So the
-// kernels are bound by operations (2.2, 2.3 and 4.4 ms), not by bytes
-// (0.04-0.06 ms at 3.35 TB/s); this kernel runs every product as fp32 FMA.
+// (Q K^T, dO V^T, dS K) and dk/dv four (K Q^T, V dO^T, P^T dO, dS^T Q), each
+// 0.14 TFLOP, against ~134 MB of inputs and outputs. The products of two
+// bf16 inputs are exact on the bf16 tensor cores with float32 sums; one with
+// a float32 P or dS is exact there as three bf16 products (the split of
+// flash_attention_sm90.cu). So the least time, at 989 TFLOP/s, is 0.56, 0.70
+// and 1.11 ms, bound by operations, not by bytes (0.04-0.06 ms at 3.35
+// TB/s). Float32 inputs run at 67 TFLOP/s outside the tensor cores; this
+// file runs every product as fp32 FMA.
 //
 // Design (simple and right first): 256 threads as 16 x 16. Each thread holds
 // a 4 x 4 register tile of a 64 x 64 score tile (rows ty*4 + i, columns
@@ -40,7 +43,7 @@
 // masked too, so T need not be a multiple of 64. Blocks of the longest
 // causal rows are launched first. dq, dk and dv each sum in one fixed order
 // and use no atomics, so all three repeat bit for bit. Tensor cores (wgmma on
-// bf16 tiles), TMA and a pipelined ring of k tiles are later work.
+// bf16 tiles) for dq is later work, as in flash_attention_sm90.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -487,8 +490,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 // q, k, v (B, T, H, Dh) share the element strides (sb, st, sh) with Dh
 // contiguous and 16-byte aligned rows; o (B, T, H, Dh) and lse (B*H, T) are
-// contiguous outputs. is_bf16 picks bfloat16 (else float32) for q, k, v and
-// o. Returns the cudaError_t of the launch.
+// contiguous outputs. Float32 only (is_bf16 = 0): fedml_flash_fwd_sm90
+// takes bfloat16. Returns the cudaError_t of the launch.
 extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                                int B, int H, int T, int Dh, int is_bf16, int causal, long long sb,
                                long long st, long long sh, float scale, void* stream) {
@@ -497,9 +500,7 @@ extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void
   cudaStream_t s = (cudaStream_t)stream;
   switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
     case 128: return (int)launch_fwd<float, 64>(q, k, v, o, lse, a, s);
-    case 129: return (int)launch_fwd<__nv_bfloat16, 64>(q, k, v, o, lse, a, s);
     case 256: return (int)launch_fwd<float, 128>(q, k, v, o, lse, a, s);
-    case 257: return (int)launch_fwd<__nv_bfloat16, 128>(q, k, v, o, lse, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -523,7 +524,8 @@ extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v, const
   }
 }
 
-// dk and dv (B, T, H, Dh) contiguous, from the same inputs as dq.
+// dk and dv (B, T, H, Dh) contiguous, from the same inputs as dq. Float32
+// only (is_bf16 = 0): fedml_flash_dkv_sm90 takes bfloat16.
 extern "C" int fedml_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                                const float* lse, const float* delta, void* dk, void* dv, int B,
                                int H, int T, int Dh, int is_bf16, int causal, long long sb,
@@ -533,9 +535,7 @@ extern "C" int fedml_flash_dkv(const void* q, const void* k, const void* v, cons
   cudaStream_t s = (cudaStream_t)stream;
   switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
     case 128: return (int)launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, a, s);
-    case 129: return (int)launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, a, s);
     case 256: return (int)launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, a, s);
-    case 257: return (int)launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

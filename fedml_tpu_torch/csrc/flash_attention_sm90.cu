@@ -1,0 +1,641 @@
+// Flash attention's forward and its dk/dv backward on the Hopper tensor
+// cores (wgmma), for bfloat16 (B, T, H, Dh) inputs with Dh 64 or 128,
+// causal or full, any T. Float32 inputs keep the FMA kernels of
+// flash_attention.cu, as does dq.
+//
+// Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (:66,
+// the forward) and _dkv_kernel (:213, dk and dv). The arithmetic is the TPU
+// kernels', which flash_attention.cu lists: finfo(float32).min masking,
+// expf, l clamped at 1e-30, o = acc / l, lse = m + log l, p = exp(scale *
+// q.k - lse), ds = p * (dO.v - delta).
+//
+// Exact to float32 through a three-term split. Every product runs as bf16
+// x bf16 -> f32 wgmma. Q K^T and dO V^T multiply the bf16 inputs, which the
+// tensor cores do exactly with float32 sums. P V, P^T dO and dS^T Q have a
+// float32 operand (p or ds); it goes in as three bf16 terms, hi = bf16(x),
+// mid = bf16(x - hi), lo = x - hi - mid, each bf16() rounding toward zero
+// (split3 below). bf16 keeps float32's exponent range and three 8-bit
+// significands cover float32's 24, so hi + mid + lo is exactly x, and the
+// three products, issued lo, mid, hi into one accumulator, sum to the
+// float32 product up to summation order. Rounding p once to bf16, as
+// FlashAttention-3 does, moves far more bf16 outputs off the exactly
+// rounded value than chip_smoke.py allows; tests/test_torch_flash.py
+// emulates both on the CPU. The tensor cores' float32 sums are not
+// round-to-nearest: their errors lean one way, so over a row of T keys in
+// one accumulator they add up, past chip_smoke.py's gate at T 8192. So each
+// 64-key tile's products start from a zero accumulator, and the tiles are
+// added in float32 registers, rounded to nearest, as the TPU kernels add
+// their blocks. The score is scaled after Q K^T: at Dh 64 the scale 2^-3
+// makes that identical to the TPU kernel's q * scale before the product;
+// at Dh 128 (1/sqrt(128)) it rounds once in float32 after the exact product
+// instead of once on q. dk likewise sums ds^T q and is scaled at the end.
+//
+// Bound on the H100 at the LM slice's shape (B 2, T 8192, H 16, Dh 64,
+// causal): 1.0739e9 unmasked (q, k) pairs x 2 Dh operations per product =
+// 0.1375 TFLOP per product. The forward does one bf16 product and one split
+// product (1 + 3 tensor-core products), dk/dv two and two (2 + 6): 0.556 and
+// 1.112 ms at 989 TFLOP/s, against ~0.05 ms of bytes at 3.35 TB/s. So both
+// are bound by operations.
+//
+// Design. One warpgroup (128 threads) per block and 64-row tiles. Forward:
+// a block owns a q tile and walks the k/v tiles; dk/dv: a block owns a k
+// tile and walks the q/dO tiles (with their lse and delta) from the
+// diagonal on. The streamed tiles go through a three-stage ring in shared
+// memory, filled by cp.async from all threads two tiles ahead, at addresses
+// built from the caller's strides (q, k, v are views of one projection);
+// rows at or past T are zero-filled. Tiles are stored in wgmma's
+// 128-byte-swizzled layout, 64 columns per row; each operand is read
+// K-major (the score products) or MN-major (the split products, with the
+// trans-b flag) from the same tile. The scores stay in the wgmma
+// accumulator registers, whose layout is the register A operand's, so p and
+// ds go from softmax to the next product without shared memory. The
+// forward is pipelined: tile kt's P V and tile kt+1's Q K^T run on the
+// tensor cores while the warpgroup computes tile kt+1's softmax. Registers
+// decide occupancy (kFwdBlocks, kDkvBlocks): the blocks of an SM interleave
+// one's softmax with another's products. Causal tiles past the diagonal are
+// skipped, the mask is applied only on the diagonal and ragged tiles,
+// blocks of the longest causal rows start first, and every sum runs in one
+// fixed order without atomics, so dk and dv repeat bit for bit.
+//
+// Left for later: a producer warp with TMA and setmaxnreg (warp
+// specialisation), persistent blocks, the dk/dv pipeline (its registers do
+// not fit the forward's scheme), and 16-byte stores of the outputs.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;  // one warpgroup
+// blocks per SM the register budget is cut for: the forward keeps its
+// pipeline without spills (2 blocks); dk/dv spills a little at 3 blocks,
+// which ran faster than 2 blocks without spills
+constexpr int kFwdBlocks = 2, kDkvBlocks = 3;
+constexpr int kTile = 64;      // rows of every tile: q, k, v, dO
+constexpr int kStages = 3;     // ring depth of the streamed tiles
+constexpr int kRowBytes = 128; // one swizzled row: 64 bf16
+constexpr float kNegInf = -3.4028234663852886e38f;  // finfo(float32).min
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+// Byte offset of 16-byte chunk c (8 bf16) of row r in an R-row tile. The
+// tile is Dh/64 column halves of R rows x 128 bytes; each 8-row group is one
+// 1024-byte atom of the 128-byte swizzle (chunk ^ row % 8), as wgmma reads it.
+template <int R>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 3) * (R * kRowBytes) + r * kRowBytes + (((c & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's cp.async groups but the newest N have landed; then made
+// visible to the tensor cores (the async proxy)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows r0 .. r0+R-1 of one (b, h) slice (row stride st elements, Dh
+// contiguous) into a swizzled tile; rows at or past T read as zero.
+template <int R, int DH>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src, int64_t st, int r0,
+                                          int Tn) {
+  constexpr int CH = DH / 8;
+  const uint32_t base = smem_addr(dst);
+  for (int i = threadIdx.x; i < R * CH; i += kThreads) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < Tn;
+    cp_async16(base + swz<R>(r, c), src + (int64_t)(ok ? r0 + r : 0) * st + c * 8, ok);
+  }
+}
+
+// kTile floats of a (B*H, T) row vector from column c0; zero at or past T
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int c0, int Tn, int tid) {
+  const bool ok = c0 + tid < Tn;
+  cp_async4(smem_addr(dst + tid), src + (ok ? c0 + tid : 0), ok);
+}
+
+// --- wgmma -------------------------------------------------------------------
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (all >> 4), layout 1 = 128-byte swizzle.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// k step kk (16 of the Dh columns) of 64 rows from `tile` of an R-row tile,
+// K-major: 8-row atoms 1024 bytes apart; within a 128-byte row the step
+// moves the start by 32 bytes (the swizzle is applied to the address).
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return desc(tile + (kk >> 2) * (R * kRowBytes) + (kk & 3) * 32, 16, 1024);
+}
+
+// k step kk (16 rows) of 64-column half g of an R-row tile, MN-major (the
+// product's N is Dh, contiguous in a row): 8-row atoms 1024 bytes apart
+// along K. One instruction covers one 64-wide half, so the offset between
+// halves is never read and both offsets can be 1024.
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk, int g) {
+  return desc(tile + g * (R * kRowBytes) + kk * 16 * kRowBytes, 1024, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// all but the newest N groups of products are done
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator values around the async products
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D32                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_F8(i)                                                                           \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 64) = (acc ? d : 0) + A B^T over 16 columns, A and B K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32 ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 64) = (acc ? d : 0) + A B over 16 rows of B, A (64 x 16) in
+// registers, B MN-major in shared memory (trans-b)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+#undef WG_D32
+#undef WG_F8
+
+// (x, y) = hi + mid + lo exactly, each a pair of bf16: hi keeps x's top 16
+// bits (sign, exponent and 7 mantissa bits: bf16(x) rounded toward zero),
+// mid the top 16 bits of x - hi, and lo = x - hi - mid has at most 8
+// significant bits, so it is a bf16 value. Both differences are exact in
+// float32. Bit masks and byte permutes, no conversions.
+__device__ __forceinline__ float top16(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffff0000u);
+}
+
+__device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const float rx = x - top16(x), ry = y - top16(y);
+  const float lx = rx - top16(rx), ly = ry - top16(ry);
+  hi = __byte_perm(__float_as_uint(x), __float_as_uint(y), 0x7632);
+  mid = __byte_perm(__float_as_uint(rx), __float_as_uint(ry), 0x7632);
+  lo = __byte_perm(__float_as_uint(lx), __float_as_uint(ly), 0x7632);
+}
+
+// The 64 x 64 accumulator s as the register A operand of four k steps, each
+// in three terms (a[kk][0] hi, [1] mid, [2] lo). In the m64nNk16 accumulator
+// a thread holds (row, 8j + 2c + e) in s[4j + e] and (row + 8, ...) in
+// s[4j + 2 + e]; the A fragment of k step kk is the same thread's values of
+// columns 16kk .. 16kk + 15, i.e. s[8kk .. 8kk + 7] paired in order.
+__device__ __forceinline__ void split_frags(const float (&s)[32], uint32_t (&a)[4][3][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split3(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], a[kk][0][r], a[kk][1][r], a[kk][2][r]);
+}
+
+// d[g] = A B: A 64 x 64 in three register terms, B the 64-row `tile`
+// MN-major, Dh = 64 G columns. Per k step lo, mid, hi: one fixed order.
+template <int G>
+__device__ __forceinline__ void mma_split(float (&d)[G][32], const uint32_t (&a)[4][3][4],
+                                          uint32_t tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int t = 2; t >= 0; --t)
+        wgmma_rs(d[g], a[kk][t], desc_mn<kTile>(tile, kk, g), kk > 0 || t < 2);
+}
+
+// --- the kernels ---------------------------------------------------------------
+
+// Online softmax of one 64-key tile at k0 for this thread's two rows (row0,
+// row0 + 8; q0 is the block's first row): s becomes p = exp(scale s - m),
+// m and l move on, and corr = exp(m_old - m_new) per row.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int k0, int q0, int row0, int c2,
+                                             int Tn, int causal, float scale) {
+  // only a tile across T or on the diagonal needs the mask
+  const bool edge = k0 + kTile > Tn || (causal && k0 + kTile - 1 > q0);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    float bm = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * j + c2 + e;
+        float x = s[4 * j + 2 * hh + e] * scale;
+        if (edge && (col >= Tn || (causal && col > row))) x = kNegInf;
+        s[4 * j + 2 * hh + e] = x;
+        bm = fmaxf(bm, x);
+      }
+    bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
+    bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
+    const float nm = fmaxf(m[hh], bm);
+    corr[hh] = expf(m[hh] - nm);
+    float ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = expf(s[4 * j + 2 * hh + e] - nm);
+        s[4 * j + 2 * hh + e] = p;
+        ps += p;
+      }
+    ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+    ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+    l[hh] = l[hh] * corr[hh] + ps;
+    m[hh] = nm;
+  }
+}
+
+// acc = acc * corr (per row) + pv, after the products into pv are done
+template <int G>
+__device__ __forceinline__ void add_scaled(float (&acc)[G][32], float (&pv)[G][32],
+                                           const float (&corr)[2]) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    pin(pv[g]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[g][i] = acc[g][i] * corr[(i >> 1) & 1] + pv[g][i];
+  }
+}
+
+// s = A B^T of two 64-row tiles, both K-major (issued, not waited)
+template <int DH>
+__device__ __forceinline__ void scores(float (&s)[32], uint32_t a_tile, uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wgmma_ss(s, desc_k<kTile>(a_tile, kk), desc_k<kTile>(b_tile, kk), kk);
+}
+
+// One block (one warpgroup) per (bh, 64-row q tile): o (B, T, H, Dh)
+// contiguous, lse (B*H, T). Pipelined: while tile kt's P V and tile kt+1's
+// Q K^T run on the tensor cores, the warpgroup computes tile kt+1's softmax.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, kFwdBlocks)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                       int H, int Tn, int64_t sb, int64_t st, int64_t sh, float scale,
+                       int causal) {
+  constexpr int G = DH / 64;
+  constexpr int kBytes = kTile * DH * 2;  // one tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* ring = Qs + kBytes;  // stage s: K at ring + 2 s kBytes, V after it
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nt = (Tn + kTile - 1) / kTile;
+  const int q0 = (nt - 1 - (int)blockIdx.y) * kTile;  // the longest causal rows first
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int64_t off = (int64_t)b * sb + (int64_t)h * sh;
+  const int nk = causal ? q0 / kTile + 1 : nt;  // causal: no k tile past the diagonal
+  const int row0 = q0 + 16 * warp + lane / 4;   // this thread's rows: row0, row0 + 8
+  const int c2 = 2 * (lane % 4);
+  auto stage = [&](int t) { return smem_addr(ring + (t % kStages) * 2 * kBytes); };
+  auto load_kv = [&](int t) {  // k/v tile t into its stage: one cp.async group, maybe empty
+    if (t < nk) {
+      uint8_t* d = ring + (t % kStages) * 2 * kBytes;
+      load_tile<kTile, DH>(d, k + off, st, t * kTile, Tn);
+      load_tile<kTile, DH>(d + kBytes, v + off, st, t * kTile, Tn);
+    }
+    cp_async_commit();
+  };
+
+  load_tile<kTile, DH>(Qs, q + off, st, q0, Tn);
+#pragma unroll
+  for (int t = 0; t < kStages; ++t) load_kv(t);
+  float acc[G][32];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[g][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+  const uint32_t q_tile = smem_addr(Qs);
+  float s[32];
+  cp_async_wait<kStages - 1>();
+  __syncthreads();
+  wg_fence();
+  scores<DH>(s, q_tile, stage(0));
+  wg_commit();
+  wg_wait<0>();
+  pin(s);
+  softmax_tile(s, m, l, corr, 0, q0, row0, c2, Tn, causal, scale);
+
+  float pv[G][32];
+  uint32_t a[4][3][4];
+  for (int kt = 0; kt + 1 < nk; ++kt) {
+    split_frags(s, a);
+    cp_async_wait<kStages - 2>();  // tile kt+1 has landed
+    __syncthreads();
+    wg_fence();
+    scores<DH>(s, q_tile, stage(kt + 1));
+    wg_commit();
+    mma_split<G>(pv, a, stage(kt) + kBytes);
+    wg_commit();
+    wg_wait<1>();
+    pin(s);
+    float cn[2];
+    softmax_tile(s, m, l, cn, (kt + 1) * kTile, q0, row0, c2, Tn, causal, scale);
+    wg_wait<0>();
+    add_scaled(acc, pv, corr);
+    corr[0] = cn[0];
+    corr[1] = cn[1];
+    __syncthreads();  // tile kt's stage is read: refill it
+    load_kv(kt + kStages);
+  }
+  split_frags(s, a);  // the last tile
+  wg_fence();
+  mma_split<G>(pv, a, stage(nk - 1) + kBytes);
+  wg_commit();
+  wg_wait<0>();
+  add_scaled(acc, pv, corr);
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= Tn) continue;
+    const float ls = fmaxf(l[hh], 1e-30f);
+    if (lane % 4 == 0) lse[(int64_t)bh * Tn + row] = m[hh] + logf(ls);
+    bf16* dst = o + (((int64_t)b * Tn + row) * H + h) * DH + c2;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 64 * g + 8 * j) = __floats2bfloat162_rn(
+            acc[g][4 * j + 2 * hh] / ls, acc[g][4 * j + 2 * hh + 1] / ls);
+  }
+}
+
+// One block (one warpgroup) per (bh, 64-row k tile): dk and dv (B, T, H, Dh)
+// contiguous. dout is contiguous; lse and delta are (B*H, T).
+template <int DH>
+__global__ void __launch_bounds__(kThreads, kDkvBlocks)
+flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Tn, int64_t sb,
+                       int64_t st, int64_t sh, float scale, int causal) {
+  constexpr int G = DH / 64;
+  constexpr int kBytes = kTile * DH * 2;  // one tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = align1024(smem_raw);
+  uint8_t* Vs = Ks + kBytes;
+  uint8_t* ring = Vs + kBytes;  // stage s: Q at ring + 2 s kBytes, dO after it
+  float* vecs = reinterpret_cast<float*>(ring + kStages * 2 * kBytes);  // stage s: lse, delta
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nq = (Tn + kTile - 1) / kTile;
+  const int k0 = (int)blockIdx.y * kTile;  // the keys seen by the most causal rows first
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int64_t off = (int64_t)b * sb + (int64_t)h * sh;
+  const int64_t doff = ((int64_t)b * Tn * H + h) * DH;
+  const int64_t dstride = (int64_t)H * DH;  // dO rows
+  const float* lrow = lse + (int64_t)bh * Tn;
+  const float* drow = delta + (int64_t)bh * Tn;
+  const int first = causal ? k0 / kTile : 0;  // causal: earlier q tiles see none of these keys
+  const int row0 = k0 + 16 * warp + lane / 4;  // this thread's keys: row0, row0 + 8
+  const int c2 = 2 * (lane % 4);
+  auto load_q = [&](int i) {  // the i-th q tile into its stage: one cp.async group, maybe empty
+    const int qt = first + i;
+    if (qt < nq) {
+      uint8_t* d = ring + (i % kStages) * 2 * kBytes;
+      load_tile<kTile, DH>(d, q + off, st, qt * kTile, Tn);
+      load_tile<kTile, DH>(d + kBytes, dout + doff, dstride, qt * kTile, Tn);
+      float* vl = vecs + (i % kStages) * 2 * kTile;
+      load_vec(vl + (threadIdx.x / kTile) * kTile, threadIdx.x < kTile ? lrow : drow,
+               qt * kTile, Tn, threadIdx.x % kTile);
+    }
+    cp_async_commit();
+  };
+
+  load_tile<kTile, DH>(Ks, k + off, st, k0, Tn);
+  load_tile<kTile, DH>(Vs, v + off, st, k0, Tn);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) load_q(i);
+  float dva[G][32], dka[G][32];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dva[g][i] = dka[g][i] = 0.f;
+  const uint32_t k_tile = smem_addr(Ks), v_tile = smem_addr(Vs);
+
+  for (int i = 0; first + i < nq; ++i) {
+    load_q(i + kStages - 1);
+    cp_async_wait<kStages - 1>();  // the i-th q tile has landed
+    __syncthreads();
+    const uint32_t q_tile = smem_addr(ring + (i % kStages) * 2 * kBytes), o_tile = q_tile + kBytes;
+    const float* lv = vecs + (i % kStages) * 2 * kTile;
+    const float* dl = lv + kTile;
+    float s[32], dp[32];
+    wg_fence();
+    scores<DH>(s, k_tile, q_tile);   // S^T = K Q^T
+    scores<DH>(dp, v_tile, o_tile);  // dP^T = V dO^T
+    wg_commit();
+    wg_wait<0>();
+    pin(s);
+    pin(dp);
+    const int q0 = (first + i) * kTile;
+    // only a tile across T or on the diagonal needs the mask
+    const bool edge = q0 + kTile > Tn || (causal && q0 == k0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + c2 + e, col = q0 + c;
+        const float lc = lv[c], dc = dl[c];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int x_at = 4 * j + 2 * hh + e;
+          float x = scale * s[x_at];
+          if (edge && causal && row0 + 8 * hh > col) x = kNegInf;
+          const float p = !edge || col < Tn ? expf(x - lc) : 0.f;
+          s[x_at] = p;
+          dp[x_at] = p * (dp[x_at] - dc);
+        }
+      }
+    uint32_t a[4][3][4];
+    float t[G][32];
+    split_frags(s, a);
+    wg_fence();
+    mma_split<G>(t, a, o_tile);  // P^T dO
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      pin(t[g]);
+#pragma unroll
+      for (int r = 0; r < 32; ++r) dva[g][r] += t[g][r];
+    }
+    split_frags(dp, a);
+    wg_fence();
+    mma_split<G>(t, a, q_tile);  // dS^T Q (dk is scaled at the end)
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      pin(t[g]);
+#pragma unroll
+      for (int r = 0; r < 32; ++r) dka[g][r] += t[g][r];
+    }
+    __syncthreads();  // this stage is read: the next round refills it
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= Tn) continue;
+    const int64_t at = (((int64_t)b * Tn + row) * H + h) * DH + c2;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = 4 * j + 2 * hh;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + 64 * g + 8 * j) =
+            __floats2bfloat162_rn(scale * dka[g][r], scale * dka[g][r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + 64 * g + 8 * j) =
+            __floats2bfloat162_rn(dva[g][r], dva[g][r + 1]);
+      }
+  }
+}
+
+struct Args {
+  int B, H, T;
+  int64_t sb, st, sh;
+  float scale;
+  int causal;
+};
+
+bool args_ok(int B, int H, int T) {
+  return B > 0 && H > 0 && T > 0 && (int64_t)B * H <= 0x7fffffffLL &&
+         (T + kTile - 1) / kTile <= 65535;
+}
+
+dim3 grid(const Args& a) {
+  return dim3((unsigned)(a.B * a.H), (unsigned)((a.T + kTile - 1) / kTile));
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int DH>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                       const Args& a, cudaStream_t st) {
+  // q tile and the k/v ring, + alignment slack
+  constexpr int bytes = (1 + 2 * kStages) * kTile * DH * 2 + 1024;
+  cudaError_t e = prepare(flash_fwd_wgmma_kernel<DH>, bytes);
+  if (e != cudaSuccess) return e;
+  flash_fwd_wgmma_kernel<DH><<<grid(a), kThreads, bytes, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, a.H, a.T, a.sb, a.st, a.sh,
+      a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, void* dk, void* dv, const Args& a,
+                       cudaStream_t st) {
+  // k and v tiles, the q/dO ring with its lse and delta, + alignment slack
+  constexpr int bytes = (2 + 2 * kStages) * kTile * DH * 2 + kStages * 2 * kTile * 4 + 1024;
+  cudaError_t e = prepare(flash_dkv_wgmma_kernel<DH>, bytes);
+  if (e != cudaSuccess) return e;
+  flash_dkv_wgmma_kernel<DH><<<grid(a), kThreads, bytes, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dk,
+      (bf16*)dv, a.H, a.T, a.sb, a.st, a.sh, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The entry points take the arguments of fedml_flash_fwd and fedml_flash_dkv
+// (flash_attention.cu) and only bfloat16 (is_bf16 = 1): q, k, v (B, T, H,
+// Dh) share the element strides (sb, st, sh) with Dh contiguous and 16-byte
+// aligned rows; the outputs are contiguous. Return the launch's cudaError_t.
+extern "C" int fedml_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                                    float* lse, int B, int H, int T, int Dh, int is_bf16,
+                                    int causal, long long sb, long long st, long long sh,
+                                    float scale, void* stream) {
+  if (!args_ok(B, H, T) || !is_bf16) return (int)cudaErrorInvalidValue;
+  const Args a{B, H, T, sb, st, sh, scale, causal};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (Dh) {
+    case 64: return (int)launch_fwd<64>(q, k, v, o, lse, a, s);
+    case 128: return (int)launch_fwd<128>(q, k, v, o, lse, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int fedml_flash_dkv_sm90(const void* q, const void* k, const void* v,
+                                    const void* dout, const float* lse, const float* delta,
+                                    void* dk, void* dv, int B, int H, int T, int Dh, int is_bf16,
+                                    int causal, long long sb, long long st, long long sh,
+                                    float scale, void* stream) {
+  if (!args_ok(B, H, T) || !is_bf16) return (int)cudaErrorInvalidValue;
+  const Args a{B, H, T, sb, st, sh, scale, causal};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (Dh) {
+    case 64: return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, a, s);
+    case 128: return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

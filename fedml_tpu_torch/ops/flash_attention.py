@@ -1,7 +1,10 @@
 """Flash attention (port of ``fedml_tpu/ops/pallas/flash_attention.py``).
 
-Three hand-written CUDA kernels (``csrc/flash_attention.cu``) on
-(B, T, H, Dh) tensors, bf16 or float32 with Dh 64 or 128, causal or not:
+Hand-written CUDA kernels on (B, T, H, Dh) tensors, bf16 or float32 with
+Dh 64 or 128, causal or not. bf16 forward and dk/dv run on the tensor cores
+(``csrc/flash_attention_sm90.cu``, wgmma, exact to float32 through a
+three-term bf16 split of p and ds); float32 inputs and dq run the FMA
+kernels of ``csrc/flash_attention.cu``:
 
 - :func:`flash_forward` — online-softmax attention; returns ``out`` in q's
   dtype and the per-row logsumexp ``lse`` (B*H, 1, T) float32, the TPU
@@ -223,20 +226,35 @@ def _row_vec(t: torch.Tensor, B: int, H: int, T: int, name: str) -> torch.Tensor
     return t.contiguous()
 
 
-def _fn(name, n_ptrs):
-    fn = getattr(_build.load("flash_attention"), name)
+def _fn(lib, name, n_ptrs):
+    fn = getattr(_build.load(lib), name)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + \
         [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name, ptrs, q, causal, what):
+# entry points with a tensor-core (wgmma) version for bf16 inputs
+TENSOR_CORE = ("fedml_flash_fwd", "fedml_flash_dkv")
+
+
+def route(name: str, dtype: torch.dtype) -> Tuple[str, str]:
+    """(kernel library, C entry point) that runs ``name`` on inputs of
+    ``dtype``: bf16 forward and dk/dv go to ``flash_attention_sm90``, the
+    rest to the FMA kernels of ``flash_attention``. Both take the same
+    arguments."""
+    if dtype == torch.bfloat16 and name in TENSOR_CORE:
+        return "flash_attention_sm90", name + "_sm90"
+    return "flash_attention", name
+
+
+def _launch(name, ptrs, q, causal):
     B, T, H, Dh = q.shape
-    fn = _fn(name, len(ptrs))
+    lib, entry = route(name, q.dtype)
+    fn = _fn(lib, entry, len(ptrs))
     err = fn(*ptrs, B, H, T, Dh, int(q.dtype == torch.bfloat16), int(bool(causal)),
              *q.stride()[:3], 1.0 / math.sqrt(Dh), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, what)
+    _build.check(err, entry)
 
 
 def flash_forward(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -249,7 +267,7 @@ def flash_forward(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     out = torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, 1, T), dtype=torch.float32, device=q.device)
     _launch("fedml_flash_fwd", [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                lse.data_ptr()], q, causal, "fedml_flash_fwd")
+                                lse.data_ptr()], q, causal)
     flash_forward.launches += 1
     return out, lse
 
@@ -268,8 +286,7 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
     lse, delta = _row_vec(lse, B, H, T, "lse"), _row_vec(delta, B, H, T, "delta")
     dq = torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device)
     _launch("fedml_flash_dq", [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                               lse.data_ptr(), delta.data_ptr(), dq.data_ptr()],
-            q, causal, "fedml_flash_dq")
+                               lse.data_ptr(), delta.data_ptr(), dq.data_ptr()], q, causal)
     flash_dq.launches += 1
     return dq
 
@@ -287,9 +304,9 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool) -> Tuple[torch.Tensor, torc
     lse, delta = _row_vec(lse, B, H, T, "lse"), _row_vec(delta, B, H, T, "delta")
     dk = torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    _launch("fedml_flash_dkv", [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()],
-            q, causal, "fedml_flash_dkv")
+    _launch("fedml_flash_dkv",
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dk.data_ptr(), dv.data_ptr()], q, causal)
     flash_dkv.launches += 1
     return dk, dv
 

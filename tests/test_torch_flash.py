@@ -199,7 +199,9 @@ CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-4 + 2.0 ** -7}
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype,causal", [((2, 1024, 4, 64), torch.bfloat16, True),
                                                 ((1, 512, 2, 128), torch.float32, False),
-                                                ((3, 333, 2, 64), torch.float32, True)])
+                                                ((3, 333, 2, 64), torch.float32, True),
+                                                ((1, 1000, 4, 64), torch.bfloat16, False),
+                                                ((2, 100, 3, 128), torch.bfloat16, True)])
 def test_flash_kernels_match_plain_on_card(shape, dtype, causal):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -215,3 +217,109 @@ def test_flash_kernels_match_plain_on_card(shape, dtype, causal):
     for got, w in zip((out, dq, dk, dv), want):
         assert ((got.float() - w).abs().max() / w.abs().max()).item() < CARD_TOL[dtype]
     assert torch.equal(dq, tfa.flash_dq(q, k, v, do, lse, delta, causal))
+
+
+def test_route_sends_bf16_forward_and_dkv_to_the_tensor_cores():
+    for name in ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv"):
+        assert tfa.route(name, torch.float32) == ("flash_attention", name)
+    assert tfa.route("fedml_flash_fwd", torch.bfloat16) == \
+        ("flash_attention_sm90", "fedml_flash_fwd_sm90")
+    assert tfa.route("fedml_flash_dkv", torch.bfloat16) == \
+        ("flash_attention_sm90", "fedml_flash_dkv_sm90")
+    assert tfa.route("fedml_flash_dq", torch.bfloat16) == ("flash_attention", "fedml_flash_dq")
+
+
+# --- the tensor-core kernels' arithmetic, emulated on the CPU -----------------
+
+# chip_smoke.FLASH_MISMATCH_SHARE: the share of bf16 outputs the card's gate
+# lets differ from the exactly rounded value
+GATE_SHARE = 0.0025
+
+
+def _top16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded toward zero to bf16 (its top 16 bits), as a float32 tensor."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _split3(x: torch.Tensor):
+    """A float32 tensor as three bf16-valued terms hi + mid + lo, as
+    ``split3`` in fedml_tpu_torch/csrc/flash_attention_sm90.cu:232 does it."""
+    hi = _top16(x)
+    mid = _top16(x - hi)
+    return hi, mid, _top16(x - hi - mid)
+
+
+def _split_mm(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """a @ b for float32 a and bf16-valued b as the tensor cores take it: each
+    term of a times b (exact products, float32 sums), smallest term first."""
+    parts = _split3(a)[:terms]
+    out = parts[-1] @ b
+    for t in reversed(parts[:-1]):
+        out = out + t @ b
+    return out
+
+
+def _vs_exact(got32: torch.Tensor, exact: torch.Tensor):
+    """(share of bf16 outputs off the exactly rounded value, error / max|exact|)."""
+    share = (got32.to(torch.bfloat16) != exact.float().to(torch.bfloat16)).double().mean()
+    return share.item(), ((got32.double() - exact).abs().max() / exact.abs().max()).item()
+
+
+def test_three_term_split_is_exact():
+    """hi + mid + lo == x wherever lo is a normal number (|x| >= 2^-102);
+    below that lo keeps its top 16 bits, an error under 2^-133."""
+    rng = np.random.default_rng(6)
+    big = np.concatenate([rng.standard_normal(4096), rng.random(4096) * 1e-30 + 1e-30,
+                          -rng.random(4096) * 3e38, [1.0, -2.5, np.finfo(np.float32).max]])
+    tiny = np.concatenate([rng.random(4096) * 1e-33, [0.0, 1e-45]])
+    for vals, exact in ((big, True), (tiny, False)):
+        x = torch.from_numpy(vals.astype(np.float32))
+        hi, mid, lo = _split3(x)
+        for t in (hi, mid, lo):  # each term is a bf16 value
+            assert torch.equal(t.to(torch.bfloat16).float(), t)
+        if exact:
+            assert torch.equal(hi + mid + lo, x)
+        else:
+            assert (hi + mid + lo - x).abs().max().item() < 2.0 ** -133
+
+
+def test_three_term_split_products_are_float32_exact():
+    """At (1, 2048, 4, 64) bf16 causal, the products with a float32 operand
+    (P V, P^T dO, dS^T Q) taken as three bf16 terms, f32 sums: out, dv and dk
+    against float64 stay within float32 summation noise and almost never move
+    a bf16 output; p rounded once to bf16 moves far more than the gate allows."""
+    B, T, H, Dh = 1, 2048, 4, 64
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((H, T, Dh), dtype=np.float32))
+                   .to(torch.bfloat16).float() for _ in range(4))
+    scale = Dh ** -0.5
+    above = torch.ones(T, T, dtype=torch.bool).triu(1)
+    got, want, one_term = {"out": [], "dv": [], "dk": []}, {"out": [], "dv": [], "dk": []}, []
+    for h in range(H):
+        qh, kh, vh, doh = q[h], k[h], v[h], do[h]
+        # exact, in float64
+        s64 = (qh.double() @ kh.double().T * scale).masked_fill(above, float("-inf"))
+        lse64 = torch.logsumexp(s64, -1, keepdim=True)
+        p64 = torch.exp(s64 - lse64)
+        out64 = p64 @ vh.double()
+        delta64 = (doh.double() * out64).sum(-1, keepdim=True)
+        ds64 = p64 * (doh.double() @ vh.double().T - delta64)
+        want["out"].append(out64)
+        want["dv"].append(p64.T @ doh.double())
+        want["dk"].append(scale * (ds64.T @ qh.double()))
+        # the kernels: bf16 x bf16 products exact with float32 sums
+        s32 = (qh @ kh.T * scale).masked_fill(above, tfa.NEG_INF)
+        p = torch.exp(s32 - s32.amax(-1, keepdim=True))
+        l = p.sum(-1, keepdim=True)
+        got["out"].append(_split_mm(p, vh) / l)
+        one_term.append(_split_mm(p, vh, terms=1) / l)
+        pb = torch.exp(s32 - lse64.float())
+        ds = pb * (doh @ vh.T - delta64.float())
+        got["dv"].append(_split_mm(pb.T.contiguous(), doh))
+        got["dk"].append(scale * _split_mm(ds.T.contiguous(), qh))
+    for name in got:
+        share, err = _vs_exact(torch.stack(got[name]), torch.stack(want[name]))
+        assert share <= GATE_SHARE / 4, (name, share)
+        assert err <= 1e-5, (name, err)  # float32 summation noise over <= 2048 terms
+    share, _ = _vs_exact(torch.stack(one_term), torch.stack(want["out"]))
+    assert share > 10 * GATE_SHARE, share
