@@ -14,8 +14,8 @@ non-zero exit code and no result line:
    codec's quantize_pack, the Gram plane, the 3x3 multi-weight conv
    forward (conv3x3, also dx) and its weight gradient (conv3x3_dw), and
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
-   flash_dkv; SDPA as the library call; bf16 forward and dk/dv on the
-   tensor cores);
+   flash_dkv; SDPA as the library call; bf16 inputs on the tensor
+   cores, float32 on the FMA kernels);
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
 5. main — the robust FedAvg path through fedml_tpu_torch.init +
@@ -454,7 +454,7 @@ def check_conv_dw(dev):
                "plain_ms": time_ms(lambda: C.conv3x3_dw_plain(x, dy)),
                "library_ms": time_ms(lib_call),
                "max_abs_err": (dw - dwp).abs().max().item(), **_bound(ops, nbytes)}
-        emit("kernel_conv3x3_dw", shape=list(shape),
+        emit("kernel_conv3x3_dw", shape=list(shape), tile=C.dw_tile(ci, co),
              splits=C.dw_split_plan(L, B * H * W, ci, co)[1], normalised_err=err,
              tol=CONV_TOL, library_normalised_err=lib_err, repeatable=True,
              gflop=ops / 1e9, **row)
@@ -583,8 +583,8 @@ def phase_resnet_profile(rounds=2):
 
 # (B, T, H, Dh), dtype, causal: the LM slice's attention first (what the main
 # path gives the kernels), then a full f32 shape with Dh 128, a ragged f32
-# causal one, a small ragged bf16 one and a ragged full bf16 one (bf16 forward
-# and dk/dv run the tensor-core kernels, f32 the FMA ones)
+# causal one, a small ragged bf16 one and a ragged full bf16 one (bf16 runs the
+# tensor-core kernels, f32 the FMA ones)
 FLASH_SLICE = (2, 8192, 16, 64)
 FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), ((1, 2048, 8, 128), torch.float32, False),
                ((3, 333, 2, 64), torch.float32, True), ((2, 100, 3, 128), torch.bfloat16, True),
@@ -835,7 +835,8 @@ def phase_lm_main():
 def phase_lm_profile(tr, data, steps=2):
     """Where an LM step's time goes: two warm steps of the lm_main trainer."""
     emit("lm_profile", **profile_run(lambda: tr.train(data, steps, log_fn=None), steps, (
-        "flash_fwd_wgmma_kernel", "flash_dq_kernel", "flash_dkv_wgmma_kernel"), unit="step"))
+        "flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"),
+        unit="step"))
 
 
 def main(argv):

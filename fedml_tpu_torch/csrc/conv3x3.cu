@@ -17,35 +17,52 @@
 // 32x32, 16 -> 16 channels) each is 3.0 GFLOP of fp32 FMAs (~45 us at
 // 67 TFLOP/s) against ~84 MB of activations (~25 us at 3.35 TB/s):
 // operations. The network's stem (3 -> 16 channels) is bytes (~15 us against
-// ~8.5 us of operations).
+// ~8 us of operations).
 //
 // Design: the patch matrix never reaches device memory, as in the TPU kernel,
-// where it lives in VMEM. Each block stages a 16-deep slice of A, gathered
-// from x with the tap's shift and the image edge masked, and the matching
-// slice of the other operand in shared memory; 256 threads each keep a 4x4
-// register tile of the block's 4096 outputs, fed by two float4 reads of
-// shared memory per 16 FMAs. Where Ci is a multiple of 16 a slice lies in one
-// tap and is read with float4 loads; otherwise (the stem's Ci = 3, ragged
-// shapes) element by element. Tiles are 256x16, 128x32 or 64x64 by Co, so
-// narrow layers waste no columns. Arithmetic is IEEE fp32 on the CUDA cores
-// (no TF32), a sequential fmaf chain per output in increasing k (forward) or
-// pixel (dw) order.
+// where it lives in VMEM. Arithmetic is IEEE fp32 on the CUDA cores (no
+// TF32): the ResNet path is float32, and a tensor-core split (3xTF32 or three
+// bf16 terms, as the flash kernels do) would need its own exactness argument.
 //
-// The weight gradient contracts over all B*H*W pixels of a lane (65,536 at
-// the first stage) into a small (9 Ci, Co) output, so one block per output
-// tile would leave the card idle. As in agg_robust.cu the contraction is cut
-// into spans across blocks (the wrapper picks the count: about eight blocks
-// per SM), each writing a partial tile, and a second kernel sums the partials
-// of each element in the fixed order s = 0..S-1: no float atomics, so dw
-// repeats bit for bit. Inputs may broadcast over lanes (lane stride 0): the
-// first local step, where every client still holds the global weights.
-// Speed beyond this (wgmma, TMA, a pipelined ring of slices) is later work.
+// Forward: each block stages a 16-deep slice of A, gathered from x with the
+// tap's shift and the image edge masked, and the matching slice of w in
+// shared memory; 256 threads each keep a 4x4 register tile of the block's
+// 4096 outputs, fed by two float4 reads of shared memory per 16 FMAs. Where
+// Ci is a multiple of 16 a slice lies in one tap and is read with float4
+// loads; otherwise element by element. Tiles are 256x16, 128x32 or 64x64 by
+// Co, so narrow layers waste no columns. A sequential fmaf chain per output
+// in increasing k.
+//
+// Weight gradient: it contracts over all B*H*W pixels of a lane (65,536 at
+// the first stage) into a small (9 Ci, Co) output. A block's tile covers the
+// rows of the contraction it needs, not a fixed count: all 27 of the stem's
+// rows (a 32-row tile), 144 rows where they divide 9 Ci (Ci = 16, 32, 64:
+// whole tiles, no padding), else 64; columns 16, 32 or 64 by Co. PG groups
+// of TK threads (PG = 8, 2 or 4: 256 or 288 threads) each sum the whole
+// tile, a 4 x BN/4 register tile per thread fed by one float4 of the patch
+// and BN/16 float4s of dy per pixel, over their own 16 pixels of every
+// slice; at the end the groups' sums are added in shared memory in group
+// order. Slices (16 PG pixels: the patch rows of the tile and the pixels' dy
+// rows) stream through a three-stage cp.async ring, two slices ahead of the
+// FMAs, one barrier per slice: 16-byte copies where Ci (x) or Co (dy) is a
+// multiple of 4, else 4-byte ones, with taps outside the image zero-filled
+// by the copy itself. Each thread stages one pixel's rows of a slice, with
+// the rows' taps and offsets computed once. The contraction is cut into
+// pixel spans across blocks as in agg_robust.cu (the wrapper picks the
+// count: at most two blocks per SM, one wave, which keeps the partials
+// small and leaves no SM a block more than the others), each writing a
+// partial tile, and a second kernel sums the partials of each element in
+// the fixed order s = 0..S-1: no float atomics, so dw repeats bit for bit.
+//
+// Inputs may broadcast over lanes (lane stride 0): the first local step,
+// where every client still holds the global weights.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// the forward
 constexpr int kThreads = 256;  // a 4x4 register tile each
 constexpr int kTile = 4096;    // outputs of one block
 constexpr int kSlice = 16;     // contraction elements staged per step
@@ -164,17 +181,70 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int BN, bool VEC>
-__global__ void __launch_bounds__(kThreads)
+// --- the weight gradient -----------------------------------------------------
+
+constexpr int kGroupPixels = 16;  // pixels of a slice one thread group sums
+constexpr int kStages = 3;        // ring depth of the staged slices
+constexpr int kDwBlocks = 2;      // blocks per SM the registers are cut for
+
+// Rows of dw one block covers, from the contraction's length K = 9 Ci (the
+// wrapper's dw_tile mirrors it): all of K = 9 Ci <= 32 (the stem's 27), 144
+// rows where they divide K (every Ci that is a multiple of 16), else 64.
+int dw_rows(int K) { return K <= 32 ? 32 : (K % 144 == 0 ? 144 : 64); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes (x rows, kept in L1 for the neighbouring taps) or 4 bytes, zero
+// when !valid (src-size 0: nothing is read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16_stream(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One block per (pixel span s, (k, n) tile, lane): the TK x BN tile of dw
+// summed over the span's pixels into part[lane, s]. PG groups of TK threads
+// each sum the whole tile over their own 16 pixels of every slice (a thread
+// a 4 x BN/4 register tile: rows 4 tk.., columns 4 tn + 16 j), and the
+// groups' sums are added in shared memory in group order at the end.
+template <int TK, int BN, int PG, bool XV>
+__global__ void __launch_bounds__(PG * TK, kDwBlocks)
 conv3x3_dw_partial_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                           float* __restrict__ part, int B, int H, int W, int Ci, int Co,
                           int64_t x_lane, int64_t span, int splits) {
-  constexpr int TK = kTile / BN;               // rows (k) of dw of the block
-  constexpr int TN = BN / 4;
-  constexpr int TPR = kThreads / kSlice;       // threads staging one pixel: 16
-  constexpr int APT = TK / TPR;                // A elements one thread stages
-  __shared__ __align__(16) float As[kSlice][TK + 4];
-  __shared__ __align__(16) float Gs[kSlice][BN];
+  constexpr int NT = PG * TK;              // threads
+  constexpr int SP = kGroupPixels * PG;    // pixels of one slice
+  constexpr int TPP = NT / SP;             // threads staging one pixel's patch row: TK / 16
+  constexpr int RN = BN / 4;               // columns of a thread
+  constexpr int STAGE = SP * (TK + BN);    // floats of one stage: patch rows, then dy rows
+  constexpr int NX = XV ? 4 : 16;          // copies of a patch row one thread makes
+  static_assert(TK % 16 == 0 && BN % 16 == 0, "tiles are whole 16-row, 16-column blocks");
+  static_assert(PG * TK * BN <= kStages * STAGE, "the groups' sums fit the ring");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
 
   const int t = threadIdx.x;
   const int64_t HW = (int64_t)H * W, P = (int64_t)B * HW;
@@ -188,63 +258,110 @@ conv3x3_dw_partial_kernel(const float* __restrict__ x, const float* __restrict__
   const float* gl = dy + (int64_t)lane * P * Co;
   const int64_t p_begin = (int64_t)s * span;
   const int64_t p_end = p_begin + span < P ? p_begin + span : P;
+  const int slices = (int)((p_end - p_begin + SP - 1) / SP);
+  // 16-byte dy copies where Co is a multiple of 4 and dy 16-byte aligned
+  const bool g_vec = Co % 4 == 0 && ((uintptr_t)dy & 15) == 0;
 
-  const int ap = t / TPR;              // pixel of the slice this thread stages
-  const int kb = k0 + (t % TPR) * APT; // first k of its run
-  const int tk = t / TN, tn = t % TN;
-  float acc[4][4] = {};
-
-  for (int64_t p0 = p_begin; p0 < p_end; p0 += kSlice) {
-    const bool p_in = p0 + ap < p_end;
-    const Pixel px = p_in ? decode(p0 + ap, HW, W) : Pixel{0, 0, 0};
-    float* arow = &As[ap][kb - k0];
-    if (VEC) {  // Ci % 16 == 0 and APT | 16: the run is one tap's channels
-      const float* src = nullptr;
-      if (p_in && kb < K) {
-        const int tap = kb / Ci;
-        src = tap_ptr(xl, px, tap, kb - tap * Ci, H, W, Ci);
-      }
+  // The patch rows this thread stages: pixel lp of every slice, rows lr +
+  // TPP j of the tile (XV: 4-float chunks at rows 4 (lr + TPP j)), each
+  // packed as (offset from the pixel's own channels) * 16 + tap, tap 15
+  // past K
+  const int lp = t / TPP, lr = t % TPP;
+  int rows[NX];
 #pragma unroll
-      for (int j = 0; j < APT; j += 4)
-        *reinterpret_cast<float4*>(arow + j) =
-            src ? *reinterpret_cast<const float4*>(src + j) : make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-#pragma unroll 4
-      for (int j = 0; j < APT; ++j) {
-        const int k = kb + j;
-        float v = 0.f;
-        if (p_in && k < K) {
-          const int tap = k / Ci;
-          const float* src = tap_ptr(xl, px, tap, k - tap * Ci, H, W, Ci);
-          if (src) v = *src;
-        }
-        arow[j] = v;
-      }
-    }
-    for (int i = t; i < kSlice * BN; i += kThreads) {
-      const int pp = i / BN, nn = i % BN;
-      const int64_t p = p0 + pp;
-      const int n = n0 + nn;
-      Gs[pp][nn] = (p < p_end && n < Co) ? gl[p * Co + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int pp = 0; pp < kSlice; ++pp)
-      fma4x4(acc, *reinterpret_cast<const float4*>(&As[pp][tk * 4]),
-             *reinterpret_cast<const float4*>(&Gs[pp][tn * 4]));
-    __syncthreads();
+  for (int j = 0; j < NX; ++j) {
+    const int k = k0 + (XV ? 4 * (lr + TPP * j) : lr + TPP * j);
+    const int tap = k / Ci, ci = k - tap * Ci;
+    rows[j] = k < K ? (((tap / 3 - 1) * W + (tap % 3 - 1)) * Ci + ci) * 16 + tap : 15;
   }
 
-  float* out = part + ((int64_t)lane * splits + s) * K * Co;
+  const int g = t / TK, u = t % TK, tk = u / 4, tn = u % 4;
+  float acc[4][RN];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + tk * 4 + i;
-    if (k >= K) continue;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tn * 4 + j;
-      if (n < Co) out[(int64_t)k * Co + n] = acc[i][j];
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+
+  // Iteration i stages slice i + kStages - 1 (one cp.async group, maybe
+  // empty) and sums slice i; the first kStages - 1 only stage.
+  for (int i = 1 - kStages; i < slices; ++i) {
+    if (i >= 0) {
+      cp_async_wait<kStages - 2>();  // slice i has landed
+      __syncthreads();               // ... for every thread, and slice i-1's stage is free
     }
+    const int ns = i + kStages - 1;
+    if (ns < slices) {
+      float* As = smem + (ns % kStages) * STAGE;
+      float* Gs = As + SP * TK;
+      const int64_t p0 = p_begin + (int64_t)ns * SP;
+      const bool p_in = p0 + lp < p_end;
+      const int p = p_in ? (int)(p0 + lp) : 0;  // P < 2^31 (fedml_conv3x3_dw)
+      const int r = p % (int)HW, h = r / W, w = r - h * W;
+      const float* xc = xl + (int64_t)p * Ci;
+      float* arow = As + lp * TK;
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        const int tap = rows[j] & 15, hs = h + tap / 3 - 1, ws = w + tap % 3 - 1;
+        const bool ok = p_in && tap < 9 && hs >= 0 && hs < H && ws >= 0 && ws < W;
+        const float* src = ok ? xc + (rows[j] >> 4) : xl;
+        if (XV)
+          cp_async16(arow + 4 * (lr + TPP * j), src, ok);
+        else
+          cp_async4(arow + lr + TPP * j, src, ok);
+      }
+      if (g_vec) {
+        for (int e = t; e < SP * BN / 4; e += NT) {
+          const int pp = e / (BN / 4), c = 4 * (e % (BN / 4));
+          const bool ok = p0 + pp < p_end && n0 + c < Co;
+          cp_async16_stream(Gs + pp * BN + c, ok ? gl + (p0 + pp) * Co + n0 + c : gl, ok);
+        }
+      } else {
+        for (int e = t; e < SP * BN; e += NT) {
+          const int pp = e / BN, c = e % BN;
+          const bool ok = p0 + pp < p_end && n0 + c < Co;
+          cp_async4(Gs + pp * BN + c, ok ? gl + (p0 + pp) * Co + n0 + c : gl, ok);
+        }
+      }
+    }
+    cp_async_commit();
+    if (i < 0) continue;
+    const float* As = smem + (i % kStages) * STAGE + g * kGroupPixels * TK;
+    const float* Gs = smem + (i % kStages) * STAGE + SP * TK + g * kGroupPixels * BN;
+#pragma unroll 4
+    for (int pp = 0; pp < kGroupPixels; ++pp) {
+      const float4 a = *reinterpret_cast<const float4*>(As + pp * TK + 4 * tk);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int jj = 0; jj < RN / 4; ++jj) {
+        const float4 b = *reinterpret_cast<const float4*>(Gs + pp * BN + 16 * jj + 4 * tn);
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][4 * jj + e] = fmaf(av[r], bv[e], acc[r][4 * jj + e]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the groups' sums now
+
+  float* red = smem;  // [PG][TK][BN]
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int jj = 0; jj < RN / 4; ++jj)
+      *reinterpret_cast<float4*>(red + (g * TK + 4 * tk + r) * BN + 16 * jj + 4 * tn) =
+          make_float4(acc[r][4 * jj], acc[r][4 * jj + 1], acc[r][4 * jj + 2],
+                      acc[r][4 * jj + 3]);
+  __syncthreads();
+  float* out = part + ((int64_t)lane * splits + s) * K * Co;
+  for (int e = t; e < TK * BN; e += NT) {
+    const int k = k0 + e / BN, n = n0 + e % BN;
+    if (k >= K || n >= Co) continue;
+    float sum = red[e];
+#pragma unroll
+    for (int gg = 1; gg < PG; ++gg) sum += red[gg * TK * BN + e];
+    out[(int64_t)k * Co + n] = sum;
   }
 }
 
@@ -279,17 +396,40 @@ cudaError_t launch_fwd(const float* x, const float* w, float* y, int L, int B, i
   return cudaGetLastError();
 }
 
-template <int BN, bool VEC>
+// groups of TK threads: 256 threads, 288 at 144 rows
+constexpr int dw_groups(int TK) { return TK == 144 ? 2 : 256 / TK; }
+
+template <int TK, int BN, bool XV>
 cudaError_t launch_dw(const float* x, const float* dy, float* part, int L, int B, int H, int W,
                       int Ci, int Co, int64_t x_lane, int64_t span, int splits,
                       cudaStream_t st) {
-  const int64_t kt = (9LL * Ci + kTile / BN - 1) / (kTile / BN);
-  const int64_t tiles = kt * ((Co + BN - 1) / BN);
+  constexpr int PG = dw_groups(TK);
+  const int64_t tiles = (9LL * Ci + TK - 1) / TK * ((Co + BN - 1) / BN);
   if (tiles > 65535) return cudaErrorInvalidValue;
-  conv3x3_dw_partial_kernel<BN, VEC>
-      <<<dim3((unsigned)splits, (unsigned)tiles, (unsigned)L), kThreads, 0, st>>>(
-          x, dy, part, B, H, W, Ci, Co, x_lane, span, splits);
+  constexpr int bytes = kStages * kGroupPixels * PG * (TK + BN) * (int)sizeof(float);
+  auto kernel = conv3x3_dw_partial_kernel<TK, BN, PG, XV>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3((unsigned)splits, (unsigned)tiles, (unsigned)L), PG * TK, bytes, st>>>(
+      x, dy, part, B, H, W, Ci, Co, x_lane, span, splits);
   return cudaGetLastError();
+}
+
+// a tile of TK = dw_rows(9 Ci) rows and block_cols(Co) columns; 16-byte
+// patch copies (XV) where Ci is a multiple of 4 and x 16-byte aligned
+template <int TK, bool XV>
+cudaError_t launch_dw_cols(const float* x, const float* dy, float* part, int L, int B, int H,
+                           int W, int Ci, int Co, int64_t x_lane, int64_t span, int splits,
+                           cudaStream_t st) {
+  switch (block_cols(Co)) {
+    case 16:
+      return launch_dw<TK, 16, XV>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
+    case 32:
+      return launch_dw<TK, 32, XV>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
+    default:
+      return launch_dw<TK, 64, XV>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
+  }
 }
 
 }  // namespace
@@ -322,19 +462,29 @@ extern "C" int fedml_conv3x3_dw(const float* x, const float* dy, float* part, fl
                                 int B, int H, int W, int Ci, int Co, long long x_lane,
                                 long long span, int splits, void* stream) {
   const int64_t P = (int64_t)B * H * W;
-  if (!shapes_ok(L, B, H, W, Ci, Co) || x_lane < 0 || span <= 0 || splits <= 0 ||
-      (int64_t)(splits - 1) * span >= P || (int64_t)splits * span < P)
+  // pixel indices and packed tap offsets ((W + 2) Ci * 16) are 32-bit
+  if (!shapes_ok(L, B, H, W, Ci, Co) || P >= (1LL << 31) || (W + 2LL) * Ci >= (1LL << 26) ||
+      x_lane < 0 || span <= 0 || splits <= 0 || (int64_t)(splits - 1) * span >= P ||
+      (int64_t)splits * span < P)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool vec = Ci % kSlice == 0;
   cudaError_t err;
-  switch (block_cols(Co) * 2 + (vec ? 1 : 0)) {
-    case 32: err = launch_dw<16, false>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st); break;
-    case 33: err = launch_dw<16, true>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st); break;
-    case 64: err = launch_dw<32, false>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st); break;
-    case 65: err = launch_dw<32, true>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st); break;
-    case 128: err = launch_dw<64, false>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st); break;
-    default: err = launch_dw<64, true>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st); break;
+  const bool xv = Ci % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  switch (dw_rows(9 * Ci) * 2 + (xv ? 1 : 0)) {
+    case 64:  // Ci <= 3: never a multiple of 4
+      err = launch_dw_cols<32, false>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
+      break;
+    case 288:
+      err = launch_dw_cols<144, false>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
+      break;
+    case 289:
+      err = launch_dw_cols<144, true>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
+      break;
+    case 128:
+      err = launch_dw_cols<64, false>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
+      break;
+    default:
+      err = launch_dw_cols<64, true>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
   }
   if (err != cudaSuccess) return (int)err;
   const int64_t kn = 9LL * Ci * Co, total = kn * L;

@@ -1,8 +1,8 @@
 // Flash attention on (B, T, H, Dh), causal or full: the forward with its
 // per-row logsumexp, and the two backward kernels (dq; dk and dv), all
-// products as float32 FMA. Float32 inputs run all three here, bfloat16
-// inputs only dq: the bf16 forward and dk/dv run on the tensor cores
-// (flash_attention_sm90.cu). Dh 64 or 128; all arithmetic is float32.
+// products as float32 FMA, for float32 inputs: bfloat16 inputs run on the
+// tensor cores (flash_attention_sm90.cu). Dh 64 or 128; all arithmetic is
+// float32.
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (the
 // forward, called from _flash_forward), _dq_kernel and _dkv_kernel (both
@@ -42,10 +42,8 @@
 // whole and the diagonal tile is masked; rows and columns at or past T are
 // masked too, so T need not be a multiple of 64. Blocks of the longest
 // causal rows are launched first. dq, dk and dv each sum in one fixed order
-// and use no atomics, so all three repeat bit for bit. Tensor cores (wgmma on
-// bf16 tiles) for dq is later work, as in flash_attention_sm90.cu.
+// and use no atomics, so all three repeat bit for bit.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,27 +72,8 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(h[e]);
-    v[2 * e] = f.x;
-    v[2 * e + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 __device__ __forceinline__ float half_max(float v) {
@@ -112,8 +91,8 @@ __device__ __forceinline__ float half_sum(float v) {
 // Rows r0 .. r0+63 of one (b, h) slice (row stride st elements, Dh
 // contiguous) into a float tile of row stride LD, times mul; rows at or past
 // T read as zero. Eight consecutive elements per thread, 16-byte loads.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t st, int r0, int Tn,
+template <int DH>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t st, int r0, int Tn,
                                           float mul) {
   constexpr int CH = DH / 8, LD = Shape<DH>::LD;
   for (int idx = threadIdx.x; idx < kTile * CH; idx += kThreads) {
@@ -189,15 +168,15 @@ __device__ __forceinline__ void prob_times(float (&out)[4][Shape<DH>::NJ], const
 
 // Rows ty*4 + i of a (64, Dh) accumulator tile into a contiguous (B, T, H, Dh)
 // output at rows r0 + ..., skipping rows at or past T.
-template <typename T, int DH>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[4][Shape<DH>::NJ],
+template <int DH>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[4][Shape<DH>::NJ],
                                            const float (&div)[4], int b, int h, int H, int Tn,
                                            int r0, int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = r0 + ty * 4 + i;
     if (row >= Tn) continue;
-    T* dst = out + (((int64_t)b * Tn + row) * H + h) * DH + tx * 4;
+    float* dst = out + (((int64_t)b * Tn + row) * H + h) * DH + tx * 4;
 #pragma unroll
     for (int g = 0; g < Shape<DH>::G; ++g)
       store4(dst + 64 * g, acc[i][4 * g] / div[i], acc[i][4 * g + 1] / div[i],
@@ -206,11 +185,11 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[4][Shape<D
 }
 
 // One block per (bh, q tile): o (B, T, H, Dh) contiguous, lse (B*H, T).
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int H, int Tn, int64_t sb, int64_t st,
-                 int64_t sh, float scale, int causal) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int H, int Tn, int64_t sb, int64_t st, int64_t sh, float scale, int causal) {
   constexpr int LD = Shape<DH>::LD, NJ = Shape<DH>::NJ;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -222,7 +201,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int q0 = (nt - 1 - (int)blockIdx.y) * kTile;  // the longest causal rows first
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int64_t off = (int64_t)b * sb + (int64_t)h * sh;
-  load_tile<T, DH>(Qs, q + off, st, q0, Tn, scale);
+  load_tile<DH>(Qs, q + off, st, q0, Tn, scale);
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -237,8 +216,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int ki = 0; ki < nk; ++ki) {
     const int k0 = ki * kTile;
     __syncthreads();  // the previous step is done with Ks, Vs and Ps
-    load_tile<T, DH>(Ks, k + off, st, k0, Tn, 1.f);
-    load_tile<T, DH>(Vs, v + off, st, k0, Tn, 1.f);
+    load_tile<DH>(Ks, k + off, st, k0, Tn, 1.f);
+    load_tile<DH>(Vs, v + off, st, k0, Tn, 1.f);
     __syncthreads();
     float s[4][4];
     dot_rows<DH>(s, Qs, Ks, ty, tx);
@@ -282,17 +261,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int row = q0 + ty * 4 + i;
     if (tx == 0 && row < Tn) lse[(int64_t)bh * Tn + row] = m[i] + logf(ls[i]);
   }
-  store_rows<T, DH>(o, acc, ls, b, h, H, Tn, q0, ty, tx);
+  store_rows<DH>(o, acc, ls, b, h, H, Tn, q0, ty, tx);
 }
 
 // One block per (bh, q tile): dq (B, T, H, Dh) contiguous. dout is
 // contiguous; lse and delta are (B*H, T).
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int H, int Tn, int64_t sb,
-                int64_t st, int64_t sh, float scale, int causal) {
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dq, int H, int Tn, int64_t sb, int64_t st, int64_t sh,
+                float scale, int causal) {
   constexpr int LD = Shape<DH>::LD, NJ = Shape<DH>::NJ;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -306,8 +286,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int64_t off = (int64_t)b * sb + (int64_t)h * sh;
   const int64_t doff = ((int64_t)b * Tn * H + h) * DH;
-  load_tile<T, DH>(Qs, q + off, st, q0, Tn, 1.f);
-  load_tile<T, DH>(Os, dout + doff, (int64_t)H * DH, q0, Tn, 1.f);
+  load_tile<DH>(Qs, q + off, st, q0, Tn, 1.f);
+  load_tile<DH>(Os, dout + doff, (int64_t)H * DH, q0, Tn, 1.f);
   float lr[4], dr[4], acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -321,8 +301,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   for (int ki = 0; ki < nk; ++ki) {
     const int k0 = ki * kTile;
     __syncthreads();
-    load_tile<T, DH>(Ks, k + off, st, k0, Tn, 1.f);
-    load_tile<T, DH>(Vs, v + off, st, k0, Tn, 1.f);
+    load_tile<DH>(Ks, k + off, st, k0, Tn, 1.f);
+    load_tile<DH>(Vs, v + off, st, k0, Tn, 1.f);
     __syncthreads();
     float s[4][4], dp[4][4];
     dot_rows<DH>(s, Qs, Ks, ty, tx);
@@ -348,16 +328,17 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       for (int n = 0; n < NJ; ++n) acc[i][n] = acc[i][n] + scale * t[i][n];
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, DH>(dq, acc, one, b, h, H, Tn, q0, ty, tx);
+  store_rows<DH>(dq, acc, one, b, h, H, Tn, q0, ty, tx);
 }
 
 // One block per (bh, k tile): dk and dv (B, T, H, Dh) contiguous.
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
-                 int Tn, int64_t sb, int64_t st, int64_t sh, float scale, int causal) {
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dk, float* __restrict__ dv, int H, int Tn, int64_t sb,
+                 int64_t st, int64_t sh, float scale, int causal) {
   constexpr int LD = Shape<DH>::LD, NJ = Shape<DH>::NJ;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
@@ -373,8 +354,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int64_t off = (int64_t)b * sb + (int64_t)h * sh;
   const int64_t doff = ((int64_t)b * Tn * H + h) * DH;
-  load_tile<T, DH>(Ks, k + off, st, k0, Tn, 1.f);
-  load_tile<T, DH>(Vs, v + off, st, k0, Tn, 1.f);
+  load_tile<DH>(Ks, k + off, st, k0, Tn, 1.f);
+  load_tile<DH>(Vs, v + off, st, k0, Tn, 1.f);
   float dka[4][NJ], dva[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -384,8 +365,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int qi = causal ? ki : 0; qi < nt; ++qi) {
     const int q0 = qi * kTile;
     __syncthreads();
-    load_tile<T, DH>(Qs, q + off, st, q0, Tn, 1.f);
-    load_tile<T, DH>(Os, dout + doff, (int64_t)H * DH, q0, Tn, 1.f);
+    load_tile<DH>(Qs, q + off, st, q0, Tn, 1.f);
+    load_tile<DH>(Os, dout + doff, (int64_t)H * DH, q0, Tn, 1.f);
     float lc[4], dc[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -424,8 +405,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int n = 0; n < NJ; ++n) dka[i][n] = dka[i][n] + scale * t[i][n];
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, DH>(dk, dka, one, b, h, H, Tn, k0, ty, tx);
-  store_rows<T, DH>(dv, dva, one, b, h, H, Tn, k0, ty, tx);
+  store_rows<DH>(dk, dka, one, b, h, H, Tn, k0, ty, tx);
+  store_rows<DH>(dv, dva, one, b, h, H, Tn, k0, ty, tx);
 }
 
 struct Args {
@@ -448,41 +429,41 @@ cudaError_t prepare(Kernel kernel, int floats) {
 
 dim3 grid(const Args& a) { return dim3((unsigned)(a.B * a.H), (unsigned)((a.T + kTile - 1) / kTile)); }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                        const Args& a, cudaStream_t st) {
   const int floats = 3 * kTile * Shape<DH>::LD + kTile * kLP;
-  cudaError_t e = prepare(flash_fwd_kernel<T, DH>, floats);
+  cudaError_t e = prepare(flash_fwd_kernel<DH>, floats);
   if (e != cudaSuccess) return e;
-  flash_fwd_kernel<T, DH><<<grid(a), kThreads, floats * sizeof(float), st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, a.H, a.T, a.sb, a.st, a.sh, a.scale,
-      a.causal);
+  flash_fwd_kernel<DH><<<grid(a), kThreads, floats * sizeof(float), st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, a.H, a.T, a.sb, a.st,
+      a.sh, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, const Args& a,
                       cudaStream_t st) {
   const int floats = 4 * kTile * Shape<DH>::LD + kTile * kLP;
-  cudaError_t e = prepare(flash_dq_kernel<T, DH>, floats);
+  cudaError_t e = prepare(flash_dq_kernel<DH>, floats);
   if (e != cudaSuccess) return e;
-  flash_dq_kernel<T, DH><<<grid(a), kThreads, floats * sizeof(float), st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, a.H, a.T, a.sb,
-      a.st, a.sh, a.scale, a.causal);
+  flash_dq_kernel<DH><<<grid(a), kThreads, floats * sizeof(float), st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
+      (float*)dq, a.H, a.T, a.sb, a.st, a.sh, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv, const Args& a,
                        cudaStream_t st) {
   const int floats = 4 * kTile * Shape<DH>::LD + 2 * kTile * kLP;
-  cudaError_t e = prepare(flash_dkv_kernel<T, DH>, floats);
+  cudaError_t e = prepare(flash_dkv_kernel<DH>, floats);
   if (e != cudaSuccess) return e;
-  flash_dkv_kernel<T, DH><<<grid(a), kThreads, floats * sizeof(float), st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, a.H, a.T,
-      a.sb, a.st, a.sh, a.scale, a.causal);
+  flash_dkv_kernel<DH><<<grid(a), kThreads, floats * sizeof(float), st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
+      (float*)dk, (float*)dv, a.H, a.T, a.sb, a.st, a.sh, a.scale, a.causal);
   return cudaGetLastError();
 }
 
@@ -499,15 +480,16 @@ extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void
   const Args a{B, H, T, sb, st, sh, scale, causal};
   cudaStream_t s = (cudaStream_t)stream;
   switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
-    case 128: return (int)launch_fwd<float, 64>(q, k, v, o, lse, a, s);
-    case 256: return (int)launch_fwd<float, 128>(q, k, v, o, lse, a, s);
+    case 128: return (int)launch_fwd<64>(q, k, v, o, lse, a, s);
+    case 256: return (int)launch_fwd<128>(q, k, v, o, lse, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // dq (B, T, H, Dh) contiguous from q, k, v (strided as for the forward), dout
 // (B, T, H, Dh) contiguous, and the forward's lse and delta = rowsum(dO * O),
-// both (B*H, T) float32.
+// both (B*H, T) float32. Float32 only (is_bf16 = 0): fedml_flash_dq_sm90
+// takes bfloat16.
 extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                               const float* lse, const float* delta, void* dq, int B, int H, int T,
                               int Dh, int is_bf16, int causal, long long sb, long long st,
@@ -516,10 +498,8 @@ extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v, const
   const Args a{B, H, T, sb, st, sh, scale, causal};
   cudaStream_t s = (cudaStream_t)stream;
   switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
-    case 128: return (int)launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, a, s);
-    case 129: return (int)launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, a, s);
-    case 256: return (int)launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, a, s);
-    case 257: return (int)launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, a, s);
+    case 128: return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, a, s);
+    case 256: return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -534,8 +514,8 @@ extern "C" int fedml_flash_dkv(const void* q, const void* k, const void* v, cons
   const Args a{B, H, T, sb, st, sh, scale, causal};
   cudaStream_t s = (cudaStream_t)stream;
   switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
-    case 128: return (int)launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, a, s);
-    case 256: return (int)launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, a, s);
+    case 128: return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, a, s);
+    case 256: return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

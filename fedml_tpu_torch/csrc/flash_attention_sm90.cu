@@ -1,61 +1,68 @@
-// Flash attention's forward and its dk/dv backward on the Hopper tensor
-// cores (wgmma), for bfloat16 (B, T, H, Dh) inputs with Dh 64 or 128,
+// Flash attention's forward and its backward (dq; dk and dv) on the Hopper
+// tensor cores (wgmma), for bfloat16 (B, T, H, Dh) inputs with Dh 64 or 128,
 // causal or full, any T. Float32 inputs keep the FMA kernels of
-// flash_attention.cu, as does dq.
+// flash_attention.cu.
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (:66,
-// the forward) and _dkv_kernel (:213, dk and dv). The arithmetic is the TPU
-// kernels', which flash_attention.cu lists: finfo(float32).min masking,
-// expf, l clamped at 1e-30, o = acc / l, lse = m + log l, p = exp(scale *
-// q.k - lse), ds = p * (dO.v - delta).
+// the forward), _dq_kernel (:167, dq) and _dkv_kernel (:213, dk and dv).
+// The arithmetic is the TPU kernels', which flash_attention.cu lists:
+// finfo(float32).min masking, expf, l clamped at 1e-30, o = acc / l, lse =
+// m + log l, p = exp(scale * q.k - lse), ds = p * (dO.v - delta).
 //
 // Exact to float32 through a three-term split. Every product runs as bf16
 // x bf16 -> f32 wgmma. Q K^T and dO V^T multiply the bf16 inputs, which the
-// tensor cores do exactly with float32 sums. P V, P^T dO and dS^T Q have a
-// float32 operand (p or ds); it goes in as three bf16 terms, hi = bf16(x),
-// mid = bf16(x - hi), lo = x - hi - mid, each bf16() rounding toward zero
-// (split3 below). bf16 keeps float32's exponent range and three 8-bit
-// significands cover float32's 24, so hi + mid + lo is exactly x, and the
-// three products, issued lo, mid, hi into one accumulator, sum to the
+// tensor cores do exactly with float32 sums. P V, dS K, P^T dO and dS^T Q
+// have a float32 operand (p or ds); it goes in as three bf16 terms, hi =
+// bf16(x), mid = bf16(x - hi), lo = x - hi - mid, each bf16() rounding
+// toward zero (split3 below). bf16 keeps float32's exponent range and three
+// 8-bit significands cover float32's 24, so hi + mid + lo is exactly x, and
+// the three products, issued lo, mid, hi into one accumulator, sum to the
 // float32 product up to summation order. Rounding p once to bf16, as
 // FlashAttention-3 does, moves far more bf16 outputs off the exactly
 // rounded value than chip_smoke.py allows; tests/test_torch_flash.py
 // emulates both on the CPU. The tensor cores' float32 sums are not
 // round-to-nearest: their errors lean one way, so over a row of T keys in
 // one accumulator they add up, past chip_smoke.py's gate at T 8192. So each
-// 64-key tile's products start from a zero accumulator, and the tiles are
-// added in float32 registers, rounded to nearest, as the TPU kernels add
-// their blocks. The score is scaled after Q K^T: at Dh 64 the scale 2^-3
-// makes that identical to the TPU kernel's q * scale before the product;
-// at Dh 128 (1/sqrt(128)) it rounds once in float32 after the exact product
-// instead of once on q. dk likewise sums ds^T q and is scaled at the end.
+// 64-key (or 64-query) tile's products start from a zero accumulator, and
+// the tiles are added in float32 registers, rounded to nearest, as the TPU
+// kernels add their blocks. The score is scaled after Q K^T: at Dh 64 the
+// scale 2^-3 makes that identical to the TPU kernel's q * scale before the
+// product; at Dh 128 (1/sqrt(128)) it rounds once in float32 after the
+// exact product instead of once on q. dq adds scale * (dS K) per key tile,
+// as the TPU kernel does; dk sums ds^T q and is scaled at the end.
 //
 // Bound on the H100 at the LM slice's shape (B 2, T 8192, H 16, Dh 64,
 // causal): 1.0739e9 unmasked (q, k) pairs x 2 Dh operations per product =
 // 0.1375 TFLOP per product. The forward does one bf16 product and one split
-// product (1 + 3 tensor-core products), dk/dv two and two (2 + 6): 0.556 and
-// 1.112 ms at 989 TFLOP/s, against ~0.05 ms of bytes at 3.35 TB/s. So both
-// are bound by operations.
+// product (1 + 3 tensor-core products), dq two and one (2 + 3), dk/dv two
+// and two (2 + 6): 0.556, 0.695 and 1.112 ms at 989 TFLOP/s, against
+// ~0.05 ms of bytes at 3.35 TB/s. So all three are bound by operations.
 //
-// Design. One warpgroup (128 threads) per block and 64-row tiles. Forward:
-// a block owns a q tile and walks the k/v tiles; dk/dv: a block owns a k
-// tile and walks the q/dO tiles (with their lse and delta) from the
-// diagonal on. The streamed tiles go through a three-stage ring in shared
-// memory, filled by cp.async from all threads two tiles ahead, at addresses
-// built from the caller's strides (q, k, v are views of one projection);
-// rows at or past T are zero-filled. Tiles are stored in wgmma's
-// 128-byte-swizzled layout, 64 columns per row; each operand is read
-// K-major (the score products) or MN-major (the split products, with the
-// trans-b flag) from the same tile. The scores stay in the wgmma
-// accumulator registers, whose layout is the register A operand's, so p and
-// ds go from softmax to the next product without shared memory. The
-// forward is pipelined: tile kt's P V and tile kt+1's Q K^T run on the
-// tensor cores while the warpgroup computes tile kt+1's softmax. Registers
-// decide occupancy (kFwdBlocks, kDkvBlocks): the blocks of an SM interleave
-// one's softmax with another's products. Causal tiles past the diagonal are
-// skipped, the mask is applied only on the diagonal and ragged tiles,
-// blocks of the longest causal rows start first, and every sum runs in one
-// fixed order without atomics, so dk and dv repeat bit for bit.
+// Design. One warpgroup (128 threads) per block and 64-row tiles. Forward
+// and dq: a block owns a q tile (dq: with its dO tile, lse and delta) and
+// walks the k/v tiles up to the diagonal; dk/dv: a block owns a k tile and
+// walks the q/dO tiles (with their lse and delta) from the diagonal on. The
+// streamed tiles go through a three-stage ring in shared memory, filled by
+// cp.async from all threads two tiles ahead, at addresses built from the
+// caller's strides (q, k, v are views of one projection); rows at or past T
+// are zero-filled. Tiles are stored in wgmma's 128-byte-swizzled layout, 64
+// columns per row; each operand is read K-major (the score products) or
+// MN-major (the split products, with the trans-b flag) from the same tile.
+// The scores stay in the wgmma accumulator registers, whose layout is the
+// register A operand's, so p and ds go from softmax to the next product
+// without shared memory. The forward is pipelined: tile kt's P V and tile
+// kt+1's Q K^T run on the tensor cores while the warpgroup computes tile
+// kt+1's softmax. dq and dk/dv are not: dq's pipeline (a second set of
+// scores in flight) took enough registers to drop to 2 blocks per SM and
+// ran slower than 3 blocks without it. Registers decide occupancy
+// (kFwdBlocks, dq_blocks, kDkvBlocks): the blocks of an SM interleave one's
+// softmax with another's products. On the causal diagonal dq sums dO V^T
+// on the CUDA cores instead (dots_fma), in a plain float32 product's order:
+// there row 0's dq is pure rounding noise of dp - delta, which only that
+// order repeats. Causal tiles past the diagonal are skipped, the mask is
+// applied only on the diagonal and ragged tiles, blocks of the longest
+// causal rows start first, and every sum runs in one fixed order without
+// atomics, so dq, dk and dv repeat bit for bit.
 //
 // Left for later: a producer warp with TMA and setmaxnreg (warp
 // specialisation), persistent blocks, the dk/dv pipeline (its registers do
@@ -72,8 +79,11 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;  // one warpgroup
 // blocks per SM the register budget is cut for: the forward keeps its
 // pipeline without spills (2 blocks); dk/dv spills a little at 3 blocks,
-// which ran faster than 2 blocks without spills
+// which ran faster than 2 blocks without spills; dq fits 3 blocks at Dh 64
+// and 2 without spills at Dh 128
 constexpr int kFwdBlocks = 2, kDkvBlocks = 3;
+template <int DH>
+constexpr int dq_blocks() { return DH == 64 ? 3 : 2; }
 constexpr int kTile = 64;      // rows of every tile: q, k, v, dO
 constexpr int kStages = 3;     // ring depth of the streamed tiles
 constexpr int kRowBytes = 128; // one swizzled row: 64 bf16
@@ -426,6 +436,169 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// d = A B^T of two 64-row swizzled bf16 tiles for this thread's rows (r,
+// r + 8 of A) and columns (8 j + c2 + e of B), each a chain of fmaf over
+// the Dh columns in increasing order from zero: the order of a plain
+// float32 product (cuBLAS, or the FMA kernels of flash_attention.cu). On the
+// causal diagonal dq needs it: in row 0 (and rows like it) p = 1 on one key
+// and dp - delta cancels to rounding noise, so dq there is noise, and only
+// a dp summed in the plain product's order gives the plain product's noise.
+template <int DH>
+__device__ __forceinline__ void dots_fma(float (&d)[32], const uint8_t* a_tile,
+                                         const uint8_t* b_tile, int r, int c2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < DH / 8; ++c)  // 16-byte chunks: 8 columns each
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {  // two columns at a time, in order
+      float2 a[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        a[hh] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            a_tile + swz<kTile>(r + 8 * hh, c) + 4 * x));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              b_tile + swz<kTile>(8 * j + c2 + e, c) + 4 * x));
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float& acc = d[4 * j + 2 * hh + e];
+            acc = fmaf(a[hh].x, f.x, acc);
+            acc = fmaf(a[hh].y, f.y, acc);
+          }
+        }
+    }
+}
+
+// ds = p * (dp - delta) of one 64-key tile at k0 for this thread's two q
+// rows (row0, row0 + 8), p = exp(scale s - lse), in dp; keys at or past T
+// give p = 0 (their rows of K and V are zero-filled)
+__device__ __forceinline__ void ds_tile(const float (&s)[32], float (&dp)[32],
+                                        const float (&lr)[2], const float (&dr)[2], int k0,
+                                        int q0, int row0, int c2, int Tn, int causal,
+                                        float scale) {
+  // only a tile across T or on the diagonal needs the mask
+  const bool edge = k0 + kTile > Tn || (causal && k0 + kTile - 1 > q0);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = k0 + 8 * j + c2 + e;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int at = 4 * j + 2 * hh + e;
+        float x = scale * s[at];
+        if (edge && causal && col > row0 + 8 * hh) x = kNegInf;
+        const float p = !edge || col < Tn ? expf(x - lr[hh]) : 0.f;
+        dp[at] = p * (dp[at] - dr[hh]);
+      }
+    }
+}
+
+// dqa += scale * t, once the products into t are done
+template <int G>
+__device__ __forceinline__ void add_dq(float (&dqa)[G][32], float (&t)[G][32], float scale) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    pin(t[g]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[g][i] += scale * t[g][i];
+  }
+}
+
+// One block (one warpgroup) per (bh, 64-row q tile): dq (B, T, H, Dh)
+// contiguous. dout is contiguous; lse and delta are (B*H, T).
+template <int DH>
+__global__ void __launch_bounds__(kThreads, dq_blocks<DH>())
+flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      bf16* __restrict__ dq, int H, int Tn, int64_t sb, int64_t st, int64_t sh,
+                      float scale, int causal) {
+  constexpr int G = DH / 64;
+  constexpr int kBytes = kTile * DH * 2;  // one tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* Os = Qs + kBytes;    // dO
+  uint8_t* ring = Os + kBytes;  // stage s: K at ring + 2 s kBytes, V after it
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nt = (Tn + kTile - 1) / kTile;
+  const int q0 = (nt - 1 - (int)blockIdx.y) * kTile;  // the longest causal rows first
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int64_t off = (int64_t)b * sb + (int64_t)h * sh;
+  const int64_t doff = ((int64_t)b * Tn * H + h) * DH;
+  const int nk = causal ? q0 / kTile + 1 : nt;  // causal: no k tile past the diagonal
+  const int row0 = q0 + 16 * warp + lane / 4;   // this thread's rows: row0, row0 + 8
+  const int c2 = 2 * (lane % 4);
+  auto stage = [&](int t) { return smem_addr(ring + (t % kStages) * 2 * kBytes); };
+  auto load_kv = [&](int t) {  // k/v tile t into its stage: one cp.async group, maybe empty
+    if (t < nk) {
+      uint8_t* d = ring + (t % kStages) * 2 * kBytes;
+      load_tile<kTile, DH>(d, k + off, st, t * kTile, Tn);
+      load_tile<kTile, DH>(d + kBytes, v + off, st, t * kTile, Tn);
+    }
+    cp_async_commit();
+  };
+
+  load_tile<kTile, DH>(Qs, q + off, st, q0, Tn);
+  load_tile<kTile, DH>(Os, dout + doff, (int64_t)H * DH, q0, Tn);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) load_kv(t);
+  float lr[2], dr[2];  // lse and delta of this thread's rows
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    lr[hh] = row < Tn ? lse[(int64_t)bh * Tn + row] : 0.f;
+    dr[hh] = row < Tn ? delta[(int64_t)bh * Tn + row] : 0.f;
+  }
+  float dqa[G][32];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[g][i] = 0.f;
+  const uint32_t q_tile = smem_addr(Qs), o_tile = smem_addr(Os);
+  float s[32], dp[32], t[G][32];
+  uint32_t a[4][3][4];
+  for (int kt = 0; kt < nk; ++kt) {
+    load_kv(kt + kStages - 1);
+    cp_async_wait<kStages - 1>();  // tile kt has landed
+    __syncthreads();
+    wg_fence();
+    scores<DH>(s, q_tile, stage(kt));
+    scores<DH>(dp, o_tile, stage(kt) + kBytes);
+    wg_commit();
+    wg_wait<0>();
+    pin(s);
+    pin(dp);
+    if (causal && kt == nk - 1)  // the diagonal: dp as a plain float32 product sums it
+      dots_fma<DH>(dp, Os, ring + (kt % kStages) * 2 * kBytes + kBytes, row0 - q0, c2);
+    ds_tile(s, dp, lr, dr, kt * kTile, q0, row0, c2, Tn, causal, scale);
+    split_frags(dp, a);
+    wg_fence();
+    mma_split<G>(t, a, stage(kt));  // dS K
+    wg_commit();
+    wg_wait<0>();
+    add_dq(dqa, t, scale);
+    __syncthreads();  // this stage is read: the next round refills it
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= Tn) continue;
+    bf16* dst = dq + (((int64_t)b * Tn + row) * H + h) * DH + c2;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 64 * g + 8 * j) = __floats2bfloat162_rn(
+            dqa[g][4 * j + 2 * hh], dqa[g][4 * j + 2 * hh + 1]);
+  }
+}
+
 // One block (one warpgroup) per (bh, 64-row k tile): dk and dv (B, T, H, Dh)
 // contiguous. dout is contiguous; lse and delta are (B*H, T).
 template <int DH>
@@ -592,6 +765,20 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
 }
 
 template <int DH>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* delta, void* dq, const Args& a,
+                      cudaStream_t st) {
+  // q and dO tiles, the k/v ring, + alignment slack
+  constexpr int bytes = (2 + 2 * kStages) * kTile * DH * 2 + 1024;
+  cudaError_t e = prepare(flash_dq_wgmma_kernel<DH>, bytes);
+  if (e != cudaSuccess) return e;
+  flash_dq_wgmma_kernel<DH><<<grid(a), kThreads, bytes, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dq,
+      a.H, a.T, a.sb, a.st, a.sh, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int DH>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv, const Args& a,
                        cudaStream_t st) {
@@ -607,8 +794,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 }  // namespace
 
-// The entry points take the arguments of fedml_flash_fwd and fedml_flash_dkv
-// (flash_attention.cu) and only bfloat16 (is_bf16 = 1): q, k, v (B, T, H,
+// The entry points take the arguments of fedml_flash_fwd, fedml_flash_dq and
+// fedml_flash_dkv (flash_attention.cu) and only bfloat16 (is_bf16 = 1): q, k, v (B, T, H,
 // Dh) share the element strides (sb, st, sh) with Dh contiguous and 16-byte
 // aligned rows; the outputs are contiguous. Return the launch's cudaError_t.
 extern "C" int fedml_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
@@ -621,6 +808,21 @@ extern "C" int fedml_flash_fwd_sm90(const void* q, const void* k, const void* v,
   switch (Dh) {
     case 64: return (int)launch_fwd<64>(q, k, v, o, lse, a, s);
     case 128: return (int)launch_fwd<128>(q, k, v, o, lse, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int fedml_flash_dq_sm90(const void* q, const void* k, const void* v,
+                                   const void* dout, const float* lse, const float* delta,
+                                   void* dq, int B, int H, int T, int Dh, int is_bf16, int causal,
+                                   long long sb, long long st, long long sh, float scale,
+                                   void* stream) {
+  if (!args_ok(B, H, T) || !is_bf16) return (int)cudaErrorInvalidValue;
+  const Args a{B, H, T, sb, st, sh, scale, causal};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (Dh) {
+    case 64: return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, a, s);
+    case 128: return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

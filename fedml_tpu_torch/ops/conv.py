@@ -104,9 +104,9 @@ def conv3x3_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 # --- the kernel wrappers ------------------------------------------------------
 
-SLICE = 16                # contraction elements staged per step (csrc kSlice)
-TILE = 4096               # outputs of one block (kTile)
-TARGET_BLOCKS = 132 * 8   # about eight blocks per H100 SM
+SLICE = 16                # the forward's contraction elements per step (csrc kSlice)
+GROUP_PIXELS = 16         # pixels of a dw slice one thread group sums (kGroupPixels)
+TARGET_BLOCKS = 132 * 2   # dw blocks: two per H100 SM, one wave
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -118,14 +118,26 @@ def block_cols(co: int) -> int:
     return 16 if co <= 16 else 32 if co <= 32 else 64
 
 
+def dw_tile(ci: int, co: int) -> Tuple[int, int, int, int]:
+    """(rows, columns, threads, slice pixels) of the weight-gradient block
+    (csrc ``dw_rows``, ``block_cols``, ``dw_groups`` and ``kGroupPixels``):
+    rows sized to the contraction K = 9 Ci — all of K <= 32 (the stem's
+    27), 144 where they divide K, else 64 — and groups of ``rows`` threads,
+    256 or 288 in all, each summing 16 pixels of a slice."""
+    k = 9 * ci
+    rows = 32 if k <= 32 else 144 if k % 144 == 0 else 64
+    groups = 2 if rows == 144 else 256 // rows
+    return rows, block_cols(co), groups * rows, groups * GROUP_PIXELS
+
+
 def dw_split_plan(L: int, P: int, ci: int, co: int) -> Tuple[int, int]:
     """(span, splits): each lane's P = B*H*W pixels are cut into ``splits``
-    spans of ``span`` (a multiple of SLICE) so that lanes x tiles x splits
-    fills the card even where the (9 Ci, Co) output is one tile."""
-    bn = block_cols(co)
-    tiles = _cdiv(9 * ci, TILE // bn) * _cdiv(co, bn)
-    splits = min(max(1, _cdiv(TARGET_BLOCKS, tiles * L)), _cdiv(P, SLICE), 65535)
-    span = _cdiv(_cdiv(P, splits), SLICE) * SLICE
+    spans of ``span`` (a multiple of the block's slice) so that lanes x
+    tiles x splits is at most TARGET_BLOCKS, one wave of blocks."""
+    rows, cols, _, sl = dw_tile(ci, co)
+    tiles = _cdiv(9 * ci, rows) * _cdiv(co, cols)
+    splits = min(max(1, TARGET_BLOCKS // (tiles * L)), _cdiv(P, sl), 65535)
+    span = _cdiv(_cdiv(P, splits), sl) * sl
     return span, _cdiv(P, span)
 
 

@@ -1,10 +1,10 @@
 """Flash attention (port of ``fedml_tpu/ops/pallas/flash_attention.py``).
 
 Hand-written CUDA kernels on (B, T, H, Dh) tensors, bf16 or float32 with
-Dh 64 or 128, causal or not. bf16 forward and dk/dv run on the tensor cores
+Dh 64 or 128, causal or not. bf16 inputs run on the tensor cores
 (``csrc/flash_attention_sm90.cu``, wgmma, exact to float32 through a
-three-term bf16 split of p and ds); float32 inputs and dq run the FMA
-kernels of ``csrc/flash_attention.cu``:
+three-term bf16 split of p and ds); float32 inputs run the FMA kernels of
+``csrc/flash_attention.cu``:
 
 - :func:`flash_forward` — online-softmax attention; returns ``out`` in q's
   dtype and the per-row logsumexp ``lse`` (B*H, 1, T) float32, the TPU
@@ -235,13 +235,13 @@ def _fn(lib, name, n_ptrs):
 
 
 # entry points with a tensor-core (wgmma) version for bf16 inputs
-TENSOR_CORE = ("fedml_flash_fwd", "fedml_flash_dkv")
+TENSOR_CORE = ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv")
 
 
 def route(name: str, dtype: torch.dtype) -> Tuple[str, str]:
     """(kernel library, C entry point) that runs ``name`` on inputs of
-    ``dtype``: bf16 forward and dk/dv go to ``flash_attention_sm90``, the
-    rest to the FMA kernels of ``flash_attention``. Both take the same
+    ``dtype``: bf16 forward, dq and dk/dv go to ``flash_attention_sm90``,
+    float32 to the FMA kernels of ``flash_attention``. Both take the same
     arguments."""
     if dtype == torch.bfloat16 and name in TENSOR_CORE:
         return "flash_attention_sm90", name + "_sm90"

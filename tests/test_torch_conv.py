@@ -164,11 +164,37 @@ def test_conv_module_dispatch(monkeypatch):
 
 @pytest.mark.parametrize("L,P,ci,co", [(10, 65536, 3, 16), (10, 65536, 16, 16),
                                        (10, 16384, 32, 32), (10, 4096, 64, 64),
-                                       (3, 315, 5, 7), (1, 1, 1, 1)])
+                                       (3, 315, 5, 7), (1, 1, 1, 1), (1, 65536, 8, 100)])
 def test_dw_split_plan_covers_the_contraction(L, P, ci, co):
+    """Spans are whole slices of the block's tile and cover every pixel once;
+    the tiles cover every (k, n) of dw; the block has 256 or 288 threads and
+    the grid never exceeds TARGET_BLOCKS (whole waves) unless one span per
+    tile already does."""
+    rows, cols, threads, sl = tconv.dw_tile(ci, co)
+    assert rows % 16 == 0 and cols % 16 == 0 and threads in (256, 288) and threads % sl == 0
+    assert cols >= min(co, 64) and cols == tconv.block_cols(co)
     span, splits = tconv.dw_split_plan(L, P, ci, co)
-    assert span % tconv.SLICE == 0 and 1 <= splits <= 65535
+    assert span % sl == 0 and 1 <= splits <= 65535
     assert (splits - 1) * span < P <= splits * span
+    tiles = -(-9 * ci // rows) * -(-co // cols)
+    blocks = L * tiles * splits
+    assert blocks <= max(tconv.TARGET_BLOCKS, L * tiles)
+
+
+# (Ci, Co) of ResNet-56's weight gradients: the stem, then each stage
+RESNET56_DW = ((3, 16), (16, 16), (32, 32), (64, 64))
+
+
+@pytest.mark.parametrize("ci,co", RESNET56_DW)
+def test_dw_tile_fits_the_contraction_at_resnet56_shapes(ci, co):
+    """The dw block's rows are sized to 9 Ci: under 25% of the rows it
+    computes are padding (the stem's 27 in 32; 144, 288 and 576 in whole
+    144-row tiles)."""
+    rows, cols, _, _ = tconv.dw_tile(ci, co)
+    k = 9 * ci
+    computed = -(-k // rows) * rows
+    assert (computed - k) / computed < 0.25
+    assert cols == co  # and no padding columns
 
 
 def test_wrappers_refuse_other_devices():

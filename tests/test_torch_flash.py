@@ -226,7 +226,8 @@ def test_route_sends_bf16_forward_and_dkv_to_the_tensor_cores():
         ("flash_attention_sm90", "fedml_flash_fwd_sm90")
     assert tfa.route("fedml_flash_dkv", torch.bfloat16) == \
         ("flash_attention_sm90", "fedml_flash_dkv_sm90")
-    assert tfa.route("fedml_flash_dq", torch.bfloat16) == ("flash_attention", "fedml_flash_dq")
+    assert tfa.route("fedml_flash_dq", torch.bfloat16) == \
+        ("flash_attention_sm90", "fedml_flash_dq_sm90")
 
 
 # --- the tensor-core kernels' arithmetic, emulated on the CPU -----------------
@@ -285,16 +286,19 @@ def test_three_term_split_is_exact():
 
 def test_three_term_split_products_are_float32_exact():
     """At (1, 2048, 4, 64) bf16 causal, the products with a float32 operand
-    (P V, P^T dO, dS^T Q) taken as three bf16 terms, f32 sums: out, dv and dk
-    against float64 stay within float32 summation noise and almost never move
-    a bf16 output; p rounded once to bf16 moves far more than the gate allows."""
+    (P V, P^T dO, dS^T Q, dS K) taken as three bf16 terms, f32 sums: out, dv,
+    dk and dq against float64 stay within float32 summation noise and almost
+    never move a bf16 output; p rounded once to bf16 moves far more than the
+    gate allows. dq sums its 64-key tiles as the kernel does: each tile's
+    split product from zero, then scale times it added in float32."""
     B, T, H, Dh = 1, 2048, 4, 64
     rng = np.random.default_rng(5)
     q, k, v, do = (torch.from_numpy(rng.standard_normal((H, T, Dh), dtype=np.float32))
                    .to(torch.bfloat16).float() for _ in range(4))
     scale = Dh ** -0.5
     above = torch.ones(T, T, dtype=torch.bool).triu(1)
-    got, want, one_term = {"out": [], "dv": [], "dk": []}, {"out": [], "dv": [], "dk": []}, []
+    names = ("out", "dv", "dk", "dq")
+    got, want, one_term = {n: [] for n in names}, {n: [] for n in names}, []
     for h in range(H):
         qh, kh, vh, doh = q[h], k[h], v[h], do[h]
         # exact, in float64
@@ -307,6 +311,7 @@ def test_three_term_split_products_are_float32_exact():
         want["out"].append(out64)
         want["dv"].append(p64.T @ doh.double())
         want["dk"].append(scale * (ds64.T @ qh.double()))
+        want["dq"].append(scale * (ds64 @ kh.double()))
         # the kernels: bf16 x bf16 products exact with float32 sums
         s32 = (qh @ kh.T * scale).masked_fill(above, tfa.NEG_INF)
         p = torch.exp(s32 - s32.amax(-1, keepdim=True))
@@ -317,6 +322,10 @@ def test_three_term_split_products_are_float32_exact():
         ds = pb * (doh @ vh.T - delta64.float())
         got["dv"].append(_split_mm(pb.T.contiguous(), doh))
         got["dk"].append(scale * _split_mm(ds.T.contiguous(), qh))
+        dq = torch.zeros(T, Dh)
+        for k0 in range(0, T, 64):
+            dq += scale * _split_mm(ds[:, k0:k0 + 64].contiguous(), kh[k0:k0 + 64])
+        got["dq"].append(dq)
     for name in got:
         share, err = _vs_exact(torch.stack(got[name]), torch.stack(want[name]))
         assert share <= GATE_SHARE / 4, (name, share)
