@@ -7,30 +7,40 @@ Phases, each printing one JSON line; any failure ends the run with a
 non-zero exit code and no result line:
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — nvcc builds every kernel of the port from csrc/, in parallel;
+2. build — nvcc builds every kernel of the port from csrc/, in parallel,
+   and csrc/tc_rate.cu; tc_rate — the TF32 rate mma.sync reaches on this
+   card (the conv forward's instruction), against the dense peak the
+   bounds count;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and a few ragged ones, with timings of the
    kernel, the plain version and (where one exists) a library call: the
    codec's quantize_pack, the Gram plane, the 3x3 multi-weight conv
-   forward (conv3x3, also dx) and its weight gradient (conv3x3_dw), and
+   forward (conv3x3, also dx: ResNet's block convs on the tensor cores in
+   three TF32 products, the others on the FMA kernel, whose time at the
+   block shapes is reported beside as was_ms) and its weight gradient
+   (conv3x3_dw), and
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
    flash_dkv; SDPA as the library call; bf16 inputs on the tensor
    cores, float32 on the FMA kernels);
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
+4b. repeat — the small robust path on cnn_fedavg and the small resnet8
+   path each run twice on the card: every round's train_loss and the final
+   global parameters must be bit-equal;
 5. main — the robust FedAvg path through fedml_tpu_torch.init +
    run_simulation: q8 codec, sanitizer, multi-Krum, agg_kernels on
    cnn_fedavg at full width, MNIST shapes, 1000 clients, 10 per round,
    5 rounds, with every kernel's launch count read around the run;
 6. profile — torch.profiler over three warm rounds of the main config:
-   device busy and idle share per round, top kernels;
+   device busy and idle share per round, top kernels; then the same with
+   cuDNN's nondeterministic algorithms allowed, for what determinism costs;
 7. small_resnet — resnet8 FedAvg on small cifar10 (conv_impl pallas) on the
    card against the same run on the CPU;
 8. resnet_main — the CIFAR-10 ResNet-56 FedAvg example config
    (examples/tpu_fedavg_cifar10_resnet56) through load_arguments + init +
    run_simulation with conv_impl pallas, full width and depth, 3 rounds of
-   one epoch; the conv kernels' launch counts must equal those derived
-   from the config;
+   one epoch; the conv kernels' launch counts, per forward route too, must
+   equal those derived from the config;
 9. resnet_profile — torch.profiler over two warm ResNet-56 rounds;
 10. small_lm — the Cheetah LM trainer at f32, T 4096 (auto dispatch picks
     flash) on the card against the same run on the CPU (plain versions);
@@ -61,6 +71,7 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 on the tensor cores
 QUANT_OPS_PER_ELEM = 25     # hash, divide, add, floor, clip, multiply per element
 # cnn_fedavg's compressible leaves (>= 64 elements), in leaf order
 MAIN_LEAF_M = (800, 51200, 64, 1605632, 512, 5120)
@@ -72,8 +83,11 @@ GRAM_TOL = 2e-5
 # conv: |y_kernel - y_plain| / (the same product on |x|, |w|), elementwise.
 # Each output sums at most 9*Ci (forward) or B*H*W (dw) fp32 products in
 # another order than the plain version's; each partial sum rounds by at most
-# 6e-8 of the magnitudes, and an H100 measured <= 3.1e-7. 1e-5
-# leaves margin yet catches a wrong tap or channel (an error of O(1)).
+# 6e-8 of the magnitudes, and an H100 measured <= 3.1e-7. The tensor-core
+# forward's three TF32 products drop ~3 * 2^-22 ~ 7e-7 of each product's
+# magnitude (emulated on the CPU: <= 3.4e-7). 1e-5 leaves margin yet
+# catches a wrong tap or channel (an error of O(1)) or one unsplit TF32
+# product (~1e-4).
 CONV_TOL = 1e-5
 # (L, B, H, W, Ci, Co) of the stride-1 3x3 convs of ResNet-56's local step
 # (10 clients x batch 64): the stem, then one shape per stage
@@ -119,10 +133,40 @@ def phase_build():
     from fedml_tpu_torch.ops import KERNELS, _build
 
     t = time.perf_counter()
-    report = _build.build(KERNELS)
-    ptxas = {k: [ln for ln in v["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
+    report = _build.build(KERNELS + ("tc_rate",))
+    ptxas = {k: [ln.strip() for ln in v["ptxas"].splitlines()
+                 if "registers" in ln or "spill" in ln or "entry function" in ln]
              for k, v in report.items()}
     emit("build", seconds=time.perf_counter() - t, ptxas=ptxas)
+
+
+def phase_tc_rate(dev):
+    """TFLOP/s of independent mma.sync.m16n8k8 TF32 chains over the whole
+    card (csrc/tc_rate.cu), beside TF32_OPS_PER_S. Returns the rate in
+    operations per second."""
+    import ctypes
+
+    from fedml_tpu_torch.ops import _build
+
+    lib = _build.load("tc_rate")
+    lib.fedml_tc_rate.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.fedml_tc_rate.restype = ctypes.c_int
+    lib.fedml_tc_rate_ops.argtypes = [ctypes.c_int] * 3
+    lib.fedml_tc_rate_ops.restype = ctypes.c_longlong
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count * 8
+    threads, iters = 128, 500
+    out = torch.empty(blocks * threads, device=dev)
+
+    def run():
+        _build.check(lib.fedml_tc_rate(out.data_ptr(), blocks, threads, iters,
+                                       torch.cuda.current_stream(dev).cuda_stream),
+                     "fedml_tc_rate")
+
+    ms = time_ms(run, reps=3, rounds=3)
+    rate = lib.fedml_tc_rate_ops(blocks, threads, iters) / (ms * 1e-3)
+    emit("tc_rate", instruction="mma.sync.m16n8k8 tf32, f32 sums", blocks=blocks,
+         threads=threads, ms=ms, tflops=rate / 1e12, share_of_tf32_peak=rate / TF32_OPS_PER_S)
+    return rate
 
 
 def check_quant(dev):
@@ -265,6 +309,38 @@ def phase_small():
          cpu=[(r["train_loss"], r["test_acc"]) for r in hist["cpu"]])
 
 
+def _run_twice(config):
+    """(train losses, final global parameters on the CPU) of two runs of
+    ``config`` through init + build_simulator + run."""
+    import fedml_tpu_torch as ft
+    from fedml_tpu_torch.simulation import build_simulator
+
+    runs = []
+    for _ in range(2):
+        sim, _ = build_simulator(ft.init(config=dict(config)))
+        hist = sim.run(None, log_fn=None)
+        runs.append(([r["train_loss"] for r in hist],
+                     {k: v.detach().cpu() for k, v in sim.params.items()}))
+    return runs
+
+
+def phase_repeat():
+    """Two runs of one config on the card give bit-identical histories and
+    final parameters, as the reference's do: the small robust path on
+    cnn_fedavg (cuDNN's conv and its backward, pinned deterministic by
+    resolve_device) and the small resnet8 path (the conv kernels)."""
+    for name, config in (("small_cnn", dict(small_config("cuda"), model="cnn_fedavg")),
+                         ("small_resnet", small_resnet_config("cuda"))):
+        (la, pa), (lb, pb) = _run_twice(config)
+        if not (torch.equal(torch.tensor(la), torch.tensor(lb))
+                and pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)):
+            diff = max((pa[k] - pb[k]).abs().max().item() for k in pa)
+            raise AssertionError(f"{name} is not repeatable: losses {la} vs {lb}, "
+                                 f"parameters differ by up to {diff}")
+        emit("repeat", slice=name, model=config["model"], rounds=len(la), train_loss=la,
+             params=len(pa), repeatable=True)
+
+
 MAIN_CONFIG = dict(
     dataset="mnist", model="cnn_fedavg", client_num_in_total=1000, client_num_per_round=10,
     batch_size=10, learning_rate=0.03, epochs=1, partition_method="hetero",
@@ -337,14 +413,24 @@ def profile_run(run, n, ours, unit="round"):
 
 def phase_profile(rounds=3):
     """Where a main-path round's time goes: three warm rounds of the main
-    config after a warm-up run."""
+    config after a warm-up run; then the same rounds with cuDNN free to pick
+    nondeterministic algorithms, for what the determinism pin costs."""
     import fedml_tpu_torch as ft
     from fedml_tpu_torch.simulation import build_simulator
 
     sim, _ = build_simulator(ft.init(config=dict(MAIN_CONFIG, comm_round=rounds)))
+    ours = ("quantize_pack_kernel", "gram_partial_kernel", "gram_reduce_kernel")
     sim.run(None, log_fn=None)  # warm-up
-    emit("profile", **profile_run(lambda: sim.run(None, log_fn=None), rounds, (
-        "quantize_pack_kernel", "gram_partial_kernel", "gram_reduce_kernel")))
+    det = profile_run(lambda: sim.run(None, log_fn=None), rounds, ours)
+    torch.backends.cudnn.deterministic = False
+    try:
+        sim.run(None, log_fn=None)
+        nondet = profile_run(lambda: sim.run(None, log_fn=None), rounds, ours)
+    finally:
+        torch.backends.cudnn.deterministic = True
+    emit("profile", cudnn_deterministic=True, **det,
+         cudnn_nondeterministic={k: nondet[k] for k in (
+             "wall_ms_per_round", "device_busy_ms_per_round", "idle_share", "top")})
 
 
 def _conv_case(shape, gen, dev):
@@ -372,45 +458,66 @@ def _conv_ops(shape):
     return 2 * L * B * ci * co * (3 * H - 2) * (3 * W - 2)
 
 
-def _bound(ops, nbytes, bf16_ops=0):
+def _bound(ops, nbytes, bf16_ops=0, tf32_ops=0):
     """ops run at the float32 rate; bf16_ops on the bf16 tensor cores, which
-    multiply two bf16 operands exactly with float32 sums."""
+    multiply two bf16 operands exactly with float32 sums; tf32_ops on the
+    TF32 tensor cores (a float32 product exact to float32 counts as three
+    TF32 products, hi hi + hi lo + lo hi)."""
     b = nbytes / HBM_BYTES_PER_S * 1e3
-    o = (ops / FP32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
+    o = (ops / FP32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S + tf32_ops / TF32_OPS_PER_S) * 1e3
     return {"bound_ms": max(b, o), "bound_by": "bytes" if b >= o else "operations"}
 
 
-def check_conv(dev):
-    """Kernel 3a (forward, also dx) within CONV_TOL of the plain version at
-    the main path's four shapes, the eval shape, a ragged one and a
-    lane-broadcast w; timings beside cuDNN's grouped conv."""
+def check_conv(dev, tc_rate):
+    """Kernel 3a (forward, also dx) within CONV_TOL of the plain version and
+    bit-equal across two calls at the main path's four shapes, the eval
+    shape and a ragged one, and with a lane-broadcast w; timings beside
+    cuDNN's grouped conv and, where the shape runs on the tensor cores, the
+    FMA kernel's time on it (was_ms). The bound counts the route's work:
+    three TF32 tensor-core products per multiply-add on the tf32x3 route,
+    one float32 FMA on the fma route (fma_bound_ms: the latter at every
+    shape); mma_sync_ms: the tf32x3 route's operations at ``tc_rate``, the
+    rate its instruction reached in phase tc_rate."""
     from fedml_tpu_torch.ops import conv as C
 
     gen = torch.Generator().manual_seed(3)
     entry = None
     for shape in CONV_MAIN + CONV_EXTRA:
         L, B, H, W, ci, co = shape
+        route = C.fwd_route(ci, co)
         x, w, _, xn, wn, _ = _conv_case(shape, gen, dev)
         y = C.conv3x3_lanes(x, w)
         yp = C.conv3x3_plain(x, w)
-        err = _normalised_err(y, yp, C.conv3x3_plain(x.abs(), w.abs()))
+        mag = C.conv3x3_plain(x.abs(), w.abs())
+        err = _normalised_err(y, yp, mag)
         lib = F.conv2d(xn, wn, padding=1, groups=L)
-        lib_err = _normalised_err(lib.reshape(B, L, co, H, W).permute(1, 0, 3, 4, 2), yp,
-                                  C.conv3x3_plain(x.abs(), w.abs()))
+        lib_err = _normalised_err(lib.reshape(B, L, co, H, W).permute(1, 0, 3, 4, 2), yp, mag)
         if not (err <= CONV_TOL and lib_err <= CONV_TOL):
-            raise AssertionError(f"conv3x3 at {shape}: normalised error {err} "
+            raise AssertionError(f"conv3x3 at {shape} ({route}): normalised error {err} "
                                  f"(cuDNN {lib_err}) > {CONV_TOL}")
+        if not torch.equal(y, C.conv3x3_lanes(x, w)):
+            raise AssertionError(f"conv3x3 at {shape} ({route}) is not repeatable")
         ops = _conv_ops(shape)
         nbytes = (L * B * H * W * (ci + co) + L * 9 * ci * co) * 4
+        fma_bound = _bound(ops, nbytes)
         row = {"ms": time_ms(lambda: C.conv3x3_lanes(x, w)),
                "plain_ms": time_ms(lambda: C.conv3x3_plain(x, w)),
                "library_ms": time_ms(lambda: F.conv2d(xn, wn, padding=1, groups=L)),
-               "max_abs_err": (y - yp).abs().max().item(), **_bound(ops, nbytes)}
-        emit("kernel_conv3x3", shape=list(shape), normalised_err=err, tol=CONV_TOL,
-             library_normalised_err=lib_err, gflop=ops / 1e9, **row)
+               "max_abs_err": (y - yp).abs().max().item(),
+               **(_bound(0, nbytes, tf32_ops=3 * ops) if route == "tf32x3" else fma_bound),
+               "fma_bound_ms": fma_bound["bound_ms"]}
+        if route == "tf32x3":
+            row["mma_sync_ms"] = 3 * ops / tc_rate * 1e3
+            fma_err = _normalised_err(C.conv3x3_fwd_route(x, w, "fma"), yp, mag)
+            if not fma_err <= CONV_TOL:
+                raise AssertionError(f"conv3x3 fma kernel at {shape}: {fma_err} > {CONV_TOL}")
+            row["was_ms"] = time_ms(lambda: C.conv3x3_fwd_route(x, w, "fma"))
+        emit("kernel_conv3x3", shape=list(shape), conv_route=route, normalised_err=err,
+             tol=CONV_TOL, library_normalised_err=lib_err, repeatable=True,
+             gflop=ops / 1e9, **row)
         if shape == CONV_REPORTED:
             entry = {"name": "conv3x3", "route": "cuda",
-                     "source": "fedml_tpu_torch/csrc/conv3x3.cu",
+                     "source": "fedml_tpu_torch/csrc/" + C.FWD_ROUTES[route][0] + ".cu",
                      "replaces": "fedml_tpu/ops/conv.py:181", **row}
             # the first local step: every lane shares the global weights
             wb = w[:1].expand_as(w)
@@ -418,7 +525,8 @@ def check_conv(dev):
                                     C.conv3x3_plain(x.abs(), wb.abs()))
             if not err_b <= CONV_TOL:
                 raise AssertionError(f"conv3x3 with a broadcast w: {err_b} > {CONV_TOL}")
-            emit("kernel_conv3x3", shape=list(shape), w_lanes=1, normalised_err=err_b)
+            emit("kernel_conv3x3", shape=list(shape), conv_route=route, w_lanes=1,
+                 normalised_err=err_b)
     return entry
 
 
@@ -528,28 +636,40 @@ def phase_resnet_main():
     sizes = [len(v) for v in fed._global_index.values()]
     steps_per_round = int(args.epochs) * -(-max(sizes) // int(args.batch_size))
     model = models_mod.create(args, classes, tuple(fed.train_data_global.x.shape[1:]))
-    convs = sum(1 for m in model.modules() if isinstance(m, C.Conv)
-                and m.impl == "pallas" and m.stride == 1 and tuple(m.kernel.shape[:2]) == (3, 3))
+    conv_channels = [tuple(m.kernel.shape[2:]) for m in model.modules()
+                     if isinstance(m, C.Conv) and m.impl == "pallas" and m.stride == 1
+                     and tuple(m.kernel.shape[:2]) == (3, 3)]
+    convs = len(conv_channels)
     rounds, freq = int(args.comm_round), int(args.frequency_of_the_test)
     evals = sum(1 for r in range(rounds) if r % freq == 0 or r == rounds - 1)
     eval_batches = -(-len(fed.test_data_global.y) // EVAL_BATCH_SIZE)
     steps = rounds * steps_per_round
     want = {"conv3x3": steps * (convs + convs - 1) + evals * eval_batches * convs,
             "conv3x3_dw": steps * convs}
+    # per forward route: each conv's forward at its (Ci, Co), its dx (not
+    # the stem's) at (Co, Ci)
+    want_routes = dict.fromkeys(C.FWD_ROUTES, 0)
+    for i, (ci, co) in enumerate(conv_channels):
+        want_routes[C.fwd_route(ci, co)] += steps + evals * eval_batches
+        if i:
+            want_routes[C.fwd_route(co, ci)] += steps
     del fed, model
 
     args = ft.init(resnet_args())  # re-seed: the partition above drew from numpy
     torch.cuda.reset_peak_memory_stats()
     C.conv3x3_lanes.launches = 0
+    C.conv3x3_lanes.route_launches = dict.fromkeys(C.FWD_ROUTES, 0)
     C.conv3x3_dw_lanes.launches = 0
     t = time.perf_counter()
     hist = ft.run_simulation(args=args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {"conv3x3": C.conv3x3_lanes.launches, "conv3x3_dw": C.conv3x3_dw_lanes.launches}
-    if launches != want:
-        raise AssertionError(f"resnet main path launches {launches}, expected {want} "
-                             f"({convs} convs, {steps} steps, {evals} evals)")
+    routes = dict(C.conv3x3_lanes.route_launches)
+    if launches != want or routes != want_routes:
+        raise AssertionError(f"resnet main path launches {launches}, by forward route {routes}; "
+                             f"expected {want}, {want_routes} ({convs} convs, {steps} steps, "
+                             f"{evals} evals)")
     losses = [r["train_loss"] for r in hist]
     if len(hist) != rounds or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"resnet main path history not finite: {losses}")
@@ -563,7 +683,7 @@ def phase_resnet_main():
          train_acc=[r["train_acc"] for r in hist],
          test=[(r["round"], r["test_loss"], r["test_acc"]) for r in evals_seen],
          round_time_s=[r["round_time"] for r in hist], launches=launches,
-         peak_mem_bytes=torch.cuda.max_memory_allocated())
+         conv3x3_route_launches=routes, peak_mem_bytes=torch.cuda.max_memory_allocated())
     return launches
 
 
@@ -576,7 +696,8 @@ def phase_resnet_profile(rounds=2):
     sim, _ = build_simulator(ft.init(resnet_args(comm_round=rounds)))
     sim.run(None, log_fn=None)  # warm-up
     emit("resnet_profile", **profile_run(lambda: sim.run(None, log_fn=None), rounds, (
-        "conv3x3_fwd_kernel", "conv3x3_dw_partial_kernel", "conv3x3_dw_reduce_kernel")))
+        "conv3x3_tf32_kernel", "conv3x3_fwd_kernel", "conv3x3_dw_partial_kernel",
+        "conv3x3_dw_reduce_kernel")))
 
 
 # --- the Cheetah LM slice: flash attention ------------------------------------
@@ -851,12 +972,14 @@ def main(argv):
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     phase_build()
-    entries = [check_quant(dev), check_gram(dev), check_conv(dev), check_conv_dw(dev),
+    tc_rate = phase_tc_rate(dev)
+    entries = [check_quant(dev), check_gram(dev), check_conv(dev, tc_rate), check_conv_dw(dev),
                *check_flash(dev)]
     if argv == ["kernels"]:
         return 0
     check_fused_krum(dev)
     phase_small()
+    phase_repeat()
     launches = phase_main()
     phase_profile()
     phase_small_resnet()

@@ -1,0 +1,447 @@
+// 3x3 / stride-1 / SAME convolution over a leading lane axis (one weight set
+// per client lane) on the Hopper tensor cores, exact to float32 through three
+// TF32 products (3xTF32). Activations NHWC, weights HWIO, float32. It runs
+// the forward (and so dx, the forward of dy with the flipped,
+// channel-transposed kernel) for Ci = Co in {16, 32, 64}: ResNet's block
+// convs. Other channel counts (the stem's 3 -> 16, ragged shapes) keep the
+// FMA kernel of conv3x3.cu; ops/conv.py::fwd_route picks by (Ci, Co) and
+// mirrors tc_channels() below.
+//
+// Replaces: fedml_tpu/ops/conv.py::conv2d_pallas — the forward Pallas kernel
+// _fwd_kernel (:143, pallas_call :208), which builds the [Bt H W, 9 Ci] patch
+// matrix in VMEM (_build_patches :124) and runs one jnp.dot against
+// w.reshape(9 Ci, Co); reused for dx by _conv2d_pallas_bwd (:226). Under
+// jax.vmap the Pallas grid gains the lane axis; here it is blockIdx.y.
+//
+// It is a GEMM over an implicit patch matrix: y[l, m, n] = sum_k A_l[m, k]
+// w[l, k, n], m = (b, h, w) a pixel, k = (dy, dx, ci), A_l[m, k] =
+// x[l, b, h + dy - 1, w + dx - 1, ci], zero outside the image.
+//
+// Bound on the H100 at the path's block shapes (L = 10 lanes, B = 64; bytes
+// = x and y once, w; operations = 3 TF32 products of 2 operations per
+// multiply-add over the taps inside the image, at 495 TFLOP/s):
+//   32x32, 16 -> 16: 84.0 MB, 0.0251 ms of bytes; 0.0175 ms of operations
+//   16x16, 32 -> 32: 41.9 MB, 0.0125 ms;          0.0168 ms
+//    8x8,  64 -> 64: 10.5 MB, 0.0031 ms;          0.0154 ms
+// The first is bound by bytes, the others by operations. On the CUDA cores
+// (fp32 FMA at 67 TFLOP/s) the same work cannot take less than 0.038-0.043
+// ms; that is why this kernel exists.
+//
+// Exactness. Each operand v (an x or a w value) is split in the kernel into
+// hi = cvt.rna.tf32(v) (computed with two integer operations, the same bits
+// as the conversion instruction for every finite v) and lo = v - hi, exact
+// in float32 with |lo| <= 2^-11 |v|; the tensor core reads lo as TF32 by
+// dropping its low 13 bits, an error of at most 2^-10 |lo| <= 2^-21 |v|. A
+// TF32 x TF32 product (11 x 11 significant bits) is exact in float32, so
+// a_lo b_hi + a_hi b_lo + a_hi b_hi differs from a b by the dropped a_lo b_lo
+// (<= 2^-22 |a||b|) and the two reads of lo: at most ~1.2e-6 of the
+// magnitudes, inside chip_smoke.py's CONV_TOL = 1e-5 (|y - plain| / the same
+// product on |x|, |w|); one unsplit TF32 product errs by ~1e-4 there. The
+// three products go into one accumulator, small terms first (lo hi, hi lo,
+// then hi hi). The tensor cores' float32 sums do not round to nearest and
+// their errors lean one way, which over a long run of additions into one
+// accumulator adds up (the bf16 flash kernels of flash_attention_sm90.cu
+// failed their gate that way at T 8192). Here the run is one tap: each tap's products (2-8 k-steps of 8,
+// three mma each) start from a zero accumulator, and the nine tap sums are
+// added in float32 registers, rounded to nearest, in tap order.
+// tests/test_torch_conv.py emulates this split and order on the CPU. No
+// atomics and no split of the contraction across blocks: y repeats bit for
+// bit. The pins that keep PyTorch's matmuls and cuDNN off TF32 stay.
+//
+// Design. mma.sync.m16n8k8 (row.col, tf32, float32 sums), whose A fragments
+// load from any shared-memory address: that suits the tap-shifted reads of
+// one halo tile. A tile is BM = 32 WM pixel slots of one lane: whole image
+// rows (and, where an image is smaller than BM, BM / (H W) images), or BM
+// columns of a row wider than that. Its (rows + 2) x (cols + 2) x Ci halo of
+// x is staged in shared memory by cp.async with zero-fill at the image
+// edge, so the patch matrix never reaches device memory (the TPU kernel's
+// VMEM patch matrix) and all nine taps read the halo at their shift. Warps
+// tile the block as WM (32 pixels each) x Co / 32 (columns, at most 32
+// each); a warp holds 2 x (its columns / 8) accumulator tiles and as many
+// for the tap sum. Within each k-step the logical k index j maps to channel
+// 2 j (j < 4) or 2 (j - 4) + 1, the same for A and B, so a thread's two A
+// values of a row are adjacent: one 8-byte shared load. Padding (halo
+// pixels Ci + 8 floats apart, w rows Co + 4) keeps those loads free of bank
+// conflicts. Per Ci (the dispatch at the end):
+//   Ci 16 and 32: w stays resident (all nine taps, staged once per block)
+//     and each block walks several tiles of its lane (as many blocks as the
+//     SMs hold, each the same number of tiles), staging the next tile's
+//     halo while this one's products run: one barrier per tile.
+//   Ci 64: w (157 KB with its padding) does not fit beside two halos; it
+//     streams one tap at a time through a two-stage ring, the next tap in
+//     flight during this one's products, one barrier per tap, a block per
+//     tile, three blocks per SM overlapping one's staging with another's
+//     products.
+// What bounds it on the H100: mma.sync does not reach the TF32 rate the
+// bound counts (wgmma's); chip_smoke.py's tc_rate phase measures what it
+// reaches (csrc/tc_rate.cu). The split is the next cost. cvt.rna.tf32.f32
+// runs on the slow conversion pipe, which made the kernel markedly slower
+// than the integer operations used here; rounding lo as well cost more
+// than the 2^-22 it buys and was dropped for the tensor core's own read of
+// lo. Splitting x once per tile into hi and lo planes in shared memory
+// doubles the A fragments' shared-memory traffic and ran slower. A
+// streamed w ring with a block per tile ran slower at Ci 16 and 32, a
+// persistent ring slower at Ci 64 (bring-up on the H100, PERF.md).
+// ptxas -v for sm_90a (chip_smoke.py's build phase): Ci 16 (taps unrolled,
+// cut for 4 blocks per SM) 128 registers with 16 bytes of spill stores and
+// 24 of loads; Ci 32 146 registers, Ci 64 160, no spills.
+//
+// Left for later: wgmma (both shared-memory operands K-major in TF32, A from
+// registers) for the rest of the tensor cores' rate; fewer integer
+// operations per split.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMI = 2;  // 16-row mma tiles per warp along the pixels: 32 slots
+
+// Ci = Co channels; WM warps along the pixels; RES: w resident (all nine
+// taps staged once) and a block walks several tiles, the next tile's halo
+// staged during this one's products; else w streams through a two-tap ring
+// and a block takes one tile; UNROLL: the nine taps unrolled
+template <int CI, int WM, bool RES, bool UNROLL>
+struct Cfg {
+  static constexpr int CO = CI;
+  static constexpr int WCOLS = CO < 32 ? CO : 32;  // columns of one warp
+  static constexpr int WARPS_N = CO / WCOLS;
+  static constexpr int NT = 32 * WM * WARPS_N;     // threads
+  static constexpr int BM = 32 * WM;               // pixel slots of a tile
+  static constexpr int NI = WCOLS / 8;             // 8-column mma tiles per warp
+  static constexpr int XS = CI + 8;                // floats between halo pixels
+  static constexpr int WS = CO + 4;                // floats between rows of a tap's w
+  static constexpr int WTAP = CI * WS;             // floats of one tap of w
+  static constexpr int WFLOATS = (RES ? 9 : 2) * WTAP;
+  static constexpr int HALOS = RES ? 2 : 1;        // halo buffers: tiles in flight
+  static constexpr int CPP = CI / 4;               // 16-byte chunks of a pixel
+  static constexpr int NPX = NT / CPP;             // halo pixels staged per pass
+  static_assert(CI % 16 == 0 && CO <= 64 && NT % CPP == 0, "channels the kernel takes");
+};
+
+// A tile's pixel slots: `imgs` images x `rb` rows x `cb` columns; the grid
+// of tiles along b, h and w; the halo's rows and columns
+struct Geo {
+  int imgs, rb, cb, nh, nw, hr, hc, halo_px;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, zero when !valid (src-size 0: nothing is read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// v = hi + lo: hi = cvt.rna.tf32.f32(v), computed on the integer units
+// (round the float32 bits at mantissa bit 13, ties away from zero: the same
+// bits for every finite v), and lo = v - hi, exact in float32, which the
+// tensor core reads as TF32 by dropping its low 13 bits
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// taps [tap0, tap0 + n) of w (each Ci x Co, contiguous) into shared memory,
+// WS floats between rows, one tap after another
+template <int CI, int CO, int NT, int WS>
+__device__ __forceinline__ void stage_w(float* dst, const float* wl, int tap0, int n, int t) {
+  const float* src = wl + (int64_t)tap0 * CI * CO;
+  for (int e = t; e < n * CI * CO / 4; e += NT) {
+    const int r = e / (CO / 4), c = 4 * (e % (CO / 4));  // r: row of the n taps
+    cp_async16(dst + r * WS + c, src + r * CO + c, true);
+  }
+}
+
+// The tile's origin: first image, row and column
+__device__ __forceinline__ void tile_origin(int tile, const Geo& g, int& b0, int& h0, int& w0) {
+  w0 = (tile % g.nw) * g.cb;
+  tile /= g.nw;
+  h0 = (tile % g.nh) * g.rb;
+  b0 = (tile / g.nh) * g.imgs;
+}
+
+// One tap's products into acc: from a zero accumulator, lo hi, hi lo, hi hi
+// per k-step, then added to acc in float32
+template <class C, int CI>
+__device__ __forceinline__ void tap_products(float (&acc)[kMI][C::NI][4], const float* hb,
+                                             const int (&hoff)[kMI][2], int toff,
+                                             const float* ws) {
+  float sacc[kMI][C::NI][4];
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < C::NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[mi][ni][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < CI / 8; ++ks) {
+    // A: a0 (row gid, k tig) and a2 (row gid, k tig + 4) are channels
+    // 8 ks + 2 tig and + 1, adjacent; a1, a3 the same for row gid + 8
+    uint32_t ah[kMI][4], al[kMI][4];
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi) {
+      const float2 v0 = *reinterpret_cast<const float2*>(hb + hoff[mi][0] + toff + 8 * ks);
+      const float2 v1 = *reinterpret_cast<const float2*>(hb + hoff[mi][1] + toff + 8 * ks);
+      split_tf32(v0.x, ah[mi][0], al[mi][0]);
+      split_tf32(v1.x, ah[mi][1], al[mi][1]);
+      split_tf32(v0.y, ah[mi][2], al[mi][2]);
+      split_tf32(v1.y, ah[mi][3], al[mi][3]);
+    }
+    // B: b0 (k tig, column gid) and b1 (k tig + 4) are w's rows 8 ks + 2 tig
+    // and + 1
+    uint32_t bh[C::NI][2], bl[C::NI][2];
+    const float* wk = ws + 8 * ks * C::WS;
+#pragma unroll
+    for (int ni = 0; ni < C::NI; ++ni) {
+      split_tf32(wk[8 * ni], bh[ni][0], bl[ni][0]);
+      split_tf32(wk[C::WS + 8 * ni], bh[ni][1], bl[ni][1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < C::NI; ++ni) {
+        mma_tf32(sacc[mi][ni], al[mi], bh[ni]);
+        mma_tf32(sacc[mi][ni], ah[mi], bl[ni]);
+        mma_tf32(sacc[mi][ni], ah[mi], bh[ni]);
+      }
+  }
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < C::NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] += sacc[mi][ni][e];
+}
+
+template <int CI, int WM, bool RES, bool UNROLL, int MINB>
+__global__ void __launch_bounds__(Cfg<CI, WM, RES, UNROLL>::NT, MINB)
+conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    float* __restrict__ y, int B, int H, int W, int64_t x_lane,
+                    int64_t w_lane, Geo g, int tiles) {
+  using C = Cfg<CI, WM, RES, UNROLL>;
+  constexpr int CO = C::CO;
+  extern __shared__ float4 smem4[];
+  float* wbuf = reinterpret_cast<float*>(smem4);
+  float* halo = wbuf + C::WFLOATS;  // HALOS buffers of halo_px * XS floats
+  const int halo_floats = g.halo_px * C::XS;
+
+  const int t = threadIdx.x, lane = blockIdx.y;
+  const float* xl = x + (int64_t)lane * x_lane;
+  const float* wl = w + (int64_t)lane * w_lane;
+  float* yl = y + (int64_t)lane * B * H * W * CO;
+
+  // the halo pixels this thread stages: chunk hcc of pixels hp0 + NPX j
+  const int hcc = 4 * (t % C::CPP), hp0 = t / C::CPP;
+  const int pc0 = hp0 % g.hc, pr0 = (hp0 / g.hc) % g.hr, pi0 = hp0 / (g.hc * g.hr);
+  // pixel p = (img, pr, pc) of buffer dst holds x[b0 + img, h0 + pr - 1,
+  // w0 + pc - 1, :], zero outside the image
+  auto stage_halo = [&](float* dst, int tile) {
+    int b0, h0, w0;
+    tile_origin(tile, g, b0, h0, w0);
+    int pc = pc0, pr = pr0, img = pi0;
+    for (int p = hp0; p < g.halo_px; p += C::NPX) {
+      const int b = b0 + img, h = h0 + pr - 1, ww = w0 + pc - 1;
+      const bool ok = b < B && h >= 0 && h < H && ww >= 0 && ww < W;
+      cp_async16(dst + p * C::XS + hcc,
+                 ok ? xl + (((int64_t)b * H + h) * W + ww) * CI + hcc : xl, ok);
+      pc += C::NPX;
+      while (pc >= g.hc) pc -= g.hc, ++pr;
+      while (pr >= g.hr) pr -= g.hr, ++img;
+    }
+  };
+
+  const int warp = t / 32, gid = (t % 32) >> 2, tig = t & 3;
+  const int wm = warp % WM, wn = warp / WM;
+  // per fragment row (mi, half): the halo offset of its slot's tap (0, 0)
+  int hoff[kMI][2];
+  const int slots = g.imgs * g.rb * g.cb;
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int s = wm * 32 + mi * 16 + gid + 8 * hh;
+      const int img = s / (g.rb * g.cb), r = (s / g.cb) % g.rb, c = s % g.cb;
+      hoff[mi][hh] = (s < slots ? ((img * g.hr + r) * g.hc + c) * C::XS : 0) + 2 * tig;
+    }
+  // this thread's B values: rows 2 tig and + 1 of each k-step, column
+  // wn * WCOLS + gid + 8 ni
+  const int boff = 2 * tig * C::WS + wn * C::WCOLS + gid;
+
+  const int tile0 = blockIdx.x, stride = gridDim.x;
+  const int my_tiles = RES ? (tiles - tile0 + stride - 1) / stride : 1;
+  // prologue: the first tile's halo with w (all of it, or its first tap)
+  stage_halo(halo, tile0);
+  stage_w<CI, CO, C::NT, C::WS>(wbuf, wl, 0, RES ? 9 : 1, t);
+  cp_async_commit();
+
+#pragma unroll 1
+  for (int i = 0; i < my_tiles; ++i) {
+    const int tile = tile0 + i * stride;
+    const float* hb = halo + (i & 1) * halo_floats;
+    float acc[kMI][C::NI][4];
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < C::NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    if constexpr (RES) {
+      cp_async_wait<0>();  // this tile's halo (and, first, w) has landed
+      __syncthreads();     // ... for every thread, and the other buffer is free
+      if (i + 1 < my_tiles) stage_halo(halo + ((i + 1) & 1) * halo_floats, tile + stride);
+      cp_async_commit();
+      if constexpr (UNROLL) {
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap)
+          tap_products<C, CI>(acc, hb, hoff, ((tap / 3) * g.hc + tap % 3) * C::XS,
+                              wbuf + tap * C::WTAP + boff);
+      } else {
+#pragma unroll 1
+        for (int tap = 0; tap < 9; ++tap)
+          tap_products<C, CI>(acc, hb, hoff, ((tap / 3) * g.hc + tap % 3) * C::XS,
+                              wbuf + tap * C::WTAP + boff);
+      }
+    } else {
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) {
+        cp_async_wait<0>();  // this tap's w (and, first, the halo) has landed
+        __syncthreads();     // ... for every thread, and tap - 1's ring slot is free
+        if (tap + 1 < 9)
+          stage_w<CI, CO, C::NT, C::WS>(wbuf + ((tap + 1) & 1) * C::WTAP, wl, tap + 1, 1, t);
+        cp_async_commit();
+        tap_products<C, CI>(acc, hb, hoff, ((tap / 3) * g.hc + tap % 3) * C::XS,
+                            wbuf + (tap & 1) * C::WTAP + boff);
+      }
+    }
+
+    // c0, c1: row gid, columns 2 tig and + 1; c2, c3: row gid + 8
+    int b0, h0, w0;
+    tile_origin(tile, g, b0, h0, w0);
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int s = wm * 32 + mi * 16 + gid + 8 * hh;
+        const int b = b0 + s / (g.rb * g.cb), h = h0 + (s / g.cb) % g.rb, ww = w0 + s % g.cb;
+        if (s >= slots || b >= B || h >= H || ww >= W) continue;
+        float* dst = yl + (((int64_t)b * H + h) * W + ww) * CO + wn * C::WCOLS + 2 * tig;
+#pragma unroll
+        for (int ni = 0; ni < C::NI; ++ni)
+          *reinterpret_cast<float2*>(dst + 8 * ni) =
+              make_float2(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
+      }
+  }
+  cp_async_wait<0>();
+}
+
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+
+// A tile's slots: whole rows of one image where a row fits BM (with as many
+// images as fit where the image does), else BM columns of one row; fewer
+// images, rows or columns where the halos and w would not fit the shared
+// memory.
+template <class C>
+Geo geometry(int B, int H, int W, int& bytes) {
+  Geo g;
+  g.cb = W < C::BM ? W : C::BM;
+  g.rb = g.cb < W ? 1 : (H < C::BM / W ? H : C::BM / W);
+  g.imgs = g.rb < H ? 1 : (B < C::BM / (H * W) ? B : C::BM / (H * W));
+  if (g.imgs < 1) g.imgs = 1;
+  auto smem = [&] {
+    return (int)sizeof(float) *
+           (C::HALOS * g.imgs * (g.rb + 2) * (g.cb + 2) * C::XS + C::WFLOATS);
+  };
+  while (smem() > kMaxSmem && g.imgs > 1) --g.imgs;
+  while (smem() > kMaxSmem && g.rb > 1) --g.rb;
+  while (smem() > kMaxSmem && g.cb > 1) g.cb = (g.cb + 1) / 2;
+  g.nh = (H + g.rb - 1) / g.rb;
+  g.nw = (W + g.cb - 1) / g.cb;
+  g.hr = g.rb + 2;
+  g.hc = g.cb + 2;
+  g.halo_px = g.imgs * g.hr * g.hc;
+  bytes = smem();
+  return g;
+}
+
+template <int CI, int WM, bool RES, bool UNROLL, int MINB>
+cudaError_t launch(const float* x, const float* w, float* y, int L, int B, int H, int W,
+                   int64_t x_lane, int64_t w_lane, cudaStream_t st) {
+  using C = Cfg<CI, WM, RES, UNROLL>;
+  int bytes;
+  const Geo g = geometry<C>(B, H, W, bytes);
+  const int64_t tiles = (int64_t)((B + g.imgs - 1) / g.imgs) * g.nh * g.nw;
+  if (tiles > 0x7fffffff || bytes > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = conv3x3_tf32_kernel<CI, WM, RES, UNROLL, MINB>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  int64_t blocks = tiles;
+  if constexpr (RES) {
+    // blocks per lane: the SM slots shared among the lanes, then as few as
+    // give every block the same number of tiles (rounds)
+    int dev, sms, per_sm;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, C::NT, bytes);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    const int64_t slots = ((int64_t)sms * per_sm + L - 1) / L;
+    const int64_t rounds = (tiles + slots - 1) / slots;
+    blocks = (tiles + rounds - 1) / rounds;
+  }
+  kernel<<<dim3((unsigned)blocks, (unsigned)L), C::NT, bytes, st>>>(x, w, y, B, H, W, x_lane,
+                                                                     w_lane, g, (int)tiles);
+  return cudaGetLastError();
+}
+
+// the channel counts this kernel takes (ops/conv.py::fwd_route)
+bool tc_channels(int Ci, int Co) { return Ci == Co && (Ci == 16 || Ci == 32 || Ci == 64); }
+
+}  // namespace
+
+// y (L, B, H, W, Co) = conv3x3(x (L | 1, B, H, W, Ci), w (L | 1, 3, 3, Ci, Co))
+// for Ci = Co in {16, 32, 64}; x and w contiguous per lane and 16-byte
+// aligned, x_lane / w_lane the lane strides in floats (0 to broadcast one
+// lane). The same arguments as conv3x3.cu's fedml_conv3x3_fwd. Returns the
+// cudaError_t of the launch.
+extern "C" int fedml_conv3x3_fwd_sm90(const float* x, const float* w, float* y, int L, int B,
+                                      int H, int W, int Ci, int Co, long long x_lane,
+                                      long long w_lane, void* stream) {
+  if (!tc_channels(Ci, Co) || L <= 0 || L > 65535 || B <= 0 || H <= 0 || W <= 0 ||
+      (int64_t)H * W > (1LL << 30) || x_lane < 0 || w_lane < 0 ||
+      ((uintptr_t)x & 15) || ((uintptr_t)w & 15))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  // <Ci, warps along the pixels, w resident, taps unrolled, blocks per SM
+  // the registers are cut for>: at the path's shapes Ci 16 keeps w (11.5 KB)
+  // and two halos in 51 KB, 4 blocks per SM; Ci 32 w (41.5 KB) and two halos
+  // in 99 KB, 2 blocks; Ci 64's w (157 KB padded) streams through the
+  // two-tap ring beside one halo, 64 KB, 3 blocks
+  switch (Ci) {
+    case 16: return (int)launch<16, 4, true, true, 4>(x, w, y, L, B, H, W, x_lane, w_lane, st);
+    case 32: return (int)launch<32, 4, true, false, 2>(x, w, y, L, B, H, W, x_lane, w_lane, st);
+    default: return (int)launch<64, 2, false, false, 3>(x, w, y, L, B, H, W, x_lane, w_lane, st);
+  }
+}

@@ -7,8 +7,10 @@ from ``data_cache_dir`` when present (idx / npz for MNIST, the dataset's
 extracted pickle batches ``cifar-10-batches-py/`` for CIFAR-10); otherwise
 the full-cardinality synthetic stand-in (60,000 / 10,000 of 28x28x1;
 50,000 / 10,000 of 32x32x3) is generated, byte-identical to the JAX
-package's. The other datasets of the JAX loader (and MNIST's LEAF-json
-natural partition) are not ported yet.
+package's. The other datasets of the JAX loader, and MNIST's LEAF-json
+natural partition, are not ported yet: where the JAX loader would read LEAF
+json dirs (``leaf_json_dirs``), this one raises instead of partitioning
+other data.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import gzip
 import os
 import pickle
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -25,6 +27,20 @@ from .federated import ArrayPair, FederatedData, build_federated_data
 from .synthetic import make_classification_like
 
 _SIZES = {"mnist": (60000, 10000), "cifar10": (50000, 10000)}  # (train, test)
+
+
+def leaf_json_dirs(cache_dir: Optional[str]) -> Optional[Tuple[str, str]]:
+    """The port's copy of ``fedml_tpu/data/leaf.py::leaf_json_dirs``: LEAF
+    ``train``/``test`` dirs under ``cache_dir`` or ``cache_dir/MNIST`` (where
+    the reference MNIST zip extracts), ``train`` holding a ``.json`` file."""
+    if not cache_dir:
+        return None
+    for base in (cache_dir, os.path.join(cache_dir, "MNIST")):
+        tr, te = os.path.join(base, "train"), os.path.join(base, "test")
+        if os.path.isdir(tr) and os.path.isdir(te):
+            if any(f.endswith(".json") for f in os.listdir(tr)):
+                return tr, te
+    return None
 
 
 def _read_idx(path: str) -> np.ndarray:
@@ -96,6 +112,11 @@ def load_partition_data(
         raise NotImplementedError(
             f"dataset '{dataset}' is not ported yet (ROADMAP.md Queue 1, "
             "item 2: host substrate); the port loads mnist and cifar10")
+    if dataset == "mnist" and leaf_json_dirs(data_cache_dir):
+        # the JAX loader would take these files' natural per-user partition
+        raise NotImplementedError(
+            f"mnist under data_cache_dir={data_cache_dir!r}: the LEAF json partition "
+            "is not ported yet (ROADMAP.md Queue 1, item 2)")
     scale = 0.02 if small else 1.0
     n_tr, n_te = (int(s * scale) for s in _SIZES[dataset])
     load_arrays = _load_mnist_arrays if dataset == "mnist" else _load_cifar10_arrays

@@ -4,7 +4,10 @@ The simulator runs ``torch.func.vmap`` of the local update over the cohort,
 so every conv of a client sees that client's own weights. Left to
 ``F.conv2d``, vmap lowers such a call to a grouped convolution. The JAX
 package met the same problem on the TPU and wrote ``conv2d_pallas``; here
-the same op is two hand-written CUDA kernels (``csrc/conv3x3.cu``):
+the same op is hand-written CUDA: the forward (also dx) on the tensor cores
+in three TF32 products for ResNet's block convs (Ci = Co in {16, 32, 64},
+``csrc/conv3x3_sm90.cu``), else on the CUDA cores (``csrc/conv3x3.cu``,
+which also holds the weight gradient); :func:`fwd_route` picks by channels:
 
 - :func:`conv3x3` — the differentiable 3x3 / stride-1 / SAME conv, NHWC
   activations with HWIO weights, the counterpart of ``conv2d_pallas``. It
@@ -24,8 +27,8 @@ the same op is two hand-written CUDA kernels (``csrc/conv3x3.cu``):
   same ``kernel`` leaf and the same dispatch by ``impl`` and shape.
 
 The contract is a tolerance, not bits: the kernels sum in another order
-than the plain versions. The weight-gradient kernel repeats bit for bit
-(fixed-order reduction of its partial sums).
+than the plain versions. Every kernel repeats bit for bit (no atomics; the
+weight gradient reduces its partial sums in a fixed order).
 """
 
 from __future__ import annotations
@@ -167,30 +170,64 @@ def _check_lanes(x: torch.Tensor, other: torch.Tensor, x_name: str, o_name: str)
         raise ValueError(f"{x_name} must be 16-byte aligned")
 
 
+# (kernel library, C entry point) of each forward route; both take the same
+# arguments
+FWD_ROUTES = {"tf32x3": ("conv3x3_sm90", "fedml_conv3x3_fwd_sm90"),
+              "fma": ("conv3x3", "fedml_conv3x3_fwd")}
+TF32X3_CHANNELS = (16, 32, 64)  # csrc conv3x3_sm90.cu tc_channels
+
+
+def fwd_route(ci: int, co: int) -> str:
+    """The forward kernel for Ci -> Co channels: "tf32x3" (tensor cores,
+    three TF32 products, ``conv3x3_sm90.cu``) where Ci = Co in {16, 32, 64},
+    ResNet's block convs and their dx; else "fma" (``conv3x3.cu``: the
+    stem's 3 -> 16 and ragged channels)."""
+    return "tf32x3" if ci == co and ci in TF32X3_CHANNELS else "fma"
+
+
+def conv3x3_fwd_route(x: torch.Tensor, w: torch.Tensor, route: str) -> torch.Tensor:
+    """The forward kernel named by ``route`` on CUDA lane-stacked x, w (as
+    :func:`conv3x3_lanes` takes them); counts no launch. :func:`conv3x3_lanes`
+    calls it with :func:`fwd_route`; a benchmark may name the other route
+    where both take the shape."""
+    L, B, H, W, Ci = x.shape
+    x_lane, w_lane = _lane_stride(x, "x"), _lane_stride(w, "w")
+    Co = w.shape[-1]
+    if route == "tf32x3" and (w.data_ptr() % 16 or fwd_route(Ci, Co) != route):
+        raise ValueError(f"the tf32x3 kernel takes Ci = Co in {TF32X3_CHANNELS} and a 16-byte "
+                         f"aligned w, got {Ci} -> {Co}")
+    lib, entry = FWD_ROUTES[route]
+    y = torch.empty((L, B, H, W, Co), dtype=torch.float32, device=x.device)
+    fn = getattr(_build.load(lib), entry)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + \
+        [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), L, B, H, W, Ci, Co, x_lane, w_lane,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, entry)
+    return y
+
+
 def conv3x3_lanes(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Forward kernel: x (L, B, H, W, Ci), w (L, 3, 3, Ci, Co) float32 ->
-    (L, B, H, W, Co). Either operand may be one lane broadcast over L."""
+    (L, B, H, W, Co), on the kernel :func:`fwd_route` names. Either operand
+    may be one lane broadcast over L. ``.launches`` counts every launch,
+    ``.route_launches`` each route's."""
     _check_lanes(x, w, "x", "w")
     L, B, H, W, Ci = x.shape
     if tuple(w.shape[1:4]) != (3, 3, Ci):
         raise ValueError(f"w must be (L, 3, 3, {Ci}, Co), got {tuple(w.shape)}")
     if x.device.type == "cpu":
         return conv3x3_plain(x, w)
-    x_lane, w_lane = _lane_stride(x, "x"), _lane_stride(w, "w")
-    Co = w.shape[-1]
-    y = torch.empty((L, B, H, W, Co), dtype=torch.float32, device=x.device)
-    fn = _build.load("conv3x3").fedml_conv3x3_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + \
-        [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), L, B, H, W, Ci, Co, x_lane, w_lane,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "fedml_conv3x3_fwd")
+    route = fwd_route(Ci, w.shape[-1])
+    y = conv3x3_fwd_route(x, w, route)
     conv3x3_lanes.launches += 1
+    conv3x3_lanes.route_launches[route] += 1
     return y
 
 
 conv3x3_lanes.launches = 0
+conv3x3_lanes.route_launches = dict.fromkeys(FWD_ROUTES, 0)
 
 
 def conv3x3_dw_lanes(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

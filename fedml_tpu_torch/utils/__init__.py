@@ -28,7 +28,9 @@ def resolve_device(name=None) -> torch.device:
 
     On the card, float32 matmuls and convolutions are pinned to full fp32
     (TF32 off), matching the reference harness's
-    ``jax_default_matmul_precision=highest``."""
+    ``jax_default_matmul_precision=highest``, and cuDNN to deterministic
+    algorithms picked without benchmarking, so that two runs of one
+    config give bit-identical histories, as the reference's do."""
     dev = torch.device(str(name) if name else "cuda")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -37,6 +39,8 @@ def resolve_device(name=None) -> torch.device:
                 "is available; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device '{dev}' (expected cuda or cpu)")
     return dev

@@ -227,7 +227,103 @@ def test_conv_kernels_match_plain_on_card(L, B, H, W, ci, co):
     y = tconv.conv3x3_lanes(x, w)
     mag = tconv.conv3x3_plain(x.abs(), w.abs())
     assert ((y - tconv.conv3x3_plain(x, w)).abs() / mag).max().item() < CARD_TOL
+    assert torch.equal(y, tconv.conv3x3_lanes(x, w))  # no atomics on either route
     dw = tconv.conv3x3_dw_lanes(x, dy)
     mag = tconv.conv3x3_dw_plain(x.abs(), dy.abs())
     assert ((dw - tconv.conv3x3_dw_plain(x, dy)).abs() / mag).max().item() < CARD_TOL
     assert torch.equal(dw, tconv.conv3x3_dw_lanes(x, dy))  # fixed-order reduction
+
+
+# (Ci, Co, route) of every stride-1 3x3 conv shape of ResNet-56 and its dx:
+# the stem (its dx is never taken), the three block widths (forward and dx
+# alike, also at the eval batch), and a ragged shape
+RESNET56_ROUTES = ((3, 16, "fma"), (16, 16, "tf32x3"), (32, 32, "tf32x3"),
+                   (64, 64, "tf32x3"), (5, 7, "fma"), (16, 32, "fma"), (48, 48, "fma"))
+
+
+@pytest.mark.parametrize("ci,co,route", RESNET56_ROUTES)
+def test_fwd_route_by_channels(ci, co, route):
+    """ResNet's block convs (and so their dx, the same Ci = Co) run on the
+    tensor-core kernel; the stem, ragged and unequal widths on the FMA one."""
+    assert tconv.fwd_route(ci, co) == route
+    assert tconv.FWD_ROUTES[route][0] in ("conv3x3_sm90", "conv3x3")
+
+
+def _tf32_rna(t):
+    """cvt.rna.tf32.f32 on the CPU: round the float32 bit pattern at
+    mantissa bit 13, ties away from zero (add half of the dropped unit to
+    the magnitude, then clear the 13 bits)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_read(t):
+    """A float32 register read as a TF32 operand: the tensor core drops the
+    low 13 mantissa bits."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split(t):
+    """The kernel's split: hi = cvt.rna.tf32(v), lo = v - hi (exact in
+    float32), both as the tensor core reads them."""
+    hi = _tf32_rna(t)
+    return hi, _tf32_read(t - hi)
+
+
+def _conv3x3_tf32x3_emulated(x, w, terms=3):
+    """The kernel's arithmetic: x and w split into TF32 hi + lo, per tap the
+    products lo hi, hi lo, hi hi (each exact in float32) summed from zero,
+    the nine tap sums added in float32 in tap order. ``terms=1`` keeps only
+    hi hi (one rounded TF32 product, no split)."""
+    L, B, H, W, ci = x.shape
+    co = w.shape[-1]
+    p = tconv.extract_patches(x.reshape(L * B, H, W, ci), 3, 3, 1, "SAME")
+    p = p.reshape(L, B * H * W, 9, ci)
+    wt = w.reshape(L, 9, ci, co)
+    y = torch.zeros(L, B * H * W, co)
+    for tap in range(9):
+        (ah, al), (bh, bl) = _split(p[:, :, tap]), _split(wt[:, tap])
+        prods = (torch.matmul(al, bh), torch.matmul(ah, bl), torch.matmul(ah, bh))
+        s = torch.zeros_like(y)
+        for q in prods[3 - terms:]:
+            s = s + q
+        y = y + s
+    return y.reshape(L, B, H, W, co)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one_ulp = 2.0 ** -10  # TF32 keeps 10 mantissa bits
+    v = torch.tensor([1.0 + one_ulp / 2, -(1.0 + one_ulp / 2), 1.0 + one_ulp / 4,
+                      1.0 + 3 * one_ulp / 4, 3.0], dtype=torch.float32)
+    got = _tf32_rna(v)
+    want = torch.tensor([1.0 + one_ulp, -(1.0 + one_ulp), 1.0, 1.0 + one_ulp, 3.0])
+    assert torch.equal(got, want)
+    v = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    hi, lo = _split(v)
+    for t in (hi, lo):
+        assert torch.equal(t.view(torch.int32) & 0x1FFF, torch.zeros(1000, dtype=torch.int32))
+    # hi + lo is v to 2^-21 of |v|: lo = v - hi exactly, then read to TF32
+    assert ((hi + lo - v).abs() <= 2.0 ** -21 * v.abs()).all()
+
+
+# the ResNet-56 block shapes at B = 2 (one lane): (B, H, W, Ci, Co)
+RESNET56_BLOCKS_B2 = ((2, 32, 32, 16, 16), (2, 16, 16, 32, 32), (2, 8, 8, 64, 64))
+CONV_TOL = 1e-5  # chip_smoke.py's gate: |y - plain| / (the product on |x|, |w|)
+
+
+@pytest.mark.parametrize("shape", RESNET56_BLOCKS_B2)
+def test_tf32x3_split_within_conv_tol(interp_pallas, shape):
+    """The exactness argument of csrc/conv3x3_sm90.cu, emulated on the CPU:
+    the 3xTF32 per-tap sum is within CONV_TOL of the magnitudes from the
+    plain version and from the JAX package's conv2d_pallas, while one
+    unsplit TF32 product is not."""
+    x, k = _inputs(7, *shape)
+    tx, tk = torch.from_numpy(x)[None], torch.from_numpy(k)[None]
+    mag = tconv.conv3x3_plain(tx.abs(), tk.abs())
+    got = _conv3x3_tf32x3_emulated(tx, tk)
+    want_p = torch.from_numpy(np.array(
+        jconv.conv2d_pallas(jnp.asarray(x), jnp.asarray(k), 1, "SAME")))[None]
+    for want in (tconv.conv3x3_plain(tx, tk), want_p):
+        assert ((got - want).abs() / mag).max().item() <= CONV_TOL
+    one = _conv3x3_tf32x3_emulated(tx, tk, terms=1)
+    assert ((one - want_p).abs() / mag).max().item() > CONV_TOL

@@ -5,10 +5,16 @@ cohort rectangles and the synthetic arrays are integer / numpy decisions:
 fedml_tpu_torch must reproduce fedml_tpu's bit for bit.
 """
 
+import json
+import types
+
 import numpy as np
 import pytest
 
+import fedml_tpu.data as jdata
+import fedml_tpu_torch.data as tdata
 from fedml_tpu.core import partition as jpart
+from fedml_tpu.data import leaf as jleaf
 from fedml_tpu.data import federated as jfed
 from fedml_tpu.data import synthetic as jsyn
 from fedml_tpu.simulation import sampling as jsamp
@@ -79,3 +85,59 @@ def test_pack_client_index_identical():
     for fa, fb in zip(a, b):
         assert fa.dtype == fb.dtype
         np.testing.assert_array_equal(fa, fb)
+
+
+def _write_leaf(root, with_json=True):
+    """A tiny LEAF MNIST tree: train/ and test/ with two users of 784-float
+    rows (the reference's json layout), or train/ without any json."""
+    rng = np.random.default_rng(6)
+    for split, n in (("train", 3), ("test", 2)):
+        d = root / split
+        d.mkdir(parents=True)
+        if not with_json:
+            (d / "README.txt").write_text("no json here")
+            continue
+        users = ["u0", "u1"]
+        blob = {"users": users, "num_samples": [n, n], "user_data": {
+            u: {"x": rng.random((n, 784)).round(3).tolist(),
+                "y": rng.integers(0, 10, n).tolist()} for u in users}}
+        (d / "a.json").write_text(json.dumps(blob))
+
+
+def _mnist_args(cache_dir, **kw):
+    return types.SimpleNamespace(dataset="mnist", data_cache_dir=str(cache_dir),
+                                 partition_method="hetero", partition_alpha=0.5,
+                                 client_num_in_total=10, client_num_per_round=10,
+                                 debug_small_data=True, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("sub", ["", "MNIST"])
+def test_mnist_leaf_json_dirs_raise_instead_of_diverging(tmp_path, sub):
+    """Where the reference loads LEAF json dirs with their natural per-user
+    partition, the port raises rather than building a Dirichlet federation
+    of other data."""
+    _write_leaf(tmp_path / sub if sub else tmp_path)
+    found = jleaf.leaf_json_dirs(str(tmp_path))
+    assert found is not None and found == tdata.loaders.leaf_json_dirs(str(tmp_path))
+    fed, _ = jdata.load(_mnist_args(tmp_path))
+    assert fed.client_num == 2  # what the reference builds from these files
+    with pytest.raises(NotImplementedError, match="LEAF json partition"):
+        tdata.load(_mnist_args(tmp_path))
+
+
+def test_mnist_without_leaf_json_matches_the_reference_partition(tmp_path):
+    """train/ and test/ without a json file: the reference does not load
+    them, so the port does not raise and partitions the same synthetic
+    stand-in as the reference."""
+    _write_leaf(tmp_path, with_json=False)
+    assert jleaf.leaf_json_dirs(str(tmp_path)) is None
+    assert tdata.loaders.leaf_json_dirs(str(tmp_path)) is None
+    feds = []
+    for mod in (jdata, tdata):
+        np.random.seed(11)
+        feds.append(mod.load(_mnist_args(tmp_path))[0])
+    (jf, tf) = feds
+    assert jf.client_num == len(tf._global_index) == 10
+    for c in range(10):
+        np.testing.assert_array_equal(jf._global_index[c], tf._global_index[c])
+    assert jf.train_data_global.x.tobytes() == tf.train_data_global.x.tobytes()
