@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py            # every phase below
     python3 chip_smoke.py kernels    # phases 1-3 only (no result line)
+    python3 chip_smoke.py agg [DIR]  # the robust path's aggregation half only,
+                                     # of the package in checkout DIR (no result line)
 
 Phases, each printing one JSON line; any failure ends the run with a
 non-zero exit code and no result line:
@@ -14,7 +16,10 @@ non-zero exit code and no result line:
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and a few ragged ones, with timings of the
    kernel, the plain version and (where one exists) a library call: the
-   codec's quantize_pack, the Gram plane, the 3x3 multi-weight conv
+   codec's quantize_pack (also on stacks of special values; its time is
+   device time per round of six calls, with the host-paced CUDA-event time
+   and the host time per call beside), the Gram plane (both routes, small
+   C <= 16 and tiled; device time), the 3x3 multi-weight conv
    forward (conv3x3, also dx: ResNet's block convs on the tensor cores in
    three TF32 products, the others on the FMA kernel, whose time at the
    block shapes is reported beside as was_ms) and its weight gradient
@@ -120,6 +125,49 @@ def time_ms(fn, reps=20, rounds=5):
     return statistics.median(out)
 
 
+def _dev_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_ms(fn, names, reps=20):
+    """Device ms per call of ``fn``: the self device time of the kernels
+    whose names contain one of ``names``, summed over ``reps`` calls under
+    torch.profiler after a warm-up call. Unlike time_ms it leaves out the
+    host's time between launches, which paces back-to-back calls of a
+    wrapper whose kernels are shorter than its Python."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_dev_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and any(n in e.key for n in names))
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no device time of {names}")
+    return us / 1e3 / reps
+
+
+def host_us(fn, n=200, rounds=5):
+    """Host microseconds per call of ``fn`` (median over ``rounds`` of ``n``
+    calls), at a size whose kernels take less than the call's Python: the
+    device queue absorbs the launches, and the synchronize is outside the
+    timing."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out.append((time.perf_counter() - t) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(out)
+
+
 def phase_device():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -169,28 +217,73 @@ def phase_tc_rate(dev):
     return rate
 
 
+def special_values(C, m, seed):
+    """A (C, m) float32 stack whose 256-chunks walk every exponent: chunk k
+    of row r draws random signs and mantissas with biased exponents in a
+    window of four starting at 7 (r nchunk + k) mod 256, up to inf and NaN.
+    Row 0's first five chunks are set (where m holds them): all zeros
+    (scale 1.0); finite values and one +inf (an inf absmax); subnormals only
+    and exponent fields 0 or 1 (both flush the scale to 0); NaN and -inf
+    among finite values."""
+    rng = np.random.default_rng(seed)
+    nck = -(-m // 256)
+    window = (np.arange(C)[:, None] * nck + np.arange(m)[None, :] // 256) * 7 % 256
+    exp = np.minimum(window + rng.integers(0, 4, (C, m)), 255).astype(np.uint32)
+    mant = rng.integers(0, 2 ** 32, (C, m), dtype=np.uint64).astype(np.uint32) & 0x807FFFFF
+    v = (mant | (exp << 23)).view(np.float32)
+    row = v[0, :min(m, 5 * 256)]
+    n = row.size
+    row[:256] = 0.0
+    row[256:512] = rng.standard_normal(max(0, min(n, 512) - 256))
+    row[512:768] = mant[0, 512:768].view(np.float32)
+    row[768:1024] = (mant[0, 768:1024] | (exp[0, 768:1024] % 2 << 23)).view(np.float32)
+    row[1024:] = rng.standard_normal(max(0, n - 1024))
+    if n > 300:
+        row[300] = np.inf
+    if n > 1100:
+        row[1030], row[1100] = np.nan, -np.inf
+    return v
+
+
+# (C, m) beyond the main path's leaves: odd m, m < 256, m % 8 == 4 (the
+# kernel's one-element loads), a ragged cohort
+QUANT_EDGE = ((13, 1000), (1, 257), (4, 257), (3, 100), (2, 1004))
+
+
 def check_quant(dev):
     """Kernel 1 == plain version: packed bytes and scales equal, dec
-    bit-equal. Returns the kernel's entry for the kernels line."""
+    bit-equal, at the main path's six leaves, QUANT_EDGE and two stacks of
+    special values. Times one round's six q8 calls by device time (the
+    profiler) and by CUDA events around the wrapper calls (which the host
+    paces), each leaf's device time, and the host time per wrapper call.
+    Returns the kernel's entry for the kernels line."""
     from fedml_tpu_torch.comm.codec import _leaf_hash
     from fedml_tpu_torch.ops import agg_quant as aq
 
     gen = torch.Generator().manual_seed(0)
-    shapes = [(MAIN_C, m) for m in MAIN_LEAF_M] + [(13, 1000)]
+    shapes = [(MAIN_C, m) for m in MAIN_LEAF_M] + list(QUANT_EDGE)
+    cases = []
+    for i, (C, m) in enumerate(shapes):
+        vals = torch.randn(C, m, generator=gen) * 0.01
+        vals[0, :300] = 0.0  # an all-zero chunk takes scale 1.0
+        cases.append(((C, m), vals))
+    for C, m in ((3, 256 * 40 + 8), (2, 256 * 40 + 3)):
+        cases.append(((C, m, "special"), torch.from_numpy(special_values(C, m, m))))
     for bits in (8, 4):
-        for i, (C, m) in enumerate(shapes):
-            vals = torch.randn(C, m, generator=gen).to(dev) * 0.01
-            vals[0, :300] = 0.0  # an all-zero chunk takes scale 1.0
+        for i, (label, vals) in enumerate(cases):
+            vals = vals.to(dev)
+            C = vals.shape[0]
             cids = torch.arange(7, 7 + C, dtype=torch.int32, device=dev) * 37
             lh = _leaf_hash(f"params/leaf_{i}/kernel")
             pk, sk, dk = aq.quantize_pack(vals, bits, 3, 4, cids, lh)
             pp, sp, dp = aq.quantize_pack_plain(vals, bits, 3, 4, cids, lh)
             torch.cuda.synchronize()
-            if not (torch.equal(pk, pp) and torch.equal(sk, sp)
+            if not (torch.equal(pk, pp) and torch.equal(sk.view(torch.int32), sp.view(torch.int32))
                     and torch.equal(dk.view(torch.int32), dp.view(torch.int32))):
                 raise AssertionError(
-                    f"quantize_pack q{bits} at {(C, m)} differs from its plain version: "
-                    f"{(pk != pp).sum().item()} bytes, {(dk != dp).sum().item()} dec values")
+                    f"quantize_pack q{bits} at {label} differs from its plain version: "
+                    f"{(pk != pp).sum().item()} bytes, "
+                    f"{(dk.view(torch.int32) != dp.view(torch.int32)).sum().item()} dec values")
     # one round's codec work on the main path: q8 over the six leaves, C=10
     stacks = [torch.randn(MAIN_C, m, generator=gen).to(dev) * 0.01 for m in MAIN_LEAF_M]
     cids = torch.arange(MAIN_C, dtype=torch.int32, device=dev)
@@ -198,31 +291,53 @@ def check_quant(dev):
     def run(f):
         return lambda: [f(v, 8, 3, 4, cids, 99) for v in stacks]
 
+    def leaf_bytes(m):
+        elems = MAIN_C * m
+        return elems * 4 + MAIN_C * 4 + elems * (1 + 4) + MAIN_C * -(-m // 256) * 4
+
+    nbytes = sum(leaf_bytes(m) for m in MAIN_LEAF_M)
     elems = MAIN_C * sum(MAIN_LEAF_M)
-    nbytes = elems * 4 + MAIN_C * 4 + elems * (1 + 4) + \
-        MAIN_C * sum(-(-m // 256) for m in MAIN_LEAF_M) * 4
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = elems * QUANT_OPS_PER_ELEM / FP32_OPS_PER_S * 1e3
-    kernel_ms, plain_ms = time_ms(run(aq.quantize_pack)), time_ms(run(aq.quantize_pack_plain))
+    names = ("quantize_pack_kernel",)
+    leaf_ms = [device_ms(lambda v=v: aq.quantize_pack(v, 8, 3, 4, cids, 99), names)
+               for v in stacks]
     entry = {"name": "quantize_pack", "route": "cuda", "source": "fedml_tpu_torch/csrc/agg_quant.cu",
-             "replaces": "fedml_tpu/ops/pallas/agg_quant.py:174",
-             "max_abs_err": 0.0, "ms": kernel_ms, "plain_ms": plain_ms,
+             "replaces": "fedml_tpu/ops/pallas/agg_quant.py:174", "max_abs_err": 0.0,
+             "ms": device_ms(run(aq.quantize_pack), names), "launches_per_round": 6,
+             "plain_ms": time_ms(run(aq.quantize_pack_plain)),
              "bound_ms": max(bound_bytes, bound_ops),
              "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
              "library_ms": None, "bytes": nbytes}
-    emit("kernel_quantize_pack", shapes=shapes, bits=[8, 4], equal=True,
-         timed="q8, six cnn_fedavg leaves, C=10", **entry)
+    emit("kernel_quantize_pack", shapes=[c[0] for c in cases], bits=[8, 4], equal=True,
+         timed="q8, six cnn_fedavg leaves, C=10; ms and plain_ms per round of six calls",
+         unit="device ms per round (profiler)",
+         event_ms_per_round=time_ms(run(aq.quantize_pack)),
+         device_ms_per_leaf=dict(zip(MAIN_LEAF_M, leaf_ms)),
+         bound_ms_per_leaf={m: leaf_bytes(m) / HBM_BYTES_PER_S * 1e3 for m in MAIN_LEAF_M},
+         host_us_per_call=host_us(lambda: aq.quantize_pack(stacks[2], 8, 3, 4, cids, 99)),
+         host_us_leaf=[MAIN_C, MAIN_LEAF_M[2]], **entry)
     return entry
+
+
+# (C, D): the main path's cohort first, then C = 16 (the largest of the
+# small route) at the same D, ragged D (D % 4 = 1, 2, 3; D < 8) and the
+# tiled route
+GRAM_CASES = ((MAIN_C, 1663370), (16, 1663370), (1, 1663371), (13, 1000), (16, 1001),
+              (5, 4099), (3, 7), (17, 65537), (100, 65536), (1000, 7850))
+GRAM_KERNELS = ("gram_small_partial_kernel", "gram_small_reduce_kernel", "gram_partial_kernel",
+                "gram_tiled_reduce_kernel")
 
 
 def check_gram(dev):
     """Kernel 2 within GRAM_TOL of the plain version (normalised by the
-    row norms); timings at the main path's shape."""
+    row norms), bit-repeatable and exactly symmetric at GRAM_CASES; device
+    time (profiler) beside torch.matmul's, and the host time per call."""
     from fedml_tpu_torch.ops import agg_robust as ar
 
     gen = torch.Generator().manual_seed(1)
     entry = None
-    for C, D in ((MAIN_C, 1663370), (100, 65536), (1000, 7850), (13, 1000)):
+    for C, D in GRAM_CASES:
         flat = (torch.randn(C, D, generator=gen) * 0.01).to(dev)
         gk = ar.gram(flat)
         gp = ar.gram_plain(flat)
@@ -234,20 +349,28 @@ def check_gram(dev):
             raise AssertionError(f"gram at {(C, D)}: normalised error {rel} > {GRAM_TOL}")
         if not torch.equal(gk, ar.gram(flat)):
             raise AssertionError(f"gram at {(C, D)} is not repeatable")
+        if not torch.equal(gk, gk.T):
+            raise AssertionError(f"gram at {(C, D)} is not exactly symmetric")
         bound_bytes = (C * D + C * C) * 4 / HBM_BYTES_PER_S * 1e3
         bound_ops = 2 * C * C * D / FP32_OPS_PER_S * 1e3
-        row = {"ms": time_ms(lambda: ar.gram(flat)),
+        row = {"ms": device_ms(lambda: ar.gram(flat), GRAM_KERNELS), "launches_per_round": 1,
                "plain_ms": time_ms(lambda: ar.gram_plain(flat)),
                "library_ms": time_ms(lambda: torch.matmul(flat, flat.t())),
                "bound_ms": max(bound_bytes, bound_ops),
                "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
                "max_abs_err": abs_err}
-        emit("kernel_gram", shape=[C, D], splits=ar.split_plan(C, D)[1],
-             normalised_err=rel, tol=GRAM_TOL, **row)
+        plan = ar.small_plan(D) if ar.route(C) == "small" else ar.split_plan(C, D)
+        emit("kernel_gram", shape=[C, D], gram_route=ar.route(C), plan=plan,
+             normalised_err=rel, tol=GRAM_TOL, repeatable=True, symmetric=True,
+             unit="device ms (profiler)", event_ms=time_ms(lambda: ar.gram(flat)),
+             library_device_ms=device_ms(lambda: torch.matmul(flat, flat.t()), ("",)),
+             share_of_bound=row["bound_ms"] / row["ms"], **row)
         if entry is None:
             entry = {"name": "gram", "route": "cuda",
                      "source": "fedml_tpu_torch/csrc/agg_robust.cu",
                      "replaces": "fedml_tpu/ops/pallas/agg_robust.py:71", **row}
+    flat = (torch.randn(MAIN_C, 4096, generator=gen) * 0.01).to(dev)
+    emit("gram_host", shape=[MAIN_C, 4096], host_us_per_call=host_us(lambda: ar.gram(flat)))
     return entry
 
 
@@ -357,6 +480,7 @@ def phase_main():
     torch.cuda.reset_peak_memory_stats()  # the kernel checks before ran larger
     agg_quant.quantize_pack.launches = 0
     agg_robust.gram.launches = 0
+    agg_robust.gram.route_launches = dict.fromkeys(agg_robust.gram.route_launches, 0)
     t = time.perf_counter()
     hist = ft.run_simulation(args=args)
     torch.cuda.synchronize()
@@ -364,8 +488,10 @@ def phase_main():
     launches = {"quantize_pack": agg_quant.quantize_pack.launches,
                 "gram": agg_robust.gram.launches}
     rounds = MAIN_CONFIG["comm_round"]
-    if launches != {"quantize_pack": 6 * rounds, "gram": rounds}:
-        raise AssertionError(f"main path launches {launches}, expected 6 and 1 per round")
+    gram_routes = dict(agg_robust.gram.route_launches)
+    if launches != {"quantize_pack": 6 * rounds, "gram": rounds} or gram_routes["small"] != rounds:
+        raise AssertionError(f"main path launches {launches} (gram by route {gram_routes}), "
+                             f"expected 6 and 1 per round, the Gram on the small route")
     losses = [r["train_loss"] for r in hist]
     if len(hist) != rounds or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"main path history not finite: {losses}")
@@ -376,7 +502,8 @@ def phase_main():
          test_acc=last["test_acc"], test_loss=last["test_loss"],
          quarantined=[r["quarantined"] for r in hist],
          round_time_after_first_s=[r["round_time"] for r in hist[1:]],
-         launches=launches, peak_mem_bytes=torch.cuda.max_memory_allocated())
+         launches=launches, gram_route_launches=gram_routes,
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
     return launches
 
 
@@ -394,12 +521,9 @@ def profile_run(run, n, ours, unit="round"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     # device-side events only: a CPU op's row repeats its kernels' time
-    rows = sorted(((e.key, dev_us(e), e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+    rows = sorted(((e.key, _dev_us(e), e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and _dev_us(e) > 0),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
     return {f"{unit}s": n, f"wall_ms_per_{unit}": wall * 1e3 / n,
@@ -419,7 +543,7 @@ def phase_profile(rounds=3):
     from fedml_tpu_torch.simulation import build_simulator
 
     sim, _ = build_simulator(ft.init(config=dict(MAIN_CONFIG, comm_round=rounds)))
-    ours = ("quantize_pack_kernel", "gram_partial_kernel", "gram_reduce_kernel")
+    ours = ("quantize_pack_kernel",) + GRAM_KERNELS
     sim.run(None, log_fn=None)  # warm-up
     det = profile_run(lambda: sim.run(None, log_fn=None), rounds, ours)
     torch.backends.cudnn.deterministic = False
@@ -431,6 +555,42 @@ def phase_profile(rounds=3):
     emit("profile", cudnn_deterministic=True, **det,
          cudnn_nondeterministic={k: nondet[k] for k in (
              "wall_ms_per_round", "device_busy_ms_per_round", "idle_share", "top")})
+
+
+def phase_agg():
+    """The robust path's aggregation half alone, so that two checkouts (say
+    a parent commit unpacked with git archive, and this one) can be measured
+    in turns in one call: host microseconds per wrapper call, device and
+    CUDA-event ms per round of the six quantize_pack calls and of the Gram at
+    the main path's shape, and the profile of three warm rounds of the main
+    config. Kernels are matched by name prefix, so older kernel names count."""
+    import fedml_tpu_torch as ft
+    from fedml_tpu_torch.ops import agg_quant as aq
+    from fedml_tpu_torch.ops import agg_robust as ar
+    from fedml_tpu_torch.simulation import build_simulator
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    stacks = [torch.randn(MAIN_C, m, generator=gen).to(dev) * 0.01 for m in MAIN_LEAF_M]
+    cids = torch.arange(MAIN_C, dtype=torch.int32, device=dev)
+
+    def round_q8():
+        return [aq.quantize_pack(v, 8, 3, 4, cids, 99) for v in stacks]
+
+    flat = (torch.randn(MAIN_C, 1663370, generator=gen) * 0.01).to(dev)
+    small = (torch.randn(MAIN_C, 4096, generator=gen) * 0.01).to(dev)
+    row = {"package": str(Path(ft.__file__).resolve().parent),
+           "quant_host_us_per_call": host_us(lambda: aq.quantize_pack(stacks[2], 8, 3, 4, cids, 99)),
+           "quant_device_ms_per_round": device_ms(round_q8, ("quantize_pack_kernel",)),
+           "quant_event_ms_per_round": time_ms(round_q8),
+           "gram_host_us_per_call": host_us(lambda: ar.gram(small)),
+           "gram_device_ms": device_ms(lambda: ar.gram(flat), ("gram_",)),
+           "gram_event_ms": time_ms(lambda: ar.gram(flat))}
+    del flat, small, stacks
+    sim, _ = build_simulator(ft.init(config=dict(MAIN_CONFIG, comm_round=3)))
+    sim.run(None, log_fn=None)  # warm-up
+    emit("agg", **row, profile=profile_run(lambda: sim.run(None, log_fn=None), 3,
+                                           ("quantize_pack_kernel", "gram_")))
 
 
 def _conv_case(shape, gen, dev):
@@ -961,8 +1121,8 @@ def phase_lm_profile(tr, data, steps=2):
 
 
 def main(argv):
-    if argv not in ([], ["kernels"]):
-        print("usage: python3 chip_smoke.py [kernels]", file=sys.stderr)
+    if not (argv in ([], ["kernels"]) or (argv[:1] == ["agg"] and len(argv) <= 2)):
+        print("usage: python3 chip_smoke.py [kernels | agg [DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -970,6 +1130,12 @@ def main(argv):
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv[:1] == ["agg"]:
+        if len(argv) == 2:  # before any import of the package
+            sys.path.insert(0, str(Path(argv[1]).resolve()))
+        phase_device()
+        phase_agg()
+        return 0
     smi = phase_device()
     phase_build()
     tc_rate = phase_tc_rate(dev)

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -80,6 +81,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, entry: str, argtypes: Sequence, restype=ctypes.c_int):
+    """The C entry point ``entry`` of kernel library ``name``, its argument
+    and result types set once, when it is first asked for: a wrapper's call
+    then costs a dictionary lookup, not a ctypes setup."""
+    fn = _functions.get((name, entry))
+    if fn is None:
+        fn = getattr(load(name), entry)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _functions[(name, entry)] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

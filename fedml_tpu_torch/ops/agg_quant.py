@@ -33,6 +33,9 @@ _MIX_C1 = 0x7FEB352D
 _MIX_C2 = 0x846CA68B
 _KEY_SALT = 0x9E3779B9
 _U32 = 0xFFFFFFFF
+_KERNEL_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p)
 
 
 def _mix32_py(x: int) -> int:
@@ -125,12 +128,7 @@ def quantize_pack(vals: torch.Tensor, bits: int, seed: int, round_idx: int,
     C, m = _check(vals, cids, bits)
     if not (vals.is_contiguous() and cids.is_contiguous()):
         raise ValueError("vals and cids must be contiguous")
-    lib = _build.load("agg_quant")
-    fn = lib.fedml_quantize_pack
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("agg_quant", "fedml_quantize_pack", _KERNEL_ARGS)
     nc = -(-m // QCHUNK)
     if bits == 8:
         packed = torch.empty((C, m), dtype=torch.int8, device=vals.device)

@@ -1,14 +1,20 @@
 """Gram matrix of the flat cohort stack (kernel 2 of the slice).
 
 Port of ``fedml_tpu/ops/pallas/agg_robust.py::fused_gram``. On a CUDA
-tensor :func:`gram` launches the hand-written split-contraction kernel in
+tensor :func:`gram` launches the hand-written kernels in
 ``csrc/agg_robust.cu`` (or raises); on a CPU tensor it runs
 :func:`gram_plain`. Unlike the Pallas kernel, which fell back to its jnp
-reference above D = 131,072, the CUDA kernel takes any (C, D).
+reference above D = 131,072, the CUDA kernels take any (C, D).
 
-The contract is a tolerance, not bits: the kernel sums in another order
-than XLA or cuBLAS. Krum selections must come out identical, and the
-kernel's own result repeats bit for bit (fixed-order reduction).
+:func:`route` picks the kernel by cohort size: ``small`` (C <= 16, every
+example config's cohort) streams each element once and keeps the upper
+triangle in registers; ``tiled`` (C > 16) computes 16x16 output tiles over
+column spans.
+
+The contract is a tolerance, not bits: the kernels sum in another order
+than XLA or cuBLAS. Krum selections must come out identical, the kernels'
+own result repeats bit for bit (fixed-order reductions, no atomics) and is
+exactly symmetric.
 """
 
 from __future__ import annotations
@@ -20,22 +26,47 @@ import torch
 
 from . import _build
 
-TILE = 16       # output tile edge (csrc/agg_robust.cu kTile)
+SMALL_MAX_C = 16          # largest cohort of the small route (kSmallMaxC)
+SMALL_THREADS = 256       # threads of a small-route block (kSmallThreads)
+SMALL_BLOCKS = 132 * 2    # at most two blocks per H100 SM, one wave at C <= 10
+TILE = 16       # output tile edge of the tiled route (kTile)
 COLS = 64       # contraction columns staged per step (kCols)
-TARGET_BLOCKS = 132 * 8  # about eight blocks per H100 SM
+TARGET_BLOCKS = 132 * 8  # about eight tiled blocks per H100 SM
+
+_P, _LL = ctypes.c_void_p, ctypes.c_longlong
+_SMALL_ARGS = (_P, _LL, _LL, _LL, _LL, _LL, _P, _P, _P)
+_TILED_ARGS = (_P, _LL, _LL, _LL, _LL, _P, _P, _P)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def route(C: int) -> str:
+    """The kernel a (C, D) stack takes: ``small`` or ``tiled``."""
+    return "small" if C <= SMALL_MAX_C else "tiled"
+
+
+def small_plan(D: int) -> Tuple[int, int, int]:
+    """(nbody, per_block, nblocks) of the small route: columns [0, 4 nbody)
+    go in groups of four, ``per_block`` groups to a block; the 4..7 columns
+    past them (all of D below 8) go to the last block one by one."""
+    nbody = (D - 4) // 4 if D >= 8 else 0
+    if nbody == 0:
+        return 0, 0, 1
+    per_block = _cdiv(nbody, min(SMALL_BLOCKS, _cdiv(nbody, SMALL_THREADS)))
+    return nbody, per_block, _cdiv(nbody, per_block)
 
 
 def split_plan(C: int, D: int) -> Tuple[int, int]:
-    """(span, splits): the contraction is cut into ``splits`` column spans
-    of ``span`` (a multiple of COLS) so that tiles x tiles x splits fills
-    the card even when the (C, C) output is a single tile."""
-    def cdiv(a, b):
-        return -(-a // b)
-
-    tiles = cdiv(C, TILE)
-    splits = min(max(1, cdiv(TARGET_BLOCKS, tiles * tiles)), cdiv(D, COLS), 65535)
-    span = cdiv(cdiv(D, splits), COLS) * COLS
-    return span, cdiv(D, span)
+    """(span, splits) of the tiled route: the contraction is cut into
+    ``splits`` column spans of ``span`` (a multiple of COLS) so that tiles x
+    tiles x splits fills the card even when the (C, C) output has few
+    tiles."""
+    tiles = _cdiv(C, TILE)
+    splits = min(max(1, _cdiv(TARGET_BLOCKS, tiles * tiles)), _cdiv(D, COLS), 65535)
+    span = _cdiv(_cdiv(D, splits), COLS) * COLS
+    return span, _cdiv(D, span)
 
 
 def gram_plain(flat: torch.Tensor) -> torch.Tensor:
@@ -56,19 +87,30 @@ def gram(flat: torch.Tensor) -> torch.Tensor:
     if not flat.is_contiguous():
         raise ValueError("flat must be contiguous")
     C, D = flat.shape
-    span, splits = split_plan(C, D)
-    lib = _build.load("agg_robust")
-    fn = lib.fedml_gram
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    partial = torch.empty((splits, C, C), dtype=torch.float32, device=flat.device)
     out = torch.empty((C, C), dtype=torch.float32, device=flat.device)
-    err = fn(flat.data_ptr(), C, D, span, splits, partial.data_ptr(), out.data_ptr(),
-             torch.cuda.current_stream(flat.device).cuda_stream)
-    _build.check(err, "fedml_gram")
+    stream = torch.cuda.current_stream(flat.device).cuda_stream
+    kind = route(C)
+    if kind == "small":
+        if flat.data_ptr() % 16:
+            flat = flat.clone()  # the kernel's 16-byte loads start at the stack's first byte
+        nbody, per_block, nblocks = small_plan(D)
+        partial = torch.empty((C * (C + 1) // 2, nblocks), dtype=torch.float32,
+                              device=flat.device)
+        fn = _build.function("agg_robust", "fedml_gram_small", _SMALL_ARGS)
+        err = fn(flat.data_ptr(), C, D, nbody, per_block, nblocks, partial.data_ptr(),
+                 out.data_ptr(), stream)
+    else:
+        span, splits = split_plan(C, D)
+        partial = torch.empty((splits, C, C) if splits > 1 else (0,), dtype=torch.float32,
+                              device=flat.device)
+        fn = _build.function("agg_robust", "fedml_gram", _TILED_ARGS)
+        err = fn(flat.data_ptr(), C, D, span, splits, partial.data_ptr(), out.data_ptr(),
+                 stream)
+    _build.check(err, f"fedml_gram ({kind})")
     gram.launches += 1
+    gram.route_launches[kind] += 1
     return out
 
 
 gram.launches = 0
+gram.route_launches = {"small": 0, "tiled": 0}

@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from fedml_tpu.comm import codec as jcodec
+from fedml_tpu.ops.pallas import agg_quant as jquant
 from fedml_tpu.ops.pallas.agg_quant import fused_quantize_pack
+from chip_smoke import special_values
 from fedml_tpu_torch.comm import codec as tcodec
 from fedml_tpu_torch.ops import agg_quant as aq
 
@@ -97,6 +99,96 @@ def test_wrapper_rejects_bad_inputs():
         aq.quantize_pack(torch.ones(2, 64), 5, 0, 0, torch.zeros(2, dtype=torch.int32))
 
 
+# ------------------------------------------------ the kernel's arithmetic
+
+def _emulate_kernel(vals, bits, seed, rnd, cids, lh):
+    """csrc/agg_quant.cu's arithmetic on the CPU: v * (1 / s) in place of
+    v / s (1 / s by one float32 division: exact for a power of two, +inf for
+    0), then each lane's eight consecutive levels stored as one
+    little-endian word (q8: 8 bytes; q4: 4 bytes of nibbles)."""
+    C, m = vals.shape
+    nc = -(-m // aq.QCHUNK)
+    mpad = nc * aq.QCHUNK
+    key = aq._mix32(aq._mix32(aq.round_key(seed, rnd) ^ (cids.to(torch.int64) & aq._U32))
+                    ^ (lh & aq._U32))
+    h = aq._mix32(torch.arange(mpad, dtype=torch.int64)[None, :] ^ key[:, None])
+    u = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    blk = torch.zeros((C, mpad), dtype=torch.float32)
+    blk[:, :m] = vals
+    blk = blk.reshape(C, nc, aq.QCHUNK)
+    amax = blk.abs().amax(dim=-1)  # NaN-propagating, as the warp's nanmax
+    be = (amax.view(torch.int32) >> 23) & 0xFF
+    e2 = torch.where(be == 255, 0, torch.where(be == 0, -149, be - 126)) - aq._EB[bits]
+    s = torch.where(e2 >= -126, ((e2 + 127).clamp(min=0) << 23).to(torch.int32)
+                    .view(torch.float32), 0.0)
+    s = torch.where(amax > 0, s, 1.0)
+    inv = torch.ones_like(s) / s
+    t = torch.floor(blk * inv[..., None] + u.reshape(C, nc, aq.QCHUNK))
+    bound = float(aq._BOUND[bits])
+    q = torch.where(torch.isnan(t), 0.0, t.clamp(-bound, bound)).to(torch.int64)
+    dec = (q.to(torch.float32) * s[..., None]).reshape(C, mpad)[:, :m]
+    lanes = q.reshape(C, mpad // 8, 8)
+    if bits == 8:
+        word = sum((lanes[..., k] & 0xFF) << (8 * k) for k in range(8))
+        packed = word.numpy().astype("<u8").view(np.int8).reshape(C, mpad)[:, :m]
+    else:
+        nib = lanes + 8
+        word = sum(((nib[..., 2 * b] << 4) | nib[..., 2 * b + 1]) << (8 * b) for b in range(4))
+        packed = word.numpy().astype("<u4").view(np.uint8).reshape(C, mpad // 2)
+        packed = packed[:, :(m + 1) // 2]
+    return torch.from_numpy(np.ascontiguousarray(packed)), s.reshape(C, nc), dec
+
+
+def _flush_subnormals(v):
+    """XLA on the CPU reads subnormal inputs as zero (the JAX module leaves
+    such chunks outside its contract): the same values with those flushed."""
+    return np.where(np.abs(v) < np.finfo(np.float32).tiny, np.copysign(np.float32(0.0), v), v)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("C,m", [(3, 256 * 40 + 8), (2, 256 * 40 + 3), (4, 100), (1, 1),
+                                 (5, 1004)])
+def test_kernel_emulation_equals_plain_and_jax_on_special_values(bits, C, m):
+    seed, rnd, lh = 3, 4, 77
+    cids = np.arange(C, dtype=np.uint32) * 5 + 1
+    tcids = torch.from_numpy(cids.astype(np.int32))
+    v = special_values(C, m, m)
+    ek = _emulate_kernel(torch.from_numpy(v), bits, seed, rnd, tcids, lh)
+    s = ek[1].numpy()
+    if m >= 1024:  # the special chunks reached their scales
+        assert s[0, 0] == 1.0 and s[0, 2] == 0.0 and s[0, 3] == 0.0
+        assert s[0, 1] == 2.0 ** -aq._EB[bits]
+    pk = aq.quantize_pack_plain(torch.from_numpy(v), bits, seed, rnd, tcids, lh)
+    for a, b, what in zip(ek, pk, ("packed", "scales", "dec")):
+        _eq(a.numpy().view(np.uint8 if what == "packed" else np.uint32),
+            b.numpy().view(np.uint8 if what == "packed" else np.uint32), what + " vs plain")
+    vf = _flush_subnormals(v)
+    h = jquant.row_keys(seed, jnp.uint32(rnd), jnp.asarray(cids), lh)
+    jk = jquant._reference_quantize_pack(jnp.asarray(vf), bits, h)
+    ek = _emulate_kernel(torch.from_numpy(vf), bits, seed, rnd, tcids, lh)
+    for a, b, what in zip(ek, jk, ("packed", "scales", "dec")):
+        b = np.asarray(b)
+        _eq(a.numpy().view(np.uint8 if what == "packed" else np.uint32),
+            b.view(np.uint8 if what == "packed" else np.uint32), what + " vs JAX reference")
+
+
+def test_reciprocal_scale_equals_division_bit_for_bit():
+    """v * (1 / s) == v / s for every float32 bit pattern class and every
+    scale the kernel can meet: 2^e2 for -126 <= e2 <= 126, and 0."""
+    rng = np.random.default_rng(0)
+    v = rng.integers(0, 2 ** 32, 1 << 16, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    v = np.concatenate([v, np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45,
+                                     np.finfo(np.float32).max], np.float32)])
+    scales = [np.float32(2.0) ** np.float32(e) for e in range(-126, 127)] + [np.float32(0.0)]
+    with np.errstate(all="ignore"):
+        for s in scales:
+            inv = np.float32(1.0) / s
+            assert s == 0 or inv * s == 1.0  # 1 / s is exact
+            a, b = v * inv, v / s
+            same = (a.view(np.uint32) == b.view(np.uint32)) | (np.isnan(a) & np.isnan(b))
+            assert same.all(), f"scale {s}: {np.flatnonzero(~same)[:5]}"
+
+
 # ------------------------------------------------ codec roundtrip (slice (d))
 
 def _cnn_tree(C):
@@ -158,14 +250,18 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("C,m", [(10, 1605632), (10, 64), (13, 1000), (1, 257)])
-def test_kernel_equals_plain_on_card(cuda_device, bits, C, m):
-    vals = torch.from_numpy(_vals(C, m, 1)).to(cuda_device)
+@pytest.mark.parametrize("C,m", [(10, 1605632), (10, 64), (13, 1000), (1, 257), (2, 1004),
+                                 (3, 100)])
+@pytest.mark.parametrize("special", [False, True])
+def test_kernel_equals_plain_on_card(cuda_device, bits, C, m, special):
+    vals = torch.from_numpy(special_values(C, m, 1) if special else _vals(C, m, 1)).to(cuda_device)
     cids = torch.arange(C, dtype=torch.int32, device=cuda_device)
     before = aq.quantize_pack.launches
     k = aq.quantize_pack(vals, bits, 3, 1, cids, 77)
     p = aq.quantize_pack_plain(vals, bits, 3, 1, cids, 77)
     assert aq.quantize_pack.launches == before + 1
-    for a, b in zip(k, p):
-        assert torch.equal(a.view(torch.uint8) if a.dtype == torch.int8 else a,
-                           b.view(torch.uint8) if b.dtype == torch.int8 else b)
+    for a, b in zip(k, p):  # bytes, scale bits, dec bits
+        def bits(t):
+            return t.view(torch.int32) if t.dtype == torch.float32 else t.view(torch.uint8)
+
+        assert torch.equal(bits(a), bits(b))

@@ -16,7 +16,7 @@ import torch
 jax.config.update("jax_default_matmul_precision", "highest")
 
 from fedml_tpu.core import robust as jrobust  # noqa: E402
-from fedml_tpu.ops.pallas.agg_robust import fused_gram  # noqa: E402
+from fedml_tpu.ops.pallas.agg_robust import _reference_gram, fused_gram  # noqa: E402
 from fedml_tpu_torch.core import robust as trobust  # noqa: E402
 from fedml_tpu_torch.ops import agg_robust as ar  # noqa: E402
 
@@ -44,6 +44,88 @@ def test_split_plan_covers_the_contraction(C, D):
     span, splits = ar.split_plan(C, D)
     assert span % ar.COLS == 0 and 1 <= splits <= 65535
     assert (splits - 1) * span < D <= splits * span
+
+
+@pytest.mark.parametrize("C,want", [(1, "small"), (10, "small"), (16, "small"), (17, "tiled"),
+                                    (100, "tiled"), (1000, "tiled")])
+def test_gram_route_by_cohort_size(C, want):
+    assert ar.route(C) == want
+
+
+@pytest.mark.parametrize("D", [1, 3, 4, 7, 8, 9, 11, 1001, 4099, 65537, 1663370, 1663371,
+                               4 * 256 * ar.SMALL_BLOCKS + 6])
+def test_small_route_reads_every_column_once(D):
+    """The small route's spans partition [0, D): whole groups of four per
+    block (no block empty, at most SMALL_BLOCKS), then the 4..7 tail
+    columns; every 16-byte load of a group, shifted back to its row's
+    alignment or forward for the next lane's share, stays inside the row."""
+    nbody, per_block, nblocks = ar.small_plan(D)
+    spans = [(b, 4 * b * per_block, 4 * min((b + 1) * per_block, nbody))
+             for b in range(nblocks) if nbody] + [(nblocks - 1, 4 * nbody, D)]
+    seen = np.zeros(D, np.int64)
+    for b, lo, hi in spans:
+        assert 0 <= b < nblocks and lo <= hi
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert 1 <= nblocks <= ar.SMALL_BLOCKS
+    assert [b for b, _, _ in spans[:-1]] == list(range(nblocks if nbody else 0))
+    assert all(hi > lo and lo % 4 == 0 and hi % 4 == 0 for _, lo, hi in spans[:-1])
+    assert 4 * nbody + 4 <= D or nbody == 0
+    assert D - 4 * nbody <= 7 and (nbody == 0 or D - 4 * nbody >= 4)
+
+
+def _emulate_small_gram(x):
+    """csrc/agg_robust.cu's small route in float32 on the CPU, in its order:
+    per thread an fmaf per (column, i, j >= i) (emulated as the float64
+    product plus the sum, rounded once), the tail columns on the last
+    block's first threads, shuffle-down trees over each warp's lanes, the
+    fixed tree over eight warps, lane-strided sums of the block partials and
+    one more lane tree; then the triangle mirrored."""
+    C, D = x.shape
+    T, W = ar.SMALL_THREADS, 32
+    nbody, per_block, nblocks = ar.small_plan(D)
+    iu, ju = np.triu_indices(C)
+    acc = np.zeros((nblocks, T, iu.size), np.float32)
+
+    def fma(v, acc):  # v (C, ...) -> acc[..., p] += v[i] v[j]
+        vi, vj = np.moveaxis(v[iu], 0, -1), np.moveaxis(v[ju], 0, -1)
+        return (vi.astype(np.float64) * vj + acc).astype(np.float32)
+
+    b, t = np.arange(nblocks)[:, None], np.arange(T)[None, :]
+    q1 = np.minimum((b + 1) * per_block, nbody)
+    for it in range(-(-per_block // T) if nbody else 0):
+        q = b * per_block + it * T + t
+        on = q < q1
+        for c in range(4):
+            acc = fma(np.where(on, x[:, np.where(on, 4 * q + c, 0)], 0.0), acc)
+    for k, col in enumerate(range(4 * nbody, D)):
+        acc[-1, k] = fma(x[:, col], acc[-1, k])
+
+    def lane_tree(v):  # (..., 32, P) -> lane 0's shuffle-down sum
+        for off in (16, 8, 4, 2, 1):
+            v = v[..., :off, :] + v[..., off:2 * off, :]
+        return v[..., 0, :]
+
+    w = lane_tree(acc.reshape(nblocks, T // W, W, -1))
+    part = ((w[:, 0] + w[:, 1]) + (w[:, 2] + w[:, 3])) + ((w[:, 4] + w[:, 5]) + (w[:, 6] + w[:, 7]))
+    lanes = np.zeros((W, iu.size), np.float32)
+    for blk in range(nblocks):
+        lanes[blk % W] += part[blk]
+    tri = lane_tree(lanes)
+    g = np.zeros((C, C), np.float32)
+    g[iu, ju] = tri
+    g[ju, iu] = tri
+    return g
+
+
+@pytest.mark.parametrize("C,D", [(10, 5003), (16, 1001), (1, 9), (3, 7), (5, 4 * 256 * 270 + 6)])
+def test_small_route_order_matches_jax_reference(C, D):
+    # f32 sums in the kernel's order vs XLA's: ~eps * sqrt(D / terms per
+    # thread) of the row norms, far under 1e-6
+    x = np.random.default_rng(C + D).standard_normal((C, D)).astype(np.float32)
+    g = _emulate_small_gram(x)
+    assert np.array_equal(g, g.T)
+    assert _norm_err(g, _reference_gram(jnp.asarray(x))) < 1e-6
 
 
 def _stack(C, seed, nan_row=None, boost_row=None):
@@ -148,7 +230,8 @@ def test_unported_defense_raises():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,D", [(10, 1663370), (100, 65536), (1000, 7850), (13, 1000)])
+@pytest.mark.parametrize("C,D", [(10, 1663370), (100, 65536), (1000, 7850), (13, 1000),
+                                 (1, 1663371), (16, 1001), (16, 1663370), (17, 65537)])
 def test_gram_kernel_matches_plain_on_card(C, D):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -157,3 +240,4 @@ def test_gram_kernel_matches_plain_on_card(C, D):
     # fp32 sums of up to ~8e3 terms in another order: ~5e-6 of the row norms
     assert _norm_err(g.cpu().numpy(), ar.gram_plain(flat).cpu().numpy()) < 2e-5
     assert torch.equal(g, ar.gram(flat))  # fixed-order reduction repeats
+    assert torch.equal(g, g.T)  # exactly symmetric
