@@ -23,7 +23,8 @@ non-zero exit code and no result line:
    forward (conv3x3, also dx: ResNet's block convs on the tensor cores in
    three TF32 products, the others on the FMA kernel, whose time at the
    block shapes is reported beside as was_ms) and its weight gradient
-   (conv3x3_dw), and
+   (conv3x3_dw), both at L = 1, 2 (the packed schedule's lanes) and 10
+   (the even schedule's clients), and
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
    flash_dkv; SDPA as the library call; bf16 inputs on the tensor
    cores, float32 on the FMA kernels);
@@ -39,14 +40,27 @@ non-zero exit code and no result line:
 6. profile — torch.profiler over three warm rounds of the main config:
    device busy and idle share per round, top kernels; then the same with
    cuDNN's nondeterministic algorithms allowed, for what determinism costs;
-7. small_resnet — resnet8 FedAvg on small cifar10 (conv_impl pallas) on the
-   card against the same run on the CPU;
-8. resnet_main — the CIFAR-10 ResNet-56 FedAvg example config
+7. mnist_lr_main — the North star's example config
+   (examples/sp_fedavg_mnist_lr, plain FedAvg on lr, 1000 clients) through
+   load_arguments(--cf) with only device and comm_round (10) set: its
+   cohort schedule resolves to packed; no kernel of the port runs; the same
+   run on the CPU agrees;
+8. small_resnet — resnet8 FedAvg on small cifar10 (conv_impl pallas) under
+   the even, packed and bucketed schedules on the card against the same
+   runs on the CPU;
+8b. resume — resnet8 under packed on the card, interrupted after two rounds
+   and resumed from its checkpoint to four: bit-equal to four rounds
+   uninterrupted;
+9. resnet_main — the CIFAR-10 ResNet-56 FedAvg example config
    (examples/tpu_fedavg_cifar10_resnet56) through load_arguments + init +
-   run_simulation with conv_impl pallas, full width and depth, 3 rounds of
-   one epoch; the conv kernels' launch counts, per forward route too, must
-   equal those derived from the config;
-9. resnet_profile — torch.profiler over two warm ResNet-56 rounds;
+   the single-process simulator with conv_impl pallas, full width and
+   depth, 2 rounds of one epoch, under its own cohort schedule (auto ->
+   packed, one lane on one card) and checkpointing (to a temporary
+   directory); the conv kernels' launch counts, per forward route too, must
+   equal those derived from the simulator's round plans, and the last
+   round's checkpoint must exist;
+9b. resnet_profile — torch.profiler over one warm ResNet-56 round under
+   packed and one under even;
 10. small_lm — the Cheetah LM trainer at f32, T 4096 (auto dispatch picks
     flash) on the card against the same run on the CPU (plain versions);
 11. lm_main — the Cheetah trainer at the LM slice's configuration (vocab
@@ -94,17 +108,30 @@ GRAM_TOL = 2e-5
 # catches a wrong tap or channel (an error of O(1)) or one unsplit TF32
 # product (~1e-4).
 CONV_TOL = 1e-5
-# (L, B, H, W, Ci, Co) of the stride-1 3x3 convs of ResNet-56's local step
-# (10 clients x batch 64): the stem, then one shape per stage
-CONV_MAIN = ((10, 64, 32, 32, 3, 16), (10, 64, 32, 32, 16, 16),
-             (10, 64, 16, 16, 32, 32), (10, 64, 8, 8, 64, 64))
+# (B, H, W, Ci, Co) of the stride-1 3x3 convs of ResNet-56's local step
+# (batch 64): the stem, then one shape per stage
+CONV_LAYERS = ((64, 32, 32, 3, 16), (64, 32, 32, 16, 16), (64, 16, 16, 32, 32),
+               (64, 8, 8, 64, 64))
+# at each lane count L the example's schedules give them: the packed
+# schedule's G = 1 and 2 lanes (its auto choice on one card), and the even
+# schedule's 10 clients
+CONV_MAIN = tuple((L,) + s for L in (1, 2, 10) for s in CONV_LAYERS)
 CONV_EXTRA = ((1, 256, 32, 32, 16, 16),   # eval: no lanes, batch 256
               (3, 5, 7, 9, 5, 7))         # ragged channels, odd sizes
-CONV_REPORTED = CONV_MAIN[1]  # the kernels line's shape: 18 of the 53 per step
+# the kernels line's shape: the packed main path's one lane, 18 of the 53
+# convs per step
+CONV_REPORTED = (1, 64, 32, 32, 16, 16)
+CONV_FWD_KERNELS = ("conv3x3_tf32_kernel", "conv3x3_fwd_kernel")
+CONV_DW_KERNELS = ("conv3x3_dw_partial_kernel", "conv3x3_dw_reduce_kernel")
+
+
+_T0 = time.perf_counter()
 
 
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "elapsed_s": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 def time_ms(fn, reps=20, rounds=5):
@@ -125,30 +152,43 @@ def time_ms(fn, reps=20, rounds=5):
     return statistics.median(out)
 
 
-def _dev_us(e):
-    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+def _device_events(prof):
+    """{name: (device us, count)} of a profile's device-side events, read
+    from the raw trace: the profiler's per-op tables (``key_averages``) take
+    minutes to build over the million events of a packed ResNet-56 round.
+    CPU ops are left out: their rows repeat their kernels' time."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            us, count = out.get(e.name(), (0.0, 0))
+            out[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
+    return out
 
 
-def device_ms(fn, names, reps=20):
-    """Device ms per call of ``fn``: the self device time of the kernels
-    whose names contain one of ``names``, summed over ``reps`` calls under
+def device_ms(fn, names, reps=20, attempts=3):
+    """Device ms per call of ``fn``: the device time of the kernels whose
+    names contain one of ``names``, summed over ``reps`` calls under
     torch.profiler after a warm-up call. Unlike time_ms it leaves out the
     host's time between launches, which paces back-to-back calls of a
-    wrapper whose kernels are shorter than its Python."""
-    from torch.autograd import DeviceType
+    wrapper whose kernels are shorter than its Python. A profile that
+    recorded none of the kernels (the tracer dropped one profile's device
+    events in a run of ~100 profiles) is taken again, up to ``attempts``
+    times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_dev_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and any(n in e.key for n in names))
-    if us <= 0:
-        raise AssertionError(f"the profiler saw no device time of {names}")
-    return us / 1e3 / reps
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(v[0] for k, v in _device_events(prof).items() if any(n in k for n in names))
+        if us > 0:
+            return us / 1e3 / reps
+    raise AssertionError(f"the profiler saw no device time of {names} in {attempts} profiles")
 
 
 def host_us(fn, n=200, rounds=5):
@@ -512,7 +552,6 @@ def profile_run(run, n, ours, unit="round"):
     Device busy time is the sum of the kernels' self device time (one
     stream, so they do not overlap); the idle share is 1 - busy / wall.
     ``ours`` names kernels whose ms per ``unit`` are reported."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -521,9 +560,7 @@ def profile_run(run, n, ours, unit="round"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
 
-    # device-side events only: a CPU op's row repeats its kernels' time
-    rows = sorted(((e.key, _dev_us(e), e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and _dev_us(e) > 0),
+    rows = sorted(((k, us, c) for k, (us, c) in _device_events(prof).items() if us > 0),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
     return {f"{unit}s": n, f"wall_ms_per_{unit}": wall * 1e3 / n,
@@ -630,8 +667,12 @@ def _bound(ops, nbytes, bf16_ops=0, tf32_ops=0):
 
 def check_conv(dev, tc_rate):
     """Kernel 3a (forward, also dx) within CONV_TOL of the plain version and
-    bit-equal across two calls at the main path's four shapes, the eval
-    shape and a ragged one, and with a lane-broadcast w; timings beside
+    bit-equal across two calls at the four layer shapes at L = 1, 2 and 10
+    lanes (CONV_MAIN), the eval shape and a ragged one, and with a
+    lane-broadcast w (the even schedule's first step). Times are device
+    time (the profiler), the kernel's and cuDNN's alike: at one or two lanes
+    a kernel takes less than its wrapper's host time, so CUDA events around
+    back-to-back calls (event_ms, beside) measure the host. Timings beside
     cuDNN's grouped conv and, where the shape runs on the tensor cores, the
     FMA kernel's time on it (was_ms). The bound counts the route's work:
     three TF32 tensor-core products per multiply-add on the tf32x3 route,
@@ -660,9 +701,11 @@ def check_conv(dev, tc_rate):
         ops = _conv_ops(shape)
         nbytes = (L * B * H * W * (ci + co) + L * 9 * ci * co) * 4
         fma_bound = _bound(ops, nbytes)
-        row = {"ms": time_ms(lambda: C.conv3x3_lanes(x, w)),
+        row = {"ms": device_ms(lambda: C.conv3x3_lanes(x, w), CONV_FWD_KERNELS),
+               "event_ms": time_ms(lambda: C.conv3x3_lanes(x, w)),
                "plain_ms": time_ms(lambda: C.conv3x3_plain(x, w)),
-               "library_ms": time_ms(lambda: F.conv2d(xn, wn, padding=1, groups=L)),
+               "library_ms": device_ms(lambda: F.conv2d(xn, wn, padding=1, groups=L), ("",)),
+               "library_event_ms": time_ms(lambda: F.conv2d(xn, wn, padding=1, groups=L)),
                "max_abs_err": (y - yp).abs().max().item(),
                **(_bound(0, nbytes, tf32_ops=3 * ops) if route == "tf32x3" else fma_bound),
                "fma_bound_ms": fma_bound["bound_ms"]}
@@ -671,7 +714,8 @@ def check_conv(dev, tc_rate):
             fma_err = _normalised_err(C.conv3x3_fwd_route(x, w, "fma"), yp, mag)
             if not fma_err <= CONV_TOL:
                 raise AssertionError(f"conv3x3 fma kernel at {shape}: {fma_err} > {CONV_TOL}")
-            row["was_ms"] = time_ms(lambda: C.conv3x3_fwd_route(x, w, "fma"))
+            row["was_ms"] = device_ms(lambda: C.conv3x3_fwd_route(x, w, "fma"),
+                                      ("conv3x3_fwd_kernel",))
         emit("kernel_conv3x3", shape=list(shape), conv_route=route, normalised_err=err,
              tol=CONV_TOL, library_normalised_err=lib_err, repeatable=True,
              gflop=ops / 1e9, **row)
@@ -679,7 +723,9 @@ def check_conv(dev, tc_rate):
             entry = {"name": "conv3x3", "route": "cuda",
                      "source": "fedml_tpu_torch/csrc/" + C.FWD_ROUTES[route][0] + ".cu",
                      "replaces": "fedml_tpu/ops/conv.py:181", **row}
-            # the first local step: every lane shares the global weights
+        if shape == (10,) + CONV_REPORTED[1:]:
+            # the even schedule's first local step: every lane shares the
+            # global weights (the packed schedule stacks them per lane)
             wb = w[:1].expand_as(w)
             err_b = _normalised_err(C.conv3x3_lanes(x, wb), C.conv3x3_plain(x, wb),
                                     C.conv3x3_plain(x.abs(), wb.abs()))
@@ -692,7 +738,8 @@ def check_conv(dev, tc_rate):
 
 def check_conv_dw(dev):
     """Kernel 3b (weight gradient) within CONV_TOL of the plain version and
-    bit-equal across two calls, at the same shapes; cuDNN's grouped
+    bit-equal across two calls, at the same shapes (at L = 1 the split plan
+    cuts each lane's pixels into the most spans); cuDNN's grouped
     weight-gradient call beside it."""
     from fedml_tpu_torch.ops import conv as C
 
@@ -718,9 +765,11 @@ def check_conv_dw(dev):
             raise AssertionError(f"conv3x3_dw at {shape} is not repeatable")
         ops = _conv_ops(shape)
         nbytes = (L * B * H * W * (ci + co) + L * 9 * ci * co) * 4
-        row = {"ms": time_ms(lambda: C.conv3x3_dw_lanes(x, dy)),
+        row = {"ms": device_ms(lambda: C.conv3x3_dw_lanes(x, dy), CONV_DW_KERNELS),
+               "event_ms": time_ms(lambda: C.conv3x3_dw_lanes(x, dy)),
                "plain_ms": time_ms(lambda: C.conv3x3_dw_plain(x, dy)),
-               "library_ms": time_ms(lib_call),
+               "library_ms": device_ms(lib_call, ("",)),
+               "library_event_ms": time_ms(lib_call),
                "max_abs_err": (dw - dwp).abs().max().item(), **_bound(ops, nbytes)}
         emit("kernel_conv3x3_dw", shape=list(shape), tile=C.dw_tile(ci, co),
              splits=C.dw_split_plan(L, B * H * W, ci, co)[1], normalised_err=err,
@@ -733,42 +782,74 @@ def check_conv_dw(dev):
     return entry
 
 
-def small_resnet_config(device):
+def small_resnet_config(device, cohort_schedule="even"):
     return dict(dataset="cifar10", model="resnet8", conv_impl="pallas",
-                cohort_schedule="even", debug_small_data=True, client_num_in_total=8,
+                cohort_schedule=cohort_schedule, debug_small_data=True, client_num_in_total=8,
                 client_num_per_round=4, comm_round=2, learning_rate=0.05, batch_size=32,
                 frequency_of_the_test=1, random_seed=0, device=device)
 
 
-def phase_small_resnet():
-    """resnet8 FedAvg with conv_impl pallas on the card (the conv kernels)
-    vs on the CPU (their plain versions)."""
-    import fedml_tpu_torch as ft
+def _conv_launches():
+    from fedml_tpu_torch.ops import conv as C
 
-    hist = {}
-    for device in ("cuda", "cpu"):
-        hist[device] = ft.run_simulation(args=ft.init(config=small_resnet_config(device)))
-    for rg, rc in zip(hist["cuda"], hist["cpu"]):
-        # fp32 conv and GroupNorm sums in another order: ~1e-6 per SGD step,
-        # grown through 2 rounds of 5 steps; measured 1.4e-4 between an H100
-        # and the CPU (the CPU tests measure ~5e-5 between the port and
-        # JAX), so 5e-4 relative leaves a 3x margin
-        for k in ("train_loss", "test_loss"):
-            if not abs(rg[k] - rc[k]) <= 5e-4 * max(1.0, abs(rc[k])):
-                raise AssertionError(f"small_resnet {k} differs: {rg[k]} vs {rc[k]}")
-        if not abs(rg["test_acc"] - rc["test_acc"]) <= 1.0 / 200 + 1e-9:  # one of 200
-            raise AssertionError(f"small_resnet test_acc differs: {rg} vs {rc}")
-    emit("small_resnet", cuda=[(r["train_loss"], r["test_loss"], r["test_acc"]) for r in hist["cuda"]],
-         cpu=[(r["train_loss"], r["test_loss"], r["test_acc"]) for r in hist["cpu"]])
+    return C.conv3x3_lanes.launches + C.conv3x3_dw_lanes.launches
+
+
+def phase_small_resnet():
+    """resnet8 FedAvg with conv_impl pallas under the even, packed and
+    bucketed schedules, on the card (the conv kernels, at the schedules'
+    lane counts) vs on the CPU (their plain versions)."""
+    import fedml_tpu_torch as ft
+    from fedml_tpu_torch.simulation import SimulatorSingleProcess
+
+    for schedule in ("even", "packed", "bucketed"):
+        hist, lanes = {}, None
+        for device in ("cuda", "cpu"):
+            before = _conv_launches()
+            runner = SimulatorSingleProcess(ft.init(config=small_resnet_config(device, schedule)))
+            if runner.sim.schedule != schedule:
+                raise AssertionError(f"small_resnet resolved {runner.sim.schedule}, not {schedule}")
+            hist[device] = runner.run()
+            if device == "cuda":
+                if _conv_launches() == before:
+                    raise AssertionError(f"small_resnet {schedule} launched no conv kernel")
+                sim = runner.sim
+                lanes = [_lanes(sim.build_round_inputs(r)) for r in range(len(hist[device]))]
+        for rg, rc in zip(hist["cuda"], hist["cpu"]):
+            # fp32 conv and GroupNorm sums in another order: ~1e-6 per SGD
+            # step, grown through 2 rounds of 5 steps; measured 1.4e-4
+            # between an H100 and the CPU (the CPU tests measure ~5e-5
+            # between the port and JAX), so 5e-4 relative leaves a 3x margin
+            for k in ("train_loss", "test_loss"):
+                if not abs(rg[k] - rc[k]) <= 5e-4 * max(1.0, abs(rc[k])):
+                    raise AssertionError(f"small_resnet {schedule} {k} differs: "
+                                         f"{rg[k]} vs {rc[k]}")
+            if not abs(rg["test_acc"] - rc["test_acc"]) <= 1.0 / 200 + 1e-9:  # one of 200
+                raise AssertionError(f"small_resnet {schedule} test_acc differs: {rg} vs {rc}")
+        emit("small_resnet", cohort_schedule=schedule, lanes_per_round=lanes,
+             cuda=[(r["train_loss"], r["test_loss"], r["test_acc"]) for r in hist["cuda"]],
+             cpu=[(r["train_loss"], r["test_loss"], r["test_acc"]) for r in hist["cpu"]])
+
+
+def _lanes(inputs):
+    """(lanes, steps) of one round's plan: (G, L_pad) packed, the buckets'
+    (slots, width) bucketed, (clients, batches) even."""
+    p = inputs.payload
+    if inputs.kind == "packed":
+        return list(p["shape"])
+    if inputs.kind == "bucketed":
+        return [list(b["payload"]["mask"].shape[:2]) for b in p]
+    return list(p["mask"].shape[:2])
 
 
 RESNET_YAML = Path(__file__).resolve().parent / \
     "examples/tpu_fedavg_cifar10_resnet56/fedml_config.yaml"
-# cut: 1 epoch instead of 20, 3 rounds instead of 100. The port runs one
-# card with the sp engine (the YAML's backend: TPU mesh is not ported),
-# only the even cohort schedule, and no checkpointing yet.
-RESNET_OVERRIDES = dict(conv_impl="pallas", cohort_schedule="even", checkpoint_dir=None,
-                        epochs=1, comm_round=3, frequency_of_the_test=3, backend="sp",
+# cut: 1 epoch instead of 20, 2 rounds instead of 100. The port runs one
+# card with the sp engine (the YAML's backend: TPU mesh is not ported), and
+# conv_impl pallas engages the conv kernels; the YAML's cohort_schedule
+# (auto: packed on this skewed partition) and checkpointing stay, with
+# checkpoint_dir pointed at a temporary directory by the phase.
+RESNET_OVERRIDES = dict(conv_impl="pallas", epochs=1, comm_round=2, backend="sp",
                         device="cuda")
 
 
@@ -779,57 +860,75 @@ def resnet_args(**extra):
                           override=dict(RESNET_OVERRIDES, **extra))
 
 
-def phase_resnet_main():
-    """ResNet-56 FedAvg through load_arguments + init + run_simulation. The
-    conv kernels' launches must equal what the config implies: per local
-    step, one forward per stride-1 3x3 conv, one dx per such conv but the
-    stem (its input, the data, needs no gradient) and one dw per conv; per
-    eval, one forward per conv and test batch of 256."""
-    import fedml_tpu_torch as ft
-    from fedml_tpu_torch import data as data_mod
+def _resnet_conv_channels(args):
+    """(Ci, Co) of each stride-1 3x3 pallas conv of the config's model."""
     from fedml_tpu_torch import models as models_mod
     from fedml_tpu_torch.ops import conv as C
+
+    model = models_mod.create(args, 10, (32, 32, 3))
+    return [tuple(m.kernel.shape[2:]) for m in model.modules()
+            if isinstance(m, C.Conv) and m.impl == "pallas" and m.stride == 1
+            and tuple(m.kernel.shape[:2]) == (3, 3)]
+
+
+def phase_resnet_main():
+    """ResNet-56 FedAvg through load_arguments + init + the single-process
+    simulator, under the YAML's own cohort schedule (auto -> packed) and
+    checkpointing. The conv kernels' launches must equal what the
+    simulator's own round plans imply: per packed slot (L_pad of them per
+    round, padded ones included), one forward per stride-1 3x3 conv, one
+    dx per such conv but the stem (its input, the data, needs no gradient)
+    and one dw per conv; per eval, one forward per conv and test batch of
+    256. The last round's checkpoint must exist."""
+    import tempfile
+
+    import fedml_tpu_torch as ft
+    from fedml_tpu_torch.ops import conv as C
+    from fedml_tpu_torch.simulation import SimulatorSingleProcess
     from fedml_tpu_torch.simulation.fed_sim import EVAL_BATCH_SIZE
+    from fedml_tpu_torch.utils.checkpoint import CheckpointManager
 
-    args = ft.init(resnet_args())
-    fed, classes = data_mod.load(args)  # the partition, to derive the counts
-    sizes = [len(v) for v in fed._global_index.values()]
-    steps_per_round = int(args.epochs) * -(-max(sizes) // int(args.batch_size))
-    model = models_mod.create(args, classes, tuple(fed.train_data_global.x.shape[1:]))
-    conv_channels = [tuple(m.kernel.shape[2:]) for m in model.modules()
-                     if isinstance(m, C.Conv) and m.impl == "pallas" and m.stride == 1
-                     and tuple(m.kernel.shape[:2]) == (3, 3)]
-    convs = len(conv_channels)
-    rounds, freq = int(args.comm_round), int(args.frequency_of_the_test)
-    evals = sum(1 for r in range(rounds) if r % freq == 0 or r == rounds - 1)
-    eval_batches = -(-len(fed.test_data_global.y) // EVAL_BATCH_SIZE)
-    steps = rounds * steps_per_round
-    want = {"conv3x3": steps * (convs + convs - 1) + evals * eval_batches * convs,
-            "conv3x3_dw": steps * convs}
-    # per forward route: each conv's forward at its (Ci, Co), its dx (not
-    # the stem's) at (Co, Ci)
-    want_routes = dict.fromkeys(C.FWD_ROUTES, 0)
-    for i, (ci, co) in enumerate(conv_channels):
-        want_routes[C.fwd_route(ci, co)] += steps + evals * eval_batches
-        if i:
-            want_routes[C.fwd_route(co, ci)] += steps
-    del fed, model
-
-    args = ft.init(resnet_args())  # re-seed: the partition above drew from numpy
-    torch.cuda.reset_peak_memory_stats()
-    C.conv3x3_lanes.launches = 0
-    C.conv3x3_lanes.route_launches = dict.fromkeys(C.FWD_ROUTES, 0)
-    C.conv3x3_dw_lanes.launches = 0
-    t = time.perf_counter()
-    hist = ft.run_simulation(args=args)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = {"conv3x3": C.conv3x3_lanes.launches, "conv3x3_dw": C.conv3x3_dw_lanes.launches}
-    routes = dict(C.conv3x3_lanes.route_launches)
+    with tempfile.TemporaryDirectory(prefix="resnet56_ckpt_") as ckpt_dir:
+        args = ft.init(resnet_args(checkpoint_dir=ckpt_dir))
+        conv_channels = _resnet_conv_channels(args)
+        convs = len(conv_channels)
+        torch.cuda.reset_peak_memory_stats()
+        runner = SimulatorSingleProcess(args)
+        sim = runner.sim
+        if sim.schedule != "packed":
+            raise AssertionError(f"the ResNet-56 example resolved {sim.schedule}, not packed")
+        rounds, freq = int(args.comm_round), int(args.frequency_of_the_test)
+        plans = [_lanes(sim.build_round_inputs(r)) for r in range(rounds)]
+        evals = sum(1 for r in range(rounds) if r % freq == 0 or r == rounds - 1)
+        eval_batches = -(-sim._x_test.shape[0] // EVAL_BATCH_SIZE)
+        steps = sum(L_pad for _, L_pad in plans)
+        want = {"conv3x3": steps * (convs + convs - 1) + evals * eval_batches * convs,
+                "conv3x3_dw": steps * convs}
+        # per forward route: each conv's forward at its (Ci, Co), its dx
+        # (not the stem's) at (Co, Ci)
+        want_routes = dict.fromkeys(C.FWD_ROUTES, 0)
+        for i, (ci, co) in enumerate(conv_channels):
+            want_routes[C.fwd_route(ci, co)] += steps + evals * eval_batches
+            if i:
+                want_routes[C.fwd_route(co, ci)] += steps
+        C.conv3x3_lanes.launches = 0
+        C.conv3x3_lanes.route_launches = dict.fromkeys(C.FWD_ROUTES, 0)
+        C.conv3x3_dw_lanes.launches = 0
+        t = time.perf_counter()
+        hist = runner.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {"conv3x3": C.conv3x3_lanes.launches,
+                    "conv3x3_dw": C.conv3x3_dw_lanes.launches}
+        routes = dict(C.conv3x3_lanes.route_launches)
+        saved = CheckpointManager(ckpt_dir).steps()
+        if saved != [rounds - 1]:
+            raise AssertionError(f"resnet main path checkpoints {saved}, expected the last "
+                                 f"round's, {rounds - 1}")
     if launches != want or routes != want_routes:
         raise AssertionError(f"resnet main path launches {launches}, by forward route {routes}; "
-                             f"expected {want}, {want_routes} ({convs} convs, {steps} steps, "
-                             f"{evals} evals)")
+                             f"expected {want}, {want_routes} ({convs} convs, lanes x slots "
+                             f"{plans}, {evals} evals)")
     losses = [r["train_loss"] for r in hist]
     if len(hist) != rounds or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"resnet main path history not finite: {losses}")
@@ -838,8 +937,9 @@ def phase_resnet_main():
             math.isfinite(r["test_loss"]) and 0.0 <= r["test_acc"] <= 1.0 for r in evals_seen):
         raise AssertionError(f"bad eval records {evals_seen}")
     emit("resnet_main", config=str(RESNET_YAML.relative_to(RESNET_YAML.parents[2])),
-         overrides=RESNET_OVERRIDES, convs_3x3_s1=convs, steps_per_round=steps_per_round,
-         evals=evals, eval_batches=eval_batches, wall_s=wall, train_loss=losses,
+         overrides=RESNET_OVERRIDES, cohort_schedule=sim.schedule,
+         lanes_slots_per_round=plans, convs_3x3_s1=convs, evals=evals,
+         eval_batches=eval_batches, checkpoints=saved, wall_s=wall, train_loss=losses,
          train_acc=[r["train_acc"] for r in hist],
          test=[(r["round"], r["test_loss"], r["test_acc"]) for r in evals_seen],
          round_time_s=[r["round_time"] for r in hist], launches=launches,
@@ -847,17 +947,123 @@ def phase_resnet_main():
     return launches
 
 
-def phase_resnet_profile(rounds=2):
-    """Where a ResNet-56 round's time goes: two warm rounds after a warm-up
-    run of the same simulator."""
+def phase_resnet_profile():
+    """Where a ResNet-56 round's time goes, one warm round 0 under packed
+    and one under even, each on a fresh simulator without checkpoints. The
+    packed round is the program resnet_main just ran (its warm-up, and its
+    unprofiled time); the even one runs one round first, timed. Round 0 of
+    the even schedule trains the same clients on the same batches as round
+    0 of packed."""
     import fedml_tpu_torch as ft
     from fedml_tpu_torch.simulation import build_simulator
 
-    sim, _ = build_simulator(ft.init(resnet_args(comm_round=rounds)))
-    sim.run(None, log_fn=None)  # warm-up
-    emit("resnet_profile", **profile_run(lambda: sim.run(None, log_fn=None), rounds, (
-        "conv3x3_tf32_kernel", "conv3x3_fwd_kernel", "conv3x3_dw_partial_kernel",
-        "conv3x3_dw_reduce_kernel")))
+    ours = CONV_FWD_KERNELS + CONV_DW_KERNELS
+    out = {}
+    for schedule in ("packed", "even"):
+        sim, _ = build_simulator(ft.init(resnet_args(comm_round=1, checkpoint_dir=None,
+                                                     cohort_schedule=schedule)))
+        row = {"lanes_slots": _lanes(sim.build_round_inputs(0))}
+        if schedule == "even":  # the warm-up, timed as an unprofiled round
+            t = time.perf_counter()
+            sim.run(None, log_fn=None)
+            torch.cuda.synchronize()
+            row["unprofiled_round_s"] = time.perf_counter() - t
+        out[schedule] = dict(row, **profile_run(lambda: sim.run(None, log_fn=None), 1, ours))
+        del sim
+    emit("resnet_profile", **out)
+
+
+def phase_mnist_lr_main():
+    """The North star's main path: examples/sp_fedavg_mnist_lr/fedml_config.yaml
+    (plain FedAvg on lr, full-size synthetic MNIST, 1000 clients, alpha 0.5,
+    eval every 5) through load_arguments(--cf) + init + the single-process
+    simulator, with comm_round cut to 10 of 200. Its cohort schedule
+    resolves to packed. It runs no kernel of the port (lr's local step is
+    dense matmuls, cuBLAS), which the launch counters confirm. The same
+    config runs on the CPU: card and CPU agree within the CPU test's
+    tolerance (tests/test_torch_schedule.py, where the port meets JAX)."""
+    import fedml_tpu_torch as ft
+    from fedml_tpu_torch import load_arguments
+    from fedml_tpu_torch.ops import agg_quant, agg_robust, flash_attention
+    from fedml_tpu_torch.ops import conv as C
+    from fedml_tpu_torch.simulation import SimulatorSingleProcess
+
+    yaml = Path(__file__).resolve().parent / "examples/sp_fedavg_mnist_lr/fedml_config.yaml"
+    counters = (agg_quant.quantize_pack, agg_robust.gram, C.conv3x3_lanes, C.conv3x3_dw_lanes,
+                flash_attention.flash_forward, flash_attention.flash_dq,
+                flash_attention.flash_dkv)
+    hist, params, lanes = {}, {}, None
+    for device in ("cuda", "cpu"):
+        before = [c.launches for c in counters]
+        runner = SimulatorSingleProcess(ft.init(load_arguments(
+            args_list=["--cf", str(yaml)], override=dict(device=device, comm_round=10))))
+        if runner.sim.schedule != "packed":
+            raise AssertionError(f"sp_fedavg_mnist_lr resolved {runner.sim.schedule}, not packed")
+        if device == "cuda":
+            lanes = [_lanes(runner.sim.build_round_inputs(r)) for r in range(10)]
+            t = time.perf_counter()
+        hist[device] = runner.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if [c.launches for c in counters] != before:
+                raise AssertionError("sp_fedavg_mnist_lr launched a kernel of the port")
+        params[device] = {k: v.detach().cpu() for k, v in runner.sim.params.items()}
+        del runner
+    hc = hist["cuda"]
+    if len(hc) != 10 or not all(math.isfinite(r["train_loss"]) for r in hc):
+        raise AssertionError(f"sp_fedavg_mnist_lr history not finite: {hc}")
+    evals = [r["round"] for r in hc if "test_acc" in r]
+    if evals != [0, 5, 9] or not all(math.isfinite(hc[r]["test_loss"]) for r in evals):
+        raise AssertionError(f"sp_fedavg_mnist_lr eval records at {evals}")
+    # the CPU test's tolerances (port vs JAX: losses 1e-5 relative, parameters
+    # 1e-6); accuracy within one test image of 10,000
+    for rg, rc in zip(hc, hist["cpu"]):
+        for k in ("train_loss", "test_loss"):
+            if k in rc and not abs(rg[k] - rc[k]) <= 1e-5 * abs(rc[k]) + 1e-6:
+                raise AssertionError(f"sp_fedavg_mnist_lr {k} differs: {rg[k]} vs {rc[k]}")
+        if "test_acc" in rc and not abs(rg["test_acc"] - rc["test_acc"]) <= 1e-4 + 1e-9:
+            raise AssertionError(f"sp_fedavg_mnist_lr test_acc differs: {rg} vs {rc}")
+    diff = max((params["cuda"][k] - params["cpu"][k]).abs().max().item() for k in params["cpu"])
+    if not diff <= 1e-6:
+        raise AssertionError(f"sp_fedavg_mnist_lr parameters differ by {diff}")
+    emit("mnist_lr_main", config=str(yaml.relative_to(yaml.parents[2])),
+         overrides={"device": "cuda", "comm_round": 10}, cohort_schedule="packed",
+         lanes_slots_per_round=lanes, kernel_launches=0, wall_s=wall,
+         train_loss=[r["train_loss"] for r in hc],
+         test=[(r, hc[r]["test_loss"], hc[r]["test_acc"]) for r in evals],
+         round_time_s=[r["round_time"] for r in hc], param_max_abs_diff_vs_cpu=diff)
+
+
+def phase_resume():
+    """resnet8 under packed on the card: four rounds uninterrupted, then two
+    rounds with a checkpoint after each and a fresh simulator resuming to
+    four. Every round's metrics and the final parameters are bit-equal."""
+    import tempfile
+
+    import fedml_tpu_torch as ft
+    from fedml_tpu_torch.simulation import build_simulator
+
+    cfg = dict(small_resnet_config("cuda", "packed"), comm_round=4, frequency_of_the_test=2)
+
+    def run(**kw):
+        sim, apply_fn = build_simulator(ft.init(config=dict(cfg, **kw)))
+        return sim, sim.run(apply_fn, log_fn=None)
+
+    full_sim, full = run()
+    with tempfile.TemporaryDirectory(prefix="resnet8_ckpt_") as ckpt_dir:
+        _, first = run(comm_round=2, checkpoint_dir=ckpt_dir, checkpoint_frequency=1)
+        sim, second = run(checkpoint_dir=ckpt_dir, checkpoint_frequency=1)
+    keys = ("round", "train_loss", "train_acc")
+    resumed = first + second
+    same_hist = [{k: r[k] for k in keys} for r in resumed] == \
+        [{k: r[k] for k in keys} for r in full] and \
+        all(second[i][k] == full[2 + i][k] for i in range(2) for k in ("test_loss", "test_acc"))
+    same_params = all(torch.equal(sim.params[k], v) for k, v in full_sim.params.items())
+    if not (same_hist and same_params and [r["round"] for r in second] == [2, 3]):
+        raise AssertionError(f"resumed run differs: {resumed} vs {full}")
+    emit("resume", model="resnet8", cohort_schedule="packed", rounds=4, resumed_at=2,
+         train_loss=[r["train_loss"] for r in full], bit_equal=True)
 
 
 # --- the Cheetah LM slice: flash attention ------------------------------------
@@ -1148,7 +1354,9 @@ def main(argv):
     phase_repeat()
     launches = phase_main()
     phase_profile()
+    phase_mnist_lr_main()
     phase_small_resnet()
+    phase_resume()
     launches.update(phase_resnet_main())
     phase_resnet_profile()
     phase_small_lm()

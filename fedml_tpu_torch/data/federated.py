@@ -2,17 +2,26 @@
 
 The port's copy of ``fedml_tpu/data/federated.py`` (``FederatedData:63``,
 ``pack_client_index:93``, ``build_federated_data:218``), cut to what the
-device-resident round uses. The training set
+device-resident round and its hooks use. The training set
 lives on the device as one global array pair; a round ships only the
 cohort's ``(C, NB, BS)`` index rectangle and mask, and the simulator gathers
 x/y on the device (``simulation.fed_sim._gather_from_device``). The index
 rectangles are identical to the JAX package's for the same inputs.
+
+The per-client dicts the reference's hooks read (``train_data_local_dict``,
+``test_data_local_dict``) are here too. A client's train pair is sliced
+from the global arrays when it is read (:class:`LocalTrainDict`), so the
+container holds no second copy of the train set; every client's test
+entry is the one global test pair object, as in the JAX package without
+per-client test indices (the local-test evaluator keys its dedup on
+identity).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Sequence
+from collections.abc import Mapping
+from typing import Dict, Iterator, List, NamedTuple, Sequence
 
 import numpy as np
 
@@ -37,16 +46,45 @@ class ClientIndexBatches(NamedTuple):
     num_samples: np.ndarray
 
 
+class LocalTrainDict(Mapping):
+    """client -> its train ``ArrayPair``, sliced from the global arrays on
+    each read (the JAX package's ``train_data_local_dict`` holds the same
+    arrays, copied up front)."""
+
+    def __init__(self, train: ArrayPair, index: Dict[int, np.ndarray]):
+        self._train, self._index = train, index
+
+    def __getitem__(self, c: int) -> ArrayPair:
+        idx = self._index[c]
+        return ArrayPair(self._train.x[idx], self._train.y[idx])
+
+    def __iter__(self) -> Iterator[int]:
+        return iter(self._index)
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+
 @dataclasses.dataclass
 class FederatedData:
-    """Global train/test arrays plus each client's rows into the train set
-    (the parts of the JAX container the round uses)."""
+    """Global train/test arrays, each client's rows into the train set, and
+    the per-client dicts of the reference's dataset tuple."""
 
     train_data_global: ArrayPair
     test_data_global: ArrayPair
     class_num: int
     # client -> indices into train_data_global
     _global_index: Dict[int, np.ndarray]
+    # client -> its local test pair
+    test_data_local_dict: Dict[int, ArrayPair] = dataclasses.field(default_factory=dict)
+
+    @property
+    def train_data_local_dict(self) -> LocalTrainDict:
+        return LocalTrainDict(self.train_data_global, self._global_index)
+
+    @property
+    def client_num(self) -> int:
+        return len(self._global_index)
 
     def pack_client_index(
         self,
@@ -83,7 +121,8 @@ def build_federated_data(
     net_dataidx_map: Dict[int, List[int]],
     class_num: int,
 ) -> FederatedData:
-    """Assemble the container from global arrays + a client->indices map."""
+    """Assemble the container from global arrays + a client->indices map;
+    every client's local test pair is the global test pair."""
     return FederatedData(
         train_data_global=train,
         test_data_global=test,
@@ -91,4 +130,5 @@ def build_federated_data(
         _global_index={
             c: np.asarray(idx, np.int64) for c, idx in net_dataidx_map.items()
         },
+        test_data_local_dict={c: test for c in net_dataidx_map},
     )

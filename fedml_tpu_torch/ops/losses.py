@@ -1,5 +1,6 @@
-"""LM losses (port of ``fedml_tpu/ops/losses.py``): ``softmax_cross_entropy``
-and ``chunked_lm_cross_entropy``."""
+"""Losses (port of ``fedml_tpu/ops/losses.py``): ``softmax_cross_entropy``
+and ``chunked_lm_cross_entropy`` for the LM, ``per_sample_metrics`` for
+the per-client local tests."""
 
 from __future__ import annotations
 
@@ -33,3 +34,23 @@ def chunked_lm_cross_entropy(hidden: torch.Tensor, head_kernel: torch.Tensor,
                      head_kernel, use_reentrant=False)
           for c in range(0, T, chunk)]
     return -torch.stack(ll).mean()
+
+
+def per_sample_metrics(out: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                       loss_kind: str = "ce"):
+    """Per-sample ``(loss_sum, correct, valid)`` float32 vectors, shape (B,)
+    (``fedml_tpu/ops/losses.py:114``, its ``ce`` branch): the segmented
+    per-client evaluator scatter-adds them into each sample's client.
+    Reductions run over every trailing label axis."""
+    if loss_kind != "ce":
+        raise NotImplementedError(
+            f"per_sample_metrics for loss_kind '{loss_kind}' is not ported yet "
+            "(ROADMAP.md Queue 1, item 3); the port has the 'ce' branch")
+    axes = tuple(range(1, max(y.dim(), mask.dim())))
+    logz = torch.log_softmax(out.float(), dim=-1)
+    ll = torch.take_along_dim(logz, y.long()[..., None], dim=-1)[..., 0]
+    m = mask.reshape(mask.shape + (1,) * (ll.dim() - mask.dim())).expand(ll.shape).float()
+    correct = ((out.argmax(dim=-1) == y) * m)
+    if axes:
+        return -(ll * m).sum(axes), correct.sum(axes), m.sum(axes)
+    return -(ll * m), correct, m

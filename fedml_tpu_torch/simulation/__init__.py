@@ -26,11 +26,9 @@ _UNPORTED = (
     ("rounds_per_dispatch", 1, "9"), ("watchdog_factor", 0, "8"),
     ("async_mode", False, "11"), ("client_state_spill_dir", None, "8"),
     ("client_state_capacity", None, "8"), ("attack_type", None, "5"),
-    ("checkpoint_dir", None, "8"), ("local_test_on_all_clients", False, "4"),
     ("fedprox_mu", None, "3"), ("dp_l2_clip", None, "3"),
     ("dp_noise_multiplier", 0, "3"), ("model_axis_size", 1, "10"),
-    ("packed_lanes", None, "4"), ("server_tester", None, "4"),
-    ("client_dropout_rate", 0, "4"), ("norm", "group", "7"),
+    ("norm", "group", "7"),
 )
 
 
@@ -78,7 +76,16 @@ def build_simulator(args, fed_data=None, model=None, variables=None) -> tuple:
         batch_size=int(getattr(args, "batch_size", 32)),
         frequency_of_the_test=int(getattr(args, "frequency_of_the_test", 5)),
         seed=int(getattr(args, "random_seed", 0)),
+        checkpoint_dir=getattr(args, "checkpoint_dir", None),
+        checkpoint_frequency=int(getattr(args, "checkpoint_frequency", 10)),
+        resume=bool(getattr(args, "resume", True)),
+        client_dropout_rate=float(getattr(args, "client_dropout_rate", 0.0) or 0.0),
         cohort_schedule=str(getattr(args, "cohort_schedule", "auto")),
+        packed_lanes=(None if getattr(args, "packed_lanes", None) is None
+                      else int(args.packed_lanes)),
+        packed_flat_carry=bool(getattr(args, "packed_flat_carry", False)),
+        max_width_buckets=int(getattr(args, "max_width_buckets", 4)),
+        local_test_on_all_clients=bool(getattr(args, "local_test_on_all_clients", False)),
         agg_kernels=bool(getattr(args, "agg_kernels", False)),
         sanitize_updates=bool(getattr(args, "sanitize_updates", False)),
         sanitize_z_thresh=float(getattr(args, "sanitize_z_thresh", 6.0)),
@@ -93,7 +100,13 @@ def build_simulator(args, fed_data=None, model=None, variables=None) -> tuple:
         multi_krum_m=(None if getattr(args, "multi_krum_m", None) is None
                       else int(args.multi_krum_m)),
     )
-    return FedSimulator(fed_data, alg, variables, sim_cfg, device), apply_fn
+    sim = FedSimulator(fed_data, alg, variables, sim_cfg, device,
+                       # the raw pieces of the packed schedule's per-slot step
+                       packed_ctx=(apply_fn, cfg),
+                       # the reference's test_on_the_server hook object
+                       server_tester=getattr(args, "server_tester", None),
+                       hook_args=args)
+    return sim, apply_fn
 
 
 class SimulatorSingleProcess:

@@ -1,20 +1,29 @@
 """The federated simulator, single device (port of
-``fedml_tpu/simulation/fed_sim.py`` on its even-schedule, one-round-per-
-dispatch path without a mesh).
+``fedml_tpu/simulation/fed_sim.py`` on its one-round-per-dispatch path
+without a mesh), with the JAX package's three cohort schedules:
 
-One round (``_round_step``, the counterpart of ``_make_round_body``:702):
+- **even** (``_round_step``, the counterpart of ``_make_round_body``:702):
+  every client padded to the largest client's batch count; gather the
+  cohort's batches by index from the device-resident training set, train
+  the whole cohort at once (``torch.func.vmap`` of the algorithm's
+  ``local_update``), codec roundtrip (q8/q4 through the fused CUDA kernel),
+  sanitizer + defense (with ``agg_kernels`` and a Krum-family defense, one
+  pass through ``core.robust.fused_sanitize_krum`` and the Gram kernel),
+  aggregate, server update;
+- **packed** (``_dispatch_packed``, the counterpart of
+  ``_build_packed_step``:1121): clients back to back in G lanes
+  (``core.scheduler.lane_schedule``); one slot trains every lane one batch
+  under ``vmap(grad_and_value)`` over the lanes' own parameters, and at a
+  client's last batch the lane flushes its weighted delta and resets to
+  the global parameters;
+- **bucketed** (``_dispatch_bucketed``): width classes of the cohort
+  (``core.scheduler.bucket_schedule``), one vmapped partial sum per class
+  and one finalize.
 
-1. gather the cohort's batches by index from the training set, which lives
-   on the device (``_gather_from_device``);
-2. local training of the whole cohort at once: ``torch.func.vmap`` of the
-   algorithm's ``local_update`` gives the updates stacked ``(C, *leaf)``;
-3. codec roundtrip (q8/q4 through the fused CUDA kernel);
-4. sanitizer + defense: with ``agg_kernels`` and a Krum-family defense the
-   two collapse into ``core.robust.fused_sanitize_krum`` (Gram kernel);
-5. aggregate and server update.
-
-Host-side packing (sampling, shuffles, index rectangles) is a pure function
-of (seed, round), bit-identical to the JAX package's.
+``auto`` picks packed (or bucketed) for a skewed population and even
+otherwise, by the JAX package's rule. Host-side packing (sampling, the
+drop mask, shuffles, index rectangles, lane and bucket plans) is a pure
+function of (seed, round), bit-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,11 +34,12 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.func import vmap
+from torch.func import grad_and_value, vmap
 
-from ..algorithms.local_sgd import make_eval_fn
+from ..algorithms.local_sgd import make_eval_fn, make_loss_fn
 from ..core.algframe import FedAlgorithm, weighted_mean
 from ..data.federated import FederatedData
+from ..ops.losses import per_sample_metrics
 from .sampling import client_permutation_list, sample_clients
 
 
@@ -44,8 +54,25 @@ class SimConfig:
     batch_size: int = 32
     frequency_of_the_test: int = 5
     seed: int = 0
-    # "even" | "auto"; packed/bucketed schedules are not ported
+    # packed schedule: force the lane count (None = the G*L search of
+    # core.scheduler.lane_schedule)
+    packed_lanes: Optional[int] = None
+    # the JAX package's ravelled-carry packed executor (a v5e speed knob,
+    # same numerics): not ported, raises when set
+    packed_flat_carry: bool = False
+    # checkpoint/resume (utils/checkpoint.py, torch.save files)
+    checkpoint_dir: Optional[str] = None
+    checkpoint_frequency: int = 10
+    resume: bool = True
+    # each round, each sampled client drops with this probability (weight
+    # and mask zeroed); at least one client always survives
+    client_dropout_rate: float = 0.0
+    # "even" | "packed" | "bucketed" | "auto" (fed_sim.py:95-121)
     cohort_schedule: str = "auto"
+    max_width_buckets: int = 4
+    # per-client local tests on every client's train and test split at
+    # eval rounds (the reference's _local_test_on_all_clients)
+    local_test_on_all_clients: bool = False
     # fuse sanitize + Krum into one pass (core.robust.fused_sanitize_krum)
     agg_kernels: bool = False
     sanitize_updates: bool = False
@@ -60,13 +87,15 @@ class RoundInputs:
 
     round_idx: int
     client_ids: np.ndarray
-    payload: Dict[str, np.ndarray]
+    drop: Optional[np.ndarray]
+    kind: str  # "even" | "bucketed" | "packed"
+    payload: Any
 
 
 def _gather_from_device(data: Dict[str, Any], x_all, y_all) -> Dict[str, Any]:
     """Replace the cohort's index rectangle with x/y gathered from the
     device-resident global arrays; padded rows (index 0) are zeroed."""
-    idx = data.pop("idx")
+    idx = data.pop("idx").long()
     m = data["mask"]
 
     def _masked(gathered):
@@ -83,12 +112,40 @@ def _cohort_outputs(alg: FedAlgorithm, params, cohort):
     return vmap(alg.local_update, in_dims=(None, 0))(params, cohort)
 
 
+def pack_lane_rows(rows: np.ndarray, srcmap: np.ndarray) -> np.ndarray:
+    """Gather (n_rows, bs) int32 batch rows into the packed schedule's lane
+    tensor through a slot -> row map (the numpy branch of
+    ``fedml_tpu/native/__init__.py:208``); the output has srcmap's shape
+    plus a trailing bs axis."""
+    rows = np.ascontiguousarray(rows, np.int32)
+    sm = np.ascontiguousarray(srcmap, np.int64)
+    return rows[sm.ravel()].reshape(sm.shape + (rows.shape[-1],))
+
+
+def _per_lane(v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A (G,) lane vector shaped to broadcast against a (G, ...) leaf."""
+    return v.reshape(v.shape + (1,) * (t.dim() - 1))
+
+
 class FedSimulator:
-    """Round loop over a FedAlgorithm on one device."""
+    """Round loop over a FedAlgorithm on one device.
+
+    ``packed_ctx`` = (apply_fn, LocalTrainConfig), the raw pieces the packed
+    schedule's per-slot step needs (None: packed is ineligible).
+    ``server_tester`` is an object with the reference's
+    ``test_on_the_server(train_local, test_local, device, args)``: at eval
+    rounds a truthy return replaces the default evaluation, and a dict
+    return is merged into the round record; ``hook_args`` is the args
+    object it receives."""
 
     def __init__(self, fed_data: FederatedData, algorithm: FedAlgorithm,
                  init_variables: Dict[str, torch.Tensor], cfg: SimConfig,
-                 device: torch.device):
+                 device: torch.device, packed_ctx: Optional[tuple] = None,
+                 server_tester=None, hook_args=None):
+        if cfg.packed_flat_carry:
+            raise NotImplementedError(
+                "packed_flat_carry (the ravelled-carry packed executor) is not ported yet "
+                "(ROADMAP.md Queue 1, item 4); the packed schedule runs per leaf")
         self.fed = fed_data
         self.alg = algorithm
         self.cfg = cfg
@@ -96,10 +153,21 @@ class FedSimulator:
         self.params = {k: v.to(device) for k, v in init_variables.items()}
         self.history: List[Dict[str, Any]] = []
         self._eval_fn = None
+        self._packed_ctx = packed_ctx
+        self._lane_grad = None
+        self._server_tester = server_tester
+        self._hook_args = hook_args
+        self._local_eval_cache: Dict[str, Any] = {}
+        # packed schedule: round-independent lane structure per (cohort,
+        # drop) pattern, FIFO-bounded (fed_sim.py:2390)
+        self._lane_plan_cache: Dict[Any, Dict[str, Any]] = {}
+        self._last_packed_shape = None
 
         sizes = [len(v) for v in fed_data._global_index.values()]
         # every client padded to the largest client's batch count
         self.num_local_batches = max(1, -(-max(sizes) // cfg.batch_size))
+        self._batch_counts = {c: max(1, -(-len(v) // cfg.batch_size))
+                              for c, v in fed_data._global_index.items()}
         train, test = fed_data.train_data_global, fed_data.test_data_global
         self._x_dev = torch.from_numpy(np.ascontiguousarray(train.x)).to(device)
         self._y_dev = torch.from_numpy(np.ascontiguousarray(train.y)).to(device)
@@ -112,30 +180,46 @@ class FedSimulator:
             from ..comm import codec as wire_codec
 
             self._codec_rt = wire_codec.build_stacked_roundtrip(cfg.comm_codec, cfg.seed)
+        # schedule resolution, as fed_sim.py:541-579: the sanitizer and the
+        # codec need the full stacked cohort and pin the even schedule; the
+        # port's algorithms are stateless and its models have no BatchNorm,
+        # so a mean-aggregating algorithm is packed-eligible
+        force_even = self._detect or self._codec_rt is not None
+        mean_agg = algorithm.aggregate is None and not force_even
+        packed_ok = packed_ctx is not None and mean_agg
         schedule = cfg.cohort_schedule
+        if force_even and schedule in ("packed", "bucketed"):
+            raise ValueError(
+                f"cohort_schedule='{schedule}' is incompatible with the update sanitizer / "
+                "comm_codec, which need the full stacked cohort (use 'even' or 'auto')")
+        if force_even:
+            schedule = "even"
         if schedule == "auto":
-            # as fed_sim.py: the sanitizer and the codec need the full
-            # stacked cohort and force the even schedule; otherwise a skewed
-            # population would pick packed/bucketed
-            counts = np.asarray([max(1, -(-n // cfg.batch_size)) for n in sizes])
+            counts = np.asarray(list(self._batch_counts.values()))
             skewed = counts.max() >= 2 * max(np.median(counts), 1)
-            force_even = self._detect or self._codec_rt is not None
-            schedule = "even" if force_even or not skewed else "packed/bucketed"
-        if schedule != "even":
-            raise NotImplementedError(
-                f"cohort_schedule '{schedule}' is not ported yet (ROADMAP.md Queue 1, "
-                "item 4); use 'even', or 'auto' with the sanitizer or a codec on")
+            if skewed:
+                schedule = "packed" if packed_ok else "bucketed"
+            else:
+                schedule = "even"
+        if schedule == "packed" and not packed_ok:
+            raise ValueError(
+                "cohort_schedule='packed' requires a stateless mean-aggregating algorithm "
+                "(use 'bucketed' or 'auto')")
+        self._packed = schedule == "packed"
+        self._bucketed = schedule == "bucketed" and mean_agg
+        self.schedule = ("packed" if self._packed else "bucketed" if self._bucketed
+                         else "even")
         robust = algorithm.robust
         self._fuse_robust = bool(
             cfg.agg_kernels and self._detect and robust is not None
             and robust.defense_type in type(robust).KRUM_FAMILY)
 
-    # --- the round ---------------------------------------------------------
+    # --- the even round ----------------------------------------------------
 
     def _round_step(self, payload: Dict[str, np.ndarray], client_ids: np.ndarray,
                     round_idx: int):
         dev = self.device
-        cohort = {k: torch.from_numpy(v).to(dev) for k, v in payload.items()}
+        cohort = {k: torch.from_numpy(v).to(dev) for k, v in payload.items() if k != "pos"}
         data = _gather_from_device(cohort, self._x_dev, self._y_dev)
         outs = _cohort_outputs(self.alg, self.params, data)
         update, w = outs.update, outs.weight.float()
@@ -167,18 +251,166 @@ class FedSimulator:
         ])
         return metrics_vec, quar
 
-    def run(self, apply_fn=None, log_fn=print) -> List[Dict[str, Any]]:
-        """Run ``comm_round`` rounds; evaluate every ``frequency_of_the_test``
-        rounds and at the last. Each record holds ``train_loss``,
-        ``train_acc``, ``quarantined`` (with the sanitizer), ``test_loss`` /
-        ``test_acc`` (eval rounds) and ``round_time``: wall seconds between
-        successive round completions, a completion being the metrics' host
-        readback."""
+    # --- the packed round --------------------------------------------------
+
+    def _dispatch_packed(self, inputs: RoundInputs) -> torch.Tensor:
+        """One packed round (fed_sim.py:1121-1262, 2564). A Python loop over
+        the plan's L_pad slots, padded ones included, as the JAX lane scan
+        runs them: each slot gathers every lane's batch from the device
+        arrays, takes ``vmap(grad_and_value)`` over the lanes' own
+        parameters and one SGD step with the gradient scaled by the batch
+        weight ``bw = (mask.sum() > 0)``; at a client's last batch the lane
+        flushes ``bweight * (p - global)`` into a float32 sum and resets to
+        the global parameters. The plan (mask, boundaries, weights) is
+        numpy on the host, so the scale by ``bw`` runs only at slots where
+        some lane has an empty batch, and the flush and the reset only at
+        slots where some lane ends a client: elsewhere the JAX scan
+        multiplies by one, adds zero and keeps the parameters, the same
+        arithmetic for finite values. Nothing is read back inside the loop.
+        Returns ``[sum of client losses / cohort_n, correct / valid]``."""
+        p = inputs.payload
+        G, L_pad = p["shape"]
+        self._last_packed_shape = (G, L_pad)
+        dev = self.device
+        apply_fn, lcfg = self._packed_ctx
+        if self._lane_grad is None:
+            self._lane_grad = vmap(grad_and_value(make_loss_fn(apply_fn), has_aux=True))
+        neg_lr = -float(lcfg.lr)
+        mask_np, bnd_np, bwt_np = p["mask"], p["boundary"], p["bweight"]
+        bw_np = (mask_np.sum(-1) > 0).astype(np.float32)  # (G, L_pad)
+        idx = torch.from_numpy(p["idx"]).to(dev)
+        mask = torch.from_numpy(mask_np).to(dev)
+        bnd = torch.from_numpy(bnd_np).to(dev)
+        bw = torch.from_numpy(bw_np).to(dev)
+        w_flush = bwt_np * bnd_np  # (G, L_pad) host weights of the flushes
+        x_all, y_all = self._x_dev, self._y_dev
+        keys = list(self.params)
+        gstack = [self.params[k].expand(G, *self.params[k].shape).contiguous() for k in keys]
+        lp = [g.clone() for g in gstack]
+        dsum = [torch.zeros_like(g, dtype=torch.float32) for g in gstack]
+        w_dev = torch.from_numpy(w_flush.astype(np.float32)).to(dev)
+        zero = torch.zeros(G, dtype=torch.float32, device=dev)
+        closs, csteps, lsum, corr, val = (zero.clone() for _ in range(5))
+        for t in range(L_pad):
+            batch = _gather_from_device({"idx": idx[:, t], "mask": mask[:, t]}, x_all, y_all)
+            grads, (loss, (correct, valid)) = self._lane_grad(
+                dict(zip(keys, lp)), batch["x"], batch["y"], batch["mask"])
+            g = [grads[k] for k in keys]
+            bw_t = bw[:, t]
+            if not bw_np[:, t].all():
+                g = [gi * _per_lane(bw_t, gi) for gi in g]
+            # optax.sgd: p + g * (-lr)
+            torch._foreach_add_(lp, torch._foreach_mul(g, neg_lr))
+            closs = closs + loss * bw_t
+            csteps = csteps + bw_t
+            corr = corr + correct
+            val = val + valid
+            if not bnd_np[:, t].any():
+                continue
+            # client boundary: flush the weighted delta, reset the lane
+            diff = torch._foreach_sub(lp, gstack)
+            if G == 1:
+                torch._foreach_mul_(diff, float(w_flush[0, t]))
+            else:
+                wt = w_dev[:, t]
+                diff = [q * _per_lane(wt, q) for q in diff]
+            torch._foreach_add_(dsum, diff)
+            b_t = bnd[:, t]
+            lsum = lsum + b_t * closs / torch.clamp(csteps, min=1.0)
+            if bnd_np[:, t].all():
+                lp = [gq.clone() for gq in gstack]
+            else:
+                lp = [torch.where(_per_lane(b_t, q) > 0, gq, q) for q, gq in zip(lp, gstack)]
+            closs = closs * (1.0 - b_t)
+            csteps = csteps * (1.0 - b_t)
+        # the weights are integers below 2^24: their float32 sum is exact
+        total_w = max(float(w_flush.sum(dtype=np.float32)), 1.0)
+        agg = {k: (d.sum(dim=0) / total_w).to(self.params[k].dtype)
+               for k, d in zip(keys, dsum)}
+        self.params = self.alg.server_update(self.params, agg)
+        # divisor: the FULL cohort (dropped clients are zero-loss rows)
+        return torch.stack([lsum.sum() / max(float(p["cohort_n"]), 1.0),
+                            corr.sum() / torch.clamp(val.sum(), min=1.0)])
+
+    # --- the bucketed round ------------------------------------------------
+
+    def _dispatch_bucketed(self, inputs: RoundInputs) -> torch.Tensor:
+        """One partial sum per width class (fed_sim.py:1272, :2640): the
+        class's vmapped local updates, ``tensordot(w, u)`` in float32; then
+        one finalize (the weighted mean and the server update, :1305).
+        Metrics count each class's ``n_real`` rows only."""
+        dev = self.device
+        sum_wu, total_w = None, None
+        loss_sum = correct_sum = valid_sum = None
+        n_clients = 0
+        for bucket in inputs.payload:
+            n_real = bucket["n_real"]
+            cohort = {k: torch.from_numpy(v).to(dev)
+                      for k, v in bucket["payload"].items() if k != "pos"}
+            data = _gather_from_device(cohort, self._x_dev, self._y_dev)
+            outs = _cohort_outputs(self.alg, self.params, data)
+            w = outs.weight.float()
+            swu = {k: torch.tensordot(w, u.float(), dims=([0], [0]))
+                   for k, u in outs.update.items()}
+            sum_wu = swu if sum_wu is None else {k: sum_wu[k] + swu[k] for k in swu}
+            total_w = w.sum() if total_w is None else total_w + w.sum()
+            m = outs.metrics
+            ls, cs, vs = (m[k][:n_real].sum() for k in
+                          ("train_loss", "train_correct", "train_valid"))
+            if loss_sum is None:
+                loss_sum, correct_sum, valid_sum = ls, cs, vs
+            else:
+                loss_sum, correct_sum, valid_sum = (
+                    loss_sum + ls, correct_sum + cs, valid_sum + vs)
+            n_clients += n_real
+        total = torch.clamp(total_w, min=1.0)
+        agg = {k: (s / total).to(self.params[k].dtype) for k, s in sum_wu.items()}
+        self.params = self.alg.server_update(self.params, agg)
+        return torch.stack([loss_sum / max(n_clients, 1),
+                            correct_sum / torch.clamp(valid_sum, min=1.0)])
+
+    # --- the round loop ----------------------------------------------------
+
+    def _should_eval(self, round_idx: int) -> bool:
         cfg = self.cfg
+        return round_idx % cfg.frequency_of_the_test == 0 or round_idx == cfg.comm_round - 1
+
+    def _should_checkpoint(self, round_idx: int) -> bool:
+        cfg = self.cfg
+        return ((round_idx + 1) % cfg.checkpoint_frequency == 0
+                or round_idx == cfg.comm_round - 1)
+
+    def run(self, apply_fn=None, log_fn=print) -> List[Dict[str, Any]]:
+        """Run rounds up to ``comm_round`` (from the checkpoint after the
+        latest saved round when ``checkpoint_dir`` holds one and ``resume``
+        is set). Each record holds ``train_loss``, ``train_acc``,
+        ``quarantined`` (with the sanitizer), ``round_time`` (wall seconds
+        between successive round completions, a completion being the
+        metrics' host readback) and at eval rounds ``test_loss`` /
+        ``test_acc`` (or what the server tester returns) and, with
+        ``local_test_on_all_clients``, the local-test aggregates and
+        ``per_client`` vectors."""
+        cfg = self.cfg
+        start_round, ckpt = 0, None
+        if cfg.checkpoint_dir:
+            from ..utils.checkpoint import CheckpointManager, restore_simulator_state
+
+            ckpt = CheckpointManager(cfg.checkpoint_dir)
+            if cfg.resume and ckpt.latest_step() is not None:
+                start_round = restore_simulator_state(ckpt, self)
+                if log_fn:
+                    log_fn(f"[resume] from round {start_round} @ {cfg.checkpoint_dir}")
         last_end = time.perf_counter()
-        for round_idx in range(cfg.comm_round):
+        for round_idx in range(start_round, cfg.comm_round):
             inputs = self.build_round_inputs(round_idx)
-            metrics_vec, quar = self._round_step(inputs.payload, inputs.client_ids, round_idx)
+            quar = None
+            if inputs.kind == "packed":
+                metrics_vec = self._dispatch_packed(inputs)
+            elif inputs.kind == "bucketed":
+                metrics_vec = self._dispatch_bucketed(inputs)
+            else:
+                metrics_vec, quar = self._round_step(inputs.payload, inputs.client_ids,
+                                                     round_idx)
             mvec = metrics_vec.tolist()
             rec: Dict[str, Any] = {"round": round_idx, "train_loss": mvec[0],
                                    "train_acc": mvec[1]}
@@ -187,32 +419,211 @@ class FedSimulator:
                 rec["quarantined"] = sorted(int(inputs.client_ids[i]) for i in np.nonzero(q)[0])
             now = time.perf_counter()
             rec["round_time"] = now - last_end
-            if apply_fn is not None and (round_idx % cfg.frequency_of_the_test == 0
-                                         or round_idx == cfg.comm_round - 1):
-                rec.update(self.evaluate(apply_fn))
             last_end = now
-            self.history.append(rec)
-            if log_fn:
-                log_fn(f"[round {round_idx}] " + " ".join(
-                    f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-                    for k, v in rec.items() if k != "round"))
+            self._post_round_body(rec, round_idx, apply_fn, ckpt, log_fn)
         return self.history
+
+    def _post_round_body(self, rec, round_idx, apply_fn, ckpt, log_fn) -> None:
+        """Eval (or the server tester) and the local tests, then the record,
+        the checkpoint and the log line (fed_sim.py:1808)."""
+        if apply_fn is not None and self._should_eval(round_idx):
+            handled = False
+            if self._server_tester is not None:
+                res = self._server_tester.test_on_the_server(
+                    self.fed.train_data_local_dict, self.fed.test_data_local_dict,
+                    self.device, self._hook_args)
+                if res:  # a truthy return replaces the default evaluation
+                    handled = True
+                    if isinstance(res, dict):
+                        rec.update(res)
+            if not handled:
+                rec.update(self.evaluate(apply_fn))
+                if self.cfg.local_test_on_all_clients:
+                    rec.update(self.local_test_on_all_clients(apply_fn))
+        self.history.append(rec)
+        if ckpt is not None and self._should_checkpoint(round_idx):
+            from ..utils.checkpoint import save_simulator_state
+
+            save_simulator_state(ckpt, self, round_idx)
+        if log_fn:
+            log_fn(f"[round {round_idx}] " + " ".join(
+                f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in rec.items() if k not in ("round", "per_client")))
 
     # --- host-side round inputs --------------------------------------------
 
+    def _client_perms(self, client_ids, round_idx: int):
+        """Per-client local-epoch shuffles keyed by (seed, round, client id)."""
+        sizes = [len(self.fed._global_index[int(c)]) for c in client_ids]
+        return client_permutation_list(self.cfg.seed, round_idx, np.asarray(client_ids), sizes)
+
     def build_round_inputs(self, round_idx: int) -> RoundInputs:
-        """Client sampling, per-client shuffles and the index rectangle of
-        one round, pure in (seed, round_idx) (fed_sim.py:1872, :1920)."""
+        """Client sampling, the drop mask, per-client shuffles and the
+        schedule's cohort tensors of one round, pure in (seed, round_idx)
+        (fed_sim.py:1872). The drop mask is drawn first, from
+        ``default_rng([seed, round])``; a round where every client drops
+        keeps client 0."""
         cfg = self.cfg
         client_ids = np.asarray(sample_clients(
             cfg.seed, round_idx, cfg.client_num_in_total, cfg.client_num_per_round))
-        sizes = [len(self.fed._global_index[int(c)]) for c in client_ids]
-        perms = client_permutation_list(cfg.seed, round_idx, client_ids, sizes)
+        pack_rng = np.random.default_rng([cfg.seed, round_idx])
+        drop = None
+        if cfg.client_dropout_rate > 0.0:
+            drop = pack_rng.random(len(client_ids)) < cfg.client_dropout_rate
+            if drop.all():
+                drop[0] = False  # a round needs at least one survivor
+        if self._packed:
+            kind, payload = "packed", self._build_packed_inputs(client_ids, round_idx, drop)
+        elif self._bucketed:
+            kind, payload = "bucketed", self._build_bucketed_inputs(client_ids, round_idx, drop)
+        else:
+            kind, payload = "even", self._build_even_inputs(client_ids, round_idx, drop)
+        return RoundInputs(round_idx, client_ids, drop, kind, payload)
+
+    def _build_even_inputs(self, client_ids, round_idx: int, drop):
+        """The index rectangle of the whole cohort (fed_sim.py:1920); a
+        dropped client's rows get mask 0 and num_samples 0."""
+        cfg = self.cfg
+        perms = self._client_perms(client_ids, round_idx)
         packed = self.fed.pack_client_index(
             client_ids, cfg.batch_size, self.num_local_batches, perms)
-        payload = {"idx": packed.idx.astype(np.int64), "mask": packed.mask,
-                   "num_samples": packed.num_samples}
-        return RoundInputs(round_idx, client_ids, payload)
+        mask_np, samples_np = packed.mask, packed.num_samples
+        if drop is not None:
+            mask_np = mask_np * (~drop)[:, None, None]
+            samples_np = samples_np * (~drop)
+        return {"idx": packed.idx, "mask": mask_np, "num_samples": samples_np,
+                "pos": np.arange(len(client_ids), dtype=np.uint32)}
+
+    def _packed_lane_plan(self, client_ids: np.ndarray, drop):
+        """Round-independent structure of a packed round (fed_sim.py:2390):
+        lane assignment, the mask/boundary/bweight/pos/sic lane tensors and
+        the slot -> (client, batch row) map; cached per (cohort, drop)
+        pattern, at most 32 patterns (FIFO). Dropped clients are excluded
+        before lane assignment; ``cohort_n`` stays the full cohort."""
+        key = (client_ids.tobytes(), None if drop is None else drop.tobytes())
+        plan = self._lane_plan_cache.get(key)
+        if plan is not None:
+            return plan
+        from ..core.scheduler import lane_schedule
+
+        cfg = self.cfg
+        bs = cfg.batch_size
+        epochs = int(self._packed_ctx[1].epochs)
+        cohort_n = len(client_ids)
+        positions = np.arange(cohort_n)
+        if drop is not None:
+            positions = positions[~drop]
+        counts = np.asarray([
+            min(self._batch_counts[int(client_ids[p])], self.num_local_batches)
+            for p in positions
+        ], dtype=np.int64)
+        lanes, L = lane_schedule(list(counts * epochs), 1, max_lanes=len(positions),
+                                 force_lanes=cfg.packed_lanes)
+        L_pad = -(-L // 4) * 4  # quantized, as the JAX package's compiled shapes
+        G = len(lanes)
+        NB = int(counts.max()) if len(counts) else 1
+        P = len(positions)
+        n_samples = np.asarray([
+            min(len(self.fed._global_index[int(client_ids[p])]), c * bs)
+            for p, c in zip(positions, counts)
+        ], dtype=np.int64)
+        # row P*NB is a dedicated all-zero pad row for the padded slots
+        pad_row = P * NB
+        srcmap = np.full((G, L_pad), pad_row, np.int64)
+        slot_m = np.zeros((G, L_pad), np.int64)  # valid samples per slot row
+        boundary = np.zeros((G, L_pad), np.float32)
+        bweight = np.zeros((G, L_pad), np.float32)
+        pos_arr = np.zeros((G, L_pad), np.uint32)
+        sic = np.zeros((G, L_pad), np.int32)
+        for g, lane in enumerate(lanes):
+            if not lane:
+                continue
+            li = np.asarray(lane, dtype=np.int64)
+            cs = counts[li]
+            steps = cs * epochs
+            total = int(steps.sum())
+            cli = np.repeat(li, steps)
+            row_b = np.concatenate([np.tile(np.arange(c), epochs) for c in cs])
+            srcmap[g, :total] = cli * NB + row_b
+            slot_m[g, :total] = n_samples[cli]
+            pos_arr[g, :total] = positions[cli].astype(np.uint32)
+            sic[g, :total] = np.concatenate([np.arange(s, dtype=np.int64) for s in steps])
+            ends = np.cumsum(steps) - 1
+            boundary[g, ends] = 1.0
+            bweight[g, ends] = n_samples[li].astype(np.float32)
+        # slot row (i, b) holds min(n_i, c_i bs) - b bs valid samples, in [0, bs]
+        row_start = np.where(srcmap < pad_row, srcmap % NB, 0) * bs
+        mask = ((np.arange(bs, dtype=np.int64)[None, None, :] + row_start[..., None]
+                 < slot_m[..., None])).astype(np.float32)
+        plan = {
+            "G": G, "L_pad": L_pad, "NB": NB, "cohort_n": cohort_n,
+            "positions": positions, "srcmap": srcmap, "mask": mask,
+            "boundary": boundary, "bweight": bweight, "pos": pos_arr, "sic": sic,
+        }
+        if len(self._lane_plan_cache) >= 32:
+            self._lane_plan_cache.pop(next(iter(self._lane_plan_cache)))
+        self._lane_plan_cache[key] = plan
+        return plan
+
+    def _build_packed_inputs(self, client_ids: np.ndarray, round_idx: int, drop):
+        """Host side of the packed schedule (fed_sim.py:2478): the cached
+        lane plan, one cohort-level index rectangle and one bulk row gather
+        into the (G, L_pad, bs) lane index tensor."""
+        bs = self.cfg.batch_size
+        plan = self._packed_lane_plan(client_ids, drop)
+        positions = plan["positions"]
+        sel_ids = client_ids[positions]
+        if len(positions):
+            perms = self._client_perms(sel_ids, round_idx)
+            packed = self.fed.pack_client_index(sel_ids, bs, plan["NB"], perms)
+            rows = packed.idx.reshape(len(positions) * plan["NB"], bs)
+        else:
+            rows = np.zeros((0, bs), np.int32)
+        rows = np.concatenate([rows, np.zeros((1, bs), np.int32)])  # the pad row
+        return {
+            "idx": pack_lane_rows(rows, plan["srcmap"]), "mask": plan["mask"],
+            "boundary": plan["boundary"], "bweight": plan["bweight"], "pos": plan["pos"],
+            "sic": plan["sic"], "shape": (plan["G"], plan["L_pad"]),
+            "cohort_n": plan["cohort_n"],
+        }
+
+    def _build_bucketed_inputs(self, client_ids: np.ndarray, round_idx: int, drop):
+        """Host side of the bucketed schedule (fed_sim.py:2580): the exact-DP
+        width classes, each padded to a power-of-two slot count by
+        repeating its last client with mask 0 and num_samples 0."""
+        from ..core.scheduler import bucket_schedule
+
+        cfg = self.cfg
+        counts = [min(self._batch_counts[int(c)], self.num_local_batches) for c in client_ids]
+        buckets = bucket_schedule(counts, 1, cfg.max_width_buckets,
+                                  max_width=self.num_local_batches)
+        out = []
+        for positions, width in buckets:
+            ids = client_ids[positions]
+            n_real = len(ids)
+            slots = 1 << (n_real - 1).bit_length()
+            pad = slots - n_real
+            if pad:
+                ids = np.concatenate([ids, np.repeat(ids[-1], pad)])
+                positions = np.concatenate([positions, np.repeat(positions[-1], pad)])
+            perms = self._client_perms(ids, round_idx)
+            packed = self.fed.pack_client_index(ids, cfg.batch_size, width, perms)
+            mask_np, samples_np = packed.mask, packed.num_samples
+            if pad:
+                mask_np = mask_np.copy()
+                samples_np = samples_np.copy()
+                mask_np[n_real:] = 0
+                samples_np[n_real:] = 0
+            if drop is not None:
+                d = drop[positions[:n_real]]
+                mask_np = mask_np.copy()
+                samples_np = samples_np.copy()
+                mask_np[:n_real] *= (~d)[:, None, None]
+                samples_np[:n_real] *= ~d
+            payload = {"idx": packed.idx, "mask": mask_np, "num_samples": samples_np,
+                       "pos": positions.astype(np.uint32)}
+            out.append({"ids": ids, "n_real": n_real, "payload": payload})
+        return out
 
     # --- evaluation --------------------------------------------------------
 
@@ -234,3 +645,129 @@ class FedSimulator:
         loss_sum, correct, count = tot.tolist()
         return {"test_loss": loss_sum / max(count, 1.0),
                 "test_acc": correct / max(count, 1.0)}
+
+    def _pad_and_batch(self, x, y, bs, sid=None):
+        """Pad the tail batch with masked-out rows and reshape to
+        (num_batches, bs, ...) tensors on the device (fed_sim.py:2724)."""
+        n = len(x)
+        n_pad = (-n) % bs
+        m = np.ones(n + n_pad, np.float32)
+        if n_pad:
+            x = np.concatenate([x, np.zeros((n_pad,) + x.shape[1:], x.dtype)])
+            y = np.concatenate([y, np.zeros((n_pad,) + y.shape[1:], y.dtype)])
+            if sid is not None:
+                sid = np.concatenate([sid, np.zeros(n_pad, sid.dtype)])
+            m[n:] = 0.0
+        dev = self.device
+        out = (torch.from_numpy(x).to(dev).reshape((-1, bs) + x.shape[1:]),
+               torch.from_numpy(y).to(dev).reshape((-1, bs) + y.shape[1:]),
+               torch.from_numpy(m).to(dev).reshape(-1, bs))
+        if sid is not None:
+            out += (torch.from_numpy(sid).to(dev).reshape(-1, bs),)
+        return out
+
+    def _local_eval_batches(self, split: str):
+        """Batched tensors of one split ("train" | "test") and the map
+        ``rep[i]`` = the client position whose accumulator holds client i's
+        stats (-1: no data), cached (fed_sim.py:2804). The train split
+        batches indices into the device-resident train arrays; clients that
+        share one test pair object are evaluated once, under the first
+        such client's position. None when the split has no samples."""
+        if split in self._local_eval_cache:
+            return self._local_eval_cache[split]
+        keys = sorted(self.fed._global_index)
+        rep = np.full(len(keys), -1, np.int64)
+        if split == "train":
+            idx_l, sid_l = [], []
+            for i, k in enumerate(keys):
+                ix = self.fed._global_index[k]
+                if len(ix) == 0:
+                    continue
+                rep[i] = i
+                idx_l.append(np.asarray(ix, np.int32))
+                sid_l.append(np.full(len(ix), i, np.int32))
+            if not idx_l:
+                self._local_eval_cache[split] = None
+                return None
+            idx, sid = np.concatenate(idx_l), np.concatenate(sid_l)
+            idx_b, sid_b, m_b = self._pad_and_batch(idx, sid, min(EVAL_BATCH_SIZE, len(idx)))
+            self._local_eval_cache[split] = ("gather", (idx_b, m_b, sid_b), rep)
+            return self._local_eval_cache[split]
+        d = self.fed.test_data_local_dict
+        first_pos: Dict[int, int] = {}  # id(pair) -> representative position
+        xs_l, ys_l, sid_l = [], [], []
+        for i, k in enumerate(keys):
+            pair = d.get(k)
+            if pair is None or len(pair) == 0:
+                continue
+            if id(pair) in first_pos:
+                rep[i] = first_pos[id(pair)]
+                continue
+            first_pos[id(pair)] = rep[i] = i
+            xs_l.append(pair.x)
+            ys_l.append(pair.y)
+            sid_l.append(np.full(len(pair), i, np.int32))
+        if not xs_l:
+            self._local_eval_cache[split] = None
+            return None
+        x, y, sid = (np.concatenate(v) for v in (xs_l, ys_l, sid_l))
+        xs, ys, ms, sids = self._pad_and_batch(x, y, min(EVAL_BATCH_SIZE, len(x)), sid=sid)
+        self._local_eval_cache[split] = ("direct", (xs, ys, ms, sids), rep)
+        return self._local_eval_cache[split]
+
+    def _segmented_eval(self, apply_fn, kind: str, batched) -> tuple:
+        """Per-client (loss, correct, valid, samples) sums over one split:
+        per-sample metrics of mixed-client batches added into (C,)
+        accumulators at each sample's client position with ``index_add_``
+        (fed_sim.py:2755)."""
+        C = self.fed.client_num
+        acc = [torch.zeros(C, dtype=torch.float32, device=self.device) for _ in range(4)]
+        with torch.no_grad():
+            if kind == "gather":
+                idxs, ms, cids = batched
+                for idx, m, cid in zip(idxs, ms, cids):
+                    batch = _gather_from_device({"idx": idx, "mask": m}, self._x_dev,
+                                                self._y_dev)
+                    self._accumulate(apply_fn, acc, batch["x"], batch["y"], m, cid)
+            else:
+                for x, y, m, cid in zip(*batched):
+                    self._accumulate(apply_fn, acc, x, y, m, cid)
+        return tuple(a.cpu().numpy() for a in acc)
+
+    def _accumulate(self, apply_fn, acc, x, y, m, cid) -> None:
+        lv, cv, vv = per_sample_metrics(apply_fn(self.params, x), y, m)
+        cid = cid.long()
+        for a, v in zip(acc, (lv, cv.float(), vv, m)):
+            a.index_add_(0, cid, v)
+
+    def local_test_on_all_clients(self, apply_fn) -> Dict[str, Any]:
+        """The reference's ``_local_test_on_all_clients``
+        (fed_sim.py:2865): the current global parameters on every client's
+        local train and test split; the aggregates over clients that have
+        test data, and ``per_client`` vectors."""
+        keys = sorted(self.fed._global_index)
+        test_local = self.fed.test_data_local_dict
+        include = np.array([test_local.get(k) is not None and len(test_local[k]) > 0
+                            for k in keys])
+        out: Dict[str, Any] = {}
+        per_client: Dict[str, List[float]] = {}
+        for split, agg_prefix in (("train", "local_train"), ("test", "local_test")):
+            cached = self._local_eval_batches(split)
+            if cached is None:
+                continue
+            kind, batched, rep = cached
+            L, K, N, S = self._segmented_eval(apply_fn, kind, batched)
+            # fan the representatives' sums out to their group
+            has = rep >= 0
+            r = np.where(has, rep, 0)
+            L, K, N, S = (np.where(has, v[r], 0.0) for v in (L, K, N, S))
+            n_safe = np.maximum(N, 1.0)
+            per_client[f"{split}_loss"] = (L / n_safe).tolist()
+            per_client[f"{split}_acc"] = (K / n_safe).tolist()
+            per_client[f"{split}_samples"] = S.tolist()
+            inc = include & (N > 0)
+            denom = max(float(N[inc].sum()), 1.0)
+            out[f"{agg_prefix}_loss"] = float(L[inc].sum()) / denom
+            out[f"{agg_prefix}_acc"] = float(K[inc].sum()) / denom
+        out["per_client"] = per_client
+        return out

@@ -181,20 +181,25 @@ SLICE = dict(dataset="cifar10", model="resnet8", conv_impl="pallas", cohort_sche
              random_seed=0, epochs=1)
 
 
-def test_resnet_slice_matches_jax(interp_pallas):
-    """A small cifar10 resnet8 FedAvg run (conv_impl pallas, even schedule)
-    through both packages' build_simulator from the same initial weights."""
-    jsim, japply = jbuild(fedml_tpu.init(config=dict(SLICE, prefetch=False)))
+@pytest.mark.parametrize("cohort_schedule", ["even", "packed"])
+def test_resnet_slice_matches_jax(interp_pallas, cohort_schedule):
+    """A small cifar10 resnet8 FedAvg run (conv_impl pallas) under the even
+    and the packed schedule through both packages' build_simulator from the
+    same initial weights."""
+    cfg = dict(SLICE, cohort_schedule=cohort_schedule)
+    jsim, japply = jbuild(fedml_tpu.init(config=dict(cfg, prefetch=False)))
     init = jax.tree_util.tree_map(np.asarray, jsim.params)
     jhist = jsim.run(japply, log_fn=None)
-    tsim, tapply = tbuild(fedml_tpu_torch.init(config=dict(SLICE, device="cpu")),
+    tsim, tapply = tbuild(fedml_tpu_torch.init(config=dict(cfg, device="cpu")),
                           variables=variables_from_jax(init))
+    assert tsim.schedule == cohort_schedule
     thist = tsim.run(tapply, log_fn=None)
     assert len(thist) == len(jhist) == SLICE["comm_round"]
     for jr, tr in zip(jhist, thist):
         # f32 conv sums and GroupNorm statistics in another order differ by
         # ~1e-6 per step and grow through SGD: measured here up to 5e-5
-        # relative after 2 rounds of 5 steps; 5e-4 leaves a 10x margin
+        # relative after 2 rounds of 5 steps (even) and 4.6e-5 under packed
+        # (rounds of 2 lanes x 8 slots, then 1 x 16); 5e-4 leaves a 10x margin
         for k in ("train_loss", "test_loss"):
             assert tr[k] == pytest.approx(jr[k], rel=5e-4), (k, jr, tr)
         assert abs(tr["train_acc"] - jr["train_acc"]) <= 1e-6

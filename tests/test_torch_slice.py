@@ -160,7 +160,7 @@ def test_cuda_wrappers_refuse_non_cuda_devices():
 
 
 @pytest.mark.parametrize("knob", [dict(rounds_per_dispatch=2), dict(watchdog_factor=3.0),
-                                  dict(cohort_schedule="packed"), dict(backend="TPU"),
+                                  dict(packed_flat_carry=True), dict(backend="TPU"),
                                   dict(federated_optimizer="FedOpt"),
                                   dict(comm_codec="topk:0.1|q8")])
 def test_unported_features_raise(knob):
