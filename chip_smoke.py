@@ -491,9 +491,16 @@ def phase_repeat():
     """Two runs of one config on the card give bit-identical histories and
     final parameters, as the reference's do: the small robust path on
     cnn_fedavg (cuDNN's conv and its backward, pinned deterministic by
-    resolve_device) and the small resnet8 path (the conv kernels)."""
-    for name, config in (("small_cnn", dict(small_config("cuda"), model="cnn_fedavg")),
-                         ("small_resnet", small_resnet_config("cuda"))):
+    resolve_device), the small resnet8 path (the conv kernels), DP-SGD with
+    noise (per-(client, step) generators keyed by seed, round, cohort
+    position and step) and weak DP (the generator in the server state)."""
+    for name, config in (
+            ("small_cnn", dict(small_config("cuda"), model="cnn_fedavg")),
+            ("small_resnet", small_resnet_config("cuda")),
+            ("dp_sgd_noise", dict(algorithm_base("cuda"), dp_l2_clip=1.0,
+                                  dp_noise_multiplier=0.5)),
+            ("weak_dp", dict(algorithm_base("cuda"), federated_optimizer="FedAvg_robust",
+                             defense_type="weak_dp", norm_bound=1.0, stddev=0.01))):
         (la, pa), (lb, pb) = _run_twice(config)
         if not (torch.equal(torch.tensor(la), torch.tensor(lb))
                 and pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)):
@@ -782,6 +789,58 @@ def check_conv_dw(dev):
     return entry
 
 
+# (clients, examples, H, W, Ci, Co): DP-SGD's per-example gradients inside the
+# cohort vmap at resnet8's block shapes and its stem, cohort 4 of batch 8
+CONV_NESTED = ((4, 8, 32, 32, 16, 16), (4, 8, 16, 16, 32, 32), (4, 8, 8, 8, 64, 64),
+               (4, 8, 32, 32, 3, 16))
+
+
+def check_conv_nested(dev):
+    """Kernels 3a/3b under two vmap levels, as DP-SGD runs them: the
+    gradient of a conv -> tanh -> conv loss per example (vmap over the
+    batch of grad) per client (vmap over the cohort). The conv's vmap rule
+    re-enters through the lane-level functions, so every launch sees the
+    two levels folded into one lane axis (clients x examples). The result
+    is held against the same nesting with the wrappers swapped for their
+    plain versions, on the same inputs, within CONV_TOL of each gradient's
+    largest magnitude."""
+    from torch.func import grad, vmap
+
+    from fedml_tpu_torch.ops import conv as C
+
+    gen = torch.Generator().manual_seed(5)
+    for shape in CONV_NESTED:
+        Cl, B, H, W, ci, co = shape
+        x = torch.randn(Cl, B, H, W, ci, generator=gen).to(dev)
+        w1 = (torch.randn(Cl, 3, 3, ci, co, generator=gen) * 0.3).to(dev)
+        w2 = (torch.randn(Cl, 3, 3, co, co, generator=gen) * 0.3).to(dev)
+
+        def loss(w, x1):
+            h = torch.tanh(C.conv3x3(x1[None], w[0]))
+            return (C.conv3x3(h, w[1]) ** 2).sum()
+
+        run = vmap(vmap(grad(loss), in_dims=(None, 0)), in_dims=(0, 0))
+        before = (C.conv3x3_lanes.launches, C.conv3x3_dw_lanes.launches)
+        got = run((w1, w2), x)
+        launches = (C.conv3x3_lanes.launches - before[0], C.conv3x3_dw_lanes.launches - before[1])
+        kernels = (C._Conv3x3Lanes.kernel, C._Conv3x3DwLanes.kernel)
+        C._Conv3x3Lanes.kernel = staticmethod(C.conv3x3_plain)
+        C._Conv3x3DwLanes.kernel = staticmethod(C.conv3x3_dw_plain)
+        try:
+            want = run((w1, w2), x)
+        finally:
+            C._Conv3x3Lanes.kernel, C._Conv3x3DwLanes.kernel = map(staticmethod, kernels)
+        # each gradient's error against its largest magnitude
+        errs = [((g - wt).abs().max() / wt.abs().max()).item() for g, wt in zip(got, want)]
+        # two forwards, one dx (the first conv's input needs none), two dw
+        if launches != (3, 2) or not max(errs) <= CONV_TOL:
+            raise AssertionError(f"nested-vmap conv at {shape}: launches {launches} (want "
+                                 f"(3, 2)), normalised errors {errs} (tol {CONV_TOL})")
+        emit("kernel_conv3x3_nested", shape=list(shape), lanes=Cl * B, launches=list(launches),
+             normalised_err=max(errs), tol=CONV_TOL,
+             max_abs_err=max((g - wt).abs().max().item() for g, wt in zip(got, want)))
+
+
 def small_resnet_config(device, cohort_schedule="even"):
     return dict(dataset="cifar10", model="resnet8", conv_impl="pallas",
                 cohort_schedule=cohort_schedule, debug_small_data=True, client_num_in_total=8,
@@ -831,6 +890,109 @@ def phase_small_resnet():
              cpu=[(r["train_loss"], r["test_loss"], r["test_acc"]) for r in hist["cpu"]])
 
 
+def algorithm_base(device):
+    """The small lr config the algorithms phase varies."""
+    return dict(dataset="mnist", model="lr", debug_small_data=True, client_num_in_total=10,
+                client_num_per_round=10, comm_round=3, learning_rate=0.1, batch_size=10,
+                frequency_of_the_test=1, random_seed=0, device=device)
+
+
+# (name, overrides of algorithm_base or of small_resnet_config): every
+# federated optimizer, client optimizer and defense of the port
+ALGORITHM_CASES = (
+    ("fedprox", dict(federated_optimizer="FedProx")),
+    ("fedopt_sgd", dict(federated_optimizer="FedOpt", server_lr=0.5, server_momentum=0.9)),
+    ("fedopt_adam", dict(federated_optimizer="FedOpt", server_optimizer="adam",
+                         server_lr=0.01, cohort_schedule="packed")),
+    ("fedopt_yogi", dict(federated_optimizer="FedOpt", server_optimizer="yogi",
+                         server_lr=0.01)),
+    ("fedopt_adagrad", dict(federated_optimizer="FedOpt", server_optimizer="adagrad",
+                            server_lr=0.05, cohort_schedule="bucketed")),
+    ("fednova", dict(federated_optimizer="FedNova")),
+    ("scaffold", dict(federated_optimizer="SCAFFOLD", client_state_capacity=10)),
+    ("momentum_decay_packed", dict(momentum=0.9, weight_decay=5e-4, cohort_schedule="packed")),
+    ("adam_bucketed", dict(client_optimizer="adam", learning_rate=0.003,
+                           cohort_schedule="bucketed")),
+    ("dp_clip", dict(dp_l2_clip=1.0)),
+    # one round: cnn_fedavg on this small split is sensitive to float
+    # rounding (on the CPU, parameters perturbed by 1e-7 move the test loss
+    # 4.7e-5 after one round, 1.8e-4 after two, 4.1e-4 after three, with the
+    # codec or without), and cuDNN against the CPU's conv drifted 1.4e-3
+    # apart over three rounds
+    ("norm_diff_clipping_q8", dict(model="cnn_fedavg", learning_rate=0.005, comm_round=1,
+                                   federated_optimizer="FedAvg_robust", norm_bound=1.0,
+                                   comm_codec="q8", agg_kernels=True, sanitize_updates=True)),
+    ("weak_dp", dict(federated_optimizer="FedAvg_robust", defense_type="weak_dp",
+                     norm_bound=1.0, sanitize_updates=True)),
+    ("coordinate_median", dict(federated_optimizer="FedAvg_robust",
+                               defense_type="coordinate_median", sanitize_updates=True)),
+    ("trimmed_mean", dict(federated_optimizer="FedAvg_robust", defense_type="trimmed_mean",
+                          trim_ratio=0.2, sanitize_updates=True)),
+    ("resnet8_scaffold", dict(federated_optimizer="SCAFFOLD")),
+    ("resnet8_dp_clip", dict(dp_l2_clip=1.0)),
+)
+
+
+def phase_algorithms():
+    """Each case run on the card and on the CPU (the plain kernel versions)
+    through init + build_simulator: train and test losses within 1e-3, the
+    sanitizer's quarantine sets equal, the schedule the same. The resnet8
+    cases run the conv kernels (DP-SGD's under two vmap levels: per-example
+    gradients inside the cohort vmap) and hold every parameter within 5e-4
+    of the model's largest magnitude. weak_dp runs at stddev 0 here
+    (torch's CUDA and CPU generators draw different streams); its noise is
+    held by the repeat phase."""
+    import fedml_tpu_torch as ft
+    from fedml_tpu_torch.ops import agg_quant
+    from fedml_tpu_torch.simulation import build_simulator
+
+    def counts():
+        return (_conv_launches(), agg_quant.quantize_pack.launches)
+
+    for name, over in ALGORITHM_CASES:
+        resnet = name.startswith("resnet8")
+        out = {}
+        for device in ("cuda", "cpu"):
+            base = small_resnet_config(device) if resnet else algorithm_base(device)
+            before = counts()
+            t = time.perf_counter()
+            sim, apply_fn = build_simulator(ft.init(config=dict(base, **over)))
+            hist = sim.run(apply_fn, log_fn=None)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out[device] = (sim.schedule, hist, {k: v.detach().cpu() for k, v in
+                                                sim.params.items()},
+                           time.perf_counter() - t,
+                           [a - b for a, b in zip(counts(), before)])
+            del sim
+        (sg, hg, pg, wall, (launches, quant)), (sc, hc, pc, _, _) = out["cuda"], out["cpu"]
+        if sg != sc:
+            raise AssertionError(f"algorithms {name}: schedule {sg} on the card, {sc} on the CPU")
+        if (resnet and launches == 0) or ("comm_codec" in over and quant == 0):
+            raise AssertionError(f"algorithms {name} launched no conv ({launches}) or "
+                                 f"quantize ({quant}) kernel")
+        for rg, rc in zip(hg, hc):
+            if rg.get("quarantined") != rc.get("quarantined"):
+                raise AssertionError(f"algorithms {name}: quarantine differs: {rg} vs {rc}")
+            for k in ("train_loss", "test_loss"):
+                if k in rc and not abs(rg[k] - rc[k]) <= 1e-3 * max(1.0, abs(rc[k])):
+                    raise AssertionError(f"algorithms {name} {k} differs: {rg[k]} vs {rc[k]}")
+        # every parameter's error against the model's largest magnitude: a
+        # leaf near zero (a GroupNorm bias) moves by ~1% of itself when the
+        # initial weights move by 1e-6 (resnet8 FedAvg on the CPU), while
+        # the model-wide error stays at 6.8e-5 (SCAFFOLD too; DP-SGD 2.9e-6)
+        rel = max((pg[k] - pc[k]).abs().max().item() for k in pc) / \
+            max(pc[k].abs().max().item() for k in pc)
+        if resnet and not rel <= 5e-4:
+            raise AssertionError(f"algorithms {name}: parameters differ by {rel} of the "
+                                 f"largest magnitude (5e-4 allowed)")
+        emit("algorithms", case=name, overrides=over, cohort_schedule=sg, wall_s=wall,
+             conv_launches=launches, quantize_launches=quant,
+             train_loss=[r["train_loss"] for r in hg],
+             cpu_train_loss=[r["train_loss"] for r in hc],
+             quarantined=[r.get("quarantined") for r in hg], param_rel_diff_vs_cpu=rel)
+
+
 def _lanes(inputs):
     """(lanes, steps) of one round's plan: (G, L_pad) packed, the buckets'
     (slots, width) bucketed, (clients, batches) even."""
@@ -871,6 +1033,49 @@ def _resnet_conv_channels(args):
             and tuple(m.kernel.shape[:2]) == (3, 3)]
 
 
+def _resnet_conv_want(args, sim, conv_channels, plans):
+    """(evals, eval batches, launches, launches per forward route) that the
+    simulator's round plans imply: per local step (a packed slot, padded
+    ones included, or an even step of all clients), one forward per
+    stride-1 3x3 conv, one dx per such conv but the stem (its input, the
+    data, needs no gradient) and one dw per conv; per eval, one forward per
+    conv and test batch of 256."""
+    from fedml_tpu_torch.ops import conv as C
+    from fedml_tpu_torch.simulation.fed_sim import EVAL_BATCH_SIZE
+
+    rounds, freq = len(plans), int(args.frequency_of_the_test)
+    convs = len(conv_channels)
+    evals = sum(1 for r in range(rounds) if r % freq == 0 or r == rounds - 1)
+    eval_batches = -(-sim._x_test.shape[0] // EVAL_BATCH_SIZE)
+    # a packed plan's slots already hold every epoch; an even plan's batches
+    # run once per epoch
+    steps = sum(n for _, n in plans) * (1 if sim.schedule == "packed" else int(args.epochs))
+    want = {"conv3x3": steps * (convs + convs - 1) + evals * eval_batches * convs,
+            "conv3x3_dw": steps * convs}
+    # per forward route: each conv's forward at its (Ci, Co), its dx (not
+    # the stem's) at (Co, Ci)
+    want_routes = dict.fromkeys(C.FWD_ROUTES, 0)
+    for i, (ci, co) in enumerate(conv_channels):
+        want_routes[C.fwd_route(ci, co)] += steps + evals * eval_batches
+        if i:
+            want_routes[C.fwd_route(co, ci)] += steps
+    return evals, eval_batches, want, want_routes
+
+
+def _counted(run):
+    """``run()`` with the conv kernels' counts set to 0 just before it and
+    read just after: (its result, launches, forward launches per route)."""
+    from fedml_tpu_torch.ops import conv as C
+
+    C.conv3x3_lanes.launches = 0
+    C.conv3x3_lanes.route_launches = dict.fromkeys(C.FWD_ROUTES, 0)
+    C.conv3x3_dw_lanes.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {"conv3x3": C.conv3x3_lanes.launches,
+                 "conv3x3_dw": C.conv3x3_dw_lanes.launches}, dict(C.conv3x3_lanes.route_launches)
+
+
 def phase_resnet_main():
     """ResNet-56 FedAvg through load_arguments + init + the single-process
     simulator, under the YAML's own cohort schedule (auto -> packed) and
@@ -883,9 +1088,7 @@ def phase_resnet_main():
     import tempfile
 
     import fedml_tpu_torch as ft
-    from fedml_tpu_torch.ops import conv as C
     from fedml_tpu_torch.simulation import SimulatorSingleProcess
-    from fedml_tpu_torch.simulation.fed_sim import EVAL_BATCH_SIZE
     from fedml_tpu_torch.utils.checkpoint import CheckpointManager
 
     with tempfile.TemporaryDirectory(prefix="resnet56_ckpt_") as ckpt_dir:
@@ -897,30 +1100,13 @@ def phase_resnet_main():
         sim = runner.sim
         if sim.schedule != "packed":
             raise AssertionError(f"the ResNet-56 example resolved {sim.schedule}, not packed")
-        rounds, freq = int(args.comm_round), int(args.frequency_of_the_test)
+        rounds = int(args.comm_round)
         plans = [_lanes(sim.build_round_inputs(r)) for r in range(rounds)]
-        evals = sum(1 for r in range(rounds) if r % freq == 0 or r == rounds - 1)
-        eval_batches = -(-sim._x_test.shape[0] // EVAL_BATCH_SIZE)
-        steps = sum(L_pad for _, L_pad in plans)
-        want = {"conv3x3": steps * (convs + convs - 1) + evals * eval_batches * convs,
-                "conv3x3_dw": steps * convs}
-        # per forward route: each conv's forward at its (Ci, Co), its dx
-        # (not the stem's) at (Co, Ci)
-        want_routes = dict.fromkeys(C.FWD_ROUTES, 0)
-        for i, (ci, co) in enumerate(conv_channels):
-            want_routes[C.fwd_route(ci, co)] += steps + evals * eval_batches
-            if i:
-                want_routes[C.fwd_route(co, ci)] += steps
-        C.conv3x3_lanes.launches = 0
-        C.conv3x3_lanes.route_launches = dict.fromkeys(C.FWD_ROUTES, 0)
-        C.conv3x3_dw_lanes.launches = 0
+        evals, eval_batches, want, want_routes = _resnet_conv_want(args, sim, conv_channels,
+                                                                   plans)
         t = time.perf_counter()
-        hist = runner.run()
-        torch.cuda.synchronize()
+        hist, launches, routes = _counted(runner.run)
         wall = time.perf_counter() - t
-        launches = {"conv3x3": C.conv3x3_lanes.launches,
-                    "conv3x3_dw": C.conv3x3_dw_lanes.launches}
-        routes = dict(C.conv3x3_lanes.route_launches)
         saved = CheckpointManager(ckpt_dir).steps()
         if saved != [rounds - 1]:
             raise AssertionError(f"resnet main path checkpoints {saved}, expected the last "
@@ -971,6 +1157,106 @@ def phase_resnet_profile():
         out[schedule] = dict(row, **profile_run(lambda: sim.run(None, log_fn=None), 1, ours))
         del sim
     emit("resnet_profile", **out)
+
+
+def _stateful_resnet_phase(name, extra, want_schedule, check_ckpt):
+    """One stateful algorithm on the ResNet-56 example at full width: the
+    YAML through load_arguments(--cf) with resnet_main's overrides and
+    ``extra``, 2 rounds of one epoch with checkpoints in a temporary
+    directory; the schedule ``auto`` must resolve to, conv launches equal
+    to the round plans, the last round's checkpoint checked by
+    ``check_ckpt(saved state, sim)``; then one more round on a fresh
+    simulator (no checkpoints) under the profiler: wall, device busy and
+    idle share."""
+    import tempfile
+
+    import fedml_tpu_torch as ft
+    from fedml_tpu_torch.simulation import SimulatorSingleProcess, build_simulator
+    from fedml_tpu_torch.utils.checkpoint import CheckpointManager
+
+    with tempfile.TemporaryDirectory(prefix="resnet56_ckpt_") as ckpt_dir:
+        args = ft.init(resnet_args(checkpoint_dir=ckpt_dir, **extra))
+        conv_channels = _resnet_conv_channels(args)
+        torch.cuda.reset_peak_memory_stats()
+        runner = SimulatorSingleProcess(args)
+        sim = runner.sim
+        if sim.schedule != want_schedule:
+            raise AssertionError(f"resnet {name} resolved {sim.schedule}, not {want_schedule}")
+        rounds = int(args.comm_round)
+        plans = [_lanes(sim.build_round_inputs(r)) for r in range(rounds)]
+        evals, eval_batches, want, want_routes = _resnet_conv_want(args, sim, conv_channels,
+                                                                   plans)
+        t = time.perf_counter()
+        hist, launches, routes = _counted(runner.run)
+        wall = time.perf_counter() - t
+        ckpt = CheckpointManager(ckpt_dir)
+        saved = ckpt.steps()
+        if saved != [rounds - 1]:
+            raise AssertionError(f"resnet {name} checkpoints {saved}, expected [{rounds - 1}]")
+        ckpt_info = check_ckpt(ckpt.restore(), sim)
+    if launches != want or routes != want_routes:
+        raise AssertionError(f"resnet {name} launches {launches}, by forward route {routes}; "
+                             f"expected {want}, {want_routes} (plans {plans}, {evals} evals)")
+    losses = [r["train_loss"] for r in hist]
+    evals_seen = [r for r in hist if "test_acc" in r]
+    if len(hist) != rounds or not all(math.isfinite(v) for v in losses) or \
+            len(evals_seen) != evals or not all(math.isfinite(r["test_loss"])
+                                                for r in evals_seen):
+        raise AssertionError(f"resnet {name} history: {hist}")
+    row = dict(config=str(RESNET_YAML.relative_to(RESNET_YAML.parents[2])),
+               overrides=dict(RESNET_OVERRIDES, **extra), cohort_schedule=sim.schedule,
+               lanes_slots_per_round=plans, evals=evals, checkpoint=ckpt_info,
+               wall_s=wall, train_loss=losses,
+               test=[(r["round"], r["test_loss"], r["test_acc"]) for r in evals_seen],
+               round_time_s=[r["round_time"] for r in hist], launches=launches,
+               conv3x3_route_launches=routes, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if sim._arena is not None:
+        row["arena_bytes"] = sim._arena.nbytes
+        row["arena_capacity"] = sim._arena.capacity
+    del runner, sim
+    psim, _ = build_simulator(ft.init(resnet_args(comm_round=1, checkpoint_dir=None, **extra)))
+    row["profile"] = profile_run(lambda: psim.run(None, log_fn=None), 1,
+                                 CONV_FWD_KERNELS + CONV_DW_KERNELS)
+    row["profile"]["lanes_slots"] = _lanes(psim.build_round_inputs(0))
+    del psim
+    emit(f"resnet_{name}", **row)
+
+
+def phase_resnet_scaffold():
+    """SCAFFOLD on the ResNet-56 example: not mean-aggregating, so auto
+    resolves to even (10 clients per step); each client's (c, c_i) is
+    gathered from the client-state arena (100 slots x 2 x 855,770 float32)
+    before the round and scattered after it."""
+
+    def check(state, sim):
+        c = state["server_state"]["c"]
+        arena = state["client_arena"]
+        if set(c) != set(sim.params) or len(arena["leaves"]) != 2 * len(sim.params):
+            raise AssertionError("the SCAFFOLD checkpoint lacks the control variates")
+        return {"server_c_leaves": len(c), "arena_leaves": len(arena["leaves"]),
+                "arena_clients": int((arena["slot_client"] >= 0).sum())}
+
+    _stateful_resnet_phase("scaffold", dict(federated_optimizer="SCAFFOLD"), "even", check)
+
+
+def phase_resnet_fedopt():
+    """FedOpt on the ResNet-56 example with a server adam (lr 0.01) and
+    client momentum 0.9 with weight decay 5e-4: mean-aggregating and
+    stateless on the clients, so auto resolves to packed with one lane;
+    each lane carries its momentum trace, reset at client boundaries. The
+    last round's checkpoint holds adam's count, mu and nu."""
+
+    def check(state, sim):
+        adam = state["server_state"][0]
+        if int(adam["count"]) != int(sim.cfg.comm_round) or \
+                set(adam["mu"]) != set(sim.params) or set(adam["nu"]) != set(sim.params):
+            raise AssertionError(f"the FedOpt checkpoint's adam state is wrong: count "
+                                 f"{adam.get('count')}")
+        return {"adam_count": int(adam["count"]), "adam_leaves": len(adam["mu"])}
+
+    _stateful_resnet_phase("fedopt", dict(federated_optimizer="FedOpt", server_optimizer="adam",
+                                          server_lr=0.01, momentum=0.9, weight_decay=5e-4),
+                           "packed", check)
 
 
 def phase_mnist_lr_main():
@@ -1035,35 +1321,95 @@ def phase_mnist_lr_main():
          round_time_s=[r["round_time"] for r in hc], param_max_abs_diff_vs_cpu=diff)
 
 
+def phase_mnist_lr_dp(rounds=3):
+    """The North star's YAML with DP-SGD at examples/dp_and_robust/main.py's
+    defaults (clip 2.0, noise multiplier 0.1) at full size, 3 rounds: DP-SGD
+    is never packed, so auto resolves to bucketed; per-example gradients
+    and per-(client, step) noise on the card. Prints the run's conservative
+    epsilon (core.dp.epsilon_for_training, delta 1e-5)."""
+    import fedml_tpu_torch as ft
+    from fedml_tpu_torch import load_arguments
+    from fedml_tpu_torch.core import epsilon_for_training
+    from fedml_tpu_torch.simulation import SimulatorSingleProcess
+
+    yaml = Path(__file__).resolve().parent / "examples/sp_fedavg_mnist_lr/fedml_config.yaml"
+    over = dict(device="cuda", comm_round=rounds, dp_l2_clip=2.0, dp_noise_multiplier=0.1)
+    runner = SimulatorSingleProcess(ft.init(load_arguments(args_list=["--cf", str(yaml)],
+                                                           override=over)))
+    sim = runner.sim
+    if sim.schedule != "bucketed":
+        raise AssertionError(f"mnist_lr_dp resolved {sim.schedule}, not bucketed")
+    lanes = [_lanes(sim.build_round_inputs(r)) for r in range(rounds)]
+    t = time.perf_counter()
+    hist = runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    losses = [r["train_loss"] for r in hist]
+    evals = [r for r in hist if "test_acc" in r]
+    if len(hist) != rounds or not all(math.isfinite(v) for v in losses) or not evals or \
+            not all(math.isfinite(r["test_loss"]) and 0 <= r["test_acc"] <= 1 for r in evals):
+        raise AssertionError(f"mnist_lr_dp history: {hist}")
+    eps = epsilon_for_training(0.1, rounds, sim.num_local_batches)
+    emit("mnist_lr_dp", config=str(yaml.relative_to(yaml.parents[2])), overrides=over,
+         cohort_schedule=sim.schedule, buckets_per_round=lanes, wall_s=wall, train_loss=losses,
+         test=[(r["round"], r["test_loss"], r["test_acc"]) for r in evals],
+         round_time_s=[r["round_time"] for r in hist],
+         steps_per_round=sim.num_local_batches, epsilon=eps, delta=1e-5)
+
+
+RESUME_CASES = (
+    ("fedavg", dict(cohort_schedule="packed")),
+    # 6 arena slots for 8 clients: rows spill to the host and come back
+    ("scaffold", dict(federated_optimizer="SCAFFOLD", client_state_capacity=6)),
+    ("fedopt_adam", dict(federated_optimizer="FedOpt", server_optimizer="adam",
+                         server_lr=0.01, cohort_schedule="packed")),
+)
+
+
 def phase_resume():
-    """resnet8 under packed on the card: four rounds uninterrupted, then two
-    rounds with a checkpoint after each and a fresh simulator resuming to
-    four. Every round's metrics and the final parameters are bit-equal."""
+    """resnet8 on the card: four rounds uninterrupted, then two rounds with
+    a checkpoint after each and a fresh simulator resuming to four, for
+    FedAvg under packed, SCAFFOLD (the control variate and the arena's
+    slots, map and spilled rows come from the file) and FedOpt with a
+    server adam (its moments and count). Every round's metrics, the final
+    parameters and the server state are bit-equal."""
     import tempfile
 
     import fedml_tpu_torch as ft
     from fedml_tpu_torch.simulation import build_simulator
 
-    cfg = dict(small_resnet_config("cuda", "packed"), comm_round=4, frequency_of_the_test=2)
+    for name, over in RESUME_CASES:
+        cfg = dict(small_resnet_config("cuda"), comm_round=4, frequency_of_the_test=2, **over)
 
-    def run(**kw):
-        sim, apply_fn = build_simulator(ft.init(config=dict(cfg, **kw)))
-        return sim, sim.run(apply_fn, log_fn=None)
+        def run(**kw):
+            sim, apply_fn = build_simulator(ft.init(config=dict(cfg, **kw)))
+            return sim, sim.run(apply_fn, log_fn=None)
 
-    full_sim, full = run()
-    with tempfile.TemporaryDirectory(prefix="resnet8_ckpt_") as ckpt_dir:
-        _, first = run(comm_round=2, checkpoint_dir=ckpt_dir, checkpoint_frequency=1)
-        sim, second = run(checkpoint_dir=ckpt_dir, checkpoint_frequency=1)
-    keys = ("round", "train_loss", "train_acc")
-    resumed = first + second
-    same_hist = [{k: r[k] for k in keys} for r in resumed] == \
-        [{k: r[k] for k in keys} for r in full] and \
-        all(second[i][k] == full[2 + i][k] for i in range(2) for k in ("test_loss", "test_acc"))
-    same_params = all(torch.equal(sim.params[k], v) for k, v in full_sim.params.items())
-    if not (same_hist and same_params and [r["round"] for r in second] == [2, 3]):
-        raise AssertionError(f"resumed run differs: {resumed} vs {full}")
-    emit("resume", model="resnet8", cohort_schedule="packed", rounds=4, resumed_at=2,
-         train_loss=[r["train_loss"] for r in full], bit_equal=True)
+        full_sim, full = run()
+        with tempfile.TemporaryDirectory(prefix="resnet8_ckpt_") as ckpt_dir:
+            _, first = run(comm_round=2, checkpoint_dir=ckpt_dir, checkpoint_frequency=1)
+            sim, second = run(checkpoint_dir=ckpt_dir, checkpoint_frequency=1)
+        keys = ("round", "train_loss", "train_acc")
+        resumed = first + second
+        same_hist = [{k: r[k] for k in keys} for r in resumed] == \
+            [{k: r[k] for k in keys} for r in full] and \
+            all(second[i][k] == full[2 + i][k] for i in range(2)
+                for k in ("test_loss", "test_acc"))
+        same_params = all(torch.equal(sim.params[k], v) for k, v in full_sim.params.items())
+        sa, sb = (torch.utils._pytree.tree_leaves(x.server_state) for x in (sim, full_sim))
+        same_state = len(sa) == len(sb) and all(torch.equal(a, b) for a, b in zip(sa, sb))
+        if sim._arena is not None:
+            same_state = same_state and sim._arena.spilled_count > 0 and all(
+                torch.equal(a, b)
+                for cid in range(cfg["client_num_in_total"])
+                for a, b in zip(torch.utils._pytree.tree_leaves(sim._arena.state_of(cid)),
+                                torch.utils._pytree.tree_leaves(full_sim._arena.state_of(cid))))
+        if not (same_hist and same_params and same_state
+                and [r["round"] for r in second] == [2, 3]):
+            raise AssertionError(f"resumed {name} run differs (history {same_hist}, params "
+                                 f"{same_params}, state {same_state}): {resumed} vs {full}")
+        emit("resume", case=name, model="resnet8", cohort_schedule=sim.schedule, rounds=4,
+             resumed_at=2, train_loss=[r["train_loss"] for r in full], bit_equal=True)
 
 
 # --- the Cheetah LM slice: flash attention ------------------------------------
@@ -1347,6 +1693,7 @@ def main(argv):
     tc_rate = phase_tc_rate(dev)
     entries = [check_quant(dev), check_gram(dev), check_conv(dev, tc_rate), check_conv_dw(dev),
                *check_flash(dev)]
+    check_conv_nested(dev)
     if argv == ["kernels"]:
         return 0
     check_fused_krum(dev)
@@ -1355,10 +1702,14 @@ def main(argv):
     launches = phase_main()
     phase_profile()
     phase_mnist_lr_main()
+    phase_mnist_lr_dp()
     phase_small_resnet()
+    phase_algorithms()
     phase_resume()
     launches.update(phase_resnet_main())
     phase_resnet_profile()
+    phase_resnet_scaffold()
+    phase_resnet_fedopt()
     phase_small_lm()
     tr, data, lm_launches = phase_lm_main()
     launches.update(lm_launches)

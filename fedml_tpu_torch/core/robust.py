@@ -1,5 +1,6 @@
-"""Update sanitizer and the Krum defense family (port of
-``fedml_tpu/core/robust.py``).
+"""Robust aggregation defenses (port of ``fedml_tpu/core/robust.py``):
+norm clipping, weak DP, coordinate median, trimmed mean, the update
+sanitizer and the Krum family.
 
 Everything works on a *stacked* cohort: a path-keyed dict of (C, *leaf)
 tensors in the JAX package's leaf order. The expressions follow the JAX
@@ -22,6 +23,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.func import vmap
 
 from ..ops import agg_robust
 
@@ -35,6 +37,79 @@ def _median(x: torch.Tensor) -> torch.Tensor:
     s = torch.sort(x).values
     med = 0.5 * (s[(n - 1) // 2] + s[n // 2])
     return torch.where(torch.isnan(x).any(), torch.nan, med)
+
+
+_NON_WEIGHT_KEYS = ("running_mean", "running_var", "num_batches_tracked", "batch_stats")
+
+
+def _is_weight_path(path: str) -> bool:
+    """False for BatchNorm running statistics, which the clipping defenses
+    leave unscaled (robust.py:32, the reference's ``is_weight_param``)."""
+    return not any(nk in part for part in path.split("/") for nk in _NON_WEIGHT_KEYS)
+
+
+def global_norm(tree: Tree, weights_only: bool = False) -> torch.Tensor:
+    """L2 norm over all (weight) leaves of one client's tree (robust.py:37)."""
+    leaves = [v for k, v in tree.items() if not weights_only or _is_weight_path(k)]
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+
+
+def norm_clip_update(update: Tree, norm_bound: float) -> Tree:
+    """Scale one client's update so its weight norm is at most
+    ``norm_bound`` (robust.py:73); running statistics pass unscaled."""
+    norm = global_norm(update, weights_only=True)
+    scale = 1.0 / torch.clamp(norm / norm_bound, min=1.0)
+    return {k: v * scale if _is_weight_path(k) else v for k, v in update.items()}
+
+
+def norm_clip_stacked(stacked: Tree, norm_bound: float) -> Tree:
+    """:func:`norm_clip_update` of every client of a stacked cohort."""
+    return vmap(lambda u: norm_clip_update(u, norm_bound))(stacked)
+
+
+def add_gaussian_noise(tree: Tree, stddev: float, generator: torch.Generator) -> Tree:
+    """Weak-DP Gaussian noise on the aggregate (robust.py:91): one draw per
+    leaf, in leaf order, from ``generator``."""
+    return {k: v + stddev * torch.randn(v.shape, generator=generator, dtype=v.dtype,
+                                        device=v.device)
+            for k, v in tree.items()}
+
+
+def coordinate_median(stacked: Tree) -> Tree:
+    """Coordinate-wise median over the client axis (robust.py:102), as
+    ``jnp.median``: the mean of the two middle values for an even count
+    (``torch.median`` returns the lower one), NaN where a column has one."""
+
+    def med(x):
+        n = x.shape[0]
+        s = torch.sort(x, dim=0).values
+        m = 0.5 * (s[(n - 1) // 2] + s[n // 2])
+        return torch.where(torch.isnan(x).any(dim=0), torch.nan, m)
+
+    return {k: med(x) for k, x in stacked.items()}
+
+
+def trimmed_mean(stacked: Tree, trim_ratio: float = 0.1,
+                 weights: Optional[torch.Tensor] = None) -> Tree:
+    """Coordinate-wise trimmed mean (robust.py:109): ``k = min(int(n
+    trim_ratio), (n - 1) // 2)`` values cut at each end; with ``weights``
+    the survivors are combined by their owners' weights (a stable sort, so
+    ties keep the client order, as ``jnp.argsort``)."""
+
+    def tm(x):
+        n = x.shape[0]
+        k = min(int(n * trim_ratio), (n - 1) // 2)
+        if weights is None:
+            return torch.sort(x, dim=0).values[k:n - k].mean(dim=0)
+        xf = x.float()
+        order = torch.sort(xf, dim=0, stable=True).indices
+        xs = torch.take_along_dim(xf, order, dim=0)
+        ws = weights.float()[order]
+        num = torch.sum(xs[k:n - k] * ws[k:n - k], dim=0)
+        den = torch.clamp(torch.sum(ws[k:n - k], dim=0), min=1e-12)
+        return (num / den).to(x.dtype)
+
+    return {k: tm(x) for k, x in stacked.items()}
 
 
 def _row_mask(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -147,21 +222,27 @@ def fused_sanitize_krum(stacked: Tree, weights: torch.Tensor, z_thresh: float = 
 
 @dataclasses.dataclass(frozen=True)
 class RobustAggregator:
-    """Config-driven defense (robust.py:445) for ``defense_type`` None /
-    "none" and the Krum family. ``byzantine_n`` is Krum's f (0 = auto
-    ``(C-3)//2``); ``multi_krum_m`` the survivor count (None = ``C - f``)."""
+    """Config-driven defense (robust.py:445): ``defense_type`` None / "none",
+    "norm_diff_clipping", "weak_dp", "coordinate_median", "trimmed_mean"
+    and the Krum family. ``norm_bound`` is the clip, ``stddev`` weak DP's
+    noise, ``trim_ratio`` the trimmed share; ``byzantine_n`` is Krum's f
+    (0 = auto ``(C-3)//2``), ``multi_krum_m`` the survivor count (None =
+    ``C - f``)."""
 
     defense_type: Optional[str] = None
+    norm_bound: float = 1.0
+    stddev: float = 0.0
+    trim_ratio: float = 0.1
     byzantine_n: int = 0
     multi_krum_m: Optional[int] = None
 
     KRUM_FAMILY = ("krum", "multi_krum", "krum_fedavg")
+    DEFENSES = (None, "none", "norm_diff_clipping", "weak_dp", "coordinate_median",
+                "trimmed_mean") + KRUM_FAMILY
 
     def __post_init__(self):
-        if self.defense_type not in (None, "none") + self.KRUM_FAMILY:
-            raise NotImplementedError(
-                f"defense_type '{self.defense_type}' is not ported yet (ROADMAP.md "
-                "Queue 1, item 5); this slice has none and the Krum family")
+        if self.defense_type not in self.DEFENSES:
+            raise ValueError(f"unknown defense_type '{self.defense_type}'")
 
     def _krum_fm(self, cohort_size: int) -> tuple:
         f = self.byzantine_n if self.byzantine_n > 0 else max(0, (cohort_size - 3) // 2)
@@ -170,11 +251,31 @@ class RobustAggregator:
         m = int(self.multi_krum_m) if self.multi_krum_m else max(1, cohort_size - f)
         return f, m
 
-    def aggregate(self, stacked: Tree, weights: torch.Tensor) -> Tree:
-        if self.defense_type in (None, "none"):
-            w = weights / torch.clamp(weights.sum(), min=1e-12)
-            return {k: torch.tensordot(w.to(x.dtype), x, dims=1) for k, x in stacked.items()}
+    def aggregate(self, stacked: Tree, weights: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> Tree:
+        """The defended aggregate (robust.py:486); weak DP draws its noise
+        from ``generator``, which must be fresh every round."""
+        w = weights / torch.clamp(weights.sum(), min=1e-12)
+
+        def mean(tree):
+            return {k: torch.tensordot(w.to(x.dtype), x, dims=1) for k, x in tree.items()}
+
+        dt = self.defense_type
+        if dt in (None, "none"):
+            return mean(stacked)
+        if dt == "norm_diff_clipping":
+            return mean(norm_clip_stacked(stacked, self.norm_bound))
+        if dt == "weak_dp":
+            if generator is None:
+                raise ValueError("weak_dp requires a fresh per-round generator; a fixed one "
+                                 "would add the same noise every round (no privacy)")
+            return add_gaussian_noise(mean(norm_clip_stacked(stacked, self.norm_bound)),
+                                      self.stddev, generator)
+        if dt == "coordinate_median":
+            return coordinate_median(stacked)
+        if dt == "trimmed_mean":
+            return trimmed_mean(stacked, self.trim_ratio, weights=weights)
         f, m = self._krum_fm(weights.shape[0])
         agg, _ = krum_aggregate(stacked, weights, n_byz=f, m=m,
-                                sample_weighted=self.defense_type == "krum_fedavg")
+                                sample_weighted=dt == "krum_fedavg")
         return agg

@@ -15,7 +15,11 @@ which also holds the weight gradient); :func:`fwd_route` picks by channels:
   ``vmap(grad(...))``: the rule folds the vmapped axis into the kernels'
   leading lane axis, with one weight set per lane. Its gradient is dx =
   :func:`conv3x3` of dy with the spatially flipped, channel-transposed
-  kernel, and dw from the weight-gradient kernel.
+  kernel, and dw from the weight-gradient kernel. Under more than one vmap
+  level (DP-SGD's per-example gradients inside the cohort ``vmap``) the
+  rule re-enters through a lane-level ``autograd.Function`` whose own vmap
+  rule folds each outer axis into the lane axis too (L = L_outer ·
+  L_inner), so the kernel still sees one plain lane-stacked tensor.
 - :func:`conv3x3_lanes` / :func:`conv3x3_dw_lanes` — the kernel wrappers on
   lane-stacked tensors, each with a ``.launches`` counter. On a CUDA tensor
   they launch the kernel (or raise); on a CPU tensor they run the plain
@@ -283,6 +287,56 @@ def _flip(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0, 1).transpose(2, 3)
 
 
+def _fold_lanes(batch_size: int, in_dims, *ts):
+    """The lane-level vmap rules' view of their (L, ...) operands: an outer
+    vmapped axis folded into the lane axis, (L_outer, L, ...) -> (L_outer L,
+    ...); an operand that is not vmapped is broadcast first. A lane
+    broadcast stays a broadcast where the layout allows, else is copied
+    contiguous."""
+    out = []
+    for t, d in zip(ts, in_dims):
+        t = t.expand(batch_size, *t.shape) if d is None else t.movedim(d, 0)
+        t = t.reshape(batch_size * t.shape[1], *t.shape[2:])
+        if not (t.shape[0] > 1 and t.stride(0) == 0 and t[0].is_contiguous()):
+            t = t.contiguous()
+        out.append(t)
+    return out
+
+
+class _LaneOp(torch.autograd.Function):
+    """A kernel wrapper on lane-stacked operands as a function that vmap can
+    see: under a further vmap level its rule folds that level into the lane
+    axis and re-enters, so any nesting ends in one kernel launch. Its
+    gradient is taken a level above, by :class:`_Conv3x3`."""
+
+    kernel = None
+
+    @classmethod
+    def forward(cls, a, b):
+        return cls.kernel(a, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError("the lane-level conv ops are differentiated through conv3x3")
+
+    @classmethod
+    def vmap(cls, info, in_dims, a, b):
+        y = cls.apply(*_fold_lanes(info.batch_size, in_dims, a, b))
+        return y.reshape(info.batch_size, y.shape[0] // info.batch_size, *y.shape[1:]), 0
+
+
+class _Conv3x3Lanes(_LaneOp):
+    kernel = staticmethod(conv3x3_lanes)
+
+
+class _Conv3x3DwLanes(_LaneOp):
+    kernel = staticmethod(conv3x3_dw_lanes)
+
+
 class _Conv3x3(torch.autograd.Function):
     @staticmethod
     def forward(x, w):
@@ -301,7 +355,7 @@ class _Conv3x3(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x, w):
-        return conv3x3_lanes(*_fold(info.batch_size, in_dims, x, w)), 0
+        return _Conv3x3Lanes.apply(*_fold(info.batch_size, in_dims, x, w)), 0
 
 
 class _Conv3x3Dw(torch.autograd.Function):
@@ -319,7 +373,7 @@ class _Conv3x3Dw(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x, g):
-        return conv3x3_dw_lanes(*_fold(info.batch_size, in_dims, x, g)), 0
+        return _Conv3x3DwLanes.apply(*_fold(info.batch_size, in_dims, x, g)), 0
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -25,11 +25,14 @@ __all__ = ["FedSimulator", "SimConfig", "SimulatorSingleProcess", "build_simulat
 _UNPORTED = (
     ("rounds_per_dispatch", 1, "9"), ("watchdog_factor", 0, "8"),
     ("async_mode", False, "11"), ("client_state_spill_dir", None, "8"),
-    ("client_state_capacity", None, "8"), ("attack_type", None, "5"),
-    ("fedprox_mu", None, "3"), ("dp_l2_clip", None, "3"),
-    ("dp_noise_multiplier", 0, "3"), ("model_axis_size", 1, "10"),
+    ("attack_type", None, "5"), ("model_axis_size", 1, "10"),
     ("norm", "group", "7"),
 )
+
+
+def _opt_float(args, key):
+    val = getattr(args, key, None)
+    return None if val is None else float(val)
 
 
 def _check_unported(args) -> None:
@@ -66,6 +69,9 @@ def build_simulator(args, fed_data=None, model=None, variables=None) -> tuple:
         client_optimizer=str(getattr(args, "client_optimizer", "sgd")),
         momentum=float(getattr(args, "momentum", 0.0) or 0.0),
         weight_decay=float(getattr(args, "weight_decay", 0.0) or 0.0),
+        prox_mu=_opt_float(args, "fedprox_mu"),
+        dp_l2_clip=_opt_float(args, "dp_l2_clip"),
+        dp_noise_multiplier=float(getattr(args, "dp_noise_multiplier", None) or 0.0),
         loss_kind=str(getattr(args, "loss_kind", None) or "ce"),
     )
     comm_codec = str(getattr(args, "comm_codec", "") or "")
@@ -92,13 +98,25 @@ def build_simulator(args, fed_data=None, model=None, variables=None) -> tuple:
         # only an explicit spec engages the in-sim codec, as in the JAX package
         comm_codec=(None if comm_codec.lower() in ("", "none", "off", "auto")
                     else comm_codec),
+        client_state_backend=str(getattr(args, "client_state_backend", "arena")),
+        client_state_capacity=(None if getattr(args, "client_state_capacity", None) is None
+                               else int(args.client_state_capacity)),
     )
     alg = get_algorithm(
         str(getattr(args, "federated_optimizer", "FedAvg")), apply_fn, cfg,
+        server_lr=float(getattr(args, "server_lr", 1.0)),
+        server_optimizer_name=str(getattr(args, "server_optimizer", "sgd")),
+        server_momentum=float(getattr(args, "server_momentum", 0.9)),
+        client_fraction=float(getattr(args, "client_num_per_round", 10))
+        / max(float(getattr(args, "client_num_in_total", 10)), 1.0),
         defense_type=getattr(args, "defense_type", None),
+        norm_bound=float(getattr(args, "norm_bound", 5.0)),
+        stddev=float(getattr(args, "stddev", 0.0)),
+        trim_ratio=float(getattr(args, "trim_ratio", 0.1)),
         byzantine_n=int(getattr(args, "byzantine_n", 0)),
         multi_krum_m=(None if getattr(args, "multi_krum_m", None) is None
                       else int(args.multi_krum_m)),
+        dp_seed=int(getattr(args, "random_seed", 0)),
     )
     sim = FedSimulator(fed_data, alg, variables, sim_cfg, device,
                        # the raw pieces of the packed schedule's per-slot step

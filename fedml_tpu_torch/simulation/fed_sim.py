@@ -6,24 +6,30 @@ without a mesh), with the JAX package's three cohort schedules:
   every client padded to the largest client's batch count; gather the
   cohort's batches by index from the device-resident training set, train
   the whole cohort at once (``torch.func.vmap`` of the algorithm's
-  ``local_update``), codec roundtrip (q8/q4 through the fused CUDA kernel),
-  sanitizer + defense (with ``agg_kernels`` and a Krum-family defense, one
-  pass through ``core.robust.fused_sanitize_krum`` and the Gram kernel),
-  aggregate, server update;
+  ``local_update``, each client's state gathered from the client-state
+  arena and scattered back after), codec roundtrip (q8/q4 through the
+  fused CUDA kernel), sanitizer + defense (with ``agg_kernels`` and a
+  Krum-family defense, one pass through ``core.robust.fused_sanitize_krum``
+  and the Gram kernel), aggregate, server update (carrying the server state: FedOpt's optimizer
+  moments, SCAFFOLD's control variate, weak DP's generator);
 - **packed** (``_dispatch_packed``, the counterpart of
   ``_build_packed_step``:1121): clients back to back in G lanes
   (``core.scheduler.lane_schedule``); one slot trains every lane one batch
-  under ``vmap(grad_and_value)`` over the lanes' own parameters, and at a
-  client's last batch the lane flushes its weighted delta and resets to
-  the global parameters;
+  under ``vmap(grad_and_value)`` over the lanes' own parameters and
+  optimizer states, and at a client's last batch the lane flushes its
+  weighted delta and resets to the global parameters and a fresh
+  optimizer state;
 - **bucketed** (``_dispatch_bucketed``): width classes of the cohort
   (``core.scheduler.bucket_schedule``), one vmapped partial sum per class
   and one finalize.
 
 ``auto`` picks packed (or bucketed) for a skewed population and even
-otherwise, by the JAX package's rule. Host-side packing (sampling, the
-drop mask, shuffles, index rectangles, lane and bucket plans) is a pure
-function of (seed, round), bit-identical to the JAX package's.
+otherwise, by the JAX package's rule (``fed_sim.py:530-579``): packed
+needs a mean-aggregating algorithm without client state or DP-SGD,
+bucketed a mean-aggregating one; FedNova, SCAFFOLD and the defenses run
+even. Host-side packing (sampling, the drop mask, shuffles, index
+rectangles, lane and bucket plans) is a pure function of (seed, round),
+bit-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -35,11 +41,13 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
+from torch.utils import _pytree as pytree
 
 from ..algorithms.local_sgd import make_eval_fn, make_loss_fn
-from ..core.algframe import FedAlgorithm, weighted_mean
+from ..core.algframe import FedAlgorithm, has_leaves, weighted_mean
 from ..data.federated import FederatedData
 from ..ops.losses import per_sample_metrics
+from .client_store import ClientStateArena, cohort_local_update
 from .sampling import client_permutation_list, sample_clients
 
 
@@ -79,6 +87,12 @@ class SimConfig:
     sanitize_z_thresh: float = 6.0
     # codec spec (comm/codec.py grammar) applied to every client's update
     comm_codec: Optional[str] = None
+    # per-client algorithm state (SCAFFOLD): "arena" (simulation/
+    # client_store.py, device slots with an LRU host tier) or "dict" (one
+    # entry per client, the oracle the arena is held to); the arena's
+    # capacity defaults to client_num_in_total
+    client_state_backend: str = "arena"
+    client_state_capacity: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -107,9 +121,37 @@ def _gather_from_device(data: Dict[str, Any], x_all, y_all) -> Dict[str, Any]:
     return data
 
 
-def _cohort_outputs(alg: FedAlgorithm, params, cohort):
+def _cohort_outputs(alg: FedAlgorithm, params, cohort, client_states=(), rngs=None):
     """The cohort's local updates, stacked along a leading client axis."""
-    return vmap(alg.local_update, in_dims=(None, 0))(params, cohort)
+    return cohort_local_update(alg.local_update, params, client_states, cohort, rngs)
+
+
+def _noise_seed(seed: int, round_idx: int, pos: int, step: int) -> int:
+    """The 64-bit seed of one DP-SGD noise draw, keyed as the JAX package
+    keys its step rng (``fed_sim.py:323-331``, ``local_sgd.py:262``): by
+    the run's seed, the round, the client's cohort position and the batch
+    step, so a client's noise does not depend on the schedule."""
+    state = np.random.SeedSequence([seed, round_idx, pos, step]).generate_state(2, np.uint32)
+    return int(state[0]) | (int(state[1]) << 32)
+
+
+def dp_noise(seed: int, round_idx: int, pos: np.ndarray, mask: np.ndarray, epochs: int,
+             n_params: int, device) -> torch.Tensor:
+    """DP-SGD's standard normals for a cohort rectangle: (C, epochs * NB,
+    n_params) float32, row (c, s) drawn from a generator seeded by
+    :func:`_noise_seed` (seed, round, pos[c], s); steps whose batch holds no
+    real row stay zero (such a step is a no-op)."""
+    C, NB = mask.shape[:2]
+    real = mask.reshape(C, NB, -1).sum(-1) > 0
+    out = torch.zeros((C, epochs * NB, n_params), dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device)
+    for c in range(C):
+        for e in range(epochs):
+            for b in np.nonzero(real[c])[0]:
+                s = e * NB + int(b)
+                gen.manual_seed(_noise_seed(seed, round_idx, int(pos[c]), s))
+                out[c, s].normal_(generator=gen)
+    return out
 
 
 def pack_lane_rows(rows: np.ndarray, srcmap: np.ndarray) -> np.ndarray:
@@ -151,10 +193,16 @@ class FedSimulator:
         self.cfg = cfg
         self.device = device
         self.params = {k: v.to(device) for k, v in init_variables.items()}
+        self.server_state = algorithm.init_server_state(self.params)
+        self._client_state_proto = algorithm.init_client_state(self.params)
+        self._stateful = has_leaves(self._client_state_proto)
+        # the dict backend's per-client states (the arena's oracle)
+        self.client_states: Dict[int, Any] = {}
         self.history: List[Dict[str, Any]] = []
         self._eval_fn = None
         self._packed_ctx = packed_ctx
         self._lane_grad = None
+        self._lane_opt = None
         self._server_tester = server_tester
         self._hook_args = hook_args
         self._local_eval_cache: Dict[str, Any] = {}
@@ -175,18 +223,30 @@ class FedSimulator:
         self._y_test = torch.from_numpy(np.ascontiguousarray(test.y)).to(device)
 
         self._detect = bool(cfg.sanitize_updates)
+        if self._detect and not algorithm.update_is_params:
+            raise NotImplementedError(
+                "sanitize_updates over an update that is not params-shaped (FedNova, "
+                "SCAFFOLD) is not ported yet (ROADMAP.md Queue 1, item 5)")
         self._codec_rt = None
         if cfg.comm_codec:
             from ..comm import codec as wire_codec
 
+            if not algorithm.update_is_params:
+                raise ValueError(
+                    "comm_codec compresses params-shaped client updates; algorithm "
+                    f"{algorithm.name} produces a custom update structure")
             self._codec_rt = wire_codec.build_stacked_roundtrip(cfg.comm_codec, cfg.seed)
-        # schedule resolution, as fed_sim.py:541-579: the sanitizer and the
-        # codec need the full stacked cohort and pin the even schedule; the
-        # port's algorithms are stateless and its models have no BatchNorm,
-        # so a mean-aggregating algorithm is packed-eligible
+        # schedule resolution, as fed_sim.py:530-579: the sanitizer and the
+        # codec need the full stacked cohort and pin the even schedule; a
+        # custom aggregate or an update that is not params-shaped is not
+        # mean-aggregating; packed also needs no client state and no DP-SGD
+        # (the port's models have no BatchNorm)
         force_even = self._detect or self._codec_rt is not None
-        mean_agg = algorithm.aggregate is None and not force_even
-        packed_ok = packed_ctx is not None and mean_agg
+        mean_agg = (algorithm.aggregate is None and algorithm.update_is_params
+                    and not force_even)
+        packed_ok = (packed_ctx is not None and mean_agg and not self._stateful
+                     and algorithm.prepare_client_state is None
+                     and not packed_ctx[1].use_scaffold and packed_ctx[1].dp_l2_clip is None)
         schedule = cfg.cohort_schedule
         if force_even and schedule in ("packed", "bucketed"):
             raise ValueError(
@@ -204,7 +264,7 @@ class FedSimulator:
         if schedule == "packed" and not packed_ok:
             raise ValueError(
                 "cohort_schedule='packed' requires a stateless mean-aggregating algorithm "
-                "(use 'bucketed' or 'auto')")
+                "and no SCAFFOLD/DP-SGD (use 'bucketed' or 'auto')")
         self._packed = schedule == "packed"
         self._bucketed = schedule == "bucketed" and mean_agg
         self.schedule = ("packed" if self._packed else "bucketed" if self._bucketed
@@ -213,6 +273,64 @@ class FedSimulator:
         self._fuse_robust = bool(
             cfg.agg_kernels and self._detect and robust is not None
             and robust.defense_type in type(robust).KRUM_FAMILY)
+        if cfg.client_state_backend not in ("arena", "dict"):
+            raise ValueError(f"client_state_backend={cfg.client_state_backend!r} "
+                             "(expected 'arena' or 'dict')")
+        self._arena: Optional[ClientStateArena] = None
+        self._prepare_fn = None
+        if algorithm.prepare_client_state is not None:
+            self._prepare_fn = vmap(algorithm.prepare_client_state, in_dims=(None, 0))
+        if self._stateful and cfg.client_state_backend == "arena":
+            capacity = cfg.client_state_capacity or cfg.client_num_in_total
+            if capacity < cfg.client_num_per_round:
+                raise ValueError(
+                    f"client_state_capacity={capacity} < client_num_per_round="
+                    f"{cfg.client_num_per_round}: the whole sampled cohort must fit in the arena")
+            self._arena = ClientStateArena(self._client_state_proto, capacity, device=device)
+        # DP-SGD noise, from the packed_ctx config (the algorithm's own copy
+        # differs from it only in prox_mu and use_scaffold)
+        lcfg = packed_ctx[1] if packed_ctx is not None else None
+        self._dp_sigma = lcfg.dp_noise_sigma if lcfg is not None else 0.0
+        self._epochs = int(lcfg.epochs) if lcfg is not None else 1
+        self._n_params = sum(v.numel() for v in self.params.values())
+
+    # --- client state and DP noise ------------------------------------------
+
+    def _gather_states(self, client_ids: np.ndarray):
+        """Stacked, prepared cohort states (fed_sim.py:1393): the arena's one
+        index op per leaf (and the vmapped prepare), or the dict backend's
+        per-client loop; () for stateless algorithms."""
+        if not self._stateful:
+            return ()
+        if self._arena is not None:
+            stacked = self._arena.gather(client_ids)
+            if self._prepare_fn is not None:
+                stacked = self._prepare_fn(self.server_state, stacked)
+            return stacked
+        rows = []
+        for c in client_ids:
+            s = self.client_states.get(int(c), self._client_state_proto)
+            if self.alg.prepare_client_state is not None:
+                s = self.alg.prepare_client_state(self.server_state, s)
+            rows.append(s)
+        return pytree.tree_map(lambda *xs: torch.stack(xs), rows[0], *rows[1:])
+
+    def _scatter_states(self, client_ids: np.ndarray, stacked) -> None:
+        """Write the real clients' new states back (fed_sim.py:1406)."""
+        if not self._stateful:
+            return
+        if self._arena is not None:
+            self._arena.scatter(client_ids, stacked)
+            return
+        for i, c in enumerate(client_ids):
+            self.client_states[int(c)] = pytree.tree_map(lambda x: x[i].clone(), stacked)
+
+    def _noise(self, payload: Dict[str, np.ndarray], round_idx: int):
+        """The cohort's DP-SGD normals (:func:`dp_noise`), None without noise."""
+        if self._dp_sigma <= 0.0:
+            return None
+        return dp_noise(self.cfg.seed, round_idx, payload["pos"], payload["mask"],
+                        self._epochs, self._n_params, self.device)
 
     # --- the even round ----------------------------------------------------
 
@@ -221,7 +339,8 @@ class FedSimulator:
         dev = self.device
         cohort = {k: torch.from_numpy(v).to(dev) for k, v in payload.items() if k != "pos"}
         data = _gather_from_device(cohort, self._x_dev, self._y_dev)
-        outs = _cohort_outputs(self.alg, self.params, data)
+        outs = _cohort_outputs(self.alg, self.params, data, self._gather_states(client_ids),
+                               self._noise(payload, round_idx))
         update, w = outs.update, outs.weight.float()
         if self._codec_rt is not None:
             cids = torch.from_numpy(client_ids.astype(np.int32)).to(dev)
@@ -243,7 +362,9 @@ class FedSimulator:
                     update, w, float(self.cfg.sanitize_z_thresh))
             agg = (self.alg.aggregate(update, w) if self.alg.aggregate is not None
                    else weighted_mean(update, w))
-        self.params = self.alg.server_update(self.params, agg)
+        self.params, self.server_state = self.alg.server_update(self.params, agg,
+                                                                self.server_state)
+        self._scatter_states(client_ids, outs.state)
         m = outs.metrics
         metrics_vec = torch.stack([
             m["train_loss"].mean(),
@@ -258,15 +379,18 @@ class FedSimulator:
         the plan's L_pad slots, padded ones included, as the JAX lane scan
         runs them: each slot gathers every lane's batch from the device
         arrays, takes ``vmap(grad_and_value)`` over the lanes' own
-        parameters and one SGD step with the gradient scaled by the batch
-        weight ``bw = (mask.sum() > 0)``; at a client's last batch the lane
-        flushes ``bweight * (p - global)`` into a float32 sum and resets to
-        the global parameters. The plan (mask, boundaries, weights) is
-        numpy on the host, so the scale by ``bw`` runs only at slots where
-        some lane has an empty batch, and the flush and the reset only at
-        slots where some lane ends a client: elsewhere the JAX scan
-        multiplies by one, adds zero and keeps the parameters, the same
-        arithmetic for finite values. Nothing is read back inside the loop.
+        parameters, adds FedProx's ``mu (p - global)``, scales the gradient
+        by the batch weight ``bw = (mask.sum() > 0)`` and takes one step of
+        the local optimizer, vmapped over the lanes' own optimizer states
+        (plain SGD, without state, as ``torch._foreach_*`` over the leaves);
+        at a client's last batch the lane flushes ``bweight * (p - global)``
+        into a float32 sum and resets to the global parameters and a fresh
+        optimizer state. The plan (mask, boundaries, weights) is numpy on
+        the host, so the scale by ``bw`` runs only at slots where some lane
+        has an empty batch, and the flush and the reset only at slots where
+        some lane ends a client: elsewhere the JAX scan multiplies by one,
+        adds zero and keeps the state, the same arithmetic for finite
+        values. Nothing is read back inside the loop.
         Returns ``[sum of client losses / cohort_n, correct / valid]``."""
         p = inputs.payload
         G, L_pad = p["shape"]
@@ -275,6 +399,15 @@ class FedSimulator:
         apply_fn, lcfg = self._packed_ctx
         if self._lane_grad is None:
             self._lane_grad = vmap(grad_and_value(make_loss_fn(apply_fn), has_aux=True))
+            opt = lcfg.make_optimizer()
+            self._lane_opt = (vmap(opt.init), vmap(opt.update))
+        # plain SGD carries no optimizer state: its step is one foreach pass
+        plain = (lcfg.client_optimizer != "adam" and not lcfg.momentum
+                 and not lcfg.weight_decay and not lcfg.max_grad_norm)
+        # the facade's config, as the JAX packed step reads it: FedProx's
+        # default mu of 0.1 lives in the algorithm's copy, so an unset mu
+        # is 0 here (ROADMAP.md Queue 3)
+        prox_mu = 0.0 if lcfg.prox_mu is None else lcfg.prox_mu
         neg_lr = -float(lcfg.lr)
         mask_np, bnd_np, bwt_np = p["mask"], p["boundary"], p["bweight"]
         bw_np = (mask_np.sum(-1) > 0).astype(np.float32)  # (G, L_pad)
@@ -287,6 +420,9 @@ class FedSimulator:
         keys = list(self.params)
         gstack = [self.params[k].expand(G, *self.params[k].shape).contiguous() for k in keys]
         lp = [g.clone() for g in gstack]
+        opt_init, opt_update = self._lane_opt
+        opt0 = None if plain else opt_init(dict(zip(keys, gstack)))
+        lopt = opt0
         dsum = [torch.zeros_like(g, dtype=torch.float32) for g in gstack]
         w_dev = torch.from_numpy(w_flush.astype(np.float32)).to(dev)
         zero = torch.zeros(G, dtype=torch.float32, device=dev)
@@ -296,11 +432,17 @@ class FedSimulator:
             grads, (loss, (correct, valid)) = self._lane_grad(
                 dict(zip(keys, lp)), batch["x"], batch["y"], batch["mask"])
             g = [grads[k] for k in keys]
+            if prox_mu > 0.0:
+                g = [gi + prox_mu * (q - gq) for gi, q, gq in zip(g, lp, gstack)]
             bw_t = bw[:, t]
             if not bw_np[:, t].all():
                 g = [gi * _per_lane(bw_t, gi) for gi in g]
-            # optax.sgd: p + g * (-lr)
-            torch._foreach_add_(lp, torch._foreach_mul(g, neg_lr))
+            if plain:
+                # optax.sgd: p + g * (-lr)
+                torch._foreach_add_(lp, torch._foreach_mul(g, neg_lr))
+            else:
+                upd, lopt = opt_update(dict(zip(keys, g)), lopt, dict(zip(keys, lp)))
+                lp = [q + upd[k] for k, q in zip(keys, lp)]
             closs = closs + loss * bw_t
             csteps = csteps + bw_t
             corr = corr + correct
@@ -319,15 +461,20 @@ class FedSimulator:
             lsum = lsum + b_t * closs / torch.clamp(csteps, min=1.0)
             if bnd_np[:, t].all():
                 lp = [gq.clone() for gq in gstack]
+                lopt = opt0
             else:
                 lp = [torch.where(_per_lane(b_t, q) > 0, gq, q) for q, gq in zip(lp, gstack)]
+                if not plain:
+                    lopt = pytree.tree_map(
+                        lambda s, s0: torch.where(_per_lane(b_t, s) > 0, s0, s), lopt, opt0)
             closs = closs * (1.0 - b_t)
             csteps = csteps * (1.0 - b_t)
         # the weights are integers below 2^24: their float32 sum is exact
         total_w = max(float(w_flush.sum(dtype=np.float32)), 1.0)
         agg = {k: (d.sum(dim=0) / total_w).to(self.params[k].dtype)
                for k, d in zip(keys, dsum)}
-        self.params = self.alg.server_update(self.params, agg)
+        self.params, self.server_state = self.alg.server_update(self.params, agg,
+                                                                self.server_state)
         # divisor: the FULL cohort (dropped clients are zero-loss rows)
         return torch.stack([lsum.sum() / max(float(p["cohort_n"]), 1.0),
                             corr.sum() / torch.clamp(val.sum(), min=1.0)])
@@ -345,10 +492,17 @@ class FedSimulator:
         n_clients = 0
         for bucket in inputs.payload:
             n_real = bucket["n_real"]
+            ids = bucket["ids"]
             cohort = {k: torch.from_numpy(v).to(dev)
                       for k, v in bucket["payload"].items() if k != "pos"}
             data = _gather_from_device(cohort, self._x_dev, self._y_dev)
-            outs = _cohort_outputs(self.alg, self.params, data)
+            # padded slots re-gather the last client's state; only the real
+            # rows scatter back
+            outs = _cohort_outputs(self.alg, self.params, data, self._gather_states(ids),
+                                   self._noise(bucket["payload"], inputs.round_idx))
+            if self._stateful:
+                self._scatter_states(ids[:n_real], pytree.tree_map(lambda x: x[:n_real],
+                                                                    outs.state))
             w = outs.weight.float()
             swu = {k: torch.tensordot(w, u.float(), dims=([0], [0]))
                    for k, u in outs.update.items()}
@@ -365,7 +519,8 @@ class FedSimulator:
             n_clients += n_real
         total = torch.clamp(total_w, min=1.0)
         agg = {k: (s / total).to(self.params[k].dtype) for k, s in sum_wu.items()}
-        self.params = self.alg.server_update(self.params, agg)
+        self.params, self.server_state = self.alg.server_update(self.params, agg,
+                                                                self.server_state)
         return torch.stack([loss_sum / max(n_clients, 1),
                             correct_sum / torch.clamp(valid_sum, min=1.0)])
 

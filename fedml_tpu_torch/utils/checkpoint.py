@@ -6,10 +6,13 @@ The JAX package writes orbax checkpoints; the port writes its own format
 with ``torch.save``: one file ``step_<n>.pt`` per saved round in the
 checkpoint directory, written under a temporary name and renamed, so a
 crash leaves the previous file or the new one, never a torn one. A file
-holds ``{"params": {path: CPU tensor}, "round": n, "server_state": {},
-"client_states": {}}``; the two empty dicts keep the place of the state
-that stateful algorithms and the client-state arena will save. The port
-does not read orbax checkpoints, nor the JAX package this format.
+holds ``{"params": {path: CPU tensor}, "round": n, "server_state": ...,
+"client_states": {str(client id): state}}`` and, for an arena-backed run,
+``"client_arena"`` (``ClientStateArena.export_state``: the device slots,
+the slot map, the LRU clock and the host tier). The server state is the
+algorithm's own structure of CPU tensors: FedOpt's optimizer moments,
+SCAFFOLD's control variate, weak DP's generator state (a byte tensor).
+The port does not read orbax checkpoints, nor the JAX package this format.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import re
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
@@ -63,19 +67,44 @@ class CheckpointManager:
         return torch.load(self._path(step), map_location="cpu", weights_only=True)
 
 
+def _cpu(tree):
+    return pytree.tree_map(lambda v: v.detach().cpu().clone(), tree)
+
+
+def _to(tree, device):
+    # byte tensors are generator states, which torch keeps on the CPU
+    return pytree.tree_map(lambda v: v if v.dtype == torch.uint8 else v.to(device), tree)
+
+
 def save_simulator_state(manager: CheckpointManager, sim, round_idx: int) -> None:
-    """Persist a FedSimulator's resumable state after round ``round_idx``."""
-    manager.save(round_idx, {
-        "params": {k: v.detach().cpu() for k, v in sim.params.items()},
+    """Persist a FedSimulator's resumable state after round ``round_idx``
+    (``checkpoint.py:197``): arena-backed runs save the whole arena,
+    dict-backed ones the per-client mapping."""
+    state = {
+        "params": _cpu(sim.params),
         "round": int(round_idx),
-        "server_state": {},
-        "client_states": {},
-    })
+        "server_state": _cpu(sim.server_state),
+        "client_states": {str(k): _cpu(v) for k, v in sim.client_states.items()},
+    }
+    if sim._arena is not None:
+        state["client_arena"] = sim._arena.export_state()
+    manager.save(round_idx, state)
 
 
 def restore_simulator_state(manager: CheckpointManager, sim) -> int:
-    """Restore the latest checkpoint into ``sim``; returns the next round
-    to run."""
+    """Restore the latest checkpoint into ``sim`` (``checkpoint.py:221``);
+    returns the next round to run. A dict-backend checkpoint feeding an
+    arena-backed run seeds the arena's host tier."""
     state = manager.restore()
     sim.params = {k: v.to(sim.device) for k, v in state["params"].items()}
+    sim.server_state = _to(state["server_state"], sim.device)
+    arena = sim._arena
+    if arena is not None and state.get("client_arena") is not None:
+        arena.import_state(state["client_arena"])
+    elif arena is not None:
+        for k, v in (state.get("client_states") or {}).items():
+            arena.preload(int(k), v)
+    else:
+        sim.client_states = {int(k): _to(v, sim.device)
+                             for k, v in (state.get("client_states") or {}).items()}
     return int(state["round"]) + 1

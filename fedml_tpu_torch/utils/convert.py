@@ -3,8 +3,10 @@
 The port keeps parameters in flax layout under flax paths (HWIO conv
 kernels, ``(in, out)`` dense kernels, keys like ``params/Conv_0/kernel``),
 so a JAX variables tree transfers without any transpose: this is the glue
-that lets a test start both packages from the same weights. It takes numpy
-(or array-like) leaves and never imports JAX.
+that lets a test start both packages from the same weights, and (with
+:func:`state_from_jax` and :func:`arena_state_from_jax`) from the same
+optimizer, server and client states. It takes numpy (or array-like) leaves
+and never imports JAX.
 """
 
 from __future__ import annotations
@@ -35,3 +37,47 @@ def variables_from_jax(numpy_tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     simulator moves it to its device)."""
     return {p: torch.from_numpy(np.array(v, np.float32))
             for p, v in flatten_paths(numpy_tree).items()}
+
+
+def _tensor(v) -> torch.Tensor:
+    a = np.asarray(v)
+    return torch.from_numpy(np.array(a, np.float32 if a.dtype.kind == "f" else a.dtype))
+
+
+def state_from_jax(tree: Any) -> Any:
+    """A state of the JAX package with numpy leaves -> the port's layout of
+    the same state (``utils/optim.py``, ``algorithms/__init__.py``):
+
+    - a variables tree (a dict whose only key is ``params``) -> the flat,
+      path-keyed dict of :func:`variables_from_jax`;
+    - an optax state (a NamedTuple: ``ScaleByAdamState`` of adam and yogi,
+      ``TraceState``, ``ScaleByRssState``; ``EmptyState``) -> a dict of its
+      fields, each converted;
+    - a tuple (an optax chain's state, SCAFFOLD's ``(c, c_i)``) -> a tuple,
+      a dict (SCAFFOLD's server ``{"c": ...}``) -> a dict, each converted;
+    - an array -> a tensor (float32, or its integer dtype: adam's count).
+    """
+    if isinstance(tree, Mapping):
+        if set(tree) == {"params"}:
+            return variables_from_jax(tree)
+        return {k: state_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {f: state_from_jax(getattr(tree, f)) for f in tree._fields}
+    if isinstance(tree, (tuple, list)):
+        return tuple(state_from_jax(v) for v in tree)
+    return _tensor(tree)
+
+
+def arena_state_from_jax(export: Mapping[str, Any]) -> Dict[str, Any]:
+    """``ClientStateArena.export_state()`` of the JAX package (numpy) -> the
+    port arena's ``import_state`` input (CPU tensors). Both arenas key the
+    leaves by their flat index in the proto's leaf order, which is the same
+    for a proto of path-sorted dicts."""
+    out = {"leaves": {i: _tensor(v) for i, v in export["leaves"].items()},
+           "slot_client": torch.from_numpy(np.asarray(export["slot_client"], np.int64)),
+           "last_used": torch.from_numpy(np.asarray(export["last_used"], np.int64)),
+           "clock": torch.tensor(int(np.asarray(export["clock"])), dtype=torch.int64)}
+    if export.get("spilled"):
+        out["spilled"] = {cid: {i: _tensor(v) for i, v in rows.items()}
+                          for cid, rows in export["spilled"].items()}
+    return out

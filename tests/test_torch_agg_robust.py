@@ -225,8 +225,11 @@ def test_median_averages_middle_pair_like_jnp():
 
 
 def test_unported_defense_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trobust.RobustAggregator("trimmed_mean")
+    # every defense of the JAX package is ported; a name it does not know
+    # raises as there
+    with pytest.raises(ValueError, match="unknown defense_type"):
+        trobust.RobustAggregator("bulyan")
+    trobust.RobustAggregator("trimmed_mean")
 
 
 @pytest.mark.cuda

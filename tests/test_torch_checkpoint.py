@@ -1,6 +1,9 @@
 """The port's checkpoint/resume (``fedml_tpu_torch/utils/checkpoint.py``):
 the manager's file discipline, and a run interrupted and resumed from its
-checkpoint equal, bit for bit, to the uninterrupted run."""
+checkpoint equal, bit for bit, to the uninterrupted run: FedAvg under
+packed and even, SCAFFOLD with the client-state arena (spilled rows
+included) and with the dict backend, FedOpt with a server adam and weak
+DP with its generator."""
 
 import os
 
@@ -81,7 +84,43 @@ def test_resume_false_starts_over_and_the_last_round_is_saved(tmp_path):
     ck = CheckpointManager(str(tmp_path))
     assert ck.steps() == [1, 2]
     saved = ck.restore()
-    assert saved["round"] == 2 and saved["server_state"] == {} and saved["client_states"] == {}
+    # FedAvg keeps no server or client state
+    assert saved["round"] == 2 and saved["server_state"] == () and saved["client_states"] == {}
+    assert "client_arena" not in saved
     for k, v in sim.params.items():
         assert saved["params"][k].device.type == "cpu" and torch.equal(saved["params"][k], v)
     assert np.isfinite(hist[-1]["test_loss"])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(federated_optimizer="SCAFFOLD", client_state_capacity=7),
+    dict(federated_optimizer="SCAFFOLD", client_state_backend="dict"),
+    dict(federated_optimizer="FedOpt", server_optimizer="adam", server_lr=0.05,
+         cohort_schedule="packed", client_optimizer="adam"),
+    dict(federated_optimizer="FedAvg_robust", defense_type="weak_dp", stddev=0.01)],
+    ids=["scaffold_arena", "scaffold_dict", "fedopt_adam", "weak_dp"])
+def test_stateful_resume_equals_uninterrupted(tmp_path, kw):
+    """The server state (the control variate, adam's moments and count,
+    the weak-DP generator) and the client states (the arena's device
+    slots, slot map, LRU clock and spilled host rows; or the dict) come
+    back from the file: rounds 2-3 and the final state are bit-equal."""
+    full_sim, full = _run(**kw)
+    _run(tmp_path, comm_round=2, checkpoint_frequency=1, **kw)
+    saved = CheckpointManager(str(tmp_path)).restore()
+    if full_sim._arena is not None:
+        assert "spilled" in saved["client_arena"]  # 7 slots for 12 clients
+    sim, second = _run(tmp_path, checkpoint_frequency=1, **kw)
+    assert [r["round"] for r in second] == [2, 3]
+    for a, b in zip(second, full[2:]):
+        assert {k: a[k] for k in _KEYS if k in a} == {k: b[k] for k in _KEYS if k in b}
+    for k, v in full_sim.params.items():
+        assert torch.equal(sim.params[k], v), k
+    sa, sb = (torch.utils._pytree.tree_leaves(s.server_state) for s in (sim, full_sim))
+    assert len(sa) == len(sb) and all(torch.equal(a, b) for a, b in zip(sa, sb))
+    if full_sim._arena is not None:
+        for cid in range(CFG["client_num_in_total"]):
+            for a, b in zip(torch.utils._pytree.tree_leaves(sim._arena.state_of(cid)),
+                            torch.utils._pytree.tree_leaves(full_sim._arena.state_of(cid))):
+                assert torch.equal(a, b), cid
+    else:
+        assert sim.client_states.keys() == full_sim.client_states.keys()

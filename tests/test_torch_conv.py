@@ -127,6 +127,55 @@ def test_vmap_grad_matches_jax_pallas(interp_pallas, w_batched):
         _close(got.numpy(), want, GRAD_RTOL)
 
 
+@pytest.mark.parametrize("w_batched", [True, False])
+def test_nested_vmap_per_example_grads_equal_a_loop(monkeypatch, w_batched):
+    """DP-SGD's case: per-example gradients (vmap over the batch of grad)
+    inside the cohort vmap, through a two-layer conv stack. Every kernel
+    wrapper call receives plain lane-stacked tensors with the two vmap
+    levels folded into one lane axis (cohort x examples), never a batched
+    tensor (which the CUDA launch cannot take); the gradients equal a
+    Python loop over clients and examples (through the plain versions on
+    the CPU; the kernels' side is chip_smoke.py's algorithms phase)."""
+    import torch._C._functorch as functorch
+
+    C, B = 3, 4
+    rng = np.random.default_rng(7)
+    xs = torch.from_numpy(rng.standard_normal((C, B, 5, 6, 4)).astype(np.float32))
+    w1 = torch.from_numpy((rng.standard_normal((C, 3, 3, 4, 16)) * 0.3).astype(np.float32))
+    w2 = torch.from_numpy((rng.standard_normal((C, 3, 3, 16, 16)) * 0.3).astype(np.float32))
+    if not w_batched:
+        w1, w2 = w1[0], w2[0]
+    calls = []
+
+    def spying(fn):
+        def wrapped(a, b):
+            assert not functorch.is_batchedtensor(a) and not functorch.is_batchedtensor(b)
+            calls.append(a.shape[0])
+            return fn(a, b)
+        return staticmethod(wrapped)
+
+    monkeypatch.setattr(tconv._Conv3x3Lanes, "kernel", spying(tconv.conv3x3_lanes))
+    monkeypatch.setattr(tconv._Conv3x3DwLanes, "kernel", spying(tconv.conv3x3_dw_lanes))
+
+    def loss(w, x1):
+        h = torch.tanh(tconv.conv3x3(x1[None], w[0]))
+        return (tconv.conv3x3(h, w[1]) ** 2).sum()
+
+    w_dim = 0 if w_batched else None
+    per_example = vmap(grad(loss), in_dims=(None, 0))
+    got = vmap(per_example, in_dims=(w_dim, 0))((w1, w2), xs)
+    assert calls and set(calls) == {C * B}
+    for c in range(C):
+        wc = (w1[c], w2[c]) if w_batched else (w1, w2)
+        for b in range(B):
+            def plain(w):
+                h = torch.tanh(tconv.conv3x3_plain(xs[c, b][None, None], w[0][None])[0])
+                return (tconv.conv3x3_plain(h[None], w[1][None]) ** 2).sum()
+            want = grad(plain)(wc)
+            for g, wv in zip(got, want):
+                _close(g[c, b].numpy(), wv.numpy(), GRAD_RTOL)
+
+
 def test_lanes_wrappers_take_a_broadcast_lane():
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal((3, 2, 5, 5, 4)).astype(np.float32))

@@ -74,9 +74,9 @@ def test_local_update_matches_jax(name):
                 "num_samples": jnp.int32(7)}, jax.random.PRNGKey(0))
     tlu = make_local_update(lambda p, xx: tmodels.apply(tm, p, xx),
                             LocalTrainConfig(lr=0.05, epochs=2))
-    tout = tlu(variables_from_jax(jv),
+    tout = tlu(variables_from_jax(jv), (),
                {"x": torch.from_numpy(x), "y": torch.from_numpy(y),
-                "mask": torch.from_numpy(mask), "num_samples": torch.tensor(7)})
+                "mask": torch.from_numpy(mask), "num_samples": torch.tensor(7)}, None)
     # deltas after 4 real SGD steps: f32 differences of ~1e-7 per step
     for p, v in flatten_paths(jax.tree_util.tree_map(np.asarray, jout.update)).items():
         np.testing.assert_allclose(tout.update[p].detach().numpy(), v, rtol=1e-4, atol=1e-6)
@@ -95,4 +95,4 @@ def test_unported_models_and_optimizers_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodels.create(resnet_bn, 10, (32, 32, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LocalTrainConfig(momentum=0.9)
+        LocalTrainConfig(loss_kind="mse")  # momentum, decay and adam are ported

@@ -126,9 +126,9 @@ def test_local_update_matches_jax(interp_pallas):
                {"x": jnp.asarray(x), "y": jnp.asarray(y), "mask": jnp.asarray(mask),
                 "num_samples": jnp.int32(6)}, jax.random.PRNGKey(0))
     tlu = make_local_update(lambda p, xx: tmodels.apply(tm, p, xx), LocalTrainConfig(lr=0.05))
-    tout = tlu(variables_from_jax(jv),
+    tout = tlu(variables_from_jax(jv), (),
                {"x": torch.from_numpy(x), "y": torch.from_numpy(y),
-                "mask": torch.from_numpy(mask), "num_samples": torch.tensor(6)})
+                "mask": torch.from_numpy(mask), "num_samples": torch.tensor(6)}, None)
     # deltas after 2 SGD steps; f32 differences of ~1e-7 per step
     for p, v in flatten_paths(jax.tree_util.tree_map(np.asarray, jout.update)).items():
         np.testing.assert_allclose(tout.update[p].detach().numpy(), v, rtol=1e-4,

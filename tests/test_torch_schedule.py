@@ -353,7 +353,8 @@ def test_packed_with_a_custom_aggregate_raises_as_jax():
 
 @pytest.mark.parametrize("knob", [dict(packed_flat_carry=True),
                                   dict(packed_flat_carry=True, cohort_schedule="packed"),
-                                  dict(client_state_capacity=4), dict(attack_type="scale")])
+                                  dict(client_state_spill_dir="spill"),
+                                  dict(attack_type="scale")])
 def test_unported_schedule_knobs_raise(knob):
     args = fedml_tpu_torch.init(config=dict(BASE, device="cpu", **knob))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

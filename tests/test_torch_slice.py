@@ -161,7 +161,7 @@ def test_cuda_wrappers_refuse_non_cuda_devices():
 
 @pytest.mark.parametrize("knob", [dict(rounds_per_dispatch=2), dict(watchdog_factor=3.0),
                                   dict(packed_flat_carry=True), dict(backend="TPU"),
-                                  dict(federated_optimizer="FedOpt"),
+                                  dict(federated_optimizer="FedNAS"),
                                   dict(comm_codec="topk:0.1|q8")])
 def test_unported_features_raise(knob):
     args = fedml_tpu_torch.init(config=dict(SLICE, comm_round=1, device="cpu", **knob))
