@@ -10,9 +10,9 @@ non-zero exit code and no result line:
 
 1. device — the card's name and power limit (nvidia-smi);
 2. build — nvcc builds every kernel of the port from csrc/, in parallel,
-   and csrc/tc_rate.cu; tc_rate — the TF32 rate mma.sync reaches on this
-   card (the conv forward's instruction), against the dense peak the
-   bounds count;
+   and csrc/tc_rate.cu; tc_rate — the TF32 and bf16 rates mma.sync
+   reaches on this card (the float32 and bf16 conv forwards'
+   instructions), against the dense peaks the bounds count;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and a few ragged ones, with timings of the
    kernel, the plain version and (where one exists) a library call: the
@@ -24,15 +24,19 @@ non-zero exit code and no result line:
    three TF32 products, the others on the FMA kernel, whose time at the
    block shapes is reported beside as was_ms) and its weight gradient
    (conv3x3_dw), both at L = 1, 2 (the packed schedule's lanes) and 10
-   (the even schedule's clients), and
+   (the even schedule's clients), the same two in bf16 (use_bf16:
+   conv3x3_bf16, the block convs on the bf16 tensor-core kernel, and
+   conv3x3_dw_bf16; within one bf16 step of the rounded plain value, with
+   cuDNN's bf16 calls as the library yardstick), and
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
    flash_dkv; SDPA as the library call; bf16 inputs on the tensor
    cores, float32 on the FMA kernels);
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
-4b. repeat — the small robust path on cnn_fedavg and the small resnet8
-   path each run twice on the card: every round's train_loss and the final
-   global parameters must be bit-equal;
+4b. repeat — the small robust path on cnn_fedavg, the small resnet8 path,
+   DP-SGD with noise, weak DP and the dropout CNN each run twice on the
+   card: every round's train_loss and the final global parameters must be
+   bit-equal;
 5. main — the robust FedAvg path through fedml_tpu_torch.init +
    run_simulation: q8 codec, sanitizer, multi-Krum, agg_kernels on
    cnn_fedavg at full width, MNIST shapes, 1000 clients, 10 per round,
@@ -48,9 +52,12 @@ non-zero exit code and no result line:
 8. small_resnet — resnet8 FedAvg on small cifar10 (conv_impl pallas) under
    the even, packed and bucketed schedules on the card against the same
    runs on the CPU;
-8b. resume — resnet8 under packed on the card, interrupted after two rounds
-   and resumed from its checkpoint to four: bit-equal to four rounds
-   uninterrupted;
+8b. small_bn — resnet8 with BatchNorm under even and bucketed, and with
+   BatchNorm in bf16, on the card against the CPU; the dropout CNN's final
+   card model evaluated on the CPU as on the card;
+8c. resume — resnet8 (FedAvg packed, SCAFFOLD, FedOpt adam, BatchNorm) on
+   the card, interrupted after two rounds and resumed from its checkpoint
+   to four: bit-equal to four rounds uninterrupted;
 9. resnet_main — the CIFAR-10 ResNet-56 FedAvg example config
    (examples/tpu_fedavg_cifar10_resnet56) through load_arguments + init +
    the single-process simulator with conv_impl pallas, full width and
@@ -60,7 +67,12 @@ non-zero exit code and no result line:
    equal those derived from the simulator's round plans, and the last
    round's checkpoint must exist;
 9b. resnet_profile — torch.profiler over one warm ResNet-56 round under
-   packed and one under even;
+   packed and one under even; then resnet_scaffold and resnet_fedopt, the
+   example under SCAFFOLD and FedOpt;
+9c. resnet_bn — the example with norm: batch (auto: bucketed, as JAX's
+   rule gives BatchNorm), the checkpoint's batch_stats, evaluation on the
+   running statistics; resnet_bf16 — the same with use_bf16: true, on the
+   bf16 kernels, its round and device times beside resnet_bn's;
 10. small_lm — the Cheetah LM trainer at f32, T 4096 (auto dispatch picks
     flash) on the card against the same run on the CPU (plain versions);
 11. lm_main — the Cheetah trainer at the LM slice's configuration (vocab
@@ -108,6 +120,20 @@ GRAM_TOL = 2e-5
 # catches a wrong tap or channel (an error of O(1)) or one unsplit TF32
 # product (~1e-4).
 CONV_TOL = 1e-5
+# bf16 conv (use_bf16): each output is the float32 sum rounded once to bf16,
+# so it may sit one bf16 step from the rounded plain value; the gate allows
+# that step (at the larger of the two values) plus CONV_TOL of the
+# magnitudes, the float32 sums' own difference, which near cancellation is
+# more than a step of a small result. Outputs differing at all from the
+# rounded plain value: two float32 sums ~1e-7 apart straddle a bf16 rounding
+# boundary ~1e-5 of the time; at most this share, as the flash bf16 gate
+CONV_MISMATCH_SHARE = 0.0025
+# ... but never fewer than this many outputs: at that share a call with few
+# outputs (the stem's weight gradient has 432) expects about one, and the
+# weight gradient's sums of B*H*W = 65,536 products (the forward's at most
+# 576) straddle a boundary more often (0.02-0.23% of the outputs on an
+# H100); the one-step gate still holds every output
+CONV_MISMATCH_FLOOR = 8
 # (B, H, W, Ci, Co) of the stride-1 3x3 convs of ResNet-56's local step
 # (batch 64): the stem, then one shape per stage
 CONV_LAYERS = ((64, 32, 32, 3, 16), (64, 32, 32, 16, 16), (64, 16, 16, 32, 32),
@@ -121,7 +147,7 @@ CONV_EXTRA = ((1, 256, 32, 32, 16, 16),   # eval: no lanes, batch 256
 # the kernels line's shape: the packed main path's one lane, 18 of the 53
 # convs per step
 CONV_REPORTED = (1, 64, 32, 32, 16, 16)
-CONV_FWD_KERNELS = ("conv3x3_tf32_kernel", "conv3x3_fwd_kernel")
+CONV_FWD_KERNELS = ("conv3x3_tf32_kernel", "conv3x3_fwd_kernel", "conv3x3_bf16_kernel")
 CONV_DW_KERNELS = ("conv3x3_dw_partial_kernel", "conv3x3_dw_reduce_kernel")
 
 
@@ -229,32 +255,38 @@ def phase_build():
 
 
 def phase_tc_rate(dev):
-    """TFLOP/s of independent mma.sync.m16n8k8 TF32 chains over the whole
-    card (csrc/tc_rate.cu), beside TF32_OPS_PER_S. Returns the rate in
-    operations per second."""
+    """TFLOP/s of independent mma.sync chains over the whole card
+    (csrc/tc_rate.cu): m16n8k8 TF32 (the float32 conv forward's
+    instruction) beside TF32_OPS_PER_S, and m16n8k16 bf16 (the bf16 conv
+    forward's) beside BF16_OPS_PER_S. Returns the two rates in operations
+    per second."""
     import ctypes
 
     from fedml_tpu_torch.ops import _build
 
     lib = _build.load("tc_rate")
-    lib.fedml_tc_rate.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.fedml_tc_rate.restype = ctypes.c_int
-    lib.fedml_tc_rate_ops.argtypes = [ctypes.c_int] * 3
-    lib.fedml_tc_rate_ops.restype = ctypes.c_longlong
     blocks = torch.cuda.get_device_properties(dev).multi_processor_count * 8
     threads, iters = 128, 500
     out = torch.empty(blocks * threads, device=dev)
+    rates = []
+    for entry, instruction, peak in (("fedml_tc_rate", "mma.sync.m16n8k8 tf32, f32 sums",
+                                      TF32_OPS_PER_S),
+                                     ("fedml_tc_rate_bf16", "mma.sync.m16n8k16 bf16, f32 sums",
+                                      BF16_OPS_PER_S)):
+        fn = _build.function("tc_rate", entry, [ctypes.c_void_p] + [ctypes.c_int] * 3 +
+                             [ctypes.c_void_p])
+        ops = _build.function("tc_rate", entry + "_ops", [ctypes.c_int] * 3, ctypes.c_longlong)
 
-    def run():
-        _build.check(lib.fedml_tc_rate(out.data_ptr(), blocks, threads, iters,
-                                       torch.cuda.current_stream(dev).cuda_stream),
-                     "fedml_tc_rate")
+        def run():
+            _build.check(fn(out.data_ptr(), blocks, threads, iters,
+                            torch.cuda.current_stream(dev).cuda_stream), entry)
 
-    ms = time_ms(run, reps=3, rounds=3)
-    rate = lib.fedml_tc_rate_ops(blocks, threads, iters) / (ms * 1e-3)
-    emit("tc_rate", instruction="mma.sync.m16n8k8 tf32, f32 sums", blocks=blocks,
-         threads=threads, ms=ms, tflops=rate / 1e12, share_of_tf32_peak=rate / TF32_OPS_PER_S)
-    return rate
+        ms = time_ms(run, reps=3, rounds=3)
+        rate = ops(blocks, threads, iters) / (ms * 1e-3)
+        emit("tc_rate", instruction=instruction, blocks=blocks, threads=threads, ms=ms,
+             tflops=rate / 1e12, share_of_peak=rate / peak)
+        rates.append(rate)
+    return tuple(rates)
 
 
 def special_values(C, m, seed):
@@ -500,7 +532,8 @@ def phase_repeat():
             ("dp_sgd_noise", dict(algorithm_base("cuda"), dp_l2_clip=1.0,
                                   dp_noise_multiplier=0.5)),
             ("weak_dp", dict(algorithm_base("cuda"), federated_optimizer="FedAvg_robust",
-                             defense_type="weak_dp", norm_bound=1.0, stddev=0.01))):
+                             defense_type="weak_dp", norm_bound=1.0, stddev=0.01)),
+            ("cnn_dropout", dict(algorithm_base("cuda"), model="cnn", comm_round=2))):
         (la, pa), (lb, pb) = _run_twice(config)
         if not (torch.equal(torch.tensor(la), torch.tensor(lb))
                 and pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)):
@@ -743,6 +776,135 @@ def check_conv(dev, tc_rate):
     return entry
 
 
+def _bf16_step(v):
+    """The spacing of bf16 values at each element of bf16 ``v`` (0 at 0)."""
+    _, e = torch.frexp(v.float())
+    return torch.where(v == 0, 0.0, torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8))
+
+
+def _bf16_gate(got, want32, mag, what):
+    """(normalised error against the float32 plain value, share of elements
+    that differ from the rounded plain value, steps): raises unless every
+    element is within one bf16 step (plus CONV_TOL of its magnitude) of the
+    rounded plain value and at most CONV_MISMATCH_SHARE of them (or
+    CONV_MISMATCH_FLOOR, whichever is more) differ."""
+    want = want32.to(torch.bfloat16)
+    step = torch.maximum(_bf16_step(got), _bf16_step(want))
+    diff = (got.float() - want.float()).abs()
+    over = (diff - step - CONV_TOL * mag).max().item()
+    off = (got != want).sum().item()
+    share = off / got.numel()
+    allowed = max(CONV_MISMATCH_SHARE * got.numel(), CONV_MISMATCH_FLOOR)
+    steps = (diff / step.clamp_min(1e-30)).masked_fill(diff == 0, 0).max().item()
+    if not (over <= 0 and off <= allowed):
+        raise AssertionError(f"{what}: {off} of {got.numel()} bf16 outputs differ from the "
+                             f"rounded plain value (at most {allowed}), largest difference "
+                             f"{steps} bf16 steps, {over} past the step")
+    return _normalised_err(got.float(), want32, mag), share, steps
+
+
+def check_conv_bf16(dev, bf16_rate):
+    """Kernel 3a in bf16 (use_bf16: forward and dx) against its plain
+    version (float32 products and sums of the same bf16 operands, rounded
+    once) at CONV_MAIN and CONV_EXTRA, with the bf16 gate (_bf16_gate) and
+    bit-equal across two calls; a lane-broadcast w at the even schedule's
+    block shape. ResNet's block convs run the bf16 tensor-core kernel
+    (bf16_tc), the stem and ragged shapes the FMA kernel (fma_bf16). Device
+    time beside cuDNN's grouped bf16 conv; the bound counts bf16 bytes and
+    the function's operations at the bf16 tensor-core rate, whichever
+    route runs them; mma_sync_ms: the bf16_tc route's operations at ``bf16_rate``, the rate
+    its instruction reached in phase tc_rate."""
+    from fedml_tpu_torch.ops import conv as C
+
+    gen = torch.Generator().manual_seed(13)
+    entry = None
+    bf = torch.bfloat16
+    for shape in CONV_MAIN + CONV_EXTRA:
+        L, B, H, W, ci, co = shape
+        route = C.fwd_route(ci, co, bf)
+        x, w, _, xn, wn, _ = (t.to(bf) for t in _conv_case(shape, gen, dev))
+        y = C.conv3x3_lanes(x, w)
+        yp = C.conv3x3_plain(x, w)
+        want32 = C.conv3x3_plain(x.float(), w.float())
+        mag = C.conv3x3_plain(x.float().abs(), w.float().abs())
+        err, share, steps = _bf16_gate(y, want32, mag, f"conv3x3 bf16 at {shape} ({route})")
+        if y.dtype != bf or not torch.equal(y, C.conv3x3_lanes(x, w)):
+            raise AssertionError(f"conv3x3 bf16 at {shape} ({route}) is not repeatable")
+        lib = F.conv2d(xn, wn, padding=1, groups=L)
+        lib_err = _normalised_err(lib.reshape(B, L, co, H, W).permute(1, 0, 3, 4, 2).float(),
+                                  want32, mag)
+        ops = _conv_ops(shape)
+        nbytes = (L * B * H * W * (ci + co) + L * 9 * ci * co) * 2
+        row = {"ms": device_ms(lambda: C.conv3x3_lanes(x, w), CONV_FWD_KERNELS),
+               "event_ms": time_ms(lambda: C.conv3x3_lanes(x, w)),
+               "plain_ms": time_ms(lambda: C.conv3x3_plain(x, w)),
+               "library_ms": device_ms(lambda: F.conv2d(xn, wn, padding=1, groups=L), ("",)),
+               "max_abs_err": (y.float() - yp.float()).abs().max().item(),
+               **_bound(0, nbytes, bf16_ops=ops)}
+        if route == "bf16_tc":
+            row["mma_sync_ms"] = ops / bf16_rate * 1e3
+        emit("kernel_conv3x3_bf16", shape=list(shape), conv_route=route, normalised_err=err,
+             mismatch_share=share, max_bf16_steps=steps, library_normalised_err=lib_err,
+             repeatable=True, gflop=ops / 1e9, **row)
+        if shape == CONV_REPORTED:
+            entry = {"name": "conv3x3_bf16", "route": "cuda",
+                     "source": "fedml_tpu_torch/csrc/" + C.FWD_ROUTES[route][0] + ".cu",
+                     "replaces": "fedml_tpu/ops/conv.py:181", **row}
+        if shape == (10,) + CONV_REPORTED[1:]:
+            wb = w[:1].expand_as(w)
+            _bf16_gate(C.conv3x3_lanes(x, wb), C.conv3x3_plain(x.float(), wb.float()),
+                       C.conv3x3_plain(x.float().abs(), wb.float().abs()),
+                       "conv3x3 bf16 with a broadcast w")
+            emit("kernel_conv3x3_bf16", shape=list(shape), conv_route=route, w_lanes=1)
+    return entry
+
+
+def check_conv_dw_bf16(dev):
+    """Kernel 3b in bf16 (use_bf16's weight gradient: float32 partial sums,
+    rounded once to bf16) against its plain version at the same shapes, with
+    the bf16 gate and bit-equal across two calls; cuDNN's grouped bf16
+    weight-gradient call beside it. The bound counts bf16 bytes and the
+    bf16 products at the tensor-core rate, as the forward's."""
+    from fedml_tpu_torch.ops import conv as C
+
+    gen = torch.Generator().manual_seed(14)
+    entry = None
+    bf = torch.bfloat16
+    for shape in CONV_MAIN + CONV_EXTRA:
+        L, B, H, W, ci, co = shape
+        x, w, dy, xn, wn, dyn = (t.to(bf) for t in _conv_case(shape, gen, dev))
+        dw = C.conv3x3_dw_lanes(x, dy)
+        dwp = C.conv3x3_dw_plain(x, dy)
+        want32 = C.conv3x3_dw_plain(x.float(), dy.float())
+        mag = C.conv3x3_dw_plain(x.float().abs(), dy.float().abs())
+        err, share, steps = _bf16_gate(dw, want32, mag, f"conv3x3_dw bf16 at {shape}")
+        if dw.dtype != bf or not torch.equal(dw, C.conv3x3_dw_lanes(x, dy)):
+            raise AssertionError(f"conv3x3_dw bf16 at {shape} is not repeatable")
+
+        def lib_call():
+            return torch.nn.grad.conv2d_weight(xn, wn.shape, dyn, padding=1, groups=L)
+
+        lib_err = _normalised_err(
+            lib_call().reshape(L, co, ci, 3, 3).permute(0, 3, 4, 2, 1).float(), want32, mag)
+        ops = _conv_ops(shape)
+        nbytes = (L * B * H * W * (ci + co) + L * 9 * ci * co) * 2
+        row = {"ms": device_ms(lambda: C.conv3x3_dw_lanes(x, dy), CONV_DW_KERNELS),
+               "event_ms": time_ms(lambda: C.conv3x3_dw_lanes(x, dy)),
+               "plain_ms": time_ms(lambda: C.conv3x3_dw_plain(x, dy)),
+               "library_ms": device_ms(lib_call, ("",)),
+               "max_abs_err": (dw.float() - dwp.float()).abs().max().item(),
+               **_bound(0, nbytes, bf16_ops=ops)}
+        emit("kernel_conv3x3_dw_bf16", shape=list(shape), tile=C.dw_tile(ci, co),
+             splits=C.dw_split_plan(L, B * H * W, ci, co)[1], normalised_err=err,
+             mismatch_share=share, max_bf16_steps=steps, library_normalised_err=lib_err,
+             repeatable=True, gflop=ops / 1e9, **row)
+        if shape == CONV_REPORTED:
+            entry = {"name": "conv3x3_dw_bf16", "route": "cuda",
+                     "source": "fedml_tpu_torch/csrc/conv3x3.cu",
+                     "replaces": "fedml_tpu/ops/conv.py:226", **row}
+    return entry
+
+
 def check_conv_dw(dev):
     """Kernel 3b (weight gradient) within CONV_TOL of the plain version and
     bit-equal across two calls, at the same shapes (at L = 1 the split plan
@@ -888,6 +1050,65 @@ def phase_small_resnet():
         emit("small_resnet", cohort_schedule=schedule, lanes_per_round=lanes,
              cuda=[(r["train_loss"], r["test_loss"], r["test_acc"]) for r in hist["cuda"]],
              cpu=[(r["train_loss"], r["test_loss"], r["test_acc"]) for r in hist["cpu"]])
+
+
+# resnet8 bf16, card against CPU: the card's bf16 kernels and the CPU's plain
+# versions round the same float32 sums to bf16, but every other op of the
+# model rounds to bf16 too, and a differing bit moves the trajectory:
+# measured 6e-5 relative in loss after 2 rounds on an H100; 2e-3 leaves 30x
+BF16_SLICE_TOL = 2e-3
+
+
+def phase_small_bn():
+    """resnet8 with BatchNorm on the card against the CPU: float32 under
+    the even and bucketed schedules within small_resnet's 5e-4, and under
+    use_bf16 (even) within BF16_SLICE_TOL; then the dropout CNN (model:
+    cnn, its keep masks drawn per client step from generators keyed by
+    seed, round, position and step): the card's final model evaluates on
+    the CPU as it did on the card."""
+    import fedml_tpu_torch as ft
+    from fedml_tpu_torch.simulation import build_simulator
+
+    for name, extra, tol in (("bn_even", dict(norm="batch"), 5e-4),
+                             ("bn_bucketed", dict(norm="batch", cohort_schedule="bucketed"),
+                              5e-4),
+                             ("bn_bf16_even", dict(norm="batch", use_bf16=True), BF16_SLICE_TOL)):
+        hist, sims = {}, {}
+        for device in ("cuda", "cpu"):
+            before = _conv_launches()
+            sims[device], apply_fn = build_simulator(ft.init(config=dict(
+                small_resnet_config(device, extra.get("cohort_schedule", "even")), **extra)))
+            hist[device] = sims[device].run(apply_fn, log_fn=None)
+            if device == "cuda" and _conv_launches() == before:
+                raise AssertionError(f"small {name} launched no conv kernel")
+        for rg, rc in zip(hist["cuda"], hist["cpu"]):
+            for k in ("train_loss", "test_loss"):
+                if not (math.isfinite(rg[k]) and abs(rg[k] - rc[k]) <= tol * max(1.0, abs(rc[k]))):
+                    raise AssertionError(f"small {name} {k} differs: {rg[k]} vs {rc[k]} "
+                                         f"(tol {tol})")
+        gs, cs = sims["cuda"].params, sims["cpu"].params
+        stats_err = max(((gs[k].cpu() - v).abs().max() / v.abs().max().clamp_min(1e-6)).item()
+                        for k, v in cs.items() if k.startswith("batch_stats/"))
+        emit("small_bn", case=name, schedule=sims["cuda"].schedule, tol=tol,
+             batch_stats_rel_err=stats_err,
+             cuda=[(r["train_loss"], r["test_loss"], r["test_acc"]) for r in hist["cuda"]],
+             cpu=[(r["train_loss"], r["test_loss"], r["test_acc"]) for r in hist["cpu"]])
+
+    cfg = dict(algorithm_base("cuda"), model="cnn", comm_round=2)
+    sim, apply_fn = build_simulator(ft.init(config=cfg))
+    hist = sim.run(apply_fn, log_fn=None)
+    cpu, cpu_apply = build_simulator(ft.init(config=dict(cfg, device="cpu")),
+                                     variables={k: v.cpu() for k, v in sim.params.items()})
+    on_cpu = cpu.evaluate(cpu_apply)
+    # the same weights: float32 convs on cuDNN and on the CPU, ~1e-7 apart
+    if not (abs(on_cpu["test_loss"] - hist[-1]["test_loss"]) <= 1e-5 * hist[-1]["test_loss"]
+            and abs(on_cpu["test_acc"] - hist[-1]["test_acc"]) <= 1.0 / 1000 + 1e-9):
+        raise AssertionError(f"cnn dropout: the card's model evaluates to {hist[-1]} on the "
+                             f"card, {on_cpu} on the CPU")
+    emit("small_dropout", model="cnn", rounds=len(hist),
+         train_loss=[r["train_loss"] for r in hist], card_eval=hist[-1]["test_loss"],
+         cpu_eval=on_cpu["test_loss"], card_acc=hist[-1]["test_acc"],
+         cpu_acc=on_cpu["test_acc"])
 
 
 def algorithm_base(device):
@@ -1036,10 +1257,12 @@ def _resnet_conv_channels(args):
 def _resnet_conv_want(args, sim, conv_channels, plans):
     """(evals, eval batches, launches, launches per forward route) that the
     simulator's round plans imply: per local step (a packed slot, padded
-    ones included, or an even step of all clients), one forward per
-    stride-1 3x3 conv, one dx per such conv but the stem (its input, the
-    data, needs no gradient) and one dw per conv; per eval, one forward per
-    conv and test batch of 256."""
+    ones included, an even step of all clients, or a bucket's step of its
+    clients), one forward per stride-1 3x3 conv, one dx per such conv but
+    the stem (its input, the data, needs no gradient) and one dw per conv;
+    per eval, one forward per conv and test batch of 256. Under use_bf16
+    the kernels are the bf16 routes (launches keyed ``conv3x3_bf16`` and
+    ``conv3x3_dw_bf16``)."""
     from fedml_tpu_torch.ops import conv as C
     from fedml_tpu_torch.simulation.fed_sim import EVAL_BATCH_SIZE
 
@@ -1047,33 +1270,48 @@ def _resnet_conv_want(args, sim, conv_channels, plans):
     convs = len(conv_channels)
     evals = sum(1 for r in range(rounds) if r % freq == 0 or r == rounds - 1)
     eval_batches = -(-sim._x_test.shape[0] // EVAL_BATCH_SIZE)
+    epochs = int(args.epochs)
     # a packed plan's slots already hold every epoch; an even plan's batches
-    # run once per epoch
-    steps = sum(n for _, n in plans) * (1 if sim.schedule == "packed" else int(args.epochs))
-    want = {"conv3x3": steps * (convs + convs - 1) + evals * eval_batches * convs,
-            "conv3x3_dw": steps * convs}
+    # and each bucket's width run once per epoch
+    if sim.schedule == "bucketed":
+        steps = sum(w for plan in plans for _, w in plan) * epochs
+    else:
+        steps = sum(n for _, n in plans) * (1 if sim.schedule == "packed" else epochs)
+    dtype = torch.bfloat16 if getattr(args, "use_bf16", False) else torch.float32
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    want = {f"conv3x3{suffix}": steps * (convs + convs - 1) + evals * eval_batches * convs,
+            f"conv3x3_dw{suffix}": steps * convs}
     # per forward route: each conv's forward at its (Ci, Co), its dx (not
     # the stem's) at (Co, Ci)
     want_routes = dict.fromkeys(C.FWD_ROUTES, 0)
     for i, (ci, co) in enumerate(conv_channels):
-        want_routes[C.fwd_route(ci, co)] += steps + evals * eval_batches
+        want_routes[C.fwd_route(ci, co, dtype)] += steps + evals * eval_batches
         if i:
-            want_routes[C.fwd_route(co, ci)] += steps
+            want_routes[C.fwd_route(co, ci, dtype)] += steps
     return evals, eval_batches, want, want_routes
 
 
 def _counted(run):
     """``run()`` with the conv kernels' counts set to 0 just before it and
-    read just after: (its result, launches, forward launches per route)."""
+    read just after: (its result, launches by dtype, forward launches per
+    route)."""
     from fedml_tpu_torch.ops import conv as C
 
     C.conv3x3_lanes.launches = 0
     C.conv3x3_lanes.route_launches = dict.fromkeys(C.FWD_ROUTES, 0)
     C.conv3x3_dw_lanes.launches = 0
+    C.conv3x3_dw_lanes.dtype_launches = dict.fromkeys(C.conv3x3_dw_lanes.dtype_launches, 0)
     out = run()
     torch.cuda.synchronize()
-    return out, {"conv3x3": C.conv3x3_lanes.launches,
-                 "conv3x3_dw": C.conv3x3_dw_lanes.launches}, dict(C.conv3x3_lanes.route_launches)
+    routes = dict(C.conv3x3_lanes.route_launches)
+    dws = C.conv3x3_dw_lanes.dtype_launches
+    launches = {"conv3x3": routes["tf32x3"] + routes["fma"],
+                "conv3x3_dw": dws["float32"],
+                "conv3x3_bf16": routes["bf16_tc"] + routes["fma_bf16"],
+                "conv3x3_dw_bf16": dws["bfloat16"]}
+    if sum(launches.values()) != C.conv3x3_lanes.launches + C.conv3x3_dw_lanes.launches:
+        raise AssertionError(f"conv launches by route {routes} and dtype {dws} do not add up")
+    return out, {k: v for k, v in launches.items() if v}, routes
 
 
 def phase_resnet_main():
@@ -1160,14 +1398,15 @@ def phase_resnet_profile():
 
 
 def _stateful_resnet_phase(name, extra, want_schedule, check_ckpt):
-    """One stateful algorithm on the ResNet-56 example at full width: the
-    YAML through load_arguments(--cf) with resnet_main's overrides and
-    ``extra``, 2 rounds of one epoch with checkpoints in a temporary
-    directory; the schedule ``auto`` must resolve to, conv launches equal
-    to the round plans, the last round's checkpoint checked by
-    ``check_ckpt(saved state, sim)``; then one more round on a fresh
-    simulator (no checkpoints) under the profiler: wall, device busy and
-    idle share."""
+    """One algorithm or model variant on the ResNet-56 example at full
+    width: the YAML through load_arguments(--cf) with resnet_main's
+    overrides and ``extra``, 2 rounds of one epoch with checkpoints in a
+    temporary directory; the schedule ``auto`` must resolve to (a callable:
+    of the simulator), conv launches equal to the round plans, the last
+    round's checkpoint checked by ``check_ckpt(saved state, runner)``; then
+    one more round on a fresh simulator (no checkpoints) under the
+    profiler: wall, device busy and idle share. Returns (its row, the
+    launches)."""
     import tempfile
 
     import fedml_tpu_torch as ft
@@ -1180,6 +1419,8 @@ def _stateful_resnet_phase(name, extra, want_schedule, check_ckpt):
         torch.cuda.reset_peak_memory_stats()
         runner = SimulatorSingleProcess(args)
         sim = runner.sim
+        if callable(want_schedule):
+            want_schedule = want_schedule(sim)
         if sim.schedule != want_schedule:
             raise AssertionError(f"resnet {name} resolved {sim.schedule}, not {want_schedule}")
         rounds = int(args.comm_round)
@@ -1193,7 +1434,7 @@ def _stateful_resnet_phase(name, extra, want_schedule, check_ckpt):
         saved = ckpt.steps()
         if saved != [rounds - 1]:
             raise AssertionError(f"resnet {name} checkpoints {saved}, expected [{rounds - 1}]")
-        ckpt_info = check_ckpt(ckpt.restore(), sim)
+        ckpt_info = check_ckpt(ckpt.restore(), runner)
     if launches != want or routes != want_routes:
         raise AssertionError(f"resnet {name} launches {launches}, by forward route {routes}; "
                              f"expected {want}, {want_routes} (plans {plans}, {evals} evals)")
@@ -1220,6 +1461,7 @@ def _stateful_resnet_phase(name, extra, want_schedule, check_ckpt):
     row["profile"]["lanes_slots"] = _lanes(psim.build_round_inputs(0))
     del psim
     emit(f"resnet_{name}", **row)
+    return row, launches
 
 
 def phase_resnet_scaffold():
@@ -1228,7 +1470,8 @@ def phase_resnet_scaffold():
     gathered from the client-state arena (100 slots x 2 x 855,770 float32)
     before the round and scattered after it."""
 
-    def check(state, sim):
+    def check(state, runner):
+        sim = runner.sim
         c = state["server_state"]["c"]
         arena = state["client_arena"]
         if set(c) != set(sim.params) or len(arena["leaves"]) != 2 * len(sim.params):
@@ -1239,6 +1482,70 @@ def phase_resnet_scaffold():
     _stateful_resnet_phase("scaffold", dict(federated_optimizer="SCAFFOLD"), "even", check)
 
 
+def _bn_auto_rule(sim):
+    """The schedule JAX's auto rule (fed_sim.py:547, :566-570) gives a
+    BatchNorm model, which is never packed: bucketed where the population
+    is skewed (the largest client at least twice the median's batches),
+    else even."""
+    counts = np.asarray(list(sim._batch_counts.values()))
+    return "bucketed" if counts.max() >= 2 * max(np.median(counts), 1) else "even"
+
+
+def _bn_check(state, runner):
+    """The checkpoint holds every running statistic (114 leaves for
+    ResNet-56's 57 BatchNorms), finite and moved off its initial value,
+    beside the params; and evaluation reads them: the final model
+    evaluates as the last round's eval did, and differently with the
+    statistics reset to their initial values."""
+    sim = runner.sim
+    stats = {k: v for k, v in state["params"].items() if k.startswith("batch_stats/")}
+    if not stats or set(state["params"]) != set(sim.params) or not all(
+            torch.isfinite(v).all() for v in stats.values()) or not any(
+            v.any() for k, v in stats.items() if k.endswith("/mean")):
+        raise AssertionError(f"the BatchNorm checkpoint's batch_stats are wrong: {len(stats)} "
+                             "leaves")
+    trained = sim.evaluate(runner.apply_fn)
+    if trained != {k: sim.history[-1][k] for k in trained}:
+        raise AssertionError(f"re-evaluating the final model gives {trained}, the last round "
+                             f"gave {sim.history[-1]}")
+    saved = sim.params
+    sim.params = {k: (torch.ones_like(v) if k.endswith("/var") else torch.zeros_like(v))
+                  if k in stats else v for k, v in saved.items()}
+    reset = sim.evaluate(runner.apply_fn)
+    sim.params = saved
+    if reset["test_loss"] == trained["test_loss"]:
+        raise AssertionError("evaluation does not read the running statistics")
+    return {"batch_stats_leaves": len(stats), "eval": trained, "eval_initial_stats": reset}
+
+
+def phase_resnet_bn():
+    """ResNet-56 with norm: batch (the reference's flagship) under FedAvg
+    on the example YAML: BatchNorm never packs, so auto resolves by the JAX
+    rule (bucketed on this skewed partition); every round trains and
+    averages the running statistics beside the params; evaluation reads
+    them (_bn_check); launches equal the plans."""
+    return _stateful_resnet_phase("bn", dict(norm="batch"), _bn_auto_rule, _bn_check)
+
+
+def phase_resnet_bf16(bn_row):
+    """The same with use_bf16: true: bf16 compute over float32 parameters,
+    every stride-1 3x3 conv on the bf16 kernels (the block convs on the
+    tensor cores, the stem on the FMA kernel, dw in float32 sums rounded to
+    bf16), launches equal the plans (zero on the float32 routes); the loss
+    finite. Round and device times beside resnet_bn's."""
+    row, launches = _stateful_resnet_phase("bf16", dict(norm="batch", use_bf16=True),
+                                           _bn_auto_rule, _bn_check)
+    routes = row["conv3x3_route_launches"]
+    if not (routes["bf16_tc"] and routes["fma_bf16"] and launches.get("conv3x3_dw_bf16")):
+        raise AssertionError(f"resnet bf16 did not run every bf16 kernel: {routes}, {launches}")
+    emit("resnet_bf16_vs_f32", round_time_s={"bn_f32": bn_row["round_time_s"],
+                                             "bn_bf16": row["round_time_s"]},
+         profiled_round={k: {m: r["profile"][m] for m in (
+             "wall_ms_per_round", "device_busy_ms_per_round", "idle_share",
+             "our_kernels_ms_per_round")} for k, r in (("bn_f32", bn_row), ("bn_bf16", row))})
+    return launches
+
+
 def phase_resnet_fedopt():
     """FedOpt on the ResNet-56 example with a server adam (lr 0.01) and
     client momentum 0.9 with weight decay 5e-4: mean-aggregating and
@@ -1246,7 +1553,8 @@ def phase_resnet_fedopt():
     each lane carries its momentum trace, reset at client boundaries. The
     last round's checkpoint holds adam's count, mu and nu."""
 
-    def check(state, sim):
+    def check(state, runner):
+        sim = runner.sim
         adam = state["server_state"][0]
         if int(adam["count"]) != int(sim.cfg.comm_round) or \
                 set(adam["mu"]) != set(sim.params) or set(adam["nu"]) != set(sim.params):
@@ -1363,6 +1671,8 @@ RESUME_CASES = (
     ("scaffold", dict(federated_optimizer="SCAFFOLD", client_state_capacity=6)),
     ("fedopt_adam", dict(federated_optimizer="FedOpt", server_optimizer="adam",
                          server_lr=0.01, cohort_schedule="packed")),
+    # BatchNorm: the running statistics come from the file with the params
+    ("bn_fedavg", dict(norm="batch")),
 )
 
 
@@ -1690,9 +2000,9 @@ def main(argv):
         return 0
     smi = phase_device()
     phase_build()
-    tc_rate = phase_tc_rate(dev)
+    tc_rate, bf16_rate = phase_tc_rate(dev)
     entries = [check_quant(dev), check_gram(dev), check_conv(dev, tc_rate), check_conv_dw(dev),
-               *check_flash(dev)]
+               check_conv_bf16(dev, bf16_rate), check_conv_dw_bf16(dev), *check_flash(dev)]
     check_conv_nested(dev)
     if argv == ["kernels"]:
         return 0
@@ -1704,12 +2014,15 @@ def main(argv):
     phase_mnist_lr_main()
     phase_mnist_lr_dp()
     phase_small_resnet()
+    phase_small_bn()
     phase_algorithms()
     phase_resume()
     launches.update(phase_resnet_main())
     phase_resnet_profile()
     phase_resnet_scaffold()
     phase_resnet_fedopt()
+    bn_row, _ = phase_resnet_bn()
+    launches.update(phase_resnet_bf16(bn_row))
     phase_small_lm()
     tr, data, lm_launches = phase_lm_main()
     launches.update(lm_launches)

@@ -1,6 +1,13 @@
 """Federated optimizer registry (port of ``fedml_tpu/algorithms/__init__.py``
 :53-265): FedAvg, FedAvg_robust (every defense), FedProx, FedOpt, FedNova
-and SCAFFOLD, each a ``FedAlgorithm`` bundle of plain functions."""
+and SCAFFOLD, each a ``FedAlgorithm`` bundle of plain functions.
+
+BatchNorm models (``has_batch_stats``, JAX :73-90): the running-statistics
+deltas are plainly weighted-averaged, never fed through a server optimizer
+or a defense. FedAvg and FedProx do that natively, FedOpt splits the
+variables (its server optimizer on the ``params/...`` leaves, a plain add on
+the ``batch_stats/...`` ones), and FedNova, FedAvg_robust and SCAFFOLD
+refuse the combination."""
 
 from __future__ import annotations
 
@@ -60,6 +67,8 @@ def get_algorithm(
     name: str,
     apply_fn: Callable,
     cfg: LocalTrainConfig,
+    needs_dropout: bool = False,
+    has_batch_stats: bool = False,
     server_lr: float = 1.0,
     server_optimizer_name: str = "sgd",
     server_momentum: float = 0.9,
@@ -77,11 +86,24 @@ def get_algorithm(
     the pseudo-gradient ``-delta``), FedNova's (``w + tau_eff *
     mean(delta / tau)``) and SCAFFOLD's (``w + server_lr * delta``)."""
     name_l = name.lower()
+    if has_batch_stats and name_l in (
+        FEDML_FEDERATED_OPTIMIZER_FEDNOVA.lower(),
+        FEDML_FEDERATED_OPTIMIZER_FEDAVG_ROBUST.lower(),
+        FEDML_FEDERATED_OPTIMIZER_SCAFFOLD.lower(),
+    ):
+        raise ValueError(
+            f"{name}: norm='batch' is unsupported (tau scaling / defenses / "
+            "control variates would treat BatchNorm running stats as "
+            "gradients); use norm='group', or FedAvg/FedProx/FedOpt")
+
+    def local(cfg):
+        return make_local_update(apply_fn, cfg, needs_dropout, has_batch_stats)
+
     if name_l == FEDML_FEDERATED_OPTIMIZER_FEDAVG_ROBUST.lower():
         ra = RobustAggregator(defense_type=defense_type or "norm_diff_clipping",
                               norm_bound=norm_bound, stddev=stddev, trim_ratio=trim_ratio,
                               byzantine_n=byzantine_n, multi_krum_m=multi_krum_m)
-        local_update = make_local_update(apply_fn, cfg)
+        local_update = local(cfg)
         if ra.defense_type != "weak_dp":
             return FedAlgorithm(name=name, local_update=local_update,
                                 server_update=_keep_state, aggregate=ra.aggregate, robust=ra)
@@ -110,7 +132,7 @@ def get_algorithm(
         name_l = FEDML_FEDERATED_OPTIMIZER_FEDAVG.lower()
     if name_l == FEDML_FEDERATED_OPTIMIZER_SCAFFOLD.lower():
         cfg = LocalTrainConfig(**{**cfg.__dict__, "use_scaffold": True})
-    local_update = make_local_update(apply_fn, cfg)
+    local_update = local(cfg)
 
     if name_l == FEDML_FEDERATED_OPTIMIZER_FEDAVG.lower():
         return FedAlgorithm(name=name, local_update=local_update, server_update=_keep_state)
@@ -118,13 +140,29 @@ def get_algorithm(
     if name_l == FEDML_FEDERATED_OPTIMIZER_FEDOPT.lower():
         sopt = server_optimizer(server_optimizer_name, server_lr, server_momentum)
 
+        def _params(tree):
+            # the server optimizer sees the params only; BatchNorm running
+            # statistics are plainly averaged (adam or momentum on them
+            # would corrupt them)
+            if not has_batch_stats:
+                return tree
+            return {k: v for k, v in tree.items() if k.startswith("params/")}
+
+        def init_server_state(params):
+            return sopt.init(_params(params))
+
         def fedopt_update(params, agg, opt_state):
-            pseudo_grad = _scale(agg, -1.0)
-            updates, opt_state = sopt.update(pseudo_grad, opt_state, params)
-            return optim.apply_updates(params, updates), opt_state
+            p = _params(params)
+            pseudo_grad = _scale(_params(agg), -1.0)
+            updates, opt_state = sopt.update(pseudo_grad, opt_state, p)
+            new_p = optim.apply_updates(p, updates)
+            if not has_batch_stats:
+                return new_p, opt_state
+            return {k: new_p[k] if k in new_p else v + agg[k] for k, v in params.items()}, \
+                opt_state
 
         return FedAlgorithm(name=name, local_update=local_update, server_update=fedopt_update,
-                            init_server_state=sopt.init)
+                            init_server_state=init_server_state)
 
     if name_l == FEDML_FEDERATED_OPTIMIZER_FEDNOVA.lower():
         # clients ship tau-normalised deltas and tau; the server scales the

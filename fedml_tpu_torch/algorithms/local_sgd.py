@@ -26,6 +26,23 @@ batch's real row count. Torch cannot replay JAX's PRNG and
 ``(steps, n_params)`` float32 tensor of standard normals, row ``s``
 feeding batch step ``s`` (``epoch * n_batches + batch``), split over the
 leaves in dict order. ``rng`` is None when no noise is drawn.
+
+Dropout models (``needs_dropout``) take their keep masks the same way: the
+simulator draws them outside (``simulation/fed_sim.py::dropout_masks``),
+keyed by (seed, round, cohort position, batch step) as the JAX package
+folds its dropout key (``fed_sim.py:329``, ``local_sgd.py:262``), and
+passes them in ``data["dropout"]``: one bool tensor per Dropout layer of
+shape ``(epochs * NB, BS, *layer shape)``, row ``s`` feeding step ``s``.
+
+BatchNorm models (``has_batch_stats``, JAX ``_make_bn_local_update``:334):
+the variables dict holds ``params/...`` and ``batch_stats/...`` leaves,
+which the one loop carries apart (the statistics dict is empty for every
+other model); the gradient is taken on the params only, the running statistics advance on
+every batch with a real row (the forward in training mode returns them),
+a batch without one leaves params, optimizer state and statistics alike
+unchanged, and the delta covers both collections, so aggregation averages
+the running statistics as the reference FedAvg does. SCAFFOLD and DP-SGD
+refuse BatchNorm, with the JAX package's messages.
 """
 
 from __future__ import annotations
@@ -37,6 +54,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from ..core.algframe import ClientOutput
+from ..models import BATCH_STATS
 from ..utils import optim
 
 Params = Dict[str, torch.Tensor]
@@ -99,13 +117,22 @@ class LocalTrainConfig:
 
 
 def make_loss_fn(apply_fn: Callable) -> Callable:
-    """``(params, x, y, mask) -> (loss, (correct, valid))`` with masking."""
+    """``(params, x, y, mask, dropout=None) -> (loss, (correct, valid))``
+    with masking; ``dropout`` (the step's keep masks) runs the model in
+    training mode."""
 
-    def loss_fn(params, x, y, mask):
-        loss, correct, valid = _masked_loss_and_metrics(apply_fn(params, x), y, mask)
+    def loss_fn(params, x, y, mask, dropout=None):
+        out = (apply_fn(params, x) if dropout is None
+               else apply_fn(params, x, train=True, dropout=dropout))
+        loss, correct, valid = _masked_loss_and_metrics(out, y, mask)
         return loss, (correct, valid)
 
     return loss_fn
+
+
+def _step_masks(data, step: int):
+    masks = data.get("dropout")
+    return None if masks is None else tuple(m[step] for m in masks)
 
 
 def _split_noise(row: torch.Tensor, params: Params) -> Params:
@@ -118,19 +145,51 @@ def _split_noise(row: torch.Tensor, params: Params) -> Params:
     return out
 
 
-def make_local_update(apply_fn: Callable, cfg: LocalTrainConfig) -> Callable:
+def make_local_update(apply_fn: Callable, cfg: LocalTrainConfig, needs_dropout: bool = False,
+                      has_batch_stats: bool = False) -> Callable:
     """One client's local update. ``data`` holds x (NB, BS, *feat), y and
-    mask (NB, BS), num_samples (); the update is the parameter delta
-    (SCAFFOLD: ``{"delta", "delta_c"}``). ``client_state`` is ``()`` or
-    SCAFFOLD's ``(c_global, c_local)``."""
+    mask (NB, BS), num_samples () and, with ``needs_dropout``, the keep
+    masks ``dropout``; the update is the variables' delta (SCAFFOLD:
+    ``{"delta", "delta_c"}``). ``client_state`` is ``()`` or SCAFFOLD's
+    ``(c_global, c_local)``."""
     if cfg.dp_noise_multiplier > 0.0 and cfg.dp_l2_clip is None:
         raise ValueError(
             "dp_noise_multiplier set without dp_l2_clip — noise calibration "
             "needs the clip (sensitivity); set dp_l2_clip to enable DP-SGD")
-    loss_fn = make_loss_fn(apply_fn)
-    grad_fn = grad_and_value(loss_fn, has_aux=True)
     opt = cfg.make_optimizer()
     prox_mu = 0.0 if cfg.prox_mu is None else cfg.prox_mu
+    if has_batch_stats:
+        # local_sgd.py:191-212: hard errors, not silent non-private or
+        # non-SCAFFOLD training (another loss_kind already fails in
+        # LocalTrainConfig, and the port takes no custom loss)
+        if cfg.use_scaffold:
+            raise ValueError(
+                "SCAFFOLD control variates are defined on params only; "
+                "combine with GroupNorm models instead")
+        if cfg.dp_l2_clip is not None:
+            raise ValueError(
+                "DP-SGD with BatchNorm is unsupported (running statistics "
+                "leak unclipped example information); use a GroupNorm "
+                "model variant")
+    if needs_dropout and cfg.dp_l2_clip is not None:
+        raise NotImplementedError(
+            "DP-SGD on a dropout model (one mask per example step) is not ported yet "
+            "(ROADMAP.md Queue 1, item 3)")
+    loss_fn = make_loss_fn(apply_fn)
+
+    def step_loss(params, stats, x, y, mask, dropout):
+        """``loss_fn`` with the running statistics threaded: the aux also
+        holds ``stats`` as the training-mode forward advanced them (an
+        empty dict in, an empty dict out)."""
+        if not stats:
+            loss, (correct, valid) = loss_fn(params, x, y, mask, dropout)
+            return loss, (correct, valid, stats)
+        out, new_stats = apply_fn({**stats, **params}, x, train=True, dropout=dropout,
+                                  mutable=True)
+        loss, correct, valid = _masked_loss_and_metrics(out, y, mask)
+        return loss, (correct, valid, new_stats)
+
+    grad_fn = grad_and_value(step_loss, has_aux=True)
     sigma = cfg.dp_noise_sigma
 
     def ex_loss(p, ex_x, ex_y, ex_m):
@@ -154,7 +213,7 @@ def make_local_update(apply_fn: Callable, cfg: LocalTrainConfig) -> Callable:
         loss = (losses * bm.reshape(losses.shape)).sum() / denom
         return grads, (loss, (corrects.sum(), valids.sum()))
 
-    def local_update(global_params: Params, client_state, data, rng=None) -> ClientOutput:
+    def local_update(global_variables: Params, client_state, data, rng=None) -> ClientOutput:
         x, y, mask = data["x"], data["y"], data["mask"]
         n_batches = x.shape[0]
         if sigma > 0.0 and rng is None:
@@ -163,6 +222,9 @@ def make_local_update(apply_fn: Callable, cfg: LocalTrainConfig) -> Callable:
         if cfg.use_scaffold:
             c_global, c_local = client_state
             correction = {k: c_global[k] - c_local[k] for k in c_global}
+        global_params = {k: v for k, v in global_variables.items()
+                         if not k.startswith(BATCH_STATS)}
+        stats = {k: v for k, v in global_variables.items() if k.startswith(BATCH_STATS)}
         params = global_params
         opt_state = opt.init(global_params)
         losses, corrects, valids, bweights = [], [], [], []
@@ -172,15 +234,17 @@ def make_local_update(apply_fn: Callable, cfg: LocalTrainConfig) -> Callable:
                 if cfg.dp_l2_clip is not None:
                     row = None if rng is None else rng[epoch * n_batches + b]
                     grads, (loss, (correct, valid)) = dp_grads(params, x[b], y[b], bm, row)
+                    new_stats = stats
                 else:
-                    grads, (loss, (correct, valid)) = grad_fn(params, x[b], y[b], bm)
+                    grads, (loss, (correct, valid, new_stats)) = grad_fn(
+                        params, stats, x[b], y[b], bm, _step_masks(data, epoch * n_batches + b))
                 if prox_mu > 0.0:
                     grads = {k: g + (params[k] - global_params[k]) * prox_mu
                              for k, g in grads.items()}
                 if cfg.use_scaffold:
                     grads = {k: g + correction[k] for k, g in grads.items()}
-                # an all-padding batch is a no-op for the parameters and the
-                # optimizer state alike
+                # an all-padding batch is a no-op for the parameters, the
+                # optimizer state and the running statistics alike
                 bweight = (bm.sum() > 0).float()
                 grads = {k: g * bweight for k, g in grads.items()}
                 updates, new_state = opt.update(grads, opt_state, params)
@@ -188,12 +252,14 @@ def make_local_update(apply_fn: Callable, cfg: LocalTrainConfig) -> Callable:
                 real = bweight > 0
                 params = {k: torch.where(real, new_params[k], p) for k, p in params.items()}
                 opt_state = optim.tree_where(real, new_state, opt_state)
+                stats = {k: torch.where(real, new_stats[k], s) for k, s in stats.items()}
                 losses.append(loss)
                 corrects.append(correct)
                 valids.append(valid)
                 bweights.append(bweight)
         losses, bweights = torch.stack(losses), torch.stack(bweights)
-        delta = {k: params[k] - global_params[k] for k in params}
+        new = {**stats, **params}
+        delta = {k: new[k] - g for k, g in global_variables.items()}
         real_steps = bweights.sum()
         metrics = {
             "train_loss": (losses * bweights).sum() / torch.clamp(bweights.sum(), min=1.0),

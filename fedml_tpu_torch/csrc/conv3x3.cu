@@ -1,6 +1,7 @@
 // 3x3 / stride-1 / SAME convolution over a leading lane axis (one weight set
 // per client lane): the forward (which also gives dx) and the weight gradient.
-// Activations NHWC, weights HWIO, float32.
+// Activations NHWC, weights HWIO, float32 or bfloat16 (the JAX package's
+// use_bf16: conv.py:297-299 casts x and w to the model's dtype).
 //
 // Replaces: fedml_tpu/ops/conv.py::conv2d_pallas — the forward Pallas kernel
 // _fwd_kernel (reused for dx on the spatially flipped, channel-transposed
@@ -56,11 +57,57 @@
 //
 // Inputs may broadcast over lanes (lane stride 0): the first local step,
 // where every client still holds the global weights.
+//
+// bfloat16 (the _bf16 entry points): the same kernels instantiated for
+// __nv_bfloat16 operands, converted to float32 as they are read, so every
+// product and sum is float32 as in the TPU kernel (preferred_element_type
+// float32, conv.py:147 and :251); the forward rounds each output once to
+// bfloat16 (round to nearest even) on store, the weight gradient sums its
+// float32 partials in the fixed split order and rounds once. The forward
+// FMA kernel serves the stem (3 -> 16) and any width conv3x3_sm90.cu's
+// bf16 tensor-core kernel does not take. Copies of 2-byte elements (Ci or
+// Co not a multiple of 4: the stem's x) have no cp.async form and are plain
+// loads and shared-memory stores into the same ring; 4-element chunks are
+// 8-byte cp.async copies. Bound: half the bytes of float32, the same FMA
+// operations (the CUDA cores have no faster bf16 multiply-add into float32).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <class T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+// four consecutive elements (16-byte aligned floats, 8-byte aligned bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 
 // the forward
 constexpr int kThreads = 256;  // a 4x4 register tile each
@@ -90,18 +137,18 @@ __device__ __forceinline__ Pixel decode(int64_t m, int64_t HW, int W) {
 }
 
 // x[l, b, h + dy - 1, w + dx - 1, ci] for k = (dy, dx, ci), or null outside
-__device__ __forceinline__ const float* tap_ptr(const float* xl, Pixel p, int tap, int ci,
-                                                int H, int W, int Ci) {
+template <class T>
+__device__ __forceinline__ const T* tap_ptr(const T* xl, Pixel p, int tap, int ci, int H, int W,
+                                            int Ci) {
   const int hs = p.h + tap / 3 - 1, ws = p.w + tap % 3 - 1;
   if (hs < 0 || hs >= H || ws < 0 || ws >= W) return nullptr;
   return xl + (((int64_t)p.b * H + hs) * W + ws) * Ci + ci;
 }
 
-template <int BN, bool VEC>
+template <int BN, bool VEC, class T>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   float* __restrict__ y, int B, int H, int W, int Ci, int Co,
-                   int64_t x_lane, int64_t w_lane) {
+conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int B,
+                   int H, int W, int Ci, int Co, int64_t x_lane, int64_t w_lane) {
   constexpr int BM = kTile / BN;               // output pixels of the block
   constexpr int TN = BN / 4;                   // threads along the channels
   constexpr int APT = BM * kSlice / kThreads;  // A elements one thread stages
@@ -114,9 +161,9 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int K = 9 * Ci;
   const int64_t m0 = (int64_t)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const float* xl = x + (int64_t)blockIdx.z * x_lane;
-  const float* wl = w + (int64_t)blockIdx.z * w_lane;
-  float* yl = y + (int64_t)blockIdx.z * M * Co;
+  const T* xl = x + (int64_t)blockIdx.z * x_lane;
+  const T* wl = w + (int64_t)blockIdx.z * w_lane;
+  T* yl = y + (int64_t)blockIdx.z * M * Co;
 
   // the pixel whose patch row this thread stages, decoded once
   const int am = t / TPP, ak = (t % TPP) * APT;
@@ -128,11 +175,10 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int k0 = 0; k0 < K; k0 += kSlice) {
     if (VEC) {  // Ci % 16 == 0: the slice is one tap's contiguous channels
       const int tap = k0 / Ci;
-      const float* src = m_in ? tap_ptr(xl, px, tap, k0 - tap * Ci + ak, H, W, Ci) : nullptr;
+      const T* src = m_in ? tap_ptr(xl, px, tap, k0 - tap * Ci + ak, H, W, Ci) : nullptr;
 #pragma unroll
       for (int j = 0; j < APT; j += 4) {
-        const float4 v = src ? *reinterpret_cast<const float4*>(src + j)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 v = src ? load4(src + j) : make_float4(0.f, 0.f, 0.f, 0.f);
         As[ak + j][am] = v.x;
         As[ak + j + 1][am] = v.y;
         As[ak + j + 2][am] = v.z;
@@ -145,8 +191,8 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         float v = 0.f;
         if (m_in && k < K) {
           const int tap = k / Ci;
-          const float* src = tap_ptr(xl, px, tap, k - tap * Ci, H, W, Ci);
-          if (src) v = *src;
+          const T* src = tap_ptr(xl, px, tap, k - tap * Ci, H, W, Ci);
+          if (src) v = to_f(*src);
         }
         As[ak + j][am] = v;
       }
@@ -154,7 +200,7 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int i = t; i < kSlice * BN; i += kThreads) {
       const int kk = i / BN, nn = i % BN;
       const int k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < K && n < Co) ? wl[(int64_t)k * Co + n] : 0.f;
+      Bs[kk][nn] = (k < K && n < Co) ? to_f(wl[(int64_t)k * Co + n]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -169,14 +215,13 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int i = 0; i < 4; ++i) {
     const int64_t m = m0 + tm * 4 + i;
     if (m >= M) continue;
-    float* dst = yl + m * Co + n;
+    T* dst = yl + m * Co + n;
     if ((Co & 3) == 0) {  // n and Co are multiples of 4: all four or none
-      if (n < Co) *reinterpret_cast<float4*>(dst) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      if (n < Co) store4(dst, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (n + j < Co) dst[j] = acc[i][j];
+        if (n + j < Co) dst[j] = from_f<T>(acc[i][j]);
     }
   }
 }
@@ -216,6 +261,36 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
                : "memory");
 }
 
+// 8 bytes (four bf16), zero when !valid
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+// Copies into the dw ring by element type: four elements of a patch row
+// (kept in L1), four of dy (streamed), one element
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
+  cp_async16(dst, src, ok);
+}
+__device__ __forceinline__ void copy4(bf16* dst, const bf16* src, bool ok) {
+  cp_async8(dst, src, ok);
+}
+__device__ __forceinline__ void copy4_stream(float* dst, const float* src, bool ok) {
+  cp_async16_stream(dst, src, ok);
+}
+__device__ __forceinline__ void copy4_stream(bf16* dst, const bf16* src, bool ok) {
+  cp_async8(dst, src, ok);
+}
+__device__ __forceinline__ void copy1(float* dst, const float* src, bool ok) {
+  cp_async4(dst, src, ok);
+}
+// cp.async copies no 2-byte element: a load and a shared-memory store, in
+// the ring slot the barrier of the iteration that reads it publishes
+__device__ __forceinline__ void copy1(bf16* dst, const bf16* src, bool ok) {
+  *dst = ok ? *src : __float2bfloat16_rn(0.f);
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -230,21 +305,20 @@ __device__ __forceinline__ void cp_async_wait() {
 // each sum the whole tile over their own 16 pixels of every slice (a thread
 // a 4 x BN/4 register tile: rows 4 tk.., columns 4 tn + 16 j), and the
 // groups' sums are added in shared memory in group order at the end.
-template <int TK, int BN, int PG, bool XV>
+template <int TK, int BN, int PG, bool XV, class T>
 __global__ void __launch_bounds__(PG * TK, kDwBlocks)
-conv3x3_dw_partial_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+conv3x3_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                           float* __restrict__ part, int B, int H, int W, int Ci, int Co,
                           int64_t x_lane, int64_t span, int splits) {
   constexpr int NT = PG * TK;              // threads
   constexpr int SP = kGroupPixels * PG;    // pixels of one slice
   constexpr int TPP = NT / SP;             // threads staging one pixel's patch row: TK / 16
   constexpr int RN = BN / 4;               // columns of a thread
-  constexpr int STAGE = SP * (TK + BN);    // floats of one stage: patch rows, then dy rows
+  constexpr int STAGE = SP * (TK + BN);    // elements of one stage: patch rows, then dy rows
   constexpr int NX = XV ? 4 : 16;          // copies of a patch row one thread makes
   static_assert(TK % 16 == 0 && BN % 16 == 0, "tiles are whole 16-row, 16-column blocks");
-  static_assert(PG * TK * BN <= kStages * STAGE, "the groups' sums fit the ring");
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
 
   const int t = threadIdx.x;
   const int64_t HW = (int64_t)H * W, P = (int64_t)B * HW;
@@ -254,13 +328,13 @@ conv3x3_dw_partial_kernel(const float* __restrict__ x, const float* __restrict__
   const int k0 = (blockIdx.y / n_tiles) * TK;
   const int n0 = (blockIdx.y % n_tiles) * BN;
   const int lane = blockIdx.z;
-  const float* xl = x + (int64_t)lane * x_lane;
-  const float* gl = dy + (int64_t)lane * P * Co;
+  const T* xl = x + (int64_t)lane * x_lane;
+  const T* gl = dy + (int64_t)lane * P * Co;
   const int64_t p_begin = (int64_t)s * span;
   const int64_t p_end = p_begin + span < P ? p_begin + span : P;
   const int slices = (int)((p_end - p_begin + SP - 1) / SP);
-  // 16-byte dy copies where Co is a multiple of 4 and dy 16-byte aligned
-  const bool g_vec = Co % 4 == 0 && ((uintptr_t)dy & 15) == 0;
+  // 4-element dy copies where Co is a multiple of 4 and dy aligned to them
+  const bool g_vec = Co % 4 == 0 && ((uintptr_t)dy & (4 * sizeof(T) - 1)) == 0;
 
   // The patch rows this thread stages: pixel lp of every slice, rows lr +
   // TPP j of the tile (XV: 4-float chunks at rows 4 (lr + TPP j)), each
@@ -291,49 +365,49 @@ conv3x3_dw_partial_kernel(const float* __restrict__ x, const float* __restrict__
     }
     const int ns = i + kStages - 1;
     if (ns < slices) {
-      float* As = smem + (ns % kStages) * STAGE;
-      float* Gs = As + SP * TK;
+      T* As = smem + (ns % kStages) * STAGE;
+      T* Gs = As + SP * TK;
       const int64_t p0 = p_begin + (int64_t)ns * SP;
       const bool p_in = p0 + lp < p_end;
       const int p = p_in ? (int)(p0 + lp) : 0;  // P < 2^31 (fedml_conv3x3_dw)
       const int r = p % (int)HW, h = r / W, w = r - h * W;
-      const float* xc = xl + (int64_t)p * Ci;
-      float* arow = As + lp * TK;
+      const T* xc = xl + (int64_t)p * Ci;
+      T* arow = As + lp * TK;
 #pragma unroll
       for (int j = 0; j < NX; ++j) {
         const int tap = rows[j] & 15, hs = h + tap / 3 - 1, ws = w + tap % 3 - 1;
         const bool ok = p_in && tap < 9 && hs >= 0 && hs < H && ws >= 0 && ws < W;
-        const float* src = ok ? xc + (rows[j] >> 4) : xl;
+        const T* src = ok ? xc + (rows[j] >> 4) : xl;
         if (XV)
-          cp_async16(arow + 4 * (lr + TPP * j), src, ok);
+          copy4(arow + 4 * (lr + TPP * j), src, ok);
         else
-          cp_async4(arow + lr + TPP * j, src, ok);
+          copy1(arow + lr + TPP * j, src, ok);
       }
       if (g_vec) {
         for (int e = t; e < SP * BN / 4; e += NT) {
           const int pp = e / (BN / 4), c = 4 * (e % (BN / 4));
           const bool ok = p0 + pp < p_end && n0 + c < Co;
-          cp_async16_stream(Gs + pp * BN + c, ok ? gl + (p0 + pp) * Co + n0 + c : gl, ok);
+          copy4_stream(Gs + pp * BN + c, ok ? gl + (p0 + pp) * Co + n0 + c : gl, ok);
         }
       } else {
         for (int e = t; e < SP * BN; e += NT) {
           const int pp = e / BN, c = e % BN;
           const bool ok = p0 + pp < p_end && n0 + c < Co;
-          cp_async4(Gs + pp * BN + c, ok ? gl + (p0 + pp) * Co + n0 + c : gl, ok);
+          copy1(Gs + pp * BN + c, ok ? gl + (p0 + pp) * Co + n0 + c : gl, ok);
         }
       }
     }
     cp_async_commit();
     if (i < 0) continue;
-    const float* As = smem + (i % kStages) * STAGE + g * kGroupPixels * TK;
-    const float* Gs = smem + (i % kStages) * STAGE + SP * TK + g * kGroupPixels * BN;
+    const T* As = smem + (i % kStages) * STAGE + g * kGroupPixels * TK;
+    const T* Gs = smem + (i % kStages) * STAGE + SP * TK + g * kGroupPixels * BN;
 #pragma unroll 4
     for (int pp = 0; pp < kGroupPixels; ++pp) {
-      const float4 a = *reinterpret_cast<const float4*>(As + pp * TK + 4 * tk);
+      const float4 a = load4(As + pp * TK + 4 * tk);
       const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
       for (int jj = 0; jj < RN / 4; ++jj) {
-        const float4 b = *reinterpret_cast<const float4*>(Gs + pp * BN + 16 * jj + 4 * tn);
+        const float4 b = load4(Gs + pp * BN + 16 * jj + 4 * tn);
         const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
         for (int r = 0; r < 4; ++r)
@@ -345,7 +419,7 @@ conv3x3_dw_partial_kernel(const float* __restrict__ x, const float* __restrict__
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: it holds the groups' sums now
 
-  float* red = smem;  // [PG][TK][BN]
+  float* red = reinterpret_cast<float*>(smem4);  // [PG][TK][BN]
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -365,16 +439,18 @@ conv3x3_dw_partial_kernel(const float* __restrict__ x, const float* __restrict__
   }
 }
 
-// dw[l, e] = sum over s = 0..splits-1 of part[l, s, e], in that order
+// dw[l, e] = sum over s = 0..splits-1 of part[l, s, e], in that order, in
+// float32, rounded once to T
+template <class T>
 __global__ void conv3x3_dw_reduce_kernel(const float* __restrict__ part, int64_t kn,
-                                         int splits, int64_t total, float* __restrict__ dw) {
+                                         int splits, int64_t total, T* __restrict__ dw) {
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= total) return;
   const int64_t lane = e / kn, r = e - lane * kn;
   const float* src = part + lane * splits * kn + r;
   float acc = 0.0f;
   for (int s = 0; s < splits; ++s) acc += src[(int64_t)s * kn];
-  dw[e] = acc;
+  dw[e] = from_f<T>(acc);
 }
 
 int block_cols(int Co) { return Co <= 16 ? 16 : (Co <= 32 ? 32 : 64); }
@@ -384,62 +460,21 @@ bool shapes_ok(int L, int B, int H, int W, int Ci, int Co) {
          (int64_t)H * W <= (1LL << 30) && 9LL * Ci <= (1LL << 30);
 }
 
-template <int BN, bool VEC>
-cudaError_t launch_fwd(const float* x, const float* w, float* y, int L, int B, int H, int W,
-                       int Ci, int Co, int64_t x_lane, int64_t w_lane, cudaStream_t st) {
+template <int BN, bool VEC, class T>
+cudaError_t launch_fwd(const T* x, const T* w, T* y, int L, int B, int H, int W, int Ci, int Co,
+                       int64_t x_lane, int64_t w_lane, cudaStream_t st) {
   const int64_t M = (int64_t)B * H * W;
   const int64_t mt = (M + kTile / BN - 1) / (kTile / BN);
   const int nt = (Co + BN - 1) / BN;
   if (mt > 0x7fffffff || nt > 65535) return cudaErrorInvalidValue;
-  conv3x3_fwd_kernel<BN, VEC><<<dim3((unsigned)mt, (unsigned)nt, (unsigned)L), kThreads, 0, st>>>(
-      x, w, y, B, H, W, Ci, Co, x_lane, w_lane);
+  conv3x3_fwd_kernel<BN, VEC, T><<<dim3((unsigned)mt, (unsigned)nt, (unsigned)L), kThreads, 0,
+                                   st>>>(x, w, y, B, H, W, Ci, Co, x_lane, w_lane);
   return cudaGetLastError();
 }
 
-// groups of TK threads: 256 threads, 288 at 144 rows
-constexpr int dw_groups(int TK) { return TK == 144 ? 2 : 256 / TK; }
-
-template <int TK, int BN, bool XV>
-cudaError_t launch_dw(const float* x, const float* dy, float* part, int L, int B, int H, int W,
-                      int Ci, int Co, int64_t x_lane, int64_t span, int splits,
-                      cudaStream_t st) {
-  constexpr int PG = dw_groups(TK);
-  const int64_t tiles = (9LL * Ci + TK - 1) / TK * ((Co + BN - 1) / BN);
-  if (tiles > 65535) return cudaErrorInvalidValue;
-  constexpr int bytes = kStages * kGroupPixels * PG * (TK + BN) * (int)sizeof(float);
-  auto kernel = conv3x3_dw_partial_kernel<TK, BN, PG, XV>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3((unsigned)splits, (unsigned)tiles, (unsigned)L), PG * TK, bytes, st>>>(
-      x, dy, part, B, H, W, Ci, Co, x_lane, span, splits);
-  return cudaGetLastError();
-}
-
-// a tile of TK = dw_rows(9 Ci) rows and block_cols(Co) columns; 16-byte
-// patch copies (XV) where Ci is a multiple of 4 and x 16-byte aligned
-template <int TK, bool XV>
-cudaError_t launch_dw_cols(const float* x, const float* dy, float* part, int L, int B, int H,
-                           int W, int Ci, int Co, int64_t x_lane, int64_t span, int splits,
-                           cudaStream_t st) {
-  switch (block_cols(Co)) {
-    case 16:
-      return launch_dw<TK, 16, XV>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
-    case 32:
-      return launch_dw<TK, 32, XV>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
-    default:
-      return launch_dw<TK, 64, XV>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
-  }
-}
-
-}  // namespace
-
-// y (L, B, H, W, Co) = conv3x3(x (L | 1, B, H, W, Ci), w (L | 1, 3, 3, Ci, Co)),
-// contiguous per lane; x_lane / w_lane are the lane strides in floats (0 to
-// broadcast one lane). Returns the cudaError_t of the launch.
-extern "C" int fedml_conv3x3_fwd(const float* x, const float* w, float* y, int L, int B, int H,
-                                 int W, int Ci, int Co, long long x_lane, long long w_lane,
-                                 void* stream) {
+template <class T>
+int fwd(const T* x, const T* w, T* y, int L, int B, int H, int W, int Ci, int Co,
+        long long x_lane, long long w_lane, void* stream) {
   if (!shapes_ok(L, B, H, W, Ci, Co) || x_lane < 0 || w_lane < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -454,13 +489,47 @@ extern "C" int fedml_conv3x3_fwd(const float* x, const float* w, float* y, int L
   }
 }
 
-// dw (L, 3, 3, Ci, Co) = sum over (B, H, W) of patches(x)^T dy per lane, for
-// x (L | 1, B, H, W, Ci) (lane stride x_lane floats, 0 to broadcast) and dy
-// (L, B, H, W, Co). The B*H*W pixels are cut into `splits` spans of `span`;
-// part is (L, splits, 9 Ci, Co) scratch. Returns the cudaError_t.
-extern "C" int fedml_conv3x3_dw(const float* x, const float* dy, float* part, float* dw, int L,
-                                int B, int H, int W, int Ci, int Co, long long x_lane,
-                                long long span, int splits, void* stream) {
+// groups of TK threads: 256 threads, 288 at 144 rows
+constexpr int dw_groups(int TK) { return TK == 144 ? 2 : 256 / TK; }
+
+template <int TK, int BN, bool XV, class T>
+cudaError_t launch_dw(const T* x, const T* dy, float* part, int L, int B, int H, int W, int Ci,
+                      int Co, int64_t x_lane, int64_t span, int splits, cudaStream_t st) {
+  constexpr int PG = dw_groups(TK);
+  const int64_t tiles = (9LL * Ci + TK - 1) / TK * ((Co + BN - 1) / BN);
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  // the ring of staged slices, then (reused) the groups' float32 sums
+  constexpr int ring = kStages * kGroupPixels * PG * (TK + BN) * (int)sizeof(T);
+  constexpr int sums = PG * TK * BN * (int)sizeof(float);
+  constexpr int bytes = ring > sums ? ring : sums;
+  auto kernel = conv3x3_dw_partial_kernel<TK, BN, PG, XV, T>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3((unsigned)splits, (unsigned)tiles, (unsigned)L), PG * TK, bytes, st>>>(
+      x, dy, part, B, H, W, Ci, Co, x_lane, span, splits);
+  return cudaGetLastError();
+}
+
+// a tile of TK = dw_rows(9 Ci) rows and block_cols(Co) columns; 4-element
+// patch copies (XV) where Ci is a multiple of 4 and x aligned to them
+template <int TK, bool XV, class T>
+cudaError_t launch_dw_cols(const T* x, const T* dy, float* part, int L, int B, int H, int W,
+                           int Ci, int Co, int64_t x_lane, int64_t span, int splits,
+                           cudaStream_t st) {
+  switch (block_cols(Co)) {
+    case 16:
+      return launch_dw<TK, 16, XV>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
+    case 32:
+      return launch_dw<TK, 32, XV>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
+    default:
+      return launch_dw<TK, 64, XV>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
+  }
+}
+
+template <class T>
+int dw(const T* x, const T* dy, float* part, T* out, int L, int B, int H, int W, int Ci, int Co,
+       long long x_lane, long long span, int splits, void* stream) {
   const int64_t P = (int64_t)B * H * W;
   // pixel indices and packed tap offsets ((W + 2) Ci * 16) are 32-bit
   if (!shapes_ok(L, B, H, W, Ci, Co) || P >= (1LL << 31) || (W + 2LL) * Ci >= (1LL << 26) ||
@@ -469,7 +538,7 @@ extern "C" int fedml_conv3x3_dw(const float* x, const float* dy, float* part, fl
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
-  const bool xv = Ci % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  const bool xv = Ci % 4 == 0 && ((uintptr_t)x & (4 * sizeof(T) - 1)) == 0;
   switch (dw_rows(9 * Ci) * 2 + (xv ? 1 : 0)) {
     case 64:  // Ci <= 3: never a multiple of 4
       err = launch_dw_cols<32, false>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
@@ -488,7 +557,46 @@ extern "C" int fedml_conv3x3_dw(const float* x, const float* dy, float* part, fl
   }
   if (err != cudaSuccess) return (int)err;
   const int64_t kn = 9LL * Ci * Co, total = kn * L;
-  conv3x3_dw_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, kn, splits,
-                                                                            total, dw);
+  conv3x3_dw_reduce_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, kn, splits,
+                                                                               total, out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// y (L, B, H, W, Co) = conv3x3(x (L | 1, B, H, W, Ci), w (L | 1, 3, 3, Ci, Co)),
+// contiguous per lane; x_lane / w_lane are the lane strides in elements (0
+// to broadcast one lane). Returns the cudaError_t of the launch.
+extern "C" int fedml_conv3x3_fwd(const float* x, const float* w, float* y, int L, int B, int H,
+                                 int W, int Ci, int Co, long long x_lane, long long w_lane,
+                                 void* stream) {
+  return fwd(x, w, y, L, B, H, W, Ci, Co, x_lane, w_lane, stream);
+}
+
+// The same for bfloat16 x, w and y: float32 products and sums, y rounded
+// once to bfloat16.
+extern "C" int fedml_conv3x3_fwd_bf16(const bf16* x, const bf16* w, bf16* y, int L, int B, int H,
+                                      int W, int Ci, int Co, long long x_lane, long long w_lane,
+                                      void* stream) {
+  return fwd(x, w, y, L, B, H, W, Ci, Co, x_lane, w_lane, stream);
+}
+
+// dw (L, 3, 3, Ci, Co) = sum over (B, H, W) of patches(x)^T dy per lane, for
+// x (L | 1, B, H, W, Ci) (lane stride x_lane elements, 0 to broadcast) and
+// dy (L, B, H, W, Co). The B*H*W pixels are cut into `splits` spans of
+// `span`; part is (L, splits, 9 Ci, Co) float32 scratch. Returns the
+// cudaError_t.
+extern "C" int fedml_conv3x3_dw(const float* x, const float* dy, float* part, float* dw_out,
+                                int L, int B, int H, int W, int Ci, int Co, long long x_lane,
+                                long long span, int splits, void* stream) {
+  return dw(x, dy, part, dw_out, L, B, H, W, Ci, Co, x_lane, span, splits, stream);
+}
+
+// The same for bfloat16 x, dy and dw: float32 partials and sums, dw rounded
+// once to bfloat16 (the TPU kernel's f32 accumulation and .astype(w.dtype)).
+extern "C" int fedml_conv3x3_dw_bf16(const bf16* x, const bf16* dy, float* part, bf16* dw_out,
+                                     int L, int B, int H, int W, int Ci, int Co,
+                                     long long x_lane, long long span, int splits,
+                                     void* stream) {
+  return dw(x, dy, part, dw_out, L, B, H, W, Ci, Co, x_lane, span, splits, stream);
 }

@@ -22,7 +22,7 @@
 // multiply-add over the taps inside the image, at 495 TFLOP/s):
 //   32x32, 16 -> 16: 84.0 MB, 0.0251 ms of bytes; 0.0175 ms of operations
 //   16x16, 32 -> 32: 41.9 MB, 0.0125 ms;          0.0168 ms
-//    8x8,  64 -> 64: 10.5 MB, 0.0031 ms;          0.0154 ms
+//    8x8,  64 -> 64: 21.0 MB, 0.0063 ms;          0.0154 ms
 // The first is bound by bytes, the others by operations. On the CUDA cores
 // (fp32 FMA at 67 TFLOP/s) the same work cannot take less than 0.038-0.043
 // ms; that is why this kernel exists.
@@ -89,7 +89,24 @@
 // Left for later: wgmma (both shared-memory operands K-major in TF32, A from
 // registers) for the rest of the tensor cores' rate; fewer integer
 // operations per split.
+//
+// bfloat16 (fedml_conv3x3_fwd_sm90_bf16, the JAX package's use_bf16: the
+// same Pallas kernel on bf16 x and w, a bf16 patch scratch, f32 sums by
+// preferred_element_type, conv.py:147, and a bf16 output, :149): the same
+// tiling with one mma.sync.m16n8k16 bf16 product per 16-channel k-step in
+// place of three TF32 ones. Products of two bf16 values are exact in
+// float32 and the sums are float32 (the tensor core's, not rounded to
+// nearest, over at most 9 x 4 k-steps into one accumulator); each output is
+// rounded once to bf16 on store, so the kernel is within one bf16 step of
+// the rounded float32 result (chip_smoke.py's bf16 conv gate). The halo is
+// staged as bf16 (half the float32 bytes) and w, all nine taps, once per
+// block, transposed to [tap][co][ci] so that both operands are read as one
+// 8-byte word per fragment row (see conv3x3_bf16_kernel). Bound at the
+// path's block shapes (L = 10, B = 64): 42.0, 21.0 and 10.5 MB of bytes,
+// 0.0125, 0.0063 and 0.0031 ms at 3.35 TB/s, against 2.9, 2.8 and 2.6 us of
+// operations (in-image taps) at 989 TFLOP/s: all three are bound by bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -103,6 +120,7 @@ constexpr int kMI = 2;  // 16-row mma tiles per warp along the pixels: 32 slots
 // and a block takes one tile; UNROLL: the nine taps unrolled
 template <int CI, int WM, bool RES, bool UNROLL>
 struct Cfg {
+  using T = float;
   static constexpr int CO = CI;
   static constexpr int WCOLS = CO < 32 ? CO : 32;  // columns of one warp
   static constexpr int WARPS_N = CO / WCOLS;
@@ -369,7 +387,7 @@ Geo geometry(int B, int H, int W, int& bytes) {
   g.imgs = g.rb < H ? 1 : (B < C::BM / (H * W) ? B : C::BM / (H * W));
   if (g.imgs < 1) g.imgs = 1;
   auto smem = [&] {
-    return (int)sizeof(float) *
+    return (int)sizeof(typename C::T) *
            (C::HALOS * g.imgs * (g.rb + 2) * (g.cb + 2) * C::XS + C::WFLOATS);
   };
   while (smem() > kMaxSmem && g.imgs > 1) --g.imgs;
@@ -416,6 +434,201 @@ cudaError_t launch(const float* x, const float* w, float* y, int L, int B, int H
   return cudaGetLastError();
 }
 
+// --- bfloat16: one mma.sync m16n8k16 product, float32 sums ----------------
+
+typedef __nv_bfloat16 bf16;
+
+// Ci = Co channels, WM warps along the pixels; w resident (all nine taps,
+// transposed to [tap][co][ci] once per block) and each block walks several
+// tiles, the next tile's halo staged during this one's products, as the
+// resident float32 configuration does
+template <int CI, int WM>
+struct CfgBf16 {
+  using T = bf16;
+  static constexpr int CO = CI;
+  static constexpr int WCOLS = CO < 32 ? CO : 32;  // columns of one warp
+  static constexpr int WARPS_N = CO / WCOLS;
+  static constexpr int NT = 32 * WM * WARPS_N;     // threads
+  static constexpr int BM = 32 * WM;               // pixel slots of a tile
+  static constexpr int NI = WCOLS / 8;             // 8-column mma tiles per warp
+  // elements between halo pixels and between the channel rows of the
+  // transposed w: 2 XS bytes = 32 or 96 mod 128, so the 8-byte fragment
+  // loads of a half-warp's four rows (or columns) fall in distinct banks
+  static constexpr int XS = CI == 16 ? 16 : CI + 16;
+  static constexpr int WTAP = CO * XS;             // elements of one tap of w
+  static constexpr int WFLOATS = 9 * WTAP;         // elements of w (geometry's name)
+  static constexpr int HALOS = 2;
+  static constexpr int CPP = CI / 8;               // 16-byte chunks of a pixel
+  static constexpr int NPX = NT / CPP;             // halo pixels staged per pass
+  static_assert(CI % 16 == 0 && CO <= 64 && NT % CPP == 0, "channels the kernel takes");
+};
+
+__device__ __forceinline__ void cp_async16b(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The k-step's channel order. In a 16-channel k-step a thread of the mma
+// holds logical k 2 tig, +1 (its first A and B register) and 2 tig + 8, +9
+// (its second); these are stored channels 16 ks + 4 tig .. + 3, the same
+// for A and B, so each thread reads one 8-byte word per fragment row or
+// column. The products summed are the same; only their order differs.
+template <int CI, int WM, int MINB>
+__global__ void __launch_bounds__(CfgBf16<CI, WM>::NT, MINB)
+conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                    bf16* __restrict__ y, int B, int H, int W, int64_t x_lane, int64_t w_lane,
+                    Geo g, int tiles) {
+  using C = CfgBf16<CI, WM>;
+  constexpr int CO = C::CO;
+  extern __shared__ float4 smem4[];
+  bf16* wbuf = reinterpret_cast<bf16*>(smem4);   // [9][CO][XS]
+  bf16* halo = wbuf + C::WFLOATS;                // HALOS buffers of halo_px * XS
+  const int halo_elems = g.halo_px * C::XS;
+
+  const int t = threadIdx.x, lane = blockIdx.y;
+  const bf16* xl = x + (int64_t)lane * x_lane;
+  const bf16* wl = w + (int64_t)lane * w_lane;
+  bf16* yl = y + (int64_t)lane * B * H * W * CO;
+
+  // halo staging as the float32 kernel's, 8 channels per 16-byte chunk
+  const int hcc = 8 * (t % C::CPP), hp0 = t / C::CPP;
+  const int pc0 = hp0 % g.hc, pr0 = (hp0 / g.hc) % g.hr, pi0 = hp0 / (g.hc * g.hr);
+  auto stage_halo = [&](bf16* dst, int tile) {
+    int b0, h0, w0;
+    tile_origin(tile, g, b0, h0, w0);
+    int pc = pc0, pr = pr0, img = pi0;
+    for (int p = hp0; p < g.halo_px; p += C::NPX) {
+      const int b = b0 + img, h = h0 + pr - 1, ww = w0 + pc - 1;
+      const bool ok = b < B && h >= 0 && h < H && ww >= 0 && ww < W;
+      cp_async16b(dst + p * C::XS + hcc,
+                  ok ? xl + (((int64_t)b * H + h) * W + ww) * CI + hcc : xl, ok);
+      pc += C::NPX;
+      while (pc >= g.hc) pc -= g.hc, ++pr;
+      while (pr >= g.hr) pr -= g.hr, ++img;
+    }
+  };
+
+  const int warp = t / 32, gid = (t % 32) >> 2, tig = t & 3;
+  const int wm = warp % WM, wn = warp / WM;
+  int hoff[kMI][2];
+  const int slots = g.imgs * g.rb * g.cb;
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int s = wm * 32 + mi * 16 + gid + 8 * hh;
+      const int img = s / (g.rb * g.cb), r = (s / g.cb) % g.rb, c = s % g.cb;
+      hoff[mi][hh] = (s < slots ? ((img * g.hr + r) * g.hc + c) * C::XS : 0) + 4 * tig;
+    }
+  // this thread's B column wn * WCOLS + gid (+ 8 ni), channels 4 tig..
+  const int boff = (wn * C::WCOLS + gid) * C::XS + 4 * tig;
+
+  const int tile0 = blockIdx.x, stride = gridDim.x;
+  const int my_tiles = (tiles - tile0 + stride - 1) / stride;
+  stage_halo(halo, tile0);
+  cp_async_commit();
+  // w, transposed: wbuf[tap][co][ci] = w[tap][ci][co]
+  for (int e = t; e < 9 * CI * CO; e += C::NT) {
+    const int tap = e / (CI * CO), r = e % (CI * CO), ci = r / CO, co = r % CO;
+    wbuf[tap * C::WTAP + co * C::XS + ci] = wl[e];
+  }
+
+#pragma unroll 1
+  for (int i = 0; i < my_tiles; ++i) {
+    const int tile = tile0 + i * stride;
+    const bf16* hb = halo + (i & 1) * halo_elems;
+    float acc[kMI][C::NI][4];
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < C::NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    cp_async_wait<0>();  // this tile's halo has landed
+    __syncthreads();     // ... for every thread (and w, first), the other buffer is free
+    if (i + 1 < my_tiles) stage_halo(halo + ((i + 1) & 1) * halo_elems, tile + stride);
+    cp_async_commit();
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const bf16* ht = hb + ((tap / 3) * g.hc + tap % 3) * C::XS;
+      const bf16* wt = wbuf + tap * C::WTAP + boff;
+#pragma unroll
+      for (int ks = 0; ks < CI / 16; ++ks) {
+        uint2 a[kMI][2];
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            a[mi][hh] = *reinterpret_cast<const uint2*>(ht + hoff[mi][hh] + 16 * ks);
+#pragma unroll
+        for (int ni = 0; ni < C::NI; ++ni) {
+          const uint2 b = *reinterpret_cast<const uint2*>(wt + 8 * ni * C::XS + 16 * ks);
+#pragma unroll
+          for (int mi = 0; mi < kMI; ++mi)
+            mma_bf16(acc[mi][ni], a[mi][0].x, a[mi][1].x, a[mi][0].y, a[mi][1].y, b.x, b.y);
+        }
+      }
+    }
+
+    // c0, c1: row gid, columns 2 tig and + 1; c2, c3: row gid + 8; rounded
+    // once to bfloat16 (to nearest even) on store
+    int b0, h0, w0;
+    tile_origin(tile, g, b0, h0, w0);
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int s = wm * 32 + mi * 16 + gid + 8 * hh;
+        const int b = b0 + s / (g.rb * g.cb), h = h0 + (s / g.cb) % g.rb, ww = w0 + s % g.cb;
+        if (s >= slots || b >= B || h >= H || ww >= W) continue;
+        bf16* dst = yl + (((int64_t)b * H + h) * W + ww) * CO + wn * C::WCOLS + 2 * tig;
+#pragma unroll
+        for (int ni = 0; ni < C::NI; ++ni)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * ni) =
+              __floats2bfloat162_rn(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
+      }
+  }
+  cp_async_wait<0>();
+}
+
+template <int CI, int WM, int MINB>
+cudaError_t launch_bf16(const bf16* x, const bf16* w, bf16* y, int L, int B, int H, int W,
+                        int64_t x_lane, int64_t w_lane, cudaStream_t st) {
+  using C = CfgBf16<CI, WM>;
+  int bytes;
+  const Geo g = geometry<C>(B, H, W, bytes);
+  const int64_t tiles = (int64_t)((B + g.imgs - 1) / g.imgs) * g.nh * g.nw;
+  if (tiles > 0x7fffffff || bytes > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = conv3x3_bf16_kernel<CI, WM, MINB>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  // blocks per lane as the resident float32 kernel's: the SM slots shared
+  // among the lanes, then as few as give every block the same tile count
+  int dev, sms, per_sm;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, C::NT, bytes);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t slots = ((int64_t)sms * per_sm + L - 1) / L;
+  const int64_t rounds = (tiles + slots - 1) / slots;
+  const int64_t blocks = (tiles + rounds - 1) / rounds;
+  kernel<<<dim3((unsigned)blocks, (unsigned)L), C::NT, bytes, st>>>(x, w, y, B, H, W, x_lane,
+                                                                     w_lane, g, (int)tiles);
+  return cudaGetLastError();
+}
+
 // the channel counts this kernel takes (ops/conv.py::fwd_route)
 bool tc_channels(int Ci, int Co) { return Ci == Co && (Ci == 16 || Ci == 32 || Ci == 64); }
 
@@ -443,5 +656,26 @@ extern "C" int fedml_conv3x3_fwd_sm90(const float* x, const float* w, float* y, 
     case 16: return (int)launch<16, 4, true, true, 4>(x, w, y, L, B, H, W, x_lane, w_lane, st);
     case 32: return (int)launch<32, 4, true, false, 2>(x, w, y, L, B, H, W, x_lane, w_lane, st);
     default: return (int)launch<64, 2, false, false, 3>(x, w, y, L, B, H, W, x_lane, w_lane, st);
+  }
+}
+
+// The same for bfloat16 x, w and y (use_bf16): one bf16 mma.sync product per
+// k-step with float32 sums, y rounded once to bfloat16. Ci = Co in {16, 32,
+// 64}; x and w contiguous per lane and 16-byte aligned, lane strides in
+// elements.
+extern "C" int fedml_conv3x3_fwd_sm90_bf16(const bf16* x, const bf16* w, bf16* y, int L, int B,
+                                           int H, int W, int Ci, int Co, long long x_lane,
+                                           long long w_lane, void* stream) {
+  if (!tc_channels(Ci, Co) || L <= 0 || L > 65535 || B <= 0 || H <= 0 || W <= 0 ||
+      (int64_t)H * W > (1LL << 30) || x_lane < 0 || w_lane < 0 ||
+      ((uintptr_t)x & 15) || ((uintptr_t)w & 15))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  // <Ci, warps along the pixels, blocks per SM>: 128-slot tiles; w resident
+  // (4.6, 27.6, 92 KB with its padding) beside two halos
+  switch (Ci) {
+    case 16: return (int)launch_bf16<16, 4, 2>(x, w, y, L, B, H, W, x_lane, w_lane, st);
+    case 32: return (int)launch_bf16<32, 4, 2>(x, w, y, L, B, H, W, x_lane, w_lane, st);
+    default: return (int)launch_bf16<64, 4, 1>(x, w, y, L, B, H, W, x_lane, w_lane, st);
   }
 }

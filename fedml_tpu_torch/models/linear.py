@@ -32,11 +32,12 @@ class Dense(nn.Module):
 
 
 class LogisticRegression(nn.Module):
-    """LR over the flattened input; logits out (softmax-CE is the loss)."""
+    """LR over the flattened input; logits out (softmax-CE is the loss).
+    ``dtype`` is the compute dtype (``use_bf16``: bfloat16)."""
 
-    def __init__(self, in_shape, num_classes: int):
+    def __init__(self, in_shape, num_classes: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.linear = Dense(math.prod(in_shape), num_classes)
+        self.linear = Dense(math.prod(in_shape), num_classes, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ctx=None) -> torch.Tensor:
         return self.linear(x.reshape(x.shape[0], -1).float())

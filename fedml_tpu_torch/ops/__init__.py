@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version: ``agg_quant.quantize_pack`` (codec q8/q4 stage),
 ``agg_robust.gram`` (Krum's Gram plane), ``conv.conv3x3_lanes`` /
-``conv.conv3x3_dw_lanes`` (the 3x3 multi-weight conv, its forward on the
-tensor cores from ``conv3x3_sm90`` for ResNet's block convs, and its weight
-gradient) and ``flash_attention.flash_forward`` / ``flash_dq`` /
+``conv.conv3x3_dw_lanes`` (the 3x3 multi-weight conv in float32 or bf16,
+its forward on the tensor cores from ``conv3x3_sm90`` for ResNet's block
+convs, and its weight gradient) and ``flash_attention.flash_forward`` / ``flash_dq`` /
 ``flash_dkv`` (causal flash attention and its backward; bf16 inputs on
 the tensor cores from ``flash_attention_sm90``). Sources are in
 ``../csrc``."""

@@ -7,7 +7,11 @@ package met the same problem on the TPU and wrote ``conv2d_pallas``; here
 the same op is hand-written CUDA: the forward (also dx) on the tensor cores
 in three TF32 products for ResNet's block convs (Ci = Co in {16, 32, 64},
 ``csrc/conv3x3_sm90.cu``), else on the CUDA cores (``csrc/conv3x3.cu``,
-which also holds the weight gradient); :func:`fwd_route` picks by channels:
+which also holds the weight gradient); :func:`fwd_route` picks by channels
+and dtype. Each kernel takes float32 or bfloat16 operands (the JAX
+package's ``use_bf16``): bfloat16 products are summed in float32 and the
+result rounded once to bfloat16, one ``mma.sync`` bf16 product on the
+tensor cores in place of three TF32 ones:
 
 - :func:`conv3x3` — the differentiable 3x3 / stride-1 / SAME conv, NHWC
   activations with HWIO weights, the counterpart of ``conv2d_pallas``. It
@@ -31,14 +35,15 @@ which also holds the weight gradient); :func:`fwd_route` picks by channels:
   same ``kernel`` leaf and the same dispatch by ``impl`` and shape.
 
 The contract is a tolerance, not bits: the kernels sum in another order
-than the plain versions. Every kernel repeats bit for bit (no atomics; the
+than the plain versions (in bfloat16, at most one bfloat16 step apart
+after the rounding). Every kernel repeats bit for bit (no atomics; the
 weight gradient reduces its partial sums in a fixed order).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -91,22 +96,27 @@ def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: per lane, 3x3 SAME
     patches of x (L, B, H, W, Ci) @ w (L, 3, 3, Ci, Co) viewed as
-    (9 Ci, Co) -> (L, B, H, W, Co)."""
+    (9 Ci, Co) -> (L, B, H, W, Co). bfloat16 operands are multiplied and
+    summed in float32 and the result rounded once to bfloat16, the TPU
+    kernel's ``preferred_element_type=float32`` contract."""
     L, B, H, W, Ci = x.shape
-    p = extract_patches(x.reshape(L * B, H, W, Ci), 3, 3, 1, "SAME")
-    y = torch.matmul(p.reshape(L, B * H * W, 9 * Ci), w.reshape(L, 9 * Ci, w.shape[-1]))
-    return y.reshape(L, B, H, W, -1)
+    p = extract_patches(x.float().reshape(L * B, H, W, Ci), 3, 3, 1, "SAME")
+    y = torch.matmul(p.reshape(L, B * H * W, 9 * Ci),
+                     w.float().reshape(L, 9 * Ci, w.shape[-1]))
+    return y.reshape(L, B, H, W, -1).to(x.dtype)
 
 
 def conv3x3_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the weight-gradient kernel: per lane,
-    patches(x)^T @ dy summed over (B, H, W) -> (L, 3, 3, Ci, Co)."""
+    patches(x)^T @ dy summed over (B, H, W) -> (L, 3, 3, Ci, Co); bfloat16
+    operands summed in float32 and rounded once to bfloat16 (the TPU
+    kernel's float32 grid accumulation, then ``.astype(w.dtype)``)."""
     L, B, H, W, Ci = x.shape
     Co = dy.shape[-1]
-    p = extract_patches(x.reshape(L * B, H, W, Ci), 3, 3, 1, "SAME")
+    p = extract_patches(x.float().reshape(L * B, H, W, Ci), 3, 3, 1, "SAME")
     dw = torch.matmul(p.reshape(L, B * H * W, 9 * Ci).transpose(1, 2),
-                      dy.reshape(L, B * H * W, Co))
-    return dw.reshape(L, 3, 3, Ci, Co)
+                      dy.float().reshape(L, B * H * W, Co))
+    return dw.reshape(L, 3, 3, Ci, Co).to(x.dtype)
 
 
 # --- the kernel wrappers ------------------------------------------------------
@@ -148,12 +158,15 @@ def dw_split_plan(L: int, P: int, ci: int, co: int) -> Tuple[int, int]:
     return span, _cdiv(P, span)
 
 
+DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _lane_stride(t: torch.Tensor, name: str) -> int:
-    """Floats between lanes of a (L, ...) tensor: 0 where one lane is
+    """Elements between lanes of a (L, ...) tensor: 0 where one lane is
     broadcast (an ``expand``), else the per-lane size. Raises on layouts
     the kernels do not take."""
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in DTYPES:
+        raise ValueError(f"{name} must be float32 or bfloat16, got {t.dtype}")
     if t.shape[0] > 1 and t.stride(0) == 0 and t[0].is_contiguous():
         return 0
     if not t.is_contiguous():
@@ -167,45 +180,64 @@ def _check_lanes(x: torch.Tensor, other: torch.Tensor, x_name: str, o_name: str)
                          f"{tuple(x.shape)} and {tuple(other.shape)}")
     if x.device != other.device:
         raise ValueError(f"{x_name} and {o_name} lie on {x.device} and {other.device}")
+    if x.dtype != other.dtype or x.dtype not in DTYPES:
+        raise ValueError(f"{x_name} and {o_name} must both be float32 or both bfloat16, got "
+                         f"{x.dtype} and {other.dtype}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     if x.device.type == "cuda" and x.shape[-1] % SLICE == 0 and x.data_ptr() % 16:
-        # the kernels read such x with float4 loads
+        # the kernels read such x with 16-byte loads
         raise ValueError(f"{x_name} must be 16-byte aligned")
 
 
-# (kernel library, C entry point) of each forward route; both take the same
-# arguments
+# (kernel library, C entry point) of each forward route; all take the same
+# arguments, pointers to the route's element type
 FWD_ROUTES = {"tf32x3": ("conv3x3_sm90", "fedml_conv3x3_fwd_sm90"),
-              "fma": ("conv3x3", "fedml_conv3x3_fwd")}
-TF32X3_CHANNELS = (16, 32, 64)  # csrc conv3x3_sm90.cu tc_channels
+              "fma": ("conv3x3", "fedml_conv3x3_fwd"),
+              "bf16_tc": ("conv3x3_sm90", "fedml_conv3x3_fwd_sm90_bf16"),
+              "fma_bf16": ("conv3x3", "fedml_conv3x3_fwd_bf16")}
+ROUTE_DTYPE = {"tf32x3": torch.float32, "fma": torch.float32, "bf16_tc": torch.bfloat16,
+               "fma_bf16": torch.bfloat16}
+TC_CHANNELS = (16, 32, 64)  # csrc conv3x3_sm90.cu tc_channels
+# (kernel library, C entry point) of the weight gradient by dtype
+DW_ROUTES = {torch.float32: ("conv3x3", "fedml_conv3x3_dw"),
+             torch.bfloat16: ("conv3x3", "fedml_conv3x3_dw_bf16")}
+_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + \
+    [ctypes.c_void_p]
+_DW_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + \
+    [ctypes.c_int, ctypes.c_void_p]
 
 
-def fwd_route(ci: int, co: int) -> str:
-    """The forward kernel for Ci -> Co channels: "tf32x3" (tensor cores,
-    three TF32 products, ``conv3x3_sm90.cu``) where Ci = Co in {16, 32, 64},
-    ResNet's block convs and their dx; else "fma" (``conv3x3.cu``: the
-    stem's 3 -> 16 and ragged channels)."""
-    return "tf32x3" if ci == co and ci in TF32X3_CHANNELS else "fma"
+def fwd_route(ci: int, co: int, dtype: torch.dtype = torch.float32) -> str:
+    """The forward kernel for Ci -> Co channels of ``dtype``. Where Ci = Co
+    in {16, 32, 64}, ResNet's block convs and their dx, the tensor cores
+    of ``conv3x3_sm90.cu``: "tf32x3" (float32, three TF32 products) or
+    "bf16_tc" (bfloat16, one product, float32 sums); else the CUDA cores
+    of ``conv3x3.cu``: "fma" or "fma_bf16" (the stem's 3 -> 16 and ragged
+    channels)."""
+    tc = ci == co and ci in TC_CHANNELS
+    if dtype == torch.bfloat16:
+        return "bf16_tc" if tc else "fma_bf16"
+    return "tf32x3" if tc else "fma"
 
 
 def conv3x3_fwd_route(x: torch.Tensor, w: torch.Tensor, route: str) -> torch.Tensor:
     """The forward kernel named by ``route`` on CUDA lane-stacked x, w (as
     :func:`conv3x3_lanes` takes them); counts no launch. :func:`conv3x3_lanes`
-    calls it with :func:`fwd_route`; a benchmark may name the other route
-    where both take the shape."""
+    calls it with :func:`fwd_route`; a benchmark may name another route of
+    the same dtype where it takes the shape."""
     L, B, H, W, Ci = x.shape
     x_lane, w_lane = _lane_stride(x, "x"), _lane_stride(w, "w")
     Co = w.shape[-1]
-    if route == "tf32x3" and (w.data_ptr() % 16 or fwd_route(Ci, Co) != route):
-        raise ValueError(f"the tf32x3 kernel takes Ci = Co in {TF32X3_CHANNELS} and a 16-byte "
+    if ROUTE_DTYPE[route] != x.dtype:
+        raise ValueError(f"route {route} takes {ROUTE_DTYPE[route]}, not {x.dtype}")
+    if route in ("tf32x3", "bf16_tc") and (w.data_ptr() % 16 or
+                                           fwd_route(Ci, Co, x.dtype) != route):
+        raise ValueError(f"the {route} kernel takes Ci = Co in {TC_CHANNELS} and a 16-byte "
                          f"aligned w, got {Ci} -> {Co}")
     lib, entry = FWD_ROUTES[route]
-    y = torch.empty((L, B, H, W, Co), dtype=torch.float32, device=x.device)
-    fn = getattr(_build.load(lib), entry)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + \
-        [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    y = torch.empty((L, B, H, W, Co), dtype=x.dtype, device=x.device)
+    fn = _build.function(lib, entry, _FWD_ARGS)
     err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), L, B, H, W, Ci, Co, x_lane, w_lane,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, entry)
@@ -213,17 +245,17 @@ def conv3x3_fwd_route(x: torch.Tensor, w: torch.Tensor, route: str) -> torch.Ten
 
 
 def conv3x3_lanes(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Forward kernel: x (L, B, H, W, Ci), w (L, 3, 3, Ci, Co) float32 ->
-    (L, B, H, W, Co), on the kernel :func:`fwd_route` names. Either operand
-    may be one lane broadcast over L. ``.launches`` counts every launch,
-    ``.route_launches`` each route's."""
+    """Forward kernel: x (L, B, H, W, Ci), w (L, 3, 3, Ci, Co), both float32
+    or both bfloat16 -> (L, B, H, W, Co) of their dtype, on the kernel
+    :func:`fwd_route` names. Either operand may be one lane broadcast over
+    L. ``.launches`` counts every launch, ``.route_launches`` each route's."""
     _check_lanes(x, w, "x", "w")
     L, B, H, W, Ci = x.shape
     if tuple(w.shape[1:4]) != (3, 3, Ci):
         raise ValueError(f"w must be (L, 3, 3, {Ci}, Co), got {tuple(w.shape)}")
     if x.device.type == "cpu":
         return conv3x3_plain(x, w)
-    route = fwd_route(Ci, w.shape[-1])
+    route = fwd_route(Ci, w.shape[-1], x.dtype)
     y = conv3x3_fwd_route(x, w, route)
     conv3x3_lanes.launches += 1
     conv3x3_lanes.route_launches[route] += 1
@@ -235,8 +267,11 @@ conv3x3_lanes.route_launches = dict.fromkeys(FWD_ROUTES, 0)
 
 
 def conv3x3_dw_lanes(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """Weight-gradient kernel: x (L, B, H, W, Ci), dy (L, B, H, W, Co)
-    float32 -> dw (L, 3, 3, Ci, Co). x may be one lane broadcast over L."""
+    """Weight-gradient kernel: x (L, B, H, W, Ci), dy (L, B, H, W, Co),
+    both float32 or both bfloat16 -> dw (L, 3, 3, Ci, Co) of their dtype,
+    summed in float32 (and rounded once to bfloat16). x may be one lane
+    broadcast over L. ``.launches`` counts every launch,
+    ``.dtype_launches`` each dtype's."""
     _check_lanes(x, dy, "x", "dy")
     L, B, H, W, Ci = x.shape
     if tuple(dy.shape[1:4]) != (B, H, W):
@@ -249,19 +284,19 @@ def conv3x3_dw_lanes(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     Co = dy.shape[-1]
     span, splits = dw_split_plan(L, B * H * W, Ci, Co)
     part = torch.empty((L, splits, 9 * Ci, Co), dtype=torch.float32, device=x.device)
-    dw = torch.empty((L, 3, 3, Ci, Co), dtype=torch.float32, device=x.device)
-    fn = _build.load("conv3x3").fedml_conv3x3_dw
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
-        [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    dw = torch.empty((L, 3, 3, Ci, Co), dtype=x.dtype, device=x.device)
+    lib, entry = DW_ROUTES[x.dtype]
+    fn = _build.function(lib, entry, _DW_ARGS)
     err = fn(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), L, B, H, W, Ci, Co,
              x_lane, span, splits, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "fedml_conv3x3_dw")
+    _build.check(err, entry)
     conv3x3_dw_lanes.launches += 1
+    conv3x3_dw_lanes.dtype_launches[str(x.dtype)[len("torch."):]] += 1
     return dw
 
 
 conv3x3_dw_lanes.launches = 0
+conv3x3_dw_lanes.dtype_launches = {"float32": 0, "bfloat16": 0}
 
 
 # --- the differentiable, vmappable op ----------------------------------------
@@ -411,6 +446,8 @@ def _conv_cudnn(x: torch.Tensor, w: torch.Tensor, s: int, padding: str) -> torch
 class Conv(nn.Module):
     """The JAX ``Conv`` module (no bias, NHWC, no dilation) with a
     selectable compute path; its one leaf is ``kernel`` (kh, kw, ci, co).
+    With ``dtype`` set (``use_bf16``: bfloat16) the input and the float32
+    kernel are cast to it first, as the JAX module's ``dtype`` does.
 
     impl:
       - "xla":    ``F.conv2d`` (cuDNN), the counterpart of
@@ -425,7 +462,7 @@ class Conv(nn.Module):
     def __init__(self, features_in: int, features: int,
                  kernel_size: Sequence[int] = (3, 3),
                  strides: Union[int, Sequence[int]] = 1, padding: str = "SAME",
-                 impl: str = "xla"):
+                 impl: str = "xla", dtype: Optional[torch.dtype] = None):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -434,11 +471,13 @@ class Conv(nn.Module):
                 raise ValueError(f"Conv supports only isotropic strides, got {strides}")
             strides = strides[0]
         kh, kw = kernel_size
-        self.stride, self.padding, self.impl = int(strides), padding, impl
+        self.stride, self.padding, self.impl, self.dtype = int(strides), padding, impl, dtype
         self.kernel = nn.Parameter(torch.empty(kh, kw, features_in, features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, s = self.kernel, self.stride
+        if self.dtype is not None:
+            x, w = x.to(self.dtype), w.to(self.dtype)
         if tuple(w.shape[:2]) == (1, 1):
             return conv2d_im2col(x, w, s, self.padding)  # 1x1 == matmul
         if self.impl == "pallas" and _supported(x.shape, w.shape, s, self.padding):

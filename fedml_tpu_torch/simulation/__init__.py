@@ -26,7 +26,6 @@ _UNPORTED = (
     ("rounds_per_dispatch", 1, "9"), ("watchdog_factor", 0, "8"),
     ("async_mode", False, "11"), ("client_state_spill_dir", None, "8"),
     ("attack_type", None, "5"), ("model_axis_size", 1, "10"),
-    ("norm", "group", "7"),
 )
 
 
@@ -46,9 +45,10 @@ def _check_unported(args) -> None:
 
 def build_simulator(args, fed_data=None, model=None, variables=None) -> tuple:
     """Data + model + algorithm + FedSimulator on ``args.device`` (default
-    cuda). ``variables`` (a path-keyed parameter dict) replaces the fresh
-    initialisation, e.g. to start from the JAX package's weights. Returns
-    ``(simulator, apply_fn)``."""
+    cuda). ``variables`` (a path-keyed variables dict: params and, for
+    BatchNorm models, batch_stats) replaces the fresh initialisation, e.g.
+    to start from the JAX package's weights. Returns ``(simulator,
+    apply_fn)``."""
     _check_unported(args)
     device = resolve_device(getattr(args, "device", None))
     if fed_data is None:
@@ -63,6 +63,10 @@ def build_simulator(args, fed_data=None, model=None, variables=None) -> tuple:
         gen = torch.Generator().manual_seed(int(getattr(args, "random_seed", 0)))
         variables = models_mod.init_params(model, gen)
     apply_fn = functools.partial(models_mod.apply, model)
+    has_batch_stats = models_mod.has_batch_stats(variables)
+    # models with live Dropout layers train on keep masks drawn per step
+    # (JAX simulation/__init__.py:84: cnn = CNN_DropOut)
+    dropout_layers = models_mod.dropout_layers(model)
     cfg = LocalTrainConfig(
         lr=float(getattr(args, "learning_rate", 0.03)),
         epochs=int(getattr(args, "epochs", 1)),
@@ -104,6 +108,7 @@ def build_simulator(args, fed_data=None, model=None, variables=None) -> tuple:
     )
     alg = get_algorithm(
         str(getattr(args, "federated_optimizer", "FedAvg")), apply_fn, cfg,
+        needs_dropout=bool(dropout_layers), has_batch_stats=has_batch_stats,
         server_lr=float(getattr(args, "server_lr", 1.0)),
         server_optimizer_name=str(getattr(args, "server_optimizer", "sgd")),
         server_momentum=float(getattr(args, "server_momentum", 0.9)),
@@ -123,7 +128,7 @@ def build_simulator(args, fed_data=None, model=None, variables=None) -> tuple:
                        packed_ctx=(apply_fn, cfg),
                        # the reference's test_on_the_server hook object
                        server_tester=getattr(args, "server_tester", None),
-                       hook_args=args)
+                       hook_args=args, dropout_layers=dropout_layers)
     return sim, apply_fn
 
 

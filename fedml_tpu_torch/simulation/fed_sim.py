@@ -25,9 +25,13 @@ without a mesh), with the JAX package's three cohort schedules:
 
 ``auto`` picks packed (or bucketed) for a skewed population and even
 otherwise, by the JAX package's rule (``fed_sim.py:530-579``): packed
-needs a mean-aggregating algorithm without client state or DP-SGD,
-bucketed a mean-aggregating one; FedNova, SCAFFOLD and the defenses run
-even. Host-side packing (sampling, the drop mask, shuffles, index
+needs a mean-aggregating algorithm without client state, DP-SGD or
+BatchNorm, bucketed a mean-aggregating one; FedNova, SCAFFOLD and the
+defenses run even. BatchNorm models carry their ``batch_stats`` leaves in
+the global variables beside the params: the even and bucketed rounds
+train and average both, evaluation and the local tests run on the running
+averages. Dropout models get their keep masks drawn per client step on the
+host's schedule (:func:`dropout_masks`). Host-side packing (sampling, the drop mask, shuffles, index
 rectangles, lane and bucket plans) is a pure function of (seed, round),
 bit-identical to the JAX package's.
 """
@@ -46,6 +50,7 @@ from torch.utils import _pytree as pytree
 from ..algorithms.local_sgd import make_eval_fn, make_loss_fn
 from ..core.algframe import FedAlgorithm, has_leaves, weighted_mean
 from ..data.federated import FederatedData
+from ..models import draw_dropout_masks, has_batch_stats
 from ..ops.losses import per_sample_metrics
 from .client_store import ClientStateArena, cohort_local_update
 from .sampling import client_permutation_list, sample_clients
@@ -126,13 +131,48 @@ def _cohort_outputs(alg: FedAlgorithm, params, cohort, client_states=(), rngs=No
     return cohort_local_update(alg.local_update, params, client_states, cohort, rngs)
 
 
-def _noise_seed(seed: int, round_idx: int, pos: int, step: int) -> int:
-    """The 64-bit seed of one DP-SGD noise draw, keyed as the JAX package
-    keys its step rng (``fed_sim.py:323-331``, ``local_sgd.py:262``): by
-    the run's seed, the round, the client's cohort position and the batch
-    step, so a client's noise does not depend on the schedule."""
-    state = np.random.SeedSequence([seed, round_idx, pos, step]).generate_state(2, np.uint32)
+def _noise_seed(seed: int, round_idx: int, pos: int, step: int, *stream: int) -> int:
+    """The 64-bit seed of one DP-SGD noise draw (or, with ``stream`` 1, of
+    one step's dropout masks), keyed as the JAX package keys its step rng
+    (``fed_sim.py:323-331``, ``local_sgd.py:262``): by the run's seed, the
+    round, the client's cohort position and the batch step, so a client's
+    draws do not depend on the schedule."""
+    state = np.random.SeedSequence([seed, round_idx, pos, step, *stream]).generate_state(
+        2, np.uint32)
     return int(state[0]) | (int(state[1]) << 32)
+
+
+DROPOUT_STREAM = 1  # _noise_seed's stream of the dropout masks
+
+
+def _draw_step_masks(out, index, gen, seed, round_idx, pos, step, layers, batch, device):
+    """One client step's keep masks, into ``out[l][index]`` per layer, from
+    ``gen`` seeded by :func:`_noise_seed` (seed, round, pos, step,
+    DROPOUT_STREAM)."""
+    gen.manual_seed(_noise_seed(seed, round_idx, int(pos), int(step), DROPOUT_STREAM))
+    for o, m in zip(out, draw_dropout_masks(layers, batch, gen, device)):
+        o[index] = m
+
+
+def dropout_masks(seed: int, round_idx: int, pos: np.ndarray, mask: np.ndarray, epochs: int,
+                  layers, device) -> tuple:
+    """A cohort rectangle's dropout keep masks: per layer of ``layers``
+    (``models.dropout_layers``) a (C, epochs * NB, BS, *shape) bool tensor,
+    step (c, s) drawn by :func:`models.draw_dropout_masks` from a generator
+    keyed by (seed, round, pos[c], s); steps whose batch holds no real row
+    keep nothing (such a step is a no-op)."""
+    C, NB, BS = mask.shape[:3]
+    real = mask.reshape(C, NB, -1).sum(-1) > 0
+    out = [torch.zeros((C, epochs * NB, BS) + tuple(shape), dtype=torch.bool, device=device)
+           for shape, _ in layers]
+    gen = torch.Generator(device=device)
+    for c in range(C):
+        for e in range(epochs):
+            for b in np.nonzero(real[c])[0]:
+                s = e * NB + int(b)
+                _draw_step_masks(out, (c, s), gen, seed, round_idx, pos[c], s, layers, BS,
+                                 device)
+    return tuple(out)
 
 
 def dp_noise(seed: int, round_idx: int, pos: np.ndarray, mask: np.ndarray, epochs: int,
@@ -174,6 +214,8 @@ class FedSimulator:
 
     ``packed_ctx`` = (apply_fn, LocalTrainConfig), the raw pieces the packed
     schedule's per-slot step needs (None: packed is ineligible).
+    ``dropout_layers`` (``models.dropout_layers``) are the model's Dropouts,
+    whose keep masks each round draws.
     ``server_tester`` is an object with the reference's
     ``test_on_the_server(train_local, test_local, device, args)``: at eval
     rounds a truthy return replaces the default evaluation, and a dict
@@ -183,7 +225,7 @@ class FedSimulator:
     def __init__(self, fed_data: FederatedData, algorithm: FedAlgorithm,
                  init_variables: Dict[str, torch.Tensor], cfg: SimConfig,
                  device: torch.device, packed_ctx: Optional[tuple] = None,
-                 server_tester=None, hook_args=None):
+                 server_tester=None, hook_args=None, dropout_layers=()):
         if cfg.packed_flat_carry:
             raise NotImplementedError(
                 "packed_flat_carry (the ravelled-carry packed executor) is not ported yet "
@@ -193,6 +235,8 @@ class FedSimulator:
         self.cfg = cfg
         self.device = device
         self.params = {k: v.to(device) for k, v in init_variables.items()}
+        self._has_bn = has_batch_stats(self.params)
+        self._dropout_layers = list(dropout_layers or ())
         self.server_state = algorithm.init_server_state(self.params)
         self._client_state_proto = algorithm.init_client_state(self.params)
         self._stateful = has_leaves(self._client_state_proto)
@@ -239,14 +283,15 @@ class FedSimulator:
         # schedule resolution, as fed_sim.py:530-579: the sanitizer and the
         # codec need the full stacked cohort and pin the even schedule; a
         # custom aggregate or an update that is not params-shaped is not
-        # mean-aggregating; packed also needs no client state and no DP-SGD
-        # (the port's models have no BatchNorm)
+        # mean-aggregating; packed also needs no client state, no DP-SGD and
+        # no BatchNorm (fed_sim.py:547)
         force_even = self._detect or self._codec_rt is not None
         mean_agg = (algorithm.aggregate is None and algorithm.update_is_params
                     and not force_even)
         packed_ok = (packed_ctx is not None and mean_agg and not self._stateful
                      and algorithm.prepare_client_state is None
-                     and not packed_ctx[1].use_scaffold and packed_ctx[1].dp_l2_clip is None)
+                     and not packed_ctx[1].use_scaffold and packed_ctx[1].dp_l2_clip is None
+                     and not self._has_bn)
         schedule = cfg.cohort_schedule
         if force_even and schedule in ("packed", "bucketed"):
             raise ValueError(
@@ -264,7 +309,7 @@ class FedSimulator:
         if schedule == "packed" and not packed_ok:
             raise ValueError(
                 "cohort_schedule='packed' requires a stateless mean-aggregating algorithm "
-                "and no SCAFFOLD/DP-SGD (use 'bucketed' or 'auto')")
+                "and no SCAFFOLD/DP-SGD/BatchNorm (use 'bucketed' or 'auto')")
         self._packed = schedule == "packed"
         self._bucketed = schedule == "bucketed" and mean_agg
         self.schedule = ("packed" if self._packed else "bucketed" if self._bucketed
@@ -332,13 +377,25 @@ class FedSimulator:
         return dp_noise(self.cfg.seed, round_idx, payload["pos"], payload["mask"],
                         self._epochs, self._n_params, self.device)
 
+    def _cohort_data(self, payload: Dict[str, np.ndarray], round_idx: int):
+        """A cohort rectangle on the device: x and y gathered from the
+        device-resident arrays, mask, num_samples and, for a dropout model,
+        the keep masks (:func:`dropout_masks`)."""
+        dev = self.device
+        cohort = {k: torch.from_numpy(v).to(dev) for k, v in payload.items() if k != "pos"}
+        data = _gather_from_device(cohort, self._x_dev, self._y_dev)
+        if self._dropout_layers:
+            data["dropout"] = dropout_masks(self.cfg.seed, round_idx, payload["pos"],
+                                            payload["mask"], self._epochs,
+                                            self._dropout_layers, dev)
+        return data
+
     # --- the even round ----------------------------------------------------
 
     def _round_step(self, payload: Dict[str, np.ndarray], client_ids: np.ndarray,
                     round_idx: int):
         dev = self.device
-        cohort = {k: torch.from_numpy(v).to(dev) for k, v in payload.items() if k != "pos"}
-        data = _gather_from_device(cohort, self._x_dev, self._y_dev)
+        data = self._cohort_data(payload, round_idx)
         outs = _cohort_outputs(self.alg, self.params, data, self._gather_states(client_ids),
                                self._noise(payload, round_idx))
         update, w = outs.update, outs.weight.float()
@@ -429,8 +486,9 @@ class FedSimulator:
         closs, csteps, lsum, corr, val = (zero.clone() for _ in range(5))
         for t in range(L_pad):
             batch = _gather_from_device({"idx": idx[:, t], "mask": mask[:, t]}, x_all, y_all)
+            drop = self._slot_dropout(p, t, inputs.round_idx)
             grads, (loss, (correct, valid)) = self._lane_grad(
-                dict(zip(keys, lp)), batch["x"], batch["y"], batch["mask"])
+                dict(zip(keys, lp)), batch["x"], batch["y"], batch["mask"], *drop)
             g = [grads[k] for k in keys]
             if prox_mu > 0.0:
                 g = [gi + prox_mu * (q - gq) for gi, q, gq in zip(g, lp, gstack)]
@@ -479,6 +537,23 @@ class FedSimulator:
         return torch.stack([lsum.sum() / max(float(p["cohort_n"]), 1.0),
                             corr.sum() / torch.clamp(val.sum(), min=1.0)])
 
+    def _slot_dropout(self, p: Dict[str, Any], t: int, round_idx: int) -> tuple:
+        """A packed slot's dropout keep masks, ``()`` without dropout: per
+        lane with a real batch, drawn from the generator keyed by (seed,
+        round, the lane's cohort position, its step in the client), as
+        ``fed_sim.py:1193`` folds (pos, step-in-client) into the round key."""
+        if not self._dropout_layers:
+            return ()
+        G, BS = p["mask"].shape[0], p["mask"].shape[2]
+        layers, dev = self._dropout_layers, self.device
+        out = [torch.zeros((G, BS) + tuple(shape), dtype=torch.bool, device=dev)
+               for shape, _ in layers]
+        gen = torch.Generator(device=dev)
+        for g in np.nonzero(p["mask"][:, t].sum(-1) > 0)[0]:
+            _draw_step_masks(out, g, gen, self.cfg.seed, round_idx, p["pos"][g, t],
+                             p["sic"][g, t], layers, BS, dev)
+        return (tuple(out),)
+
     # --- the bucketed round ------------------------------------------------
 
     def _dispatch_bucketed(self, inputs: RoundInputs) -> torch.Tensor:
@@ -486,16 +561,13 @@ class FedSimulator:
         class's vmapped local updates, ``tensordot(w, u)`` in float32; then
         one finalize (the weighted mean and the server update, :1305).
         Metrics count each class's ``n_real`` rows only."""
-        dev = self.device
         sum_wu, total_w = None, None
         loss_sum = correct_sum = valid_sum = None
         n_clients = 0
         for bucket in inputs.payload:
             n_real = bucket["n_real"]
             ids = bucket["ids"]
-            cohort = {k: torch.from_numpy(v).to(dev)
-                      for k, v in bucket["payload"].items() if k != "pos"}
-            data = _gather_from_device(cohort, self._x_dev, self._y_dev)
+            data = self._cohort_data(bucket["payload"], inputs.round_idx)
             # padded slots re-gather the last client's state; only the real
             # rows scatter back
             outs = _cohort_outputs(self.alg, self.params, data, self._gather_states(ids),

@@ -9,8 +9,11 @@ crash leaves the previous file or the new one, never a torn one. A file
 holds ``{"params": {path: CPU tensor}, "round": n, "server_state": ...,
 "client_states": {str(client id): state}}`` and, for an arena-backed run,
 ``"client_arena"`` (``ClientStateArena.export_state``: the device slots,
-the slot map, the LRU clock and the host tier). The server state is the
-algorithm's own structure of CPU tensors: FedOpt's optimizer moments,
+the slot map, the LRU clock and the host tier). ``"params"`` holds every
+variable of the global model: a BatchNorm model's ``batch_stats/...``
+running statistics beside its ``params/...`` leaves. The server state is
+the algorithm's own structure of CPU tensors: FedOpt's optimizer moments
+(over the ``params/...`` leaves only for a BatchNorm model),
 SCAFFOLD's control variate, weak DP's generator state (a byte tensor).
 The port does not read orbax checkpoints, nor the JAX package this format.
 """

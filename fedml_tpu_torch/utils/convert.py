@@ -32,11 +32,27 @@ def flatten_paths(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 
 def variables_from_jax(numpy_tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A JAX variables tree (``{"params": {...}}`` with numpy leaves) ->
-    the port's flat, path-keyed float32 parameter dict (on the CPU; the
-    simulator moves it to its device)."""
+    """A JAX variables tree (``{"params": {...}}``, with a ``batch_stats``
+    collection for BatchNorm models, numpy leaves) -> the port's flat,
+    path-keyed float32 variables dict (on the CPU; the simulator moves it
+    to its device)."""
     return {p: torch.from_numpy(np.array(v, np.float32))
             for p, v in flatten_paths(numpy_tree).items()}
+
+
+def variables_to_jax(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`variables_from_jax`: the port's path-keyed
+    variables -> a nested variables tree (``params`` and ``batch_stats``
+    collections) with numpy leaves, which ``jax.tree_util`` maps to
+    arrays."""
+    tree: Dict[str, Any] = {}
+    for path, v in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v.detach().cpu().numpy()
+    return tree
 
 
 def _tensor(v) -> torch.Tensor:
@@ -48,8 +64,9 @@ def state_from_jax(tree: Any) -> Any:
     """A state of the JAX package with numpy leaves -> the port's layout of
     the same state (``utils/optim.py``, ``algorithms/__init__.py``):
 
-    - a variables tree (a dict whose only key is ``params``) -> the flat,
-      path-keyed dict of :func:`variables_from_jax`;
+    - a variables tree (a dict of the ``params`` and, for BatchNorm
+      models, ``batch_stats`` collections) -> the flat, path-keyed dict of
+      :func:`variables_from_jax`;
     - an optax state (a NamedTuple: ``ScaleByAdamState`` of adam and yogi,
       ``TraceState``, ``ScaleByRssState``; ``EmptyState``) -> a dict of its
       fields, each converted;
@@ -58,7 +75,7 @@ def state_from_jax(tree: Any) -> Any:
     - an array -> a tensor (float32, or its integer dtype: adam's count).
     """
     if isinstance(tree, Mapping):
-        if set(tree) == {"params"}:
+        if "params" in tree and set(tree) <= {"params", "batch_stats"}:
             return variables_from_jax(tree)
         return {k: state_from_jax(v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):

@@ -86,13 +86,13 @@ def test_local_update_matches_jax(name):
 
 
 def test_unported_models_and_optimizers_raise():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tmodels.create(_Args("cnn"), 10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodels.create(_Args("resnet18_gn"), 10, (32, 32, 3))
-    resnet_bn = _Args("resnet56")
-    resnet_bn.norm = "batch"  # BatchNorm's batch_stats are not ported
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.create(resnet_bn, 10, (32, 32, 3))
+        tmodels.create(_Args("efficientnet-b0"), 10, (32, 32, 3))
+    resnet_sync = _Args("resnet56")
+    resnet_sync.norm = "sync_batch"  # needs a device axis to all-reduce over
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmodels.create(resnet_sync, 10, (32, 32, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LocalTrainConfig(loss_kind="mse")  # momentum, decay and adam are ported

@@ -207,7 +207,13 @@ def test_resnet_slice_matches_jax(interp_pallas, cohort_schedule):
 
 
 def test_unported_norm_and_bf16_raise():
-    for knob in (dict(norm="batch"), dict(norm="sync_batch"), dict(use_bf16=True)):
-        args = fedml_tpu_torch.init(config=dict(SLICE, comm_round=1, device="cpu", **knob))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fedml_tpu_torch.run_simulation(args=args)
+    """sync_batch (BatchNorm statistics all-reduced over a device axis) is
+    still unported; norm: batch and use_bf16 now build."""
+    args = fedml_tpu_torch.init(config=dict(SLICE, comm_round=1, device="cpu",
+                                            norm="sync_batch"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 10"):
+        fedml_tpu_torch.run_simulation(args=args)
+    for knob in (dict(norm="batch"), dict(use_bf16=True)):
+        sim, _ = tbuild(fedml_tpu_torch.init(config=dict(SLICE, comm_round=1, device="cpu",
+                                                         **knob)))
+        assert sim.schedule == "even"
