@@ -29,8 +29,10 @@ non-zero exit code and no result line:
    conv3x3_dw_bf16; within one bf16 step of the rounded plain value, with
    cuDNN's bf16 calls as the library yardstick), and
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
-   flash_dkv; SDPA as the library call; bf16 inputs on the tensor
-   cores, float32 on the FMA kernels);
+   flash_dkv; SDPA as the library call, with the backend it ran; bf16
+   inputs on the tensor cores, float32 on the FMA kernels), at Dh 64 and
+   128 and at Dh 256 (the _dh256 entries at the wide LM's bf16 shape, the
+   _dh256_f32 ones at a float32 shape);
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
 4b. repeat — the small robust path on cnn_fedavg, the small resnet8 path,
@@ -79,7 +81,17 @@ non-zero exit code and no result line:
     32000, dim 1024, 16 heads, 12 layers, bf16, full remat, chunked CE,
     B 2, T 8192) for 5 steps; causal flash on every layer, with 24
     forward, 12 dq and 12 dk/dv launches per step;
-12. lm_profile — torch.profiler over two warm steps of that trainer.
+12. lm_profile — torch.profiler over two warm steps of that trainer;
+13. small_lm_256 — small_lm with one head of Dh 256 at T 4352 (float32 on
+    the Dh-256 FMA kernels), card against CPU;
+14. lm_wide — the Cheetah example at --dim 2048 (vocab 32000, 8 heads, so
+    Dh 256, 8 layers, bf16, full remat, chunked CE, B 8, T 4608) for 5
+    steps: auto dispatch picks flash, 16 forward, 8 dq and 8 dk/dv
+    launches per step on the bf16 Dh-256 kernels; lm_wide_profile, two
+    warm steps of it under torch.profiler;
+15. lm_wide_dots — the same from the same seed for 2 steps under remat
+    "dots" (matrix products saved, flash recomputed): the same launches
+    per step and full remat's losses.
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or fedml_tpu.
@@ -587,11 +599,13 @@ def phase_main():
     return launches
 
 
-def profile_run(run, n, ours, unit="round"):
+def profile_run(run, n, ours, unit="round", groups=None):
     """torch.profiler over ``run()``, which does ``n`` rounds or steps.
     Device busy time is the sum of the kernels' self device time (one
     stream, so they do not overlap); the idle share is 1 - busy / wall.
-    ``ours`` names kernels whose ms per ``unit`` are reported."""
+    ``ours`` names kernels whose ms per ``unit`` are reported; ``groups``
+    maps a group to name parts, and each group's ms per ``unit`` (a kernel
+    in the first group it matches; "other" for the rest) is reported."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -603,7 +617,12 @@ def profile_run(run, n, ours, unit="round"):
     rows = sorted(((k, us, c) for k, (us, c) in _device_events(prof).items() if us > 0),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
-    return {f"{unit}s": n, f"wall_ms_per_{unit}": wall * 1e3 / n,
+    split = {}
+    for k, us, _ in rows if groups else ():
+        g = next((g for g, parts in groups.items() if any(x in k for x in parts)), "other")
+        split[g] = split.get(g, 0.0) + us / 1e3 / n
+    return {f"{unit}s": n, **({f"groups_ms_per_{unit}": split} if groups else {}),
+            f"wall_ms_per_{unit}": wall * 1e3 / n,
             f"device_busy_ms_per_{unit}": busy_ms / n,
             "idle_share": 1.0 - busy_ms / (wall * 1e3),
             f"our_kernels_ms_per_{unit}": {
@@ -1727,11 +1746,21 @@ def phase_resume():
 # (B, T, H, Dh), dtype, causal: the LM slice's attention first (what the main
 # path gives the kernels), then a full f32 shape with Dh 128, a ragged f32
 # causal one, a small ragged bf16 one and a ragged full bf16 one (bf16 runs the
-# tensor-core kernels, f32 the FMA ones)
+# tensor-core kernels, f32 the FMA ones); then Dh 256: the wide LM's attention
+# (lm_wide: --dim 2048 over 8 heads), a full f32 one at T 4352 (small_lm_256's
+# T, where auto picks flash in f32), a ragged bf16 causal one and a ragged f32
+# causal one
 FLASH_SLICE = (2, 8192, 16, 64)
+FLASH_WIDE = (8, 4608, 8, 256)
+FLASH_WIDE_F32 = (1, 4352, 2, 256)
 FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), ((1, 2048, 8, 128), torch.float32, False),
                ((3, 333, 2, 64), torch.float32, True), ((2, 100, 3, 128), torch.bfloat16, True),
-               ((1, 1000, 4, 64), torch.bfloat16, False))
+               ((1, 1000, 4, 64), torch.bfloat16, False),
+               (FLASH_WIDE, torch.bfloat16, True), (FLASH_WIDE_F32, torch.float32, False),
+               ((2, 333, 3, 256), torch.bfloat16, True), ((3, 130, 2, 256), torch.float32, True))
+# the timed shapes and the suffix of their kernels line entries (the launch
+# counts of lm_main, lm_wide and small_lm_256 fill them in)
+FLASH_TIMED = {FLASH_SLICE: "", FLASH_WIDE: "_dh256", FLASH_WIDE_F32: "_dh256_f32"}
 # |kernel - plain| / max|plain|, plain in float32. Each output sums up to
 # T * Dh = 5e5 float32 products in another order than the plain version's
 # cuBLAS calls: a random walk of sqrt(n) * 2^-24 ~ 4e-5 of the terms'
@@ -1801,11 +1830,19 @@ def _flash_products(dtype):
     return {"flash_fwd": (1 + 3, 0), "flash_dq": (2 + 3, 0), "flash_dkv": (2 + 2 * 3, 0)}
 
 
+def _sdpa_backend(q, k, v, causal):
+    """The backend PyTorch's dispatcher picks for scaled_dot_product_attention
+    on these inputs (at Dh 256 it need not be its flash backend)."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal)).name
+
+
 def check_flash(dev):
     """Kernels 4a-4c (flash forward, dq, dk/dv) against their plain versions
-    at FLASH_CASES; dq, dk and dv repeat bit for bit; timings at the slice's
-    shape beside SDPA (forward for 4a; its backward, which computes dq, dk
-    and dv together, for 4b and 4c)."""
+    at FLASH_CASES; dq, dk and dv repeat bit for bit; timings at the
+    FLASH_TIMED shapes beside SDPA (forward for 4a; its backward, which
+    computes dq, dk and dv together, for 4b and 4c) and the backend it ran."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator().manual_seed(5)
@@ -1835,15 +1872,16 @@ def check_flash(dev):
                    mismatch_share={n: e[1] for n, e in errs.items()},
                    row_err={n: e[2] for n, e in errs.items()},
                    tol=FLASH_TOL_BF16 if dtype == torch.bfloat16 else FLASH_TOL)
-        if shape != FLASH_SLICE:
+        if shape not in FLASH_TIMED:
             emit("kernel_flash", **row)
             continue
-        # timings at the slice's shape
+        # timings at the main paths' shapes
         nb = B * T * H * Dh * q.element_size()  # one (B, T, H, Dh) tensor
         rows_b = B * H * T * 4                   # one float32 row vector (lse or delta)
         pairs = _flash_pairs(B, T, H, causal)
         products = _flash_products(dtype)
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        row["sdpa_backend"] = _sdpa_backend(qt, kt, vt, causal)
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         sdpa_g = do.transpose(1, 2).contiguous()
         sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), sdpa_g,
@@ -1867,14 +1905,14 @@ def check_flash(dev):
         for name, line, bytes_in, bytes_out, kern, plain, lib_ms, err, abs_err in cases:
             bf16_ops, f32_ops = (n * 2 * Dh * pairs for n in products[name])
             lib = fa.route("fedml_" + name, dtype)[0]
-            entry = {"name": name, "route": "cuda",
+            entry = {"name": name + FLASH_TIMED[shape], "route": "cuda",
                      "source": f"fedml_tpu_torch/csrc/{lib}.cu",
                      "replaces": "fedml_tpu/ops/pallas/flash_attention.py" + line,
                      "max_abs_err": float(abs_err), "ms": time_ms(kern, reps=3, rounds=3),
                      "plain_ms": time_ms(plain, reps=2, rounds=3),
                      "library_ms": lib_ms, **_bound(f32_ops, bytes_in + bytes_out, bf16_ops)}
             entries.append(entry)
-            emit("kernel_" + name, **row, gflop=(bf16_ops + f32_ops) / 1e9,
+            emit("kernel_" + entry["name"], **row, gflop=(bf16_ops + f32_ops) / 1e9,
                  bf16_gflop=bf16_ops / 1e9, kernel_source=entry["source"],
                  library="F.scaled_dot_product_attention " +
                  ("forward" if name == "flash_fwd" else "backward (dq, dk and dv together)"),
@@ -1894,36 +1932,64 @@ def lm_data(vocab, B, T, seed=0):
 
 
 SMALL_LM = dict(vocab_size=256, dim=64, num_heads=1, num_layers=2, max_len=4096)
+# the float32 Dh-256 kernels under the trainer: one head of 256 at T 4352,
+# where auto dispatch picks flash in float32
+SMALL_LM_256 = dict(vocab_size=256, dim=256, num_heads=1, num_layers=2, max_len=4352)
 
-
-def phase_small_lm(steps=3):
-    """The trainer at f32 and T 4096, where auto dispatch picks flash, on the
-    card (the kernels) vs on the CPU (their plain versions)."""
+def _zero_flash_counts():
     from fedml_tpu_torch.ops import flash_attention as fa
+
+    fa.flash_forward.launches = fa.flash_dq.launches = fa.flash_dkv.launches = 0
+
+
+def _flash_counts(suffix=""):
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd" + suffix: fa.flash_forward.launches,
+            "flash_dq" + suffix: fa.flash_dq.launches,
+            "flash_dkv" + suffix: fa.flash_dkv.launches}
+
+
+def _want_flash(layers, steps, suffix=""):
+    """Launches of ``steps`` trainer steps with every block rematerialized
+    (full or dots): each block's flash forward runs twice per step (the
+    forward and its recompute in the backward), dq and dk/dv once."""
+    return {"flash_fwd" + suffix: 2 * layers * steps, "flash_dq" + suffix: layers * steps,
+            "flash_dkv" + suffix: layers * steps}
+
+
+def phase_small_lm(phase="small_lm", model=SMALL_LM, steps=3, suffix=""):
+    """The trainer at f32 and T = max_len, where auto dispatch picks flash, on
+    the card (the kernels) vs on the CPU (their plain versions). Returns the
+    card run's flash launches, keyed with ``suffix``."""
     from fedml_tpu_torch.ops.attention import auto_attention_impl
     from fedml_tpu_torch.parallel import DistTrainConfig, DistributedLMTrainer
 
-    if auto_attention_impl(1, 1, 4096, 64, 4) != "flash":
-        raise AssertionError("auto dispatch must pick flash at T 4096")
+    T, H = model["max_len"], model["num_heads"]
+    if auto_attention_impl(1, H, T, model["dim"] // H, 4) != "flash":
+        raise AssertionError(f"auto dispatch must pick flash at T {T}")
     cfg = DistTrainConfig(lr=3e-4, weight_decay=0.01, use_remat=True, ce_chunk=256)
     losses, params = {}, {}
     for device in ("cuda", "cpu"):
-        tr = DistributedLMTrainer(cfg, dtype=torch.float32, device=device, seed=0, **SMALL_LM)
-        launches = fa.flash_forward.launches
-        losses[device] = tr.train(lm_data(256, 1, 4096), steps, log_fn=None)
-        if device == "cuda" and fa.flash_forward.launches - launches != 4 * steps:
-            raise AssertionError("small_lm did not run the flash kernels")
+        tr = DistributedLMTrainer(cfg, dtype=torch.float32, device=device, seed=0, **model)
+        _zero_flash_counts()
+        losses[device] = tr.train(lm_data(model["vocab_size"], 1, T), steps, log_fn=None)
+        if device == "cuda":
+            launches = _flash_counts(suffix)
+            if launches != _want_flash(model["num_layers"], steps, suffix):
+                raise AssertionError(f"{phase} did not run the flash kernels: {launches}")
         params[device] = {k: p.detach().cpu() for k, p in tr.params.items()}
     # float32 sums in another order: measured at most 8e-8 relative between
-    # the losses and 4.1e-6 between the parameters on an H100, so 1e-6 and
-    # 1e-4 (a third of lr; one Adam step moves a parameter by up to ~lr)
-    # leave >10x margin
+    # the losses and 4.1e-6 between the parameters on an H100 (small_lm), so
+    # 1e-6 and 1e-4 (a third of lr; one Adam step moves a parameter by up to
+    # ~lr) leave >10x margin
     diff = max((params["cuda"][k] - params["cpu"][k]).abs().max().item() for k in params["cpu"])
-    for lg, lc in zip(losses["cuda"], losses["cpu"]):
-        if not (abs(lg - lc) <= 1e-6 * abs(lc) and diff <= 1e-4):
-            raise AssertionError(f"small_lm differs: losses {losses}, parameters by {diff}")
-    emit("small_lm", config=SMALL_LM, steps=steps, cuda=losses["cuda"], cpu=losses["cpu"],
-         param_max_abs_diff=diff)
+    loss_rel = max(abs(lg - lc) / abs(lc) for lg, lc in zip(losses["cuda"], losses["cpu"]))
+    if not (loss_rel <= 1e-6 and diff <= 1e-4):
+        raise AssertionError(f"{phase} differs: losses {losses}, parameters by {diff}")
+    emit(phase, config=model, steps=steps, cuda=losses["cuda"], cpu=losses["cpu"],
+         loss_max_rel_diff=loss_rel, param_max_abs_diff=diff, launches=launches)
+    return launches
 
 
 # the LM slice: scripts/bench_lm_mfu.py's widths (vocab 32000, dim 1024, 16
@@ -1933,53 +1999,102 @@ LM_MODEL = dict(vocab_size=32000, dim=1024, num_heads=16, num_layers=12, max_len
 LM_TRAIN = dict(dp=1, tp=1, sp=1, lr=3e-4, weight_decay=0.01, use_remat=True,
                 remat_policy="full", ce_chunk=256)
 LM_B, LM_T, LM_STEPS = 2, 8192, 5
+# the wide LM: examples/cheetah_lm/main.py at --dim 2048 (vocab 32000, its 8
+# heads, so Dh 256, and its 8 layers) with its batch 8, T 4608 and max_len =
+# T; cut: 5 steps of its 100, then 2 steps under remat "dots". At the
+# example's T 2048 auto picks dense; at 4096 the shared guard's budget
+# refuses Dh 256 (block 1024); at 4608 (block 512) auto picks flash
+LM_WIDE_MODEL = dict(vocab_size=32000, dim=2048, num_heads=8, num_layers=8, max_len=4608)
+LM_WIDE_B, LM_WIDE_T, LM_WIDE_STEPS, LM_WIDE_DOTS_STEPS = 8, 4608, 5, 2
 
 
-def phase_lm_main():
-    """The LM slice for LM_STEPS steps through DistributedLMTrainer.train.
-    Per step, with full remat every block runs forward twice (the forward
-    and its recompute in the backward), so the flash forward launches 2 x 12
-    times, dq and dk/dv 12 times each."""
-    from fedml_tpu_torch.ops import flash_attention as fa
+def _lm_phase(phase, model, train, B, T, steps, suffix):
+    """``steps`` steps of DistributedLMTrainer.train at (model, train) on
+    batches of B x T: the flash launches (zeroed just before, read just
+    after) must be those of rematerialized blocks, the losses finite and
+    falling, the first within 1.5 of ln V (at init the logits have unit
+    variance, which adds ~0.5 to ln V). Returns (trainer, data, launches,
+    losses)."""
     from fedml_tpu_torch.parallel import DistTrainConfig, DistributedLMTrainer
 
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    tr = DistributedLMTrainer(DistTrainConfig(**LM_TRAIN), dtype=torch.bfloat16,
-                              device="cuda", seed=0, **LM_MODEL)
+    tr = DistributedLMTrainer(DistTrainConfig(**train), dtype=torch.bfloat16,
+                              device="cuda", seed=0, **model)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t
     n_params = sum(p.numel() for p in tr.params.values())
-    fa.flash_forward.launches = fa.flash_dq.launches = fa.flash_dkv.launches = 0
-    data = lm_data(LM_MODEL["vocab_size"], LM_B, LM_T)
+    data = lm_data(model["vocab_size"], B, T)
+    _zero_flash_counts()
     losses, step_s = [], []
-    for _ in range(LM_STEPS):
+    for _ in range(steps):
         t = time.perf_counter()
         losses += tr.train(data, 1, log_fn=None)  # float(loss) waits for the step
         step_s.append(time.perf_counter() - t)
-    launches = {"flash_fwd": fa.flash_forward.launches, "flash_dq": fa.flash_dq.launches,
-                "flash_dkv": fa.flash_dkv.launches}
-    L = LM_MODEL["num_layers"]
-    want = {"flash_fwd": 2 * L * LM_STEPS, "flash_dq": L * LM_STEPS, "flash_dkv": L * LM_STEPS}
+    launches = _flash_counts(suffix)
+    want = _want_flash(model["num_layers"], steps, suffix)
     if launches != want:
-        raise AssertionError(f"lm_main launches {launches}, expected {want}")
-    ln_v = math.log(LM_MODEL["vocab_size"])
-    # at init the logits have unit variance, which adds ~0.5 to ln V
+        raise AssertionError(f"{phase} launches {launches}, expected {want}")
+    ln_v = math.log(model["vocab_size"])
     if not (all(math.isfinite(x) for x in losses) and abs(losses[0] - ln_v) < 1.5
             and losses[-1] < losses[0]):
-        raise AssertionError(f"lm_main losses {losses} (ln V = {ln_v})")
-    emit("lm_main", model=LM_MODEL, train=LM_TRAIN, batch=LM_B, seq_len=LM_T, steps=LM_STEPS,
-         params=n_params, setup_s=setup_s, losses=losses, ln_vocab=ln_v, step_s=step_s,
-         tokens_per_s_after_first=LM_B * LM_T * (LM_STEPS - 1) / sum(step_s[1:]),
+        raise AssertionError(f"{phase} losses {losses} (ln V = {ln_v})")
+    emit(phase, model=model, train=train, batch=B, seq_len=T, steps=steps, params=n_params,
+         setup_s=setup_s, losses=losses, ln_vocab=ln_v, step_s=step_s,
+         tokens_per_s_after_first=B * T * (steps - 1) / sum(step_s[1:]),
          launches=launches, peak_mem_bytes=torch.cuda.max_memory_allocated())
-    return tr, data, launches
+    return tr, data, launches, losses
 
 
-def phase_lm_profile(tr, data, steps=2):
-    """Where an LM step's time goes: two warm steps of the lm_main trainer."""
-    emit("lm_profile", **profile_run(lambda: tr.train(data, steps, log_fn=None), steps, (
+def phase_lm_main():
+    """The LM slice for LM_STEPS steps through DistributedLMTrainer.train:
+    per step 2 x 12 flash forward launches, 12 dq and 12 dk/dv."""
+    return _lm_phase("lm_main", LM_MODEL, LM_TRAIN, LM_B, LM_T, LM_STEPS, "")[:3]
+
+
+def phase_lm_wide():
+    """The wide LM (Dh 256) for LM_WIDE_STEPS steps under full remat: auto
+    dispatch must pick flash, and the bf16 Dh-256 kernels launch 2 x 8
+    forward, 8 dq and 8 dk/dv times per step."""
+    from fedml_tpu_torch.ops.attention import auto_attention_impl
+
+    H = LM_WIDE_MODEL["num_heads"]
+    if auto_attention_impl(LM_WIDE_B, H, LM_WIDE_T, LM_WIDE_MODEL["dim"] // H) != "flash":
+        raise AssertionError(f"auto dispatch must pick flash at {LM_WIDE_B, H, LM_WIDE_T}")
+    return _lm_phase("lm_wide", LM_WIDE_MODEL, LM_TRAIN, LM_WIDE_B, LM_WIDE_T, LM_WIDE_STEPS,
+                     "_dh256")
+
+
+def phase_lm_wide_dots(full_losses):
+    """The wide LM from the same seed and data under remat "dots" for
+    LM_WIDE_DOTS_STEPS steps: the matrix products' outputs are saved, the
+    rest (the flash forward too) recomputed, so the launches per step are
+    full remat's. The policy changes what is kept, not what is computed:
+    the first loss (a forward of the same weights on the same batch) equals
+    full remat's bit for bit, the second (after one AdamW step from either
+    policy's gradients) within 1e-4 relative, a tenth of what that step
+    itself moves the loss (~1e-3 relative); measured equal on an H100."""
+    tr, _, launches, losses = _lm_phase("lm_wide_dots", LM_WIDE_MODEL,
+                                        dict(LM_TRAIN, remat_policy="dots"), LM_WIDE_B,
+                                        LM_WIDE_T, LM_WIDE_DOTS_STEPS, "_dh256")
+    if tr.model.remat != "dots":
+        raise AssertionError(f"lm_wide_dots ran remat {tr.model.remat!r}")
+    rel = abs(losses[1] - full_losses[1]) / abs(full_losses[1])
+    if not (losses[0] == full_losses[0] and rel <= 1e-4):
+        raise AssertionError(f"lm_wide_dots losses {losses} vs full remat's {full_losses}")
+    emit("lm_wide_dots_vs_full", dots=losses, full=full_losses[:2], second_loss_rel_diff=rel)
+
+
+# the LM profiles' kernel groups: the flash kernels, the matrix products
+# (cuBLAS's Hopper kernels are named nvjet_*, sm90_xmma_gemm_* or cutlass_*)
+LM_GROUPS = {"flash": ("flash_",), "gemm": ("nvjet", "gemm", "cutlass")}
+
+
+def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
+    """Where an LM step's time goes: two warm steps of an LM phase's trainer."""
+    emit(phase, **profile_run(lambda: tr.train(data, steps, log_fn=None), steps, (
         "flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"),
-        unit="step"))
+        unit="step", groups=LM_GROUPS))
 
 
 def main(argv):
@@ -2028,6 +2143,12 @@ def main(argv):
     launches.update(lm_launches)
     phase_lm_profile(tr, data)
     del tr
+    launches.update(phase_small_lm("small_lm_256", SMALL_LM_256, suffix="_dh256_f32"))
+    tr, data, lm_launches, full_losses = phase_lm_wide()
+    launches.update(lm_launches)
+    phase_lm_profile(tr, data, phase="lm_wide_profile")
+    del tr
+    phase_lm_wide_dots(full_losses)
     for e in entries:
         e["launches"] = launches[e["name"]]
         e.pop("bytes", None)

@@ -1,8 +1,8 @@
 // Flash attention on (B, T, H, Dh), causal or full: the forward with its
 // per-row logsumexp, and the two backward kernels (dq; dk and dv), all
 // products as float32 FMA, for float32 inputs: bfloat16 inputs run on the
-// tensor cores (flash_attention_sm90.cu). Dh 64 or 128; all arithmetic is
-// float32.
+// tensor cores (flash_attention_sm90.cu). Dh 64, 128 or 256; all arithmetic
+// is float32.
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (the
 // forward, called from _flash_forward), _dq_kernel and _dkv_kernel (both
@@ -43,6 +43,21 @@
 // masked too, so T need not be a multiple of 64. Blocks of the longest
 // causal rows are launched first. dq, dk and dv each sum in one fixed order
 // and use no atomics, so all three repeat bit for bit.
+//
+// Dh 256. A (64, Dh) float32 tile padded to Dh + 4 is 66.5 KB, and a
+// thread's accumulator 4 x 16 floats. The forward's q, k and v tiles with
+// its 64 x 64 probability tile fit (212 KB of the 227). dq and dk/dv hold
+// four tiles, 266 KB: so at Dh 256 the two they stream (k and v for dq, q
+// and dO for dk/dv) are 32 rows, and the resident two stay 64 rows (204 and
+// 213 KB). Their score tile is 64 x 32, two columns a thread; the float32
+// sums over the 32-key (or 32-query) tiles add per tile as the 64-row ones
+// do. The products with a probability tile run in passes of 128 output
+// columns (prob_times' g0), so that a pass's partial sums take 32 registers
+// beside the accumulators (dk/dv holds two, 128 registers); each output
+// column's sum is the same chain of fmaf whatever the pass. One block per
+// SM. Bound at the wide LM's float32 cell (B 1, T 4352, H 2, Dh 256, full):
+// 3.79e7 pairs x 512 operations per product, 0.019 TFLOP: 0.58, 0.87 and
+// 1.16 ms at 67 TFLOP/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,6 +74,12 @@ struct Shape {
   static constexpr int LD = DH + 4;   // row stride of a (64, Dh) tile in shared memory
   static constexpr int NJ = DH / 16;  // accumulator columns of one thread
   static constexpr int G = DH / 64;   // 64-wide column groups
+  // rows of the tiles that dq and dk/dv stream: 32 at Dh 256, where four
+  // 64-row tiles do not fit in shared memory
+  static constexpr int KR = DH == 256 ? 32 : kTile;
+  static constexpr int LP = KR + 4;   // row stride of their 64 x KR probability tiles
+  static constexpr int NS = KR / 16;  // score columns of one thread in those tiles
+  static constexpr int GN = G < 2 ? G : 2;  // column groups per prob_times pass
 };
 
 __device__ __forceinline__ float at(const float4& v, int e) {
@@ -88,14 +109,14 @@ __device__ __forceinline__ float half_sum(float v) {
   return v;
 }
 
-// Rows r0 .. r0+63 of one (b, h) slice (row stride st elements, Dh
+// Rows r0 .. r0+R-1 of one (b, h) slice (row stride st elements, Dh
 // contiguous) into a float tile of row stride LD, times mul; rows at or past
 // T read as zero. Eight consecutive elements per thread, 16-byte loads.
-template <int DH>
+template <int DH, int R = kTile>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t st, int r0, int Tn,
                                           float mul) {
   constexpr int CH = DH / 8, LD = Shape<DH>::LD;
-  for (int idx = threadIdx.x; idx < kTile * CH; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < R * CH; idx += kThreads) {
     const int row = idx / CH, c = idx % CH;
     float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (r0 + row < Tn) load8(src + (int64_t)(r0 + row) * st + c * 8, v);
@@ -106,25 +127,25 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t 
 }
 
 // s[i][j] = sum over d (in increasing order) of a[ty*4 + i][d] * b[tx + 16 j][d]
-template <int DH>
-__device__ __forceinline__ void dot_rows(float (&s)[4][4], const float* a, const float* b, int ty,
+template <int DH, int NS = 4>
+__device__ __forceinline__ void dot_rows(float (&s)[4][NS], const float* a, const float* b, int ty,
                                          int tx) {
   constexpr int LD = Shape<DH>::LD;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < NS; ++j) s[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < DH; d += 4) {
-    float4 av[4], bv[4];
+    float4 av[4], bv[NS];
 #pragma unroll
     for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + (ty * 4 + i) * LD + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * LD + d);
+    for (int j = 0; j < NS; ++j) bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * LD + d);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NS; ++j) {
         float acc = s[i][j];
         acc = fmaf(av[i].x, bv[j].x, acc);
         acc = fmaf(av[i].y, bv[j].y, acc);
@@ -135,25 +156,28 @@ __device__ __forceinline__ void dot_rows(float (&s)[4][4], const float* a, const
   }
 }
 
-// out[i][4 g + e] = sum over c (in increasing order) of p[ty*4 + i][c] * x[c][64 g + tx*4 + e]
-template <int DH>
-__device__ __forceinline__ void prob_times(float (&out)[4][Shape<DH>::NJ], const float* p,
-                                           const float* x, int ty, int tx) {
-  constexpr int LD = Shape<DH>::LD, G = Shape<DH>::G;
+// out[i][4 g + e] = sum over c < KR (in increasing order) of p[ty*4 + i][c] *
+// x[c][64 (g0 + g) + tx*4 + e], for the GN column groups from g0; p has row
+// stride KR + 4
+template <int DH, int KR, int GN>
+__device__ __forceinline__ void prob_times(float (&out)[4][4 * GN], const float* p,
+                                           const float* x, int g0, int ty, int tx) {
+  constexpr int LD = Shape<DH>::LD, LP = KR + 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int n = 0; n < 4 * G; ++n) out[i][n] = 0.f;
+    for (int n = 0; n < 4 * GN; ++n) out[i][n] = 0.f;
 #pragma unroll 2
-  for (int c = 0; c < kTile; c += 4) {
+  for (int c = 0; c < KR; c += 4) {
     float4 pv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(p + (ty * 4 + i) * kLP + c);
+    for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(p + (ty * 4 + i) * LP + c);
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc)
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 xv = *reinterpret_cast<const float4*>(x + (c + cc) * LD + 64 * g + tx * 4);
+      for (int g = 0; g < GN; ++g) {
+        const float4 xv =
+            *reinterpret_cast<const float4*>(x + (c + cc) * LD + 64 * (g0 + g) + tx * 4);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float pc = at(pv[i], cc);
@@ -190,7 +214,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                  int H, int Tn, int64_t sb, int64_t st, int64_t sh, float scale, int causal) {
-  constexpr int LD = Shape<DH>::LD, NJ = Shape<DH>::NJ;
+  constexpr int LD = Shape<DH>::LD, NJ = Shape<DH>::NJ, G = Shape<DH>::G, GN = Shape<DH>::GN;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + kTile * LD;
@@ -246,12 +270,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) Ps[(ty * 4 + i) * kLP + tx + 16 * j] = s[i][j];
     }
     __syncthreads();
-    float pv[4][NJ];
-    prob_times<DH>(pv, Ps, Vs, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int g0 = 0; g0 < G; g0 += GN) {
+      float pv[4][4 * GN];
+      prob_times<DH, kTile, GN>(pv, Ps, Vs, g0, ty, tx);
 #pragma unroll
-      for (int n = 0; n < NJ; ++n) acc[i][n] = acc[i][n] * corr[i] + pv[i][n];
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < 4 * GN; ++n)
+          acc[i][4 * g0 + n] = acc[i][4 * g0 + n] * corr[i] + pv[i][n];
+    }
   }
 
   float ls[4];
@@ -265,7 +293,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // One block per (bh, q tile): dq (B, T, H, Dh) contiguous. dout is
-// contiguous; lse and delta are (B*H, T).
+// contiguous; lse and delta are (B*H, T). k and v stream in KR-row tiles.
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -273,13 +301,15 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dq, int H, int Tn, int64_t sb, int64_t st, int64_t sh,
                 float scale, int causal) {
-  constexpr int LD = Shape<DH>::LD, NJ = Shape<DH>::NJ;
+  using S = Shape<DH>;
+  constexpr int LD = S::LD, NJ = S::NJ, KR = S::KR, LP = S::LP, NS = S::NS, G = S::G,
+                GN = S::GN;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Os = Qs + kTile * LD;  // dO
   float* Ks = Os + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* Ds = Vs + kTile * LD;  // dS
+  float* Vs = Ks + KR * LD;
+  float* Ds = Vs + KR * LD;  // dS
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int nt = (Tn + kTile - 1) / kTile;
   const int q0 = (nt - 1 - (int)blockIdx.y) * kTile;
@@ -297,41 +327,47 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NJ; ++n) acc[i][n] = 0.f;
   }
-  const int nk = causal ? q0 / kTile + 1 : nt;
+  // causal: no k tile past the q tile's last row
+  const int ntk = (Tn + KR - 1) / KR;
+  const int nk = causal ? min((q0 + kTile) / KR, ntk) : ntk;
   for (int ki = 0; ki < nk; ++ki) {
-    const int k0 = ki * kTile;
+    const int k0 = ki * KR;
     __syncthreads();
-    load_tile<DH>(Ks, k + off, st, k0, Tn, 1.f);
-    load_tile<DH>(Vs, v + off, st, k0, Tn, 1.f);
+    load_tile<DH, KR>(Ks, k + off, st, k0, Tn, 1.f);
+    load_tile<DH, KR>(Vs, v + off, st, k0, Tn, 1.f);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_rows<DH>(s, Qs, Ks, ty, tx);
-    dot_rows<DH>(dp, Os, Vs, ty, tx);
+    float s[4][NS], dp[4][NS];
+    dot_rows<DH, NS>(s, Qs, Ks, ty, tx);
+    dot_rows<DH, NS>(dp, Os, Vs, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty * 4 + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NS; ++j) {
         const int col = k0 + tx + 16 * j;
         float x = scale * s[i][j];
         if (col >= Tn || (causal && col > row)) x = kNegInf;
         const float p = expf(x - lr[i]);
-        Ds[(ty * 4 + i) * kLP + tx + 16 * j] = p * (dp[i][j] - dr[i]);
+        Ds[(ty * 4 + i) * LP + tx + 16 * j] = p * (dp[i][j] - dr[i]);
       }
     }
     __syncthreads();
-    float t[4][NJ];
-    prob_times<DH>(t, Ds, Ks, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int g0 = 0; g0 < G; g0 += GN) {
+      float t[4][4 * GN];
+      prob_times<DH, KR, GN>(t, Ds, Ks, g0, ty, tx);
 #pragma unroll
-      for (int n = 0; n < NJ; ++n) acc[i][n] = acc[i][n] + scale * t[i][n];
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < 4 * GN; ++n) acc[i][4 * g0 + n] = acc[i][4 * g0 + n] + scale * t[i][n];
+    }
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
   store_rows<DH>(dq, acc, one, b, h, H, Tn, q0, ty, tx);
 }
 
-// One block per (bh, k tile): dk and dv (B, T, H, Dh) contiguous.
+// One block per (bh, k tile): dk and dv (B, T, H, Dh) contiguous. q and dO
+// stream in KR-row tiles.
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -339,16 +375,18 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dk, float* __restrict__ dv, int H, int Tn, int64_t sb,
                  int64_t st, int64_t sh, float scale, int causal) {
-  constexpr int LD = Shape<DH>::LD, NJ = Shape<DH>::NJ;
+  using S = Shape<DH>;
+  constexpr int LD = S::LD, NJ = S::NJ, KR = S::KR, LP = S::LP, NS = S::NS, G = S::G,
+                GN = S::GN;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + kTile * LD;
   float* Qs = Vs + kTile * LD;
-  float* Os = Qs + kTile * LD;  // dO
-  float* Ps = Os + kTile * LD;  // P^T: rows are keys, columns queries
-  float* Ds = Ps + kTile * kLP; // dS^T
+  float* Os = Qs + KR * LD;  // dO
+  float* Ps = Os + KR * LD;  // P^T: rows are keys, columns queries
+  float* Ds = Ps + kTile * LP; // dS^T
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int nt = (Tn + kTile - 1) / kTile;
+  const int ntq = (Tn + KR - 1) / KR;
   const int ki = blockIdx.y;  // the keys seen by the most causal rows first
   const int k0 = ki * kTile;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -362,47 +400,55 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NJ; ++n) dka[i][n] = dva[i][n] = 0.f;
   // causal: q tiles before the diagonal see none of these keys
-  for (int qi = causal ? ki : 0; qi < nt; ++qi) {
-    const int q0 = qi * kTile;
+  for (int qi = causal ? k0 / KR : 0; qi < ntq; ++qi) {
+    const int q0 = qi * KR;
     __syncthreads();
-    load_tile<DH>(Qs, q + off, st, q0, Tn, 1.f);
-    load_tile<DH>(Os, dout + doff, (int64_t)H * DH, q0, Tn, 1.f);
-    float lc[4], dc[4];
+    load_tile<DH, KR>(Qs, q + off, st, q0, Tn, 1.f);
+    load_tile<DH, KR>(Os, dout + doff, (int64_t)H * DH, q0, Tn, 1.f);
+    float lc[NS], dc[NS];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NS; ++j) {
       const int col = q0 + tx + 16 * j;
       lc[j] = col < Tn ? lse[(int64_t)bh * Tn + col] : 0.f;
       dc[j] = col < Tn ? delta[(int64_t)bh * Tn + col] : 0.f;
     }
     __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_rows<DH>(s, Ks, Qs, ty, tx);
-    dot_rows<DH>(dp, Vs, Os, ty, tx);
+    float s[4][NS], dp[4][NS];
+    dot_rows<DH, NS>(s, Ks, Qs, ty, tx);
+    dot_rows<DH, NS>(dp, Vs, Os, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = k0 + ty * 4 + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NS; ++j) {
         const int col = q0 + tx + 16 * j;
         float x = scale * s[i][j];
         if (causal && row > col) x = kNegInf;
         const float p = col < Tn ? expf(x - lc[j]) : 0.f;
-        Ps[(ty * 4 + i) * kLP + tx + 16 * j] = p;
-        Ds[(ty * 4 + i) * kLP + tx + 16 * j] = p * (dp[i][j] - dc[j]);
+        Ps[(ty * 4 + i) * LP + tx + 16 * j] = p;
+        Ds[(ty * 4 + i) * LP + tx + 16 * j] = p * (dp[i][j] - dc[j]);
       }
     }
     __syncthreads();
-    float t[4][NJ];
-    prob_times<DH>(t, Ps, Os, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int g0 = 0; g0 < G; g0 += GN) {
+      float t[4][4 * GN];
+      prob_times<DH, KR, GN>(t, Ps, Os, g0, ty, tx);
 #pragma unroll
-      for (int n = 0; n < NJ; ++n) dva[i][n] = dva[i][n] + t[i][n];
-    prob_times<DH>(t, Ds, Qs, ty, tx);
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int n = 0; n < 4 * GN; ++n) dva[i][4 * g0 + n] = dva[i][4 * g0 + n] + t[i][n];
+    }
 #pragma unroll
-      for (int n = 0; n < NJ; ++n) dka[i][n] = dka[i][n] + scale * t[i][n];
+    for (int g0 = 0; g0 < G; g0 += GN) {
+      float t[4][4 * GN];
+      prob_times<DH, KR, GN>(t, Ds, Qs, g0, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < 4 * GN; ++n)
+          dka[i][4 * g0 + n] = dka[i][4 * g0 + n] + scale * t[i][n];
+    }
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
   store_rows<DH>(dk, dka, one, b, h, H, Tn, k0, ty, tx);
@@ -445,7 +491,8 @@ template <int DH>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, const Args& a,
                       cudaStream_t st) {
-  const int floats = 4 * kTile * Shape<DH>::LD + kTile * kLP;
+  using S = Shape<DH>;  // resident q and dO, streamed k and v, dS
+  const int floats = 2 * (kTile + S::KR) * S::LD + kTile * S::LP;
   cudaError_t e = prepare(flash_dq_kernel<DH>, floats);
   if (e != cudaSuccess) return e;
   flash_dq_kernel<DH><<<grid(a), kThreads, floats * sizeof(float), st>>>(
@@ -458,7 +505,8 @@ template <int DH>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv, const Args& a,
                        cudaStream_t st) {
-  const int floats = 4 * kTile * Shape<DH>::LD + 2 * kTile * kLP;
+  using S = Shape<DH>;  // resident k and v, streamed q and dO, P^T and dS^T
+  const int floats = 2 * (kTile + S::KR) * S::LD + 2 * kTile * S::LP;
   cudaError_t e = prepare(flash_dkv_kernel<DH>, floats);
   if (e != cudaSuccess) return e;
   flash_dkv_kernel<DH><<<grid(a), kThreads, floats * sizeof(float), st>>>(
@@ -482,6 +530,7 @@ extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void
   switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
     case 128: return (int)launch_fwd<64>(q, k, v, o, lse, a, s);
     case 256: return (int)launch_fwd<128>(q, k, v, o, lse, a, s);
+    case 512: return (int)launch_fwd<256>(q, k, v, o, lse, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -500,6 +549,7 @@ extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v, const
   switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
     case 128: return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, a, s);
     case 256: return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, a, s);
+    case 512: return (int)launch_dq<256>(q, k, v, dout, lse, delta, dq, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -516,6 +566,7 @@ extern "C" int fedml_flash_dkv(const void* q, const void* k, const void* v, cons
   switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
     case 128: return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, a, s);
     case 256: return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, a, s);
+    case 512: return (int)launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,6 @@
 // Flash attention's forward and its backward (dq; dk and dv) on the Hopper
-// tensor cores (wgmma), for bfloat16 (B, T, H, Dh) inputs with Dh 64 or 128,
-// causal or full, any T. Float32 inputs keep the FMA kernels of
+// tensor cores (wgmma), for bfloat16 (B, T, H, Dh) inputs with Dh 64, 128 or
+// 256, causal or full, any T. Float32 inputs keep the FMA kernels of
 // flash_attention.cu.
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (:66,
@@ -25,10 +25,11 @@
 // one accumulator they add up, past chip_smoke.py's gate at T 8192. So each
 // 64-key (or 64-query) tile's products start from a zero accumulator, and
 // the tiles are added in float32 registers, rounded to nearest, as the TPU
-// kernels add their blocks. The score is scaled after Q K^T: at Dh 64 the
-// scale 2^-3 makes that identical to the TPU kernel's q * scale before the
-// product; at Dh 128 (1/sqrt(128)) it rounds once in float32 after the
-// exact product instead of once on q. dq adds scale * (dS K) per key tile,
+// kernels add their blocks. The score is scaled after Q K^T: at Dh 64 and
+// 256 the scales 2^-3 and 2^-4 are powers of two, which makes that
+// identical to the TPU kernel's q * scale before the product; at Dh 128
+// (1/sqrt(128)) it rounds once in float32 after the exact product instead
+// of once on q. dq adds scale * (dS K) per key tile,
 // as the TPU kernel does; dk sums ds^T q and is scaled at the end.
 //
 // Bound on the H100 at the LM slice's shape (B 2, T 8192, H 16, Dh 64,
@@ -36,7 +37,10 @@
 // 0.1375 TFLOP per product. The forward does one bf16 product and one split
 // product (1 + 3 tensor-core products), dq two and one (2 + 3), dk/dv two
 // and two (2 + 6): 0.556, 0.695 and 1.112 ms at 989 TFLOP/s, against
-// ~0.05 ms of bytes at 3.35 TB/s. So all three are bound by operations.
+// ~0.05 ms of bytes at 3.35 TB/s. So all three are bound by operations. At
+// the wide LM's shape (B 8, T 4608, H 8, Dh 256, causal) the pairs are
+// 6.796e8 and a product 0.348 TFLOP: 1.41, 1.76 and 2.82 ms, against ~0.2 ms
+// of bytes; bound by operations too.
 //
 // Design. One warpgroup (128 threads) per block and 64-row tiles. Forward
 // and dq: a block owns a q tile (dq: with its dO tile, lse and delta) and
@@ -54,8 +58,8 @@
 // kt+1's Q K^T run on the tensor cores while the warpgroup computes tile
 // kt+1's softmax. dq and dk/dv are not: dq's pipeline (a second set of
 // scores in flight) took enough registers to drop to 2 blocks per SM and
-// ran slower than 3 blocks without it. Registers decide occupancy
-// (kFwdBlocks, dq_blocks, kDkvBlocks): the blocks of an SM interleave one's
+// ran slower than 3 blocks without it. Registers decide occupancy at Dh 64
+// and 128 (fwd_blocks, dq_blocks, dkv_blocks): the blocks of an SM interleave one's
 // softmax with another's products. On the causal diagonal dq sums dO V^T
 // on the CUDA cores instead (dots_fma), in a plain float32 product's order:
 // there row 0's dq is pure rounding noise of dp - delta, which only that
@@ -64,9 +68,23 @@
 // causal rows start first, and every sum runs in one fixed order without
 // atomics, so dq, dk and dv repeat bit for bit.
 //
+// Dh 256. One warpgroup's 64 x 256 float32 accumulator would take 128
+// registers a thread, and dk/dv holds two. So a Dh-256 block runs two
+// warpgroups (256 threads); each owns 128 of the Dh columns of o, dq, dk and
+// dv and works exactly as a Dh-128 block on them, with the same registers.
+// Both compute the whole 64 x 64 score products over all 256 columns, the
+// same instructions on the same tiles, so both hold the same bits of s, m,
+// l and ds without exchanging them: the score products are repeated (the
+// forward does 2 + 3 products' work instead of 1 + 3, dq 4 + 3, dk/dv 4 +
+// 6), the price of keeping every sum in one warpgroup's registers and in
+// one fixed order. A 64 x 256 bf16 tile is 32 KB: the forward keeps its
+// three-stage ring (q and three k/v stages, 225 KB of the 227), dq and dk/dv
+// take two stages (194 KB). One block per SM.
+//
 // Left for later: a producer warp with TMA and setmaxnreg (warp
 // specialisation), persistent blocks, the dk/dv pipeline (its registers do
-// not fit the forward's scheme), and 16-byte stores of the outputs.
+// not fit the forward's scheme), 16-byte stores of the outputs, and at Dh
+// 256 score products split over the two warpgroups instead of repeated.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,16 +94,28 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;  // one warpgroup
+constexpr int kWG = 128;  // threads of one warpgroup
+// warpgroups per block: one, or two at Dh 256, each owning 128 output columns
+template <int DH>
+__host__ __device__ constexpr int warpgroups() { return DH == 256 ? 2 : 1; }
+template <int DH>
+__host__ __device__ constexpr int threads() { return kWG * warpgroups<DH>(); }
 // blocks per SM the register budget is cut for: the forward keeps its
 // pipeline without spills (2 blocks); dk/dv spills a little at 3 blocks,
 // which ran faster than 2 blocks without spills; dq fits 3 blocks at Dh 64
-// and 2 without spills at Dh 128
-constexpr int kFwdBlocks = 2, kDkvBlocks = 3;
+// and 2 without spills at Dh 128. At Dh 256 shared memory allows one block.
 template <int DH>
-constexpr int dq_blocks() { return DH == 64 ? 3 : 2; }
+__host__ __device__ constexpr int fwd_blocks() { return DH == 256 ? 1 : 2; }
+template <int DH>
+__host__ __device__ constexpr int dq_blocks() { return DH == 64 ? 3 : DH == 128 ? 2 : 1; }
+template <int DH>
+__host__ __device__ constexpr int dkv_blocks() { return DH == 256 ? 1 : 3; }
 constexpr int kTile = 64;      // rows of every tile: q, k, v, dO
-constexpr int kStages = 3;     // ring depth of the streamed tiles
+// ring depth of the streamed tiles: the forward's three stages fit at every
+// Dh; dq's and dk/dv's two resident tiles leave room for two at Dh 256
+constexpr int kFwdStages = 3;
+template <int DH>
+__host__ __device__ constexpr int bwd_stages() { return DH == 256 ? 2 : 3; }
 constexpr int kRowBytes = 128; // one swizzled row: 64 bf16
 constexpr float kNegInf = -3.4028234663852886e38f;  // finfo(float32).min
 
@@ -98,7 +128,7 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 }
 
 // Byte offset of 16-byte chunk c (8 bf16) of row r in an R-row tile. The
-// tile is Dh/64 column halves of R rows x 128 bytes; each 8-row group is one
+// tile is Dh/64 column groups of R rows x 128 bytes; each 8-row group is one
 // 1024-byte atom of the 128-byte swizzle (chunk ^ row % 8), as wgmma reads it.
 template <int R>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
@@ -136,7 +166,7 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src, int64_t
                                           int Tn) {
   constexpr int CH = DH / 8;
   const uint32_t base = smem_addr(dst);
-  for (int i = threadIdx.x; i < R * CH; i += kThreads) {
+  for (int i = threadIdx.x; i < R * CH; i += threads<DH>()) {
     const int r = i / CH, c = i % CH;
     const bool ok = r0 + r < Tn;
     cp_async16(base + swz<R>(r, c), src + (int64_t)(ok ? r0 + r : 0) * st + c * 8, ok);
@@ -339,21 +369,24 @@ __device__ __forceinline__ void scores(float (&s)[32], uint32_t a_tile, uint32_t
     wgmma_ss(s, desc_k<kTile>(a_tile, kk), desc_k<kTile>(b_tile, kk), kk);
 }
 
-// One block (one warpgroup) per (bh, 64-row q tile): o (B, T, H, Dh)
-// contiguous, lse (B*H, T). Pipelined: while tile kt's P V and tile kt+1's
-// Q K^T run on the tensor cores, the warpgroup computes tile kt+1's softmax.
+// One block (one warpgroup, two at Dh 256) per (bh, 64-row q tile): o (B, T,
+// H, Dh) contiguous, lse (B*H, T). Pipelined: while tile kt's P V and tile
+// kt+1's Q K^T run on the tensor cores, the warpgroup computes tile kt+1's
+// softmax.
 template <int DH>
-__global__ void __launch_bounds__(kThreads, kFwdBlocks)
+__global__ void __launch_bounds__(threads<DH>(), fwd_blocks<DH>())
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                        int H, int Tn, int64_t sb, int64_t st, int64_t sh, float scale,
                        int causal) {
-  constexpr int G = DH / 64;
+  constexpr int G = DH / 64 / warpgroups<DH>();  // 64-column groups of this warpgroup
   constexpr int kBytes = kTile * DH * 2;  // one tile
+  constexpr int kStages = kFwdStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);
   uint8_t* ring = Qs + kBytes;  // stage s: K at ring + 2 s kBytes, V after it
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / kWG, warp = threadIdx.x % kWG / 32, lane = threadIdx.x % 32;
+  const uint32_t cols = wg * G * kTile * kRowBytes;  // this warpgroup's columns of a tile
   const int nt = (Tn + kTile - 1) / kTile;
   const int q0 = (nt - 1 - (int)blockIdx.y) * kTile;  // the longest causal rows first
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -400,7 +433,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wg_fence();
     scores<DH>(s, q_tile, stage(kt + 1));
     wg_commit();
-    mma_split<G>(pv, a, stage(kt) + kBytes);
+    mma_split<G>(pv, a, stage(kt) + kBytes + cols);
     wg_commit();
     wg_wait<1>();
     pin(s);
@@ -415,7 +448,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   split_frags(s, a);  // the last tile
   wg_fence();
-  mma_split<G>(pv, a, stage(nk - 1) + kBytes);
+  mma_split<G>(pv, a, stage(nk - 1) + kBytes + cols);
   wg_commit();
   wg_wait<0>();
   add_scaled(acc, pv, corr);
@@ -425,8 +458,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = row0 + 8 * hh;
     if (row >= Tn) continue;
     const float ls = fmaxf(l[hh], 1e-30f);
-    if (lane % 4 == 0) lse[(int64_t)bh * Tn + row] = m[hh] + logf(ls);
-    bf16* dst = o + (((int64_t)b * Tn + row) * H + h) * DH + c2;
+    if (wg == 0 && lane % 4 == 0) lse[(int64_t)bh * Tn + row] = m[hh] + logf(ls);
+    bf16* dst = o + (((int64_t)b * Tn + row) * H + h) * DH + 64 * G * wg + c2;
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -509,22 +542,24 @@ __device__ __forceinline__ void add_dq(float (&dqa)[G][32], float (&t)[G][32], f
   }
 }
 
-// One block (one warpgroup) per (bh, 64-row q tile): dq (B, T, H, Dh)
-// contiguous. dout is contiguous; lse and delta are (B*H, T).
+// One block (one warpgroup, two at Dh 256) per (bh, 64-row q tile): dq (B, T,
+// H, Dh) contiguous. dout is contiguous; lse and delta are (B*H, T).
 template <int DH>
-__global__ void __launch_bounds__(kThreads, dq_blocks<DH>())
+__global__ void __launch_bounds__(threads<DH>(), dq_blocks<DH>())
 flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       bf16* __restrict__ dq, int H, int Tn, int64_t sb, int64_t st, int64_t sh,
                       float scale, int causal) {
-  constexpr int G = DH / 64;
+  constexpr int G = DH / 64 / warpgroups<DH>();  // 64-column groups of this warpgroup
   constexpr int kBytes = kTile * DH * 2;  // one tile
+  constexpr int kStages = bwd_stages<DH>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);
   uint8_t* Os = Qs + kBytes;    // dO
   uint8_t* ring = Os + kBytes;  // stage s: K at ring + 2 s kBytes, V after it
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / kWG, warp = threadIdx.x % kWG / 32, lane = threadIdx.x % 32;
+  const uint32_t cols = wg * G * kTile * kRowBytes;  // this warpgroup's columns of a tile
   const int nt = (Tn + kTile - 1) / kTile;
   const int q0 = (nt - 1 - (int)blockIdx.y) * kTile;  // the longest causal rows first
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -578,7 +613,7 @@ flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     ds_tile(s, dp, lr, dr, kt * kTile, q0, row0, c2, Tn, causal, scale);
     split_frags(dp, a);
     wg_fence();
-    mma_split<G>(t, a, stage(kt));  // dS K
+    mma_split<G>(t, a, stage(kt) + cols);  // dS K
     wg_commit();
     wg_wait<0>();
     add_dq(dqa, t, scale);
@@ -589,7 +624,7 @@ flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row0 + 8 * hh;
     if (row >= Tn) continue;
-    bf16* dst = dq + (((int64_t)b * Tn + row) * H + h) * DH + c2;
+    bf16* dst = dq + (((int64_t)b * Tn + row) * H + h) * DH + 64 * G * wg + c2;
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -599,23 +634,25 @@ flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// One block (one warpgroup) per (bh, 64-row k tile): dk and dv (B, T, H, Dh)
-// contiguous. dout is contiguous; lse and delta are (B*H, T).
+// One block (one warpgroup, two at Dh 256) per (bh, 64-row k tile): dk and dv
+// (B, T, H, Dh) contiguous. dout is contiguous; lse and delta are (B*H, T).
 template <int DH>
-__global__ void __launch_bounds__(kThreads, kDkvBlocks)
+__global__ void __launch_bounds__(threads<DH>(), dkv_blocks<DH>())
 flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Tn, int64_t sb,
                        int64_t st, int64_t sh, float scale, int causal) {
-  constexpr int G = DH / 64;
+  constexpr int G = DH / 64 / warpgroups<DH>();  // 64-column groups of this warpgroup
   constexpr int kBytes = kTile * DH * 2;  // one tile
+  constexpr int kStages = bwd_stages<DH>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Ks = align1024(smem_raw);
   uint8_t* Vs = Ks + kBytes;
   uint8_t* ring = Vs + kBytes;  // stage s: Q at ring + 2 s kBytes, dO after it
   float* vecs = reinterpret_cast<float*>(ring + kStages * 2 * kBytes);  // stage s: lse, delta
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / kWG, warp = threadIdx.x % kWG / 32, lane = threadIdx.x % 32;
+  const uint32_t cols = wg * G * kTile * kRowBytes;  // this warpgroup's columns of a tile
   const int nq = (Tn + kTile - 1) / kTile;
   const int k0 = (int)blockIdx.y * kTile;  // the keys seen by the most causal rows first
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -634,8 +671,9 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_tile<kTile, DH>(d, q + off, st, qt * kTile, Tn);
       load_tile<kTile, DH>(d + kBytes, dout + doff, dstride, qt * kTile, Tn);
       float* vl = vecs + (i % kStages) * 2 * kTile;
-      load_vec(vl + (threadIdx.x / kTile) * kTile, threadIdx.x < kTile ? lrow : drow,
-               qt * kTile, Tn, threadIdx.x % kTile);
+      if (threadIdx.x < 2 * kTile)  // the first 64 threads load lse, the next delta
+        load_vec(vl + (threadIdx.x / kTile) * kTile, threadIdx.x < kTile ? lrow : drow,
+                 qt * kTile, Tn, threadIdx.x % kTile);
     }
     cp_async_commit();
   };
@@ -689,7 +727,7 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float t[G][32];
     split_frags(s, a);
     wg_fence();
-    mma_split<G>(t, a, o_tile);  // P^T dO
+    mma_split<G>(t, a, o_tile + cols);  // P^T dO
     wg_commit();
     wg_wait<0>();
 #pragma unroll
@@ -700,7 +738,7 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     split_frags(dp, a);
     wg_fence();
-    mma_split<G>(t, a, q_tile);  // dS^T Q (dk is scaled at the end)
+    mma_split<G>(t, a, q_tile + cols);  // dS^T Q (dk is scaled at the end)
     wg_commit();
     wg_wait<0>();
 #pragma unroll
@@ -716,7 +754,7 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row0 + 8 * hh;
     if (row >= Tn) continue;
-    const int64_t at = (((int64_t)b * Tn + row) * H + h) * DH + c2;
+    const int64_t at = (((int64_t)b * Tn + row) * H + h) * DH + 64 * G * wg + c2;
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -755,10 +793,10 @@ template <int DH>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                        const Args& a, cudaStream_t st) {
   // q tile and the k/v ring, + alignment slack
-  constexpr int bytes = (1 + 2 * kStages) * kTile * DH * 2 + 1024;
+  constexpr int bytes = (1 + 2 * kFwdStages) * kTile * DH * 2 + 1024;
   cudaError_t e = prepare(flash_fwd_wgmma_kernel<DH>, bytes);
   if (e != cudaSuccess) return e;
-  flash_fwd_wgmma_kernel<DH><<<grid(a), kThreads, bytes, st>>>(
+  flash_fwd_wgmma_kernel<DH><<<grid(a), threads<DH>(), bytes, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, a.H, a.T, a.sb, a.st, a.sh,
       a.scale, a.causal);
   return cudaGetLastError();
@@ -769,10 +807,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       const float* lse, const float* delta, void* dq, const Args& a,
                       cudaStream_t st) {
   // q and dO tiles, the k/v ring, + alignment slack
-  constexpr int bytes = (2 + 2 * kStages) * kTile * DH * 2 + 1024;
+  constexpr int bytes = (2 + 2 * bwd_stages<DH>()) * kTile * DH * 2 + 1024;
   cudaError_t e = prepare(flash_dq_wgmma_kernel<DH>, bytes);
   if (e != cudaSuccess) return e;
-  flash_dq_wgmma_kernel<DH><<<grid(a), kThreads, bytes, st>>>(
+  flash_dq_wgmma_kernel<DH><<<grid(a), threads<DH>(), bytes, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dq,
       a.H, a.T, a.sb, a.st, a.sh, a.scale, a.causal);
   return cudaGetLastError();
@@ -783,10 +821,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const float* lse, const float* delta, void* dk, void* dv, const Args& a,
                        cudaStream_t st) {
   // k and v tiles, the q/dO ring with its lse and delta, + alignment slack
-  constexpr int bytes = (2 + 2 * kStages) * kTile * DH * 2 + kStages * 2 * kTile * 4 + 1024;
+  constexpr int S = bwd_stages<DH>();
+  constexpr int bytes = (2 + 2 * S) * kTile * DH * 2 + S * 2 * kTile * 4 + 1024;
   cudaError_t e = prepare(flash_dkv_wgmma_kernel<DH>, bytes);
   if (e != cudaSuccess) return e;
-  flash_dkv_wgmma_kernel<DH><<<grid(a), kThreads, bytes, st>>>(
+  flash_dkv_wgmma_kernel<DH><<<grid(a), threads<DH>(), bytes, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dk,
       (bf16*)dv, a.H, a.T, a.sb, a.st, a.sh, a.scale, a.causal);
   return cudaGetLastError();
@@ -808,6 +847,7 @@ extern "C" int fedml_flash_fwd_sm90(const void* q, const void* k, const void* v,
   switch (Dh) {
     case 64: return (int)launch_fwd<64>(q, k, v, o, lse, a, s);
     case 128: return (int)launch_fwd<128>(q, k, v, o, lse, a, s);
+    case 256: return (int)launch_fwd<256>(q, k, v, o, lse, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -823,6 +863,7 @@ extern "C" int fedml_flash_dq_sm90(const void* q, const void* k, const void* v,
   switch (Dh) {
     case 64: return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, a, s);
     case 128: return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, a, s);
+    case 256: return (int)launch_dq<256>(q, k, v, dout, lse, delta, dq, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -838,6 +879,7 @@ extern "C" int fedml_flash_dkv_sm90(const void* q, const void* k, const void* v,
   switch (Dh) {
     case 64: return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, a, s);
     case 128: return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, a, s);
+    case 256: return (int)launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

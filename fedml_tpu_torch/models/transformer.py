@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..ops.attention import multihead_attention
 from .linear import Dense
@@ -109,9 +109,21 @@ class Block(nn.Module):
         return x + self.MLPBlock_0(self.LayerNorm_1(x))
 
 
-def _rematerialized(block: nn.Module, h: torch.Tensor) -> torch.Tensor:
+# the matrix products whose outputs remat "dots" saves, as
+# jax.checkpoint_policies.checkpoint_dots saves every dot_general's output
+# (batched ones too): Dense's ``x @ kernel`` reaches the dispatcher as mm,
+# dense attention's einsums as bmm
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _rematerialized(block: nn.Module, h: torch.Tensor, policy: str) -> torch.Tensor:
     """``block(h)`` under ``torch.utils.checkpoint``: the backward recomputes
-    the block. The block's parameters are passed in explicitly, so the
+    the block, all of it ("full") or all but the outputs of ``_DOT_OPS``
+    ("dots", a selective checkpoint). Either way the flash forward runs
+    again in the recompute: its kernel launches through ctypes, unseen by
+    the dispatcher, inside ``_FlashAttention.forward``, which the recompute
+    re-executes. The block's parameters are passed in explicitly, so the
     recompute uses the tensors of the forward even where the forward ran
     under ``functional_call`` (which has restored the module by then)."""
     names = [n for n, _ in block.named_parameters()]
@@ -120,26 +132,30 @@ def _rematerialized(block: nn.Module, h: torch.Tensor) -> torch.Tensor:
     def run(h, *ts):
         return functional_call(block, dict(zip(names, ts)), (h,))
 
-    return checkpoint(run, h, *tensors, use_reentrant=False)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             list(_DOT_OPS))
+    return checkpoint(run, h, *tensors, use_reentrant=False, **kw)
 
 
 class TransformerLM(nn.Module):
     """Decoder-only causal LM.
 
     ``remat``: False saves every activation; True or "full" recomputes each
-    block in the backward (``torch.utils.checkpoint``). "dots" (save the
-    matmul outputs only) is not ported yet (ROADMAP.md Queue 1 item 13)."""
+    block in the backward (``torch.utils.checkpoint``); "dots" saves the
+    outputs of the block's matrix products and recomputes the rest, the
+    flash forward included (JAX's ``checkpoint_dots``)."""
 
     def __init__(self, vocab_size: int = 32000, dim: int = 256, num_heads: int = 8,
                  num_layers: int = 4, max_len: int = 2048, dtype: torch.dtype = torch.float32,
                  attn_impl: Optional[str] = None, remat: Union[bool, str] = False):
         super().__init__()
-        if remat == "dots":
-            raise NotImplementedError(
-                "remat 'dots' (checkpoint_dots) is not ported yet (ROADMAP.md Queue 1 item 13)")
-        if remat not in (False, True, "full"):
+        if remat not in (False, True, "full", "dots"):
             raise ValueError(f"unknown remat policy {remat!r}; use False, True, 'full', or 'dots'")
-        self.num_layers, self.max_len, self.remat = num_layers, max_len, bool(remat)
+        self.num_layers, self.max_len = num_layers, max_len
+        # None (save everything), "full" or "dots"
+        self.remat = "dots" if remat == "dots" else ("full" if remat else None)
         self.wte = Embed(vocab_size, dim, dtype)
         self.wpe = Embed(max_len, dim, dtype)
         for i in range(num_layers):
@@ -155,7 +171,7 @@ class TransformerLM(nn.Module):
         h = self.wte(tokens) + self.wpe(torch.arange(T, device=tokens.device)[None, :])
         for i in range(self.num_layers):
             block = getattr(self, f"block_{i}")
-            h = _rematerialized(block, h) if self.remat else block(h)
+            h = _rematerialized(block, h, self.remat) if self.remat else block(h)
         h = self.ln_f(h)
         if return_hidden:
             # for the chunked CE (ops/losses.py): the head runs per chunk

@@ -1,7 +1,7 @@
 """Flash attention (port of ``fedml_tpu/ops/pallas/flash_attention.py``).
 
 Hand-written CUDA kernels on (B, T, H, Dh) tensors, bf16 or float32 with
-Dh 64 or 128, causal or not. bf16 inputs run on the tensor cores
+Dh 64, 128 or 256, causal or not. bf16 inputs run on the tensor cores
 (``csrc/flash_attention_sm90.cu``, wgmma, exact to float32 through a
 three-term bf16 split of p and ds); float32 inputs run the FMA kernels of
 ``csrc/flash_attention.cu``:
@@ -182,7 +182,7 @@ def flash_dkv_plain(q, k, v, do, lse, delta, causal: bool):
 
 # --- the kernel wrappers ------------------------------------------------------
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -200,9 +200,17 @@ def _check(q, k, v, *more) -> str:
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share a dtype in {DTYPES}, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if dev.type == "cuda" and q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"the flash kernels take Dh in {HEAD_DIMS}, got {q.shape[-1]}")
+    if dev.type == "cuda":
+        check_head_dim(q.shape[-1])
     return dev.type
+
+
+def check_head_dim(Dh: int) -> None:
+    """Raises unless the CUDA kernels take head dim ``Dh``."""
+    if Dh not in HEAD_DIMS:
+        raise ValueError(
+            f"the flash kernels take Dh in {HEAD_DIMS}, got {Dh}: the other head dims "
+            "that flash_shapes_ok admits (384 to 1536) are not ported yet (ROADMAP.md Queue 2)")
 
 
 def _strided(q, k, v):

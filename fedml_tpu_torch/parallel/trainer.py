@@ -4,7 +4,8 @@ One device only: ``dp = tp = sp = 1``. The JAX trainer's data, tensor and
 sequence parallelism over a mesh wait for ROADMAP.md Queue 1 item 10; any
 other degree raises. A step is the JAX step: the loss (chunked CE when
 ``ce_chunk`` is set, with the head kernel cast to the hidden's dtype), its
-gradient through the blocks (recomputed in the backward when ``use_remat``),
+gradient through the blocks (recomputed in the backward when ``use_remat``,
+wholly or, with ``remat_policy="dots"``, all but the matrix products),
 and optax's ``adamw`` written out over the parameter dict. Parameters are
 float32; the model computes in ``dtype``.
 """
@@ -34,7 +35,7 @@ class DistTrainConfig:
     lr: float = 3e-4
     weight_decay: float = 0.01
     use_remat: bool = True   # recompute each block in the backward
-    remat_policy: str = "full"  # "dots" is not ported (ROADMAP.md Queue 1 item 13)
+    remat_policy: str = "full"  # or "dots": save the matrix products' outputs
     # chunked LM cross-entropy (ops/losses.py): 0 = full logits, else the
     # sequence-chunk size
     ce_chunk: int = 0

@@ -34,6 +34,11 @@ def _opt_float(args, key):
     return None if val is None else float(val)
 
 
+# federated optimizers that the JAX package runs on engines of their own
+# (its simulation/__init__.py:162-210), matched case-insensitively as there
+_UNPORTED_ENGINES = ("hierarchicalfl", "tieredfl", "decentralized")
+
+
 def _check_unported(args) -> None:
     for key, default, item in _UNPORTED:
         val = getattr(args, key, None)
@@ -41,6 +46,11 @@ def _check_unported(args) -> None:
             raise NotImplementedError(
                 f"{key}={val!r} selects a feature that is not ported yet "
                 f"(ROADMAP.md Queue 1, item {item})")
+    name = str(getattr(args, "federated_optimizer", "FedAvg"))
+    if name.lower() in _UNPORTED_ENGINES:
+        raise NotImplementedError(
+            f"federated optimizer {name!r} runs on an engine of its own that is not ported "
+            "yet (ROADMAP.md Queue 1, item 11)")
 
 
 def build_simulator(args, fed_data=None, model=None, variables=None) -> tuple:

@@ -201,7 +201,10 @@ CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-4 + 2.0 ** -7}
                                                 ((1, 512, 2, 128), torch.float32, False),
                                                 ((3, 333, 2, 64), torch.float32, True),
                                                 ((1, 1000, 4, 64), torch.bfloat16, False),
-                                                ((2, 100, 3, 128), torch.bfloat16, True)])
+                                                ((2, 100, 3, 128), torch.bfloat16, True),
+                                                ((2, 333, 3, 256), torch.bfloat16, True),
+                                                ((3, 130, 2, 256), torch.float32, True),
+                                                ((1, 256, 2, 256), torch.float32, False)])
 def test_flash_kernels_match_plain_on_card(shape, dtype, causal):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")

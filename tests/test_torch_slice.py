@@ -139,8 +139,10 @@ def test_flash_wrappers_refuse_meta_tensors():
         fa.flash_dkv(q, q, q, q, row, row, True)
 
 
+# remat "dots" is ported: its case now asks for it together with a mesh, which
+# still raises
 @pytest.mark.parametrize("knob", [dict(dp=2), dict(tp=2), dict(sp=2),
-                                  dict(remat_policy="dots")])
+                                  dict(dp=2, remat_policy="dots")])
 def test_unported_lm_trainer_options_raise(knob):
     from fedml_tpu_torch.parallel import DistTrainConfig, DistributedLMTrainer
 
@@ -166,4 +168,21 @@ def test_cuda_wrappers_refuse_non_cuda_devices():
 def test_unported_features_raise(knob):
     args = fedml_tpu_torch.init(config=dict(SLICE, comm_round=1, device="cpu", **knob))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fedml_tpu_torch.run_simulation(args=args)
+
+
+@pytest.mark.parametrize("name", ["HierarchicalFL", "tieredfl", "DECENTRALIZED"])
+def test_unported_engine_optimizers_raise(name):
+    """The optimizers that the JAX package runs on engines of their own raise
+    where the simulator is built, whatever their case."""
+    args = fedml_tpu_torch.init(config=dict(SLICE, comm_round=1, device="cpu",
+                                            federated_optimizer=name))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1, item 11"):
+        fedml_tpu_torch.run_simulation(args=args)
+
+
+def test_unknown_federated_optimizer_raises_value_error():
+    args = fedml_tpu_torch.init(config=dict(SLICE, comm_round=1, device="cpu",
+                                            federated_optimizer="FedNoSuch"))
+    with pytest.raises(ValueError, match="unknown federated optimizer"):
         fedml_tpu_torch.run_simulation(args=args)
