@@ -4,6 +4,9 @@
     python3 chip_smoke.py kernels    # phases 1-3 only (no result line)
     python3 chip_smoke.py agg [DIR]  # the robust path's aggregation half only,
                                      # of the package in checkout DIR (no result line)
+    python3 chip_smoke.py flash [DIR]  # flash's kernel times at the wide LM's
+                                       # shape, of the package in checkout DIR
+                                       # (no result line)
 
 Phases, each printing one JSON line; any failure ends the run with a
 non-zero exit code and no result line:
@@ -31,8 +34,9 @@ non-zero exit code and no result line:
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
    flash_dkv; SDPA as the library call, with the backend it ran; bf16
    inputs on the tensor cores, float32 on the FMA kernels), at Dh 64 and
-   128 and at Dh 256 (the _dh256 entries at the wide LM's bf16 shape, the
-   _dh256_f32 ones at a float32 shape);
+   128 and at Dh 256 (the _dh256 entries at the wide LM's bf16 shape, on
+   flash_dh256_sm90.cu's forward and dk/dv, with the earlier design's time
+   as was_ms; the _dh256_f32 ones at a float32 shape);
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
 4b. repeat — the small robust path on cnn_fedavg, the small resnet8 path,
@@ -1748,8 +1752,9 @@ def phase_resume():
 # causal one, a small ragged bf16 one and a ragged full bf16 one (bf16 runs the
 # tensor-core kernels, f32 the FMA ones); then Dh 256: the wide LM's attention
 # (lm_wide: --dim 2048 over 8 heads), a full f32 one at T 4352 (small_lm_256's
-# T, where auto picks flash in f32), a ragged bf16 causal one and a ragged f32
-# causal one
+# T, where auto picks flash in f32), a ragged bf16 causal one, a ragged f32
+# causal one and a ragged full bf16 one (the Dh-256 kernels' non-causal
+# branch, and TMA's zero fill at a T that is not a multiple of 64)
 FLASH_SLICE = (2, 8192, 16, 64)
 FLASH_WIDE = (8, 4608, 8, 256)
 FLASH_WIDE_F32 = (1, 4352, 2, 256)
@@ -1757,10 +1762,16 @@ FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), ((1, 2048, 8, 128), torch.fl
                ((3, 333, 2, 64), torch.float32, True), ((2, 100, 3, 128), torch.bfloat16, True),
                ((1, 1000, 4, 64), torch.bfloat16, False),
                (FLASH_WIDE, torch.bfloat16, True), (FLASH_WIDE_F32, torch.float32, False),
-               ((2, 333, 3, 256), torch.bfloat16, True), ((3, 130, 2, 256), torch.float32, True))
+               ((2, 333, 3, 256), torch.bfloat16, True), ((3, 130, 2, 256), torch.float32, True),
+               ((1, 1000, 2, 256), torch.bfloat16, False))
 # the timed shapes and the suffix of their kernels line entries (the launch
 # counts of lm_main, lm_wide and small_lm_256 fill them in)
 FLASH_TIMED = {FLASH_SLICE: "", FLASH_WIDE: "_dh256", FLASH_WIDE_F32: "_dh256_f32"}
+# the earlier design's time of a kernel redesigned since (ms at FLASH_WIDE: the
+# bf16 Dh-256 forward and dk/dv of flash_attention_sm90.cu, measured by this
+# script on an H100 80GB HBM3 at 700 W before their redesign), printed beside
+# the new time on the kernel's own line; `flash DIR` times both in one call
+FLASH_WAS_MS = {"flash_fwd_dh256": 5.208, "flash_dkv_dh256": 9.373}
 # |kernel - plain| / max|plain|, plain in float32. Each output sums up to
 # T * Dh = 5e5 float32 products in another order than the plain version's
 # cuBLAS calls: a random walk of sqrt(n) * 2^-24 ~ 4e-5 of the terms'
@@ -1904,7 +1915,7 @@ def check_flash(dev):
         )
         for name, line, bytes_in, bytes_out, kern, plain, lib_ms, err, abs_err in cases:
             bf16_ops, f32_ops = (n * 2 * Dh * pairs for n in products[name])
-            lib = fa.route("fedml_" + name, dtype)[0]
+            lib = fa.route("fedml_" + name, dtype, Dh)[0]
             entry = {"name": name + FLASH_TIMED[shape], "route": "cuda",
                      "source": f"fedml_tpu_torch/csrc/{lib}.cu",
                      "replaces": "fedml_tpu/ops/pallas/flash_attention.py" + line,
@@ -1912,13 +1923,33 @@ def check_flash(dev):
                      "plain_ms": time_ms(plain, reps=2, rounds=3),
                      "library_ms": lib_ms, **_bound(f32_ops, bytes_in + bytes_out, bf16_ops)}
             entries.append(entry)
-            emit("kernel_" + entry["name"], **row, gflop=(bf16_ops + f32_ops) / 1e9,
+            was = {"was_ms": FLASH_WAS_MS[entry["name"]],
+                   "was_from": "flash_attention_sm90.cu's earlier Dh-256 design"} \
+                if entry["name"] in FLASH_WAS_MS else {}
+            emit("kernel_" + entry["name"], **row, **was, gflop=(bf16_ops + f32_ops) / 1e9,
                  bf16_gflop=bf16_ops / 1e9, kernel_source=entry["source"],
                  library="F.scaled_dot_product_attention " +
                  ("forward" if name == "flash_fwd" else "backward (dq, dk and dv together)"),
                  **{k: v for k, v in entry.items() if k not in ("name", "route", "source")})
         del qt, kt, vt, sdpa_out
     return entries
+
+
+def phase_flash_times(dev, reps=3, rounds=5):
+    """Kernel ms of flash forward, dq and dk/dv at FLASH_WIDE (bf16 causal,
+    the wide LM's attention) for the package first on sys.path: with
+    ``flash DIR`` a checkout's, so two commits compare in one call (parent,
+    change, change, parent)."""
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(FLASH_WIDE, torch.bfloat16, torch.Generator().manual_seed(5),
+                                dev)
+    out, lse = fa.flash_forward(q, k, v, True)
+    delta = fa.attention_delta(do, out)
+    emit("flash_times", shape=list(FLASH_WIDE), package=str(Path(fa.__file__).parents[2]),
+         fwd_ms=time_ms(lambda: fa.flash_forward(q, k, v, True), reps, rounds),
+         dq_ms=time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, True), reps, rounds),
+         dkv_ms=time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, True), reps, rounds))
 
 
 def lm_data(vocab, B, T, seed=0):
@@ -2093,13 +2124,13 @@ LM_GROUPS = {"flash": ("flash_",), "gemm": ("nvjet", "gemm", "cutlass")}
 def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
     """Where an LM step's time goes: two warm steps of an LM phase's trainer."""
     emit(phase, **profile_run(lambda: tr.train(data, steps, log_fn=None), steps, (
-        "flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"),
-        unit="step", groups=LM_GROUPS))
+        "flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
+        "flash_fwd_dh256_kernel", "flash_dkv_dh256_kernel"), unit="step", groups=LM_GROUPS))
 
 
 def main(argv):
-    if not (argv in ([], ["kernels"]) or (argv[:1] == ["agg"] and len(argv) <= 2)):
-        print("usage: python3 chip_smoke.py [kernels | agg [DIR]]", file=sys.stderr)
+    if not (argv in ([], ["kernels"]) or (argv[:1] in (["agg"], ["flash"]) and len(argv) <= 2)):
+        print("usage: python3 chip_smoke.py [kernels | agg [DIR] | flash [DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2107,11 +2138,14 @@ def main(argv):
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if argv[:1] == ["agg"]:
+    if argv[:1] in (["agg"], ["flash"]):
         if len(argv) == 2:  # before any import of the package
             sys.path.insert(0, str(Path(argv[1]).resolve()))
         phase_device()
-        phase_agg()
+        if argv[0] == "agg":
+            phase_agg()
+        else:
+            phase_flash_times(dev)
         return 0
     smi = phase_device()
     phase_build()

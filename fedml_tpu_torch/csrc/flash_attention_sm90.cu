@@ -1,6 +1,7 @@
 // Flash attention's forward and its backward (dq; dk and dv) on the Hopper
-// tensor cores (wgmma), for bfloat16 (B, T, H, Dh) inputs with Dh 64, 128 or
-// 256, causal or full, any T. Float32 inputs keep the FMA kernels of
+// tensor cores (wgmma), for bfloat16 (B, T, H, Dh) inputs, causal or full,
+// any T: all three at Dh 64 and 128, dq at Dh 256. The forward and dk/dv at
+// Dh 256 are flash_dh256_sm90.cu's; float32 inputs keep the FMA kernels of
 // flash_attention.cu.
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (:66,
@@ -59,7 +60,7 @@
 // kt+1's softmax. dq and dk/dv are not: dq's pipeline (a second set of
 // scores in flight) took enough registers to drop to 2 blocks per SM and
 // ran slower than 3 blocks without it. Registers decide occupancy at Dh 64
-// and 128 (fwd_blocks, dq_blocks, dkv_blocks): the blocks of an SM interleave one's
+// and 128 (kFwdBlocks, dq_blocks, kDkvBlocks): the blocks of an SM interleave one's
 // softmax with another's products. On the causal diagonal dq sums dO V^T
 // on the CUDA cores instead (dots_fma), in a plain float32 product's order:
 // there row 0's dq is pure rounding noise of dp - delta, which only that
@@ -68,34 +69,26 @@
 // causal rows start first, and every sum runs in one fixed order without
 // atomics, so dq, dk and dv repeat bit for bit.
 //
-// Dh 256. One warpgroup's 64 x 256 float32 accumulator would take 128
-// registers a thread, and dk/dv holds two. So a Dh-256 block runs two
-// warpgroups (256 threads); each owns 128 of the Dh columns of o, dq, dk and
-// dv and works exactly as a Dh-128 block on them, with the same registers.
-// Both compute the whole 64 x 64 score products over all 256 columns, the
-// same instructions on the same tiles, so both hold the same bits of s, m,
-// l and ds without exchanging them: the score products are repeated (the
-// forward does 2 + 3 products' work instead of 1 + 3, dq 4 + 3, dk/dv 4 +
-// 6), the price of keeping every sum in one warpgroup's registers and in
-// one fixed order. A 64 x 256 bf16 tile is 32 KB: the forward keeps its
-// three-stage ring (q and three k/v stages, 225 KB of the 227), dq and dk/dv
-// take two stages (194 KB). One block per SM.
+// Dh 256 (dq). One warpgroup's 64 x 256 float32 accumulator would take 128
+// registers a thread. So a Dh-256 dq block runs two warpgroups (256
+// threads); each owns 128 of the Dh columns of dq and works exactly as a
+// Dh-128 block on them. Both compute the whole 64 x 64 score products over
+// all 256 columns, the same instructions on the same tiles, so both hold the
+// same bits of s and ds without exchanging them (4 + 3 products' work
+// instead of 2 + 3). Q and dO (32 KB each) and two k/v stages take 194 KB:
+// one block per SM. flash_dh256_sm90.cu computes the forward's and dk/dv's
+// score products once per block instead and streams its tiles by TMA.
 //
 // Left for later: a producer warp with TMA and setmaxnreg (warp
 // specialisation), persistent blocks, the dk/dv pipeline (its registers do
-// not fit the forward's scheme), 16-byte stores of the outputs, and at Dh
-// 256 score products split over the two warpgroups instead of repeated.
+// not fit the forward's scheme), 16-byte stores of the outputs, and dq at
+// Dh 256 on flash_dh256_sm90.cu's design.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_sm90.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kWG = 128;  // threads of one warpgroup
-// warpgroups per block: one, or two at Dh 256, each owning 128 output columns
+// warpgroups per block: one, or two at Dh 256 (dq), each owning 128 output columns
 template <int DH>
 __host__ __device__ constexpr int warpgroups() { return DH == 256 ? 2 : 1; }
 template <int DH>
@@ -104,28 +97,15 @@ __host__ __device__ constexpr int threads() { return kWG * warpgroups<DH>(); }
 // pipeline without spills (2 blocks); dk/dv spills a little at 3 blocks,
 // which ran faster than 2 blocks without spills; dq fits 3 blocks at Dh 64
 // and 2 without spills at Dh 128. At Dh 256 shared memory allows one block.
-template <int DH>
-__host__ __device__ constexpr int fwd_blocks() { return DH == 256 ? 1 : 2; }
+constexpr int kFwdBlocks = 2;
 template <int DH>
 __host__ __device__ constexpr int dq_blocks() { return DH == 64 ? 3 : DH == 128 ? 2 : 1; }
-template <int DH>
-__host__ __device__ constexpr int dkv_blocks() { return DH == 256 ? 1 : 3; }
-constexpr int kTile = 64;      // rows of every tile: q, k, v, dO
-// ring depth of the streamed tiles: the forward's three stages fit at every
-// Dh; dq's and dk/dv's two resident tiles leave room for two at Dh 256
+constexpr int kDkvBlocks = 3;
+// ring depth of the streamed tiles: three, two for dq's two resident tiles
+// at Dh 256
 constexpr int kFwdStages = 3;
 template <int DH>
 __host__ __device__ constexpr int bwd_stages() { return DH == 256 ? 2 : 3; }
-constexpr int kRowBytes = 128; // one swizzled row: 64 bf16
-constexpr float kNegInf = -3.4028234663852886e38f;  // finfo(float32).min
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
-}
 
 // Byte offset of 16-byte chunk c (8 bf16) of row r in an R-row tile. The
 // tile is Dh/64 column groups of R rows x 128 bytes; each 8-row group is one
@@ -179,118 +159,6 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src, int c0, i
   cp_async4(smem_addr(dst + tid), src + (ok ? c0 + tid : 0), ok);
 }
 
-// --- wgmma -------------------------------------------------------------------
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (all >> 4), layout 1 = 128-byte swizzle.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// k step kk (16 of the Dh columns) of 64 rows from `tile` of an R-row tile,
-// K-major: 8-row atoms 1024 bytes apart; within a 128-byte row the step
-// moves the start by 32 bytes (the swizzle is applied to the address).
-template <int R>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return desc(tile + (kk >> 2) * (R * kRowBytes) + (kk & 3) * 32, 16, 1024);
-}
-
-// k step kk (16 rows) of 64-column half g of an R-row tile, MN-major (the
-// product's N is Dh, contiguous in a row): 8-row atoms 1024 bytes apart
-// along K. One instruction covers one 64-wide half, so the offset between
-// halves is never read and both offsets can be 1024.
-template <int R>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk, int g) {
-  return desc(tile + g * (R * kRowBytes) + kk * 16 * kRowBytes, 1024, 1024);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// all but the newest N groups of products are done
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving accumulator values around the async products
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_D32                                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WG_F8(i)                                                                           \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 64) = (acc ? d : 0) + A B^T over 16 columns, A and B K-major in
-// shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32 ", %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d (64 x 64) = (acc ? d : 0) + A B over 16 rows of B, A (64 x 16) in
-// registers, B MN-major in shared memory (trans-b)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
-                                         int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-#undef WG_D32
-#undef WG_F8
-
-// (x, y) = hi + mid + lo exactly, each a pair of bf16: hi keeps x's top 16
-// bits (sign, exponent and 7 mantissa bits: bf16(x) rounded toward zero),
-// mid the top 16 bits of x - hi, and lo = x - hi - mid has at most 8
-// significant bits, so it is a bf16 value. Both differences are exact in
-// float32. Bit masks and byte permutes, no conversions.
-__device__ __forceinline__ float top16(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xffff0000u);
-}
-
-__device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t& mid,
-                                       uint32_t& lo) {
-  const float rx = x - top16(x), ry = y - top16(y);
-  const float lx = rx - top16(rx), ly = ry - top16(ry);
-  hi = __byte_perm(__float_as_uint(x), __float_as_uint(y), 0x7632);
-  mid = __byte_perm(__float_as_uint(rx), __float_as_uint(ry), 0x7632);
-  lo = __byte_perm(__float_as_uint(lx), __float_as_uint(ly), 0x7632);
-}
-
-// The 64 x 64 accumulator s as the register A operand of four k steps, each
-// in three terms (a[kk][0] hi, [1] mid, [2] lo). In the m64nNk16 accumulator
-// a thread holds (row, 8j + 2c + e) in s[4j + e] and (row + 8, ...) in
-// s[4j + 2 + e]; the A fragment of k step kk is the same thread's values of
-// columns 16kk .. 16kk + 15, i.e. s[8kk .. 8kk + 7] paired in order.
-__device__ __forceinline__ void split_frags(const float (&s)[32], uint32_t (&a)[4][3][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      split3(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], a[kk][0][r], a[kk][1][r], a[kk][2][r]);
-}
-
 // d[g] = A B: A 64 x 64 in three register terms, B the 64-row `tile`
 // MN-major, Dh = 64 G columns. Per k step lo, mid, hi: one fixed order.
 template <int G>
@@ -305,50 +173,6 @@ __device__ __forceinline__ void mma_split(float (&d)[G][32], const uint32_t (&a)
         wgmma_rs(d[g], a[kk][t], desc_mn<kTile>(tile, kk, g), kk > 0 || t < 2);
 }
 
-// --- the kernels ---------------------------------------------------------------
-
-// Online softmax of one 64-key tile at k0 for this thread's two rows (row0,
-// row0 + 8; q0 is the block's first row): s becomes p = exp(scale s - m),
-// m and l move on, and corr = exp(m_old - m_new) per row.
-__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
-                                             float (&corr)[2], int k0, int q0, int row0, int c2,
-                                             int Tn, int causal, float scale) {
-  // only a tile across T or on the diagonal needs the mask
-  const bool edge = k0 + kTile > Tn || (causal && k0 + kTile - 1 > q0);
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + 8 * hh;
-    float bm = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = k0 + 8 * j + c2 + e;
-        float x = s[4 * j + 2 * hh + e] * scale;
-        if (edge && (col >= Tn || (causal && col > row))) x = kNegInf;
-        s[4 * j + 2 * hh + e] = x;
-        bm = fmaxf(bm, x);
-      }
-    bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
-    bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
-    const float nm = fmaxf(m[hh], bm);
-    corr[hh] = expf(m[hh] - nm);
-    float ps = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p = expf(s[4 * j + 2 * hh + e] - nm);
-        s[4 * j + 2 * hh + e] = p;
-        ps += p;
-      }
-    ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-    ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-    l[hh] = l[hh] * corr[hh] + ps;
-    m[hh] = nm;
-  }
-}
-
 // acc = acc * corr (per row) + pv, after the products into pv are done
 template <int G>
 __device__ __forceinline__ void add_scaled(float (&acc)[G][32], float (&pv)[G][32],
@@ -361,6 +185,8 @@ __device__ __forceinline__ void add_scaled(float (&acc)[G][32], float (&pv)[G][3
   }
 }
 
+// --- the kernels ---------------------------------------------------------------
+
 // s = A B^T of two 64-row tiles, both K-major (issued, not waited)
 template <int DH>
 __device__ __forceinline__ void scores(float (&s)[32], uint32_t a_tile, uint32_t b_tile) {
@@ -369,24 +195,23 @@ __device__ __forceinline__ void scores(float (&s)[32], uint32_t a_tile, uint32_t
     wgmma_ss(s, desc_k<kTile>(a_tile, kk), desc_k<kTile>(b_tile, kk), kk);
 }
 
-// One block (one warpgroup, two at Dh 256) per (bh, 64-row q tile): o (B, T,
+// One block (one warpgroup) per (bh, 64-row q tile): o (B, T,
 // H, Dh) contiguous, lse (B*H, T). Pipelined: while tile kt's P V and tile
 // kt+1's Q K^T run on the tensor cores, the warpgroup computes tile kt+1's
 // softmax.
 template <int DH>
-__global__ void __launch_bounds__(threads<DH>(), fwd_blocks<DH>())
+__global__ void __launch_bounds__(kWG, kFwdBlocks)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                        int H, int Tn, int64_t sb, int64_t st, int64_t sh, float scale,
                        int causal) {
-  constexpr int G = DH / 64 / warpgroups<DH>();  // 64-column groups of this warpgroup
+  constexpr int G = DH / 64;  // 64-column groups
   constexpr int kBytes = kTile * DH * 2;  // one tile
   constexpr int kStages = kFwdStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);
   uint8_t* ring = Qs + kBytes;  // stage s: K at ring + 2 s kBytes, V after it
-  const int wg = threadIdx.x / kWG, warp = threadIdx.x % kWG / 32, lane = threadIdx.x % 32;
-  const uint32_t cols = wg * G * kTile * kRowBytes;  // this warpgroup's columns of a tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nt = (Tn + kTile - 1) / kTile;
   const int q0 = (nt - 1 - (int)blockIdx.y) * kTile;  // the longest causal rows first
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -433,7 +258,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wg_fence();
     scores<DH>(s, q_tile, stage(kt + 1));
     wg_commit();
-    mma_split<G>(pv, a, stage(kt) + kBytes + cols);
+    mma_split<G>(pv, a, stage(kt) + kBytes);
     wg_commit();
     wg_wait<1>();
     pin(s);
@@ -448,7 +273,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   split_frags(s, a);  // the last tile
   wg_fence();
-  mma_split<G>(pv, a, stage(nk - 1) + kBytes + cols);
+  mma_split<G>(pv, a, stage(nk - 1) + kBytes);
   wg_commit();
   wg_wait<0>();
   add_scaled(acc, pv, corr);
@@ -458,8 +283,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = row0 + 8 * hh;
     if (row >= Tn) continue;
     const float ls = fmaxf(l[hh], 1e-30f);
-    if (wg == 0 && lane % 4 == 0) lse[(int64_t)bh * Tn + row] = m[hh] + logf(ls);
-    bf16* dst = o + (((int64_t)b * Tn + row) * H + h) * DH + 64 * G * wg + c2;
+    if (lane % 4 == 0) lse[(int64_t)bh * Tn + row] = m[hh] + logf(ls);
+    bf16* dst = o + (((int64_t)b * Tn + row) * H + h) * DH + c2;
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -634,16 +459,16 @@ flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// One block (one warpgroup, two at Dh 256) per (bh, 64-row k tile): dk and dv
+// One block (one warpgroup) per (bh, 64-row k tile): dk and dv
 // (B, T, H, Dh) contiguous. dout is contiguous; lse and delta are (B*H, T).
 template <int DH>
-__global__ void __launch_bounds__(threads<DH>(), dkv_blocks<DH>())
+__global__ void __launch_bounds__(kWG, kDkvBlocks)
 flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Tn, int64_t sb,
                        int64_t st, int64_t sh, float scale, int causal) {
-  constexpr int G = DH / 64 / warpgroups<DH>();  // 64-column groups of this warpgroup
+  constexpr int G = DH / 64;  // 64-column groups
   constexpr int kBytes = kTile * DH * 2;  // one tile
   constexpr int kStages = bwd_stages<DH>();
   extern __shared__ uint8_t smem_raw[];
@@ -651,8 +476,7 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint8_t* Vs = Ks + kBytes;
   uint8_t* ring = Vs + kBytes;  // stage s: Q at ring + 2 s kBytes, dO after it
   float* vecs = reinterpret_cast<float*>(ring + kStages * 2 * kBytes);  // stage s: lse, delta
-  const int wg = threadIdx.x / kWG, warp = threadIdx.x % kWG / 32, lane = threadIdx.x % 32;
-  const uint32_t cols = wg * G * kTile * kRowBytes;  // this warpgroup's columns of a tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nq = (Tn + kTile - 1) / kTile;
   const int k0 = (int)blockIdx.y * kTile;  // the keys seen by the most causal rows first
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -727,7 +551,7 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float t[G][32];
     split_frags(s, a);
     wg_fence();
-    mma_split<G>(t, a, o_tile + cols);  // P^T dO
+    mma_split<G>(t, a, o_tile);  // P^T dO
     wg_commit();
     wg_wait<0>();
 #pragma unroll
@@ -738,7 +562,7 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     split_frags(dp, a);
     wg_fence();
-    mma_split<G>(t, a, q_tile + cols);  // dS^T Q (dk is scaled at the end)
+    mma_split<G>(t, a, q_tile);  // dS^T Q (dk is scaled at the end)
     wg_commit();
     wg_wait<0>();
 #pragma unroll
@@ -754,7 +578,7 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row0 + 8 * hh;
     if (row >= Tn) continue;
-    const int64_t at = (((int64_t)b * Tn + row) * H + h) * DH + 64 * G * wg + c2;
+    const int64_t at = (((int64_t)b * Tn + row) * H + h) * DH + c2;
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -796,7 +620,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
   constexpr int bytes = (1 + 2 * kFwdStages) * kTile * DH * 2 + 1024;
   cudaError_t e = prepare(flash_fwd_wgmma_kernel<DH>, bytes);
   if (e != cudaSuccess) return e;
-  flash_fwd_wgmma_kernel<DH><<<grid(a), threads<DH>(), bytes, st>>>(
+  flash_fwd_wgmma_kernel<DH><<<grid(a), kWG, bytes, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, a.H, a.T, a.sb, a.st, a.sh,
       a.scale, a.causal);
   return cudaGetLastError();
@@ -825,7 +649,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   constexpr int bytes = (2 + 2 * S) * kTile * DH * 2 + S * 2 * kTile * 4 + 1024;
   cudaError_t e = prepare(flash_dkv_wgmma_kernel<DH>, bytes);
   if (e != cudaSuccess) return e;
-  flash_dkv_wgmma_kernel<DH><<<grid(a), threads<DH>(), bytes, st>>>(
+  flash_dkv_wgmma_kernel<DH><<<grid(a), kWG, bytes, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dk,
       (bf16*)dv, a.H, a.T, a.sb, a.st, a.sh, a.scale, a.causal);
   return cudaGetLastError();
@@ -847,7 +671,6 @@ extern "C" int fedml_flash_fwd_sm90(const void* q, const void* k, const void* v,
   switch (Dh) {
     case 64: return (int)launch_fwd<64>(q, k, v, o, lse, a, s);
     case 128: return (int)launch_fwd<128>(q, k, v, o, lse, a, s);
-    case 256: return (int)launch_fwd<256>(q, k, v, o, lse, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -879,7 +702,6 @@ extern "C" int fedml_flash_dkv_sm90(const void* q, const void* k, const void* v,
   switch (Dh) {
     case 64: return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, a, s);
     case 128: return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, a, s);
-    case 256: return (int)launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

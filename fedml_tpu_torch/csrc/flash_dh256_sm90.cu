@@ -1,0 +1,598 @@
+// Flash attention's forward and dk/dv at head dim 256 for bfloat16 (B, T, H,
+// 256) inputs on the Hopper tensor cores, causal or full, any T: the Cheetah
+// LM's attention at --dim 2048 (8 heads of 256). dq at Dh 256, and every
+// other head dim, stay in flash_attention_sm90.cu.
+//
+// Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (:66,
+// the forward: o = softmax(scale q k^T, causal mask) v and lse = m + log l)
+// and _dkv_kernel (:213: p = exp(scale q k^T - lse), dv = sum p^T dO, ds =
+// p (dO v^T - delta), dk = scale sum ds^T q). The arithmetic is
+// flash_attention_sm90.cu's: bf16 x bf16 score products exact with float32
+// sums, p and ds as three bf16 terms (exact to float32), each 64-row tile's
+// products from a zero accumulator added in float32, finfo(float32).min
+// masking, l clamped at 1e-30, the scale 2^-4 applied after Q K^T.
+//
+// Bound on the H100 at the wide LM's shape (B 8, T 4608, H 8, causal):
+// 6.796e8 unmasked (q, k) pairs x 2 x 256 operations = 0.348 TFLOP a
+// product. The forward does one bf16 product and one split product (1 + 3
+// tensor-core products), dk/dv two and two (2 + 6): 1.41 and 2.82 ms at 989
+// TFLOP/s, against ~0.2 ms of bytes at 3.35 TB/s. Bound by operations.
+//
+// What held flash_attention_sm90.cu's Dh-256 forms back: a 64 x 256 float32
+// accumulator takes 128 registers a thread, so their two warpgroups each
+// owned 128 output columns and both computed every score product (5 product
+// units for the forward's 4, 10 for dk/dv's 8), with the softmax, the
+// three-term split and every load's address work done twice, in lockstep.
+// Here every score product, exponential and split runs once per block.
+//
+// Forward. A block takes 128 q rows; warpgroups 0 and 1 each own 64 of them
+// over all 256 columns, with warpgroup 1's rows after warpgroup 0's, and
+// walk the k/v tiles up to their diagonals; warpgroup 2 only issues copies
+// (setmaxnreg gives its registers to the other two: 240 each). Per k tile a
+// warpgroup computes its 64 x 64 scores (wgmma m64n64k16, 16 k steps, the
+// order of flash_attention_sm90.cu), the online softmax and the split, then
+// P V one 64-column group at a time into a 32-register accumulator from
+// zero, added to its 128-register output in float32: the bits of the
+// earlier kernel, and no exchange between warpgroups. Nothing couples the
+// two warpgroups but the k/v stages, so one's softmax runs while the
+// other's products do. Shared memory: q (64 KB), two k stages and two v
+// stages (32 KB each): 192 KB; full and empty mbarriers per stage (k and v
+// apart, so Q K^T starts before v lands).
+//
+// dk/dv. A block takes a 64-row k tile with its v tile and walks the q/dO
+// tiles (with their lse and delta) from the diagonal on. The dk and dv
+// accumulators (128 registers each) do not fit one warpgroup, so warpgroup
+// 0 computes S^T = K Q^T, forms p and sums dv = P^T dO over all 256
+// columns, and warpgroup 1 computes dP^T = V dO^T, takes p from a
+// double-buffered exchange tile in shared memory (named barriers: written,
+// read), forms ds and sums dk = dS^T Q: 8 product units, one exchange, and
+// warpgroup 0 may run up to two q tiles ahead. The split products run one
+// 64-column group at a time into a 32-register accumulator from zero: 0
+// bytes spilled. Shared memory: k and v (64 KB), two q/dO stages (128 KB)
+// with their lse and delta (1.5 KB), two p tiles (32 KB): 227 KB with
+// alignment (static_assert below). Thread 0 of warpgroup 1, which reads each
+// stage last, refills a stage once all 256 threads have arrived on its empty
+// mbarrier. A producer warpgroup here (registers capped at 232 or 240) ran
+// 1.1-2.4 ms slower.
+//
+// Both. Blocks go by (b, h), and within one the longest causal rows (dk/dv:
+// the keys seen by the most rows) first. Tiles arrive by the tensor memory
+// accelerator (TMA): one 4-D tensor map per operand, (Dh, H, T, B) with the
+// caller's element strides (q, k, v are strided views of one projection),
+// boxes of 64 columns x 64 rows in the 128-byte swizzle, the layout desc_k
+// and desc_mn read; the hardware zero-fills rows at or past T. lse and delta
+// come by a 1-D map over the (B*H*T) vector (a row stride of T floats need
+// not be a multiple of 16 bytes), in boxes that start on a 16-byte boundary,
+// as TMA requires. One thread issues every copy into full mbarriers that
+// count the bytes; no thread computes a load address. Exchange tiles are 64
+// x 64 floats, row r's columns XOR-swizzled by 8 (r % 4), so a warp's float2
+// accesses (4 rows x 4 lanes per half warp) hit 32 distinct banks. No
+// atomics and one fixed order of every sum: dk and dv repeat bit for bit.
+
+#include <cuda.h>
+
+#include "flash_sm90.cuh"
+
+namespace {
+
+constexpr int kDh = 256;
+constexpr int kThreads = 2 * kWG;                 // dk/dv: two warpgroups
+// forward: two consumer warpgroups and a producer warpgroup, whose registers
+// go to the consumers (2 x 128 x 240 + 128 x 24 <= 65,536)
+constexpr int kFwdThreads = 3 * kWG;
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+constexpr int kGroupBytes = kTile * kRowBytes;    // 64 columns of a tile: 8 KB
+constexpr int kTileBytes = kDh / 64 * kGroupBytes;  // a 64 x 256 bf16 tile: 32 KB
+constexpr int kXFloats = kTile * kTile;           // one exchange tile
+// lse and delta of a q tile: a box of 68 floats from the 16-byte boundary at
+// or below the tile's first (TMA copies start on one), 384 bytes apart
+constexpr int kVecBox = kTile + 4;
+constexpr int kVecSlot = 384;
+
+// forward: 128 q rows, k stages, v stages, 9 barriers (+ alignment slack)
+constexpr int kFwdSmem = 6 * kTileBytes + 9 * 8 + 1024;
+// dk/dv: k, v, q/dO stages, two p tiles, lse/delta stages, 5 barriers
+constexpr int kDkvSmem = 6 * kTileBytes + 2 * kXFloats * 4 + 4 * kVecSlot + 5 * 8 + 1024;
+static_assert(kFwdSmem <= 232448 && kDkvSmem <= 232448, "shared memory of one H100 block");
+
+// --- mbarriers and TMA -------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// the one arrival of this phase, expecting `bytes` of copies
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// the phase of `parity` has completed; the loop stays inside one asm block,
+// so the warp leaves it converged, as the .aligned wgmma instructions after
+// it require
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                       int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// rows t0 .. t0 + 63 of head h of batch b, all 256 columns, as four swizzled
+// 64-column groups
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int h,
+                                         int t0, int b) {
+#pragma unroll
+  for (int g = 0; g < kDh / 64; ++g) tma_4d(dst + g * kGroupBytes, map, bar, 64 * g, h, t0, b);
+}
+
+// named barriers of dk/dv's two warpgroups (0 is __syncthreads): p tile
+// i % 2 written (kPFull + i % 2) and read (kPEmpty + i % 2)
+constexpr int kPFull = 1, kPEmpty = 3;
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
+}
+
+// --- products and the exchange tile -------------------------------------------
+
+// d = A B^T of two 64-row tiles over all 256 columns (issued, not waited)
+__device__ __forceinline__ void scores(float (&d)[32], uint32_t a_tile, uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk)
+    wgmma_ss(d, desc_k<kTile>(a_tile, kk), desc_k<kTile>(b_tile, kk), kk);
+}
+
+// element (r, c) of an exchange tile
+__device__ __forceinline__ int xat(int r, int c) { return r * kTile + (c ^ ((r & 3) << 3)); }
+
+// the whole exchange tile from the m64n64 accumulator layout
+__device__ __forceinline__ void put_tile(float* X, const float (&s)[32], int r, int c2) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(X + xat(r + 8 * hh, 8 * j + c2)) =
+          make_float2(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]);
+}
+
+// the whole exchange tile in the m64n64 accumulator layout
+__device__ __forceinline__ void get_tile(const float* X, float (&s)[32], int r, int c2) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 x = *reinterpret_cast<const float2*>(X + xat(r + 8 * hh, 8 * j + c2));
+      s[4 * j + 2 * hh] = x.x;
+      s[4 * j + 2 * hh + 1] = x.y;
+    }
+}
+
+// d = A B for 64-column group g of B: A 64 x 64 in three register terms, B
+// the 64-row `tile` MN-major. Per k step lo, mid, hi: flash_attention_sm90.cu's
+// order (issued, not waited)
+__device__ __forceinline__ void mma_split_group(float (&d)[32], const uint32_t (&a)[4][3][4],
+                                                uint32_t tile, int g) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int t = 2; t >= 0; --t)
+      wgmma_rs(d, a[kk][t], desc_mn<kTile>(tile, kk, g), kk > 0 || t < 2);
+}
+
+// --- the kernels ---------------------------------------------------------------
+
+// One block per (bh, 128-row q tile): o (B, T, H, 256) contiguous, lse (B*H,
+// T). Warpgroups 0 and 1 each own 64 of the rows over all 256 columns;
+// warpgroup 2 issues the copies.
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
+                       float* __restrict__ lse, int H, int Tn, float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  const uint32_t Qs = smem_addr(base);      // warpgroup w's rows at Qs + w kTileBytes
+  const uint32_t Ks = Qs + 2 * kTileBytes;  // k stage s at Ks + s kTileBytes
+  const uint32_t Vs = Ks + 2 * kTileBytes;  // v stage s at Vs + s kTileBytes
+  // barriers: q; stage s of k and of v full (+ 8 s) and read by both
+  // warpgroups (empty, + 8 s)
+  const uint32_t qbar = smem_addr(base + 6 * kTileBytes);
+  const uint32_t kfull = qbar + 8, vfull = qbar + 24, kempty = qbar + 40, vempty = qbar + 56;
+  const int tid = threadIdx.x, wg = tid / kWG, warp = tid % kWG / 32, lane = tid % 32;
+  const int nt = (Tn + kTile - 1) / kTile, nb = (Tn + 2 * kTile - 1) / (2 * kTile);
+  // blocks by (b, h), and within one the longest causal rows first: the
+  // resident blocks share one or two heads' k and v in L2
+  const int bh = (int)blockIdx.x / nb, b = bh / H, h = bh % H;
+  const int q0 = (nb - 1 - (int)blockIdx.x % nb) * 2 * kTile;
+  // k tiles of warpgroup w: causal, none past its diagonal
+  auto tiles = [&](int w) { return causal ? min(q0 / kTile + w + 1, nt) : nt; };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) mbar_init(qbar + 8 * i, 1);
+#pragma unroll
+    for (int i = 5; i < 9; ++i) mbar_init(qbar + 8 * i, kThreads);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer: q, then k and v tile t once tile t - 2 is read
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 2 * kWG) {
+      mbar_expect(qbar, 2 * kTileBytes);
+      tma_tile(Qs, &qmap, qbar, h, q0, b);
+      tma_tile(Qs + kTileBytes, &qmap, qbar, h, q0 + kTile, b);
+      const int n = tiles(1);
+      for (int t = 0; t < n; ++t) {
+        const int s = t % 2;
+        if (t >= 2) mbar_wait(kempty + 8 * s, (t / 2 - 1) & 1);
+        mbar_expect(kfull + 8 * s, kTileBytes);
+        tma_tile(Ks + s * kTileBytes, &kmap, kfull + 8 * s, h, t * kTile, b);
+        if (t >= 2) mbar_wait(vempty + 8 * s, (t / 2 - 1) & 1);
+        mbar_expect(vfull + 8 * s, kTileBytes);
+        tma_tile(Vs + s * kTileBytes, &vmap, vfull + 8 * s, h, t * kTile, b);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int qw = q0 + wg * kTile;          // this warpgroup's first row
+  const int row0 = qw + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  const int c2 = 2 * (lane % 4);
+  const int nk = tiles(wg);
+  const uint32_t q_tile = Qs + wg * kTileBytes;
+  float acc[kDh / 64][32];
+#pragma unroll
+  for (int g = 0; g < kDh / 64; ++g)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[g][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  mbar_wait(qbar, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % 2;
+    const uint32_t parity = (kt / 2) & 1;
+    float x[32], corr[2];
+    mbar_wait(kfull + 8 * s, parity);
+    wg_fence();
+    scores(x, q_tile, Ks + s * kTileBytes);
+    wg_commit();
+    wg_wait<0>();
+    pin(x);
+    mbar_arrive(kempty + 8 * s);
+    softmax_tile(x, m, l, corr, kt * kTile, qw, row0, c2, Tn, causal, scale);
+    uint32_t a[4][3][4];
+    split_frags(x, a);
+    mbar_wait(vfull + 8 * s, parity);
+#pragma unroll
+    for (int g = 0; g < kDh / 64; ++g) {  // P V, one 64-column group at a time
+      float pv[32];
+      wg_fence();
+      mma_split_group(pv, a, Vs + s * kTileBytes, g);
+      wg_commit();
+      wg_wait<0>();
+      pin(pv);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[g][i] = acc[g][i] * corr[(i >> 1) & 1] + pv[i];
+    }
+    mbar_arrive(vempty + 8 * s);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= Tn) continue;
+    const float ls = fmaxf(l[hh], 1e-30f);
+    if (lane % 4 == 0) lse[(int64_t)bh * Tn + row] = m[hh] + logf(ls);
+    bf16* dst = o + (((int64_t)b * Tn + row) * H + h) * kDh + c2;
+#pragma unroll
+    for (int g = 0; g < kDh / 64; ++g)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 64 * g + 8 * j) = __floats2bfloat162_rn(
+            acc[g][4 * j + 2 * hh] / ls, acc[g][4 * j + 2 * hh + 1] / ls);
+  }
+}
+
+// One block per (bh, 64-row k tile): dk and dv (B, T, H, 256) contiguous.
+// dO is contiguous; lse and delta are (B*H, T). Warpgroup 0 forms p and sums
+// dv, warpgroup 1 forms ds from that p and sums dk.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkv_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap omap,
+                       const __grid_constant__ CUtensorMap lmap,
+                       const __grid_constant__ CUtensorMap dmap, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int H, int Tn, float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  const uint32_t Ks = smem_addr(base), Vs = Ks + kTileBytes;
+  const uint32_t ring = Vs + kTileBytes;  // stage s: Q at ring + 2 s kTileBytes, dO after it
+  float* P = reinterpret_cast<float*>(base + 6 * kTileBytes);  // p of q tile i: + i % 2 kXFloats
+  // stage s: lse at vecs + 2 s kVecSlot, delta kVecSlot after it
+  uint8_t* vecs = base + 6 * kTileBytes + 2 * kXFloats * 4;
+  // barriers: k and v; stage s full at full + 8 s, read by all 256 threads at empty + 8 s
+  const uint32_t kvbar = smem_addr(vecs + 4 * kVecSlot), full = kvbar + 8, empty = kvbar + 24;
+  const int tid = threadIdx.x, wg = tid / kWG, warp = tid % kWG / 32, lane = tid % 32;
+  const int nq = (Tn + kTile - 1) / kTile;
+  // blocks by (b, h), and within one the keys seen by the most causal rows first
+  const int bh = (int)blockIdx.x / nq, b = bh / H, h = bh % H;
+  const int k0 = (int)blockIdx.x % nq * kTile;
+  const int first = causal ? k0 / kTile : 0;  // causal: earlier q tiles see none of these keys
+  const int n = nq - first;                   // q tiles of this block
+  const int r = 16 * warp + lane / 4;         // this thread's keys of the tile: r, r + 8
+  const int row0 = k0 + r;
+  const int c2 = 2 * (lane % 4);
+  const bool issuer = tid == kWG;  // warpgroup 1, which reads each stage last, refills it
+  // where the q tile at q0 starts in its lse and delta boxes
+  auto vec_skip = [&](int q0) { return (bh * Tn + q0) & 3; };
+  // issuer only: the i-th q tile, its dO tile, lse and delta into stage i % 2
+  auto load_q = [&](int i) {
+    if (i < n) {
+      const int q0 = (first + i) * kTile;
+      const uint32_t bar = full + 8 * (i % 2), dst = ring + (i % 2) * 2 * kTileBytes;
+      const uint32_t vec = smem_addr(vecs + (i % 2) * 2 * kVecSlot);
+      const int v0 = bh * Tn + q0 - vec_skip(q0);
+      mbar_expect(bar, 2 * kTileBytes + 2 * kVecBox * 4);
+      tma_tile(dst, &qmap, bar, h, q0, b);
+      tma_tile(dst + kTileBytes, &omap, bar, h, q0, b);
+      tma_1d(vec, &lmap, bar, v0);
+      tma_1d(vec + kVecSlot, &dmap, bar, v0);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mbar_init(kvbar + 8 * i, 1);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mbar_init(empty + 8 * i, kThreads);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (issuer) {
+    mbar_expect(kvbar, 2 * kTileBytes);
+    tma_tile(Ks, &kmap, kvbar, h, k0, b);
+    tma_tile(Vs, &vmap, kvbar, h, k0, b);
+    load_q(0);
+    load_q(1);
+  }
+  __syncwarp();
+  float acc[kDh / 64][32];  // warpgroup 0: dv, warpgroup 1: dk (scaled at the end)
+#pragma unroll
+  for (int g = 0; g < kDh / 64; ++g)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[g][i] = 0.f;
+  mbar_wait(kvbar, 0);
+
+  for (int i = 0; i < n; ++i) {
+    mbar_wait(full + 8 * (i % 2), (i / 2) & 1);
+    const uint32_t q_tile = ring + (i % 2) * 2 * kTileBytes, o_tile = q_tile + kTileBytes;
+    const int q0 = (first + i) * kTile;
+    const float* lv =
+        reinterpret_cast<const float*>(vecs + (i % 2) * 2 * kVecSlot) + vec_skip(q0);
+    float* Pi = P + (i % 2) * kXFloats;
+    float x[32];
+    wg_fence();
+    if (wg == 0)
+      scores(x, Ks, q_tile);  // S^T = K Q^T
+    else
+      scores(x, Vs, o_tile);  // dP^T = V dO^T
+    wg_commit();
+    wg_wait<0>();
+    pin(x);
+    if (wg == 0) {
+      // only a tile across T or on the diagonal needs the mask
+      const bool edge = q0 + kTile > Tn || (causal && q0 == k0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + c2 + e, col = q0 + c;
+          const float lc = lv[c];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int at = 4 * j + 2 * hh + e;
+            float s = scale * x[at];
+            if (edge && causal && row0 + 8 * hh > col) s = kNegInf;
+            x[at] = !edge || col < Tn ? expf(s - lc) : 0.f;
+          }
+        }
+      if (i >= 2) named_sync(kPEmpty + i % 2);  // warpgroup 1 has read p of tile i - 2
+      put_tile(Pi, x, r, c2);
+      named_arrive(kPFull + i % 2);
+    } else {
+      const float* dl = lv + kVecSlot / 4;
+      named_sync(kPFull + i % 2);  // p of tile i is in Pi
+      float p[32];
+      get_tile(Pi, p, r, c2);
+      if (i + 2 < n) named_arrive(kPEmpty + i % 2);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dc = dl[8 * j + c2 + e];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int at = 4 * j + 2 * hh + e;
+            x[at] = p[at] * (x[at] - dc);  // ds
+          }
+        }
+    }
+    uint32_t a[4][3][4];
+    split_frags(x, a);
+    const uint32_t rhs = wg == 0 ? o_tile : q_tile;  // P^T dO, or dS^T Q
+#pragma unroll
+    for (int g = 0; g < kDh / 64; ++g) {
+      float t[32];
+      wg_fence();
+      mma_split_group(t, a, rhs, g);
+      wg_commit();
+      wg_wait<0>();
+      pin(t);
+#pragma unroll
+      for (int m = 0; m < 32; ++m) acc[g][m] += t[m];
+    }
+    mbar_arrive(empty + 8 * (i % 2));  // this thread is done with stage i % 2
+    if (issuer) {
+      mbar_wait(empty + 8 * (i % 2), (i / 2) & 1);
+      load_q(i + 2);
+    }
+    __syncwarp();
+  }
+
+  bf16* dst = wg == 0 ? dv : dk;
+  const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= Tn) continue;
+    const int64_t at = (((int64_t)b * Tn + row) * H + h) * kDh + c2;
+#pragma unroll
+    for (int g = 0; g < kDh / 64; ++g)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int m = 4 * j + 2 * hh;
+        *reinterpret_cast<__nv_bfloat162*>(dst + at + 64 * g + 8 * j) =
+            __floats2bfloat162_rn(mul * acc[g][m], mul * acc[g][m + 1]);
+      }
+  }
+}
+
+// --- tensor maps and launches --------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no -lcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (Dh, H, T, B) bf16 at element strides (sh, st, sb), 64 x 64 boxes of one
+// (b, h) in the 128-byte swizzle
+bool map_rows(CUtensorMap* map, const void* p, int B, int H, int T, int64_t sb, int64_t st,
+              int64_t sh) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)kDh, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kTile, 1}, unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a float32 vector of n, boxes of kVecBox
+bool map_vec(CUtensorMap* map, const float* p, int64_t n) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n}, strides[1] = {4};
+  const cuuint32_t box[1] = {(cuuint32_t)kVecBox}, unit[1] = {1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(p), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool args_ok(int B, int H, int T, int Dh, int is_bf16) {
+  return B > 0 && H > 0 && T > 0 && Dh == kDh && is_bf16 && (int64_t)B * H * T <= 0x7fffffffLL &&
+         (T + kTile - 1) / kTile <= 65535;
+}
+
+// one block per (b, h, `rows`-row tile), (b, h) outermost
+dim3 grid(int B, int H, int T, int rows) {
+  return dim3((unsigned)(B * H * ((T + rows - 1) / rows)));
+}
+
+}  // namespace
+
+// The entry points take the arguments of fedml_flash_fwd_sm90 and
+// fedml_flash_dkv_sm90 (flash_attention_sm90.cu) and only Dh 256 bfloat16
+// (is_bf16 = 1): q, k, v (B, T, H, 256) share the element strides (sb, st,
+// sh) with Dh contiguous and 16-byte aligned rows; dO, lse and delta and the
+// outputs are contiguous. Return the launch's cudaError_t
+// (cudaErrorInvalidValue when a tensor map cannot be made).
+extern "C" int fedml_flash_fwd_dh256_sm90(const void* q, const void* k, const void* v, void* o,
+                                          float* lse, int B, int H, int T, int Dh, int is_bf16,
+                                          int causal, long long sb, long long st, long long sh,
+                                          float scale, void* stream) {
+  CUtensorMap qm, km, vm;
+  if (!args_ok(B, H, T, Dh, is_bf16) || !map_rows(&qm, q, B, H, T, sb, st, sh) ||
+      !map_rows(&km, k, B, H, T, sb, st, sh) || !map_rows(&vm, v, B, H, T, sb, st, sh))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_dh256_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_dh256_kernel<<<grid(B, H, T, 2 * kTile), kFwdThreads, kFwdSmem,
+                           (cudaStream_t)stream>>>(
+      qm, km, vm, (bf16*)o, lse, H, T, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fedml_flash_dkv_dh256_sm90(const void* q, const void* k, const void* v,
+                                          const void* dout, const float* lse, const float* delta,
+                                          void* dk, void* dv, int B, int H, int T, int Dh,
+                                          int is_bf16, int causal, long long sb, long long st,
+                                          long long sh, float scale, void* stream) {
+  CUtensorMap qm, km, vm, om, lm, dm;
+  const int64_t hd = (int64_t)H * kDh;  // dO's row stride
+  if (!args_ok(B, H, T, Dh, is_bf16) || !map_rows(&qm, q, B, H, T, sb, st, sh) ||
+      !map_rows(&km, k, B, H, T, sb, st, sh) || !map_rows(&vm, v, B, H, T, sb, st, sh) ||
+      !map_rows(&om, dout, B, H, T, T * hd, hd, kDh) || !map_vec(&lm, lse, (int64_t)B * H * T) ||
+      !map_vec(&dm, delta, (int64_t)B * H * T))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_dkv_dh256_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
+  if (e != cudaSuccess) return (int)e;
+  flash_dkv_dh256_kernel<<<grid(B, H, T, kTile), kThreads, kDkvSmem,
+                           (cudaStream_t)stream>>>(
+      qm, km, vm, om, lm, dm, (bf16*)dk, (bf16*)dv, H, T, scale, causal);
+  return (int)cudaGetLastError();
+}

@@ -5,8 +5,8 @@ version: ``agg_quant.quantize_pack`` (codec q8/q4 stage),
 its forward on the tensor cores from ``conv3x3_sm90`` for ResNet's block
 convs, and its weight gradient) and ``flash_attention.flash_forward`` / ``flash_dq`` /
 ``flash_dkv`` (causal flash attention and its backward; bf16 inputs on
-the tensor cores from ``flash_attention_sm90``). Sources are in
-``../csrc``."""
+the tensor cores from ``flash_attention_sm90``, the forward and dk/dv at
+Dh 256 from ``flash_dh256_sm90``). Sources are in ``../csrc``."""
 
 KERNELS = ("agg_quant", "agg_robust", "conv3x3", "conv3x3_sm90", "flash_attention",
-           "flash_attention_sm90")
+           "flash_attention_sm90", "flash_dh256_sm90")

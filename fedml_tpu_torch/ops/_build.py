@@ -3,9 +3,10 @@
 Each ``fedml_tpu_torch/csrc/<name>.cu`` exposes a plain C interface. It is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``fedml_tpu_torch/csrc/build/`` at first use and loaded with ``ctypes``.
-The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. Nothing here
-runs at import time: the CPU tests import every module of the package.
+The library's file name carries a hash of the source, the shared headers
+and the flags, so an edited source is rebuilt and a stale library is never
+loaded. Nothing here runs at import time: the CPU tests import every module
+of the package.
 """
 
 from __future__ import annotations
@@ -41,8 +42,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by a hash of its source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

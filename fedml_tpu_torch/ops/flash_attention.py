@@ -3,8 +3,10 @@
 Hand-written CUDA kernels on (B, T, H, Dh) tensors, bf16 or float32 with
 Dh 64, 128 or 256, causal or not. bf16 inputs run on the tensor cores
 (``csrc/flash_attention_sm90.cu``, wgmma, exact to float32 through a
-three-term bf16 split of p and ds); float32 inputs run the FMA kernels of
-``csrc/flash_attention.cu``:
+three-term bf16 split of p and ds; the forward and dk/dv at Dh 256 in
+``csrc/flash_dh256_sm90.cu``, score products once per block, tiles by
+TMA); float32 inputs run the FMA kernels of ``csrc/flash_attention.cu``
+(:func:`route`):
 
 - :func:`flash_forward` — online-softmax attention; returns ``out`` in q's
   dtype and the per-row logsumexp ``lse`` (B*H, 1, T) float32, the TPU
@@ -234,32 +236,35 @@ def _row_vec(t: torch.Tensor, B: int, H: int, T: int, name: str) -> torch.Tensor
     return t.contiguous()
 
 
-def _fn(lib, name, n_ptrs):
-    fn = getattr(_build.load(lib), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + \
+def _argtypes(n_ptrs):
+    """ctypes argument types of an entry point with ``n_ptrs`` pointers."""
+    return [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + \
         [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 # entry points with a tensor-core (wgmma) version for bf16 inputs
 TENSOR_CORE = ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv")
+# of those, the ones with a Dh-256 design of their own (scores once, TMA)
+DH256 = ("fedml_flash_fwd", "fedml_flash_dkv")
 
 
-def route(name: str, dtype: torch.dtype) -> Tuple[str, str]:
+def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
     """(kernel library, C entry point) that runs ``name`` on inputs of
-    ``dtype``: bf16 forward, dq and dk/dv go to ``flash_attention_sm90``,
-    float32 to the FMA kernels of ``flash_attention``. Both take the same
+    ``dtype`` and head dim ``Dh``: bf16 forward and dk/dv at Dh 256 go to
+    ``flash_dh256_sm90``, other bf16 calls to ``flash_attention_sm90``,
+    float32 to the FMA kernels of ``flash_attention``. All take the same
     arguments."""
     if dtype == torch.bfloat16 and name in TENSOR_CORE:
+        if Dh == 256 and name in DH256:
+            return "flash_dh256_sm90", name + "_dh256_sm90"
         return "flash_attention_sm90", name + "_sm90"
     return "flash_attention", name
 
 
 def _launch(name, ptrs, q, causal):
     B, T, H, Dh = q.shape
-    lib, entry = route(name, q.dtype)
-    fn = _fn(lib, entry, len(ptrs))
+    lib, entry = route(name, q.dtype, Dh)
+    fn = _build.function(lib, entry, _argtypes(len(ptrs)))
     err = fn(*ptrs, B, H, T, Dh, int(q.dtype == torch.bfloat16), int(bool(causal)),
              *q.stride()[:3], 1.0 / math.sqrt(Dh), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, entry)

@@ -203,6 +203,7 @@ CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-4 + 2.0 ** -7}
                                                 ((1, 1000, 4, 64), torch.bfloat16, False),
                                                 ((2, 100, 3, 128), torch.bfloat16, True),
                                                 ((2, 333, 3, 256), torch.bfloat16, True),
+                                                ((1, 1000, 2, 256), torch.bfloat16, False),
                                                 ((3, 130, 2, 256), torch.float32, True),
                                                 ((1, 256, 2, 256), torch.float32, False)])
 def test_flash_kernels_match_plain_on_card(shape, dtype, causal):
@@ -222,14 +223,22 @@ def test_flash_kernels_match_plain_on_card(shape, dtype, causal):
     assert torch.equal(dq, tfa.flash_dq(q, k, v, do, lse, delta, causal))
 
 
-def test_route_sends_bf16_forward_and_dkv_to_the_tensor_cores():
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+def test_route_sends_bf16_forward_and_dkv_to_the_tensor_cores(Dh):
+    """float32 to the FMA kernels at every Dh; bf16 to the wgmma kernels,
+    the forward and dk/dv at Dh 256 to their own design (scores once, TMA),
+    dq at Dh 256 where it was."""
     for name in ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv"):
-        assert tfa.route(name, torch.float32) == ("flash_attention", name)
-    assert tfa.route("fedml_flash_fwd", torch.bfloat16) == \
-        ("flash_attention_sm90", "fedml_flash_fwd_sm90")
-    assert tfa.route("fedml_flash_dkv", torch.bfloat16) == \
-        ("flash_attention_sm90", "fedml_flash_dkv_sm90")
-    assert tfa.route("fedml_flash_dq", torch.bfloat16) == \
+        assert tfa.route(name, torch.float32, Dh) == ("flash_attention", name)
+    if Dh == 256:
+        fwd_dkv = ("flash_dh256_sm90", "_dh256_sm90")
+    else:
+        fwd_dkv = ("flash_attention_sm90", "_sm90")
+    assert tfa.route("fedml_flash_fwd", torch.bfloat16, Dh) == \
+        (fwd_dkv[0], "fedml_flash_fwd" + fwd_dkv[1])
+    assert tfa.route("fedml_flash_dkv", torch.bfloat16, Dh) == \
+        (fwd_dkv[0], "fedml_flash_dkv" + fwd_dkv[1])
+    assert tfa.route("fedml_flash_dq", torch.bfloat16, Dh) == \
         ("flash_attention_sm90", "fedml_flash_dq_sm90")
 
 
