@@ -4,9 +4,12 @@
     python3 chip_smoke.py kernels    # phases 1-3 only (no result line)
     python3 chip_smoke.py agg [DIR]  # the robust path's aggregation half only,
                                      # of the package in checkout DIR (no result line)
-    python3 chip_smoke.py flash [DIR]  # flash's kernel times at the wide LM's
-                                       # shape, of the package in checkout DIR
-                                       # (no result line)
+    python3 chip_smoke.py flash [DIR]  # flash's bf16 kernel times at Dh 256,
+                                       # 64 and 128, of the package in
+                                       # checkout DIR (no result line)
+    python3 chip_smoke.py conv [DIR]   # the bf16 conv weight gradient's times
+                                       # at the ResNet-56 shapes, of the package
+                                       # in checkout DIR (no result line)
 
 Phases, each printing one JSON line; any failure ends the run with a
 non-zero exit code and no result line:
@@ -28,15 +31,18 @@ non-zero exit code and no result line:
    block shapes is reported beside as was_ms) and its weight gradient
    (conv3x3_dw), both at L = 1, 2 (the packed schedule's lanes) and 10
    (the even schedule's clients), the same two in bf16 (use_bf16:
-   conv3x3_bf16, the block convs on the bf16 tensor-core kernel, and
-   conv3x3_dw_bf16; within one bf16 step of the rounded plain value, with
-   cuDNN's bf16 calls as the library yardstick), and
+   conv3x3_bf16 and conv3x3_dw_bf16, the block convs' forward and weight
+   gradient on bf16 tensor-core kernels, the latter with the FMA kernel's
+   time beside as was_ms; within one bf16 step of the rounded plain value,
+   with cuDNN's bf16 calls as the library yardstick), both again under two
+   vmap levels (DP-SGD's per-example gradients), and
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
    flash_dkv; SDPA as the library call, with the backend it ran; bf16
    inputs on the tensor cores, float32 on the FMA kernels), at Dh 64 and
-   128 and at Dh 256 (the _dh256 entries at the wide LM's bf16 shape, on
-   flash_dh256_sm90.cu's forward and dk/dv, with the earlier design's time
-   as was_ms; the _dh256_f32 ones at a float32 shape);
+   128 (the _f32 and _dh128_f32 entries: the FMA kernels at small_lm's
+   and small_lm_128's shapes) and at Dh 256 (the _dh256 entries at the
+   wide LM's bf16 shape, on flash_dh256_sm90.cu, with the earlier design's
+   time as was_ms; the _dh256_f32 ones at a float32 shape);
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
 4b. repeat — the small robust path on cnn_fedavg, the small resnet8 path,
@@ -81,6 +87,7 @@ non-zero exit code and no result line:
    bf16 kernels, its round and device times beside resnet_bn's;
 10. small_lm — the Cheetah LM trainer at f32, T 4096 (auto dispatch picks
     flash) on the card against the same run on the CPU (plain versions);
+    small_lm_128 the same with one head of Dh 128 at T 4608;
 11. lm_main — the Cheetah trainer at the LM slice's configuration (vocab
     32000, dim 1024, 16 heads, 12 layers, bf16, full remat, chunked CE,
     B 2, T 8192) for 5 steps; causal flash on every layer, with 24
@@ -164,7 +171,8 @@ CONV_EXTRA = ((1, 256, 32, 32, 16, 16),   # eval: no lanes, batch 256
 # convs per step
 CONV_REPORTED = (1, 64, 32, 32, 16, 16)
 CONV_FWD_KERNELS = ("conv3x3_tf32_kernel", "conv3x3_fwd_kernel", "conv3x3_bf16_kernel")
-CONV_DW_KERNELS = ("conv3x3_dw_partial_kernel", "conv3x3_dw_reduce_kernel")
+CONV_DW_KERNELS = ("conv3x3_dw_partial_kernel", "conv3x3_dw_reduce_kernel",
+                   "conv3x3_dw_bf16_kernel")
 
 
 _T0 = time.perf_counter()
@@ -885,7 +893,10 @@ def check_conv_bf16(dev, bf16_rate):
 def check_conv_dw_bf16(dev):
     """Kernel 3b in bf16 (use_bf16's weight gradient: float32 partial sums,
     rounded once to bf16) against its plain version at the same shapes, with
-    the bf16 gate and bit-equal across two calls; cuDNN's grouped bf16
+    the bf16 gate and bit-equal across two calls, on the route dw_route
+    picks: ResNet's block convs on the tensor cores (bf16_tc, whose line
+    also gives the FMA kernel's time on the shape as was_ms), the stem and
+    ragged shapes on the FMA kernel (fma_bf16); cuDNN's grouped bf16
     weight-gradient call beside it. The bound counts bf16 bytes and the
     bf16 products at the tensor-core rate, as the forward's."""
     from fedml_tpu_torch.ops import conv as C
@@ -895,14 +906,15 @@ def check_conv_dw_bf16(dev):
     bf = torch.bfloat16
     for shape in CONV_MAIN + CONV_EXTRA:
         L, B, H, W, ci, co = shape
+        route = C.dw_route(ci, co, bf)
         x, w, dy, xn, wn, dyn = (t.to(bf) for t in _conv_case(shape, gen, dev))
         dw = C.conv3x3_dw_lanes(x, dy)
         dwp = C.conv3x3_dw_plain(x, dy)
         want32 = C.conv3x3_dw_plain(x.float(), dy.float())
         mag = C.conv3x3_dw_plain(x.float().abs(), dy.float().abs())
-        err, share, steps = _bf16_gate(dw, want32, mag, f"conv3x3_dw bf16 at {shape}")
+        err, share, steps = _bf16_gate(dw, want32, mag, f"conv3x3_dw bf16 at {shape} ({route})")
         if dw.dtype != bf or not torch.equal(dw, C.conv3x3_dw_lanes(x, dy)):
-            raise AssertionError(f"conv3x3_dw bf16 at {shape} is not repeatable")
+            raise AssertionError(f"conv3x3_dw bf16 at {shape} ({route}) is not repeatable")
 
         def lib_call():
             return torch.nn.grad.conv2d_weight(xn, wn.shape, dyn, padding=1, groups=L)
@@ -911,19 +923,25 @@ def check_conv_dw_bf16(dev):
             lib_call().reshape(L, co, ci, 3, 3).permute(0, 3, 4, 2, 1).float(), want32, mag)
         ops = _conv_ops(shape)
         nbytes = (L * B * H * W * (ci + co) + L * 9 * ci * co) * 2
+        units = C.dw_tc_geometry(B, H, W)[2] if route == "bf16_tc" else B * H * W
         row = {"ms": device_ms(lambda: C.conv3x3_dw_lanes(x, dy), CONV_DW_KERNELS),
                "event_ms": time_ms(lambda: C.conv3x3_dw_lanes(x, dy)),
                "plain_ms": time_ms(lambda: C.conv3x3_dw_plain(x, dy)),
                "library_ms": device_ms(lib_call, ("",)),
                "max_abs_err": (dw.float() - dwp.float()).abs().max().item(),
                **_bound(0, nbytes, bf16_ops=ops)}
-        emit("kernel_conv3x3_dw_bf16", shape=list(shape), tile=C.dw_tile(ci, co),
-             splits=C.dw_split_plan(L, B * H * W, ci, co)[1], normalised_err=err,
-             mismatch_share=share, max_bf16_steps=steps, library_normalised_err=lib_err,
-             repeatable=True, gflop=ops / 1e9, **row)
+        if route == "bf16_tc":
+            _bf16_gate(C.conv3x3_dw_route(x, dy, "fma_bf16"), want32, mag,
+                       f"conv3x3_dw fma_bf16 at {shape}")
+            row["was_ms"] = device_ms(lambda: C.conv3x3_dw_route(x, dy, "fma_bf16"),
+                                      CONV_DW_KERNELS)
+        emit("kernel_conv3x3_dw_bf16", shape=list(shape), dw_route=route,
+             tile=C.dw_tile(ci, co, route), splits=C.dw_split_plan(L, units, ci, co, route)[1],
+             normalised_err=err, mismatch_share=share, max_bf16_steps=steps,
+             library_normalised_err=lib_err, repeatable=True, gflop=ops / 1e9, **row)
         if shape == CONV_REPORTED:
             entry = {"name": "conv3x3_dw_bf16", "route": "cuda",
-                     "source": "fedml_tpu_torch/csrc/conv3x3.cu",
+                     "source": "fedml_tpu_torch/csrc/" + C.DW_ROUTES[route][0] + ".cu",
                      "replaces": "fedml_tpu/ops/conv.py:226", **row}
     return entry
 
@@ -978,27 +996,39 @@ def check_conv_dw(dev):
 # cohort vmap at resnet8's block shapes and its stem, cohort 4 of batch 8
 CONV_NESTED = ((4, 8, 32, 32, 16, 16), (4, 8, 16, 16, 32, 32), (4, 8, 8, 8, 64, 64),
                (4, 8, 32, 32, 3, 16))
+# bf16 under the nesting: the kernel's and the plain version's bf16 results
+# may differ by one bf16 step (2^-8 to 2^-7 of a value) at each op, and those
+# steps reach the gradients through tanh and the second conv: two steps of
+# the largest magnitude leave margin, while a wrong tap, lane or route errs
+# by O(1) of it (on an H100: 0.0030-0.0056 at these shapes; 0.16-1.0 with a
+# tile or a k-step of the tensor-core dw dropped)
+CONV_NESTED_TOL_BF16 = 2.0 ** -6
 
 
 def check_conv_nested(dev):
     """Kernels 3a/3b under two vmap levels, as DP-SGD runs them: the
     gradient of a conv -> tanh -> conv loss per example (vmap over the
-    batch of grad) per client (vmap over the cohort). The conv's vmap rule
-    re-enters through the lane-level functions, so every launch sees the
-    two levels folded into one lane axis (clients x examples). The result
-    is held against the same nesting with the wrappers swapped for their
-    plain versions, on the same inputs, within CONV_TOL of each gradient's
-    largest magnitude."""
+    batch of grad) per client (vmap over the cohort), in float32 and in
+    bf16 (use_bf16: the block convs' dw on the tensor cores). The conv's
+    vmap rule re-enters through the lane-level functions, so every launch
+    sees the two levels folded into one lane axis (clients x examples). The
+    result is held against the same nesting with the wrappers swapped for
+    their plain versions, on the same inputs, within CONV_TOL (bf16:
+    CONV_NESTED_TOL_BF16) of each gradient's largest magnitude; the weight
+    gradients' launches by route must be the second conv's dw_route and the
+    first's."""
+    from collections import Counter
+
     from torch.func import grad, vmap
 
     from fedml_tpu_torch.ops import conv as C
 
     gen = torch.Generator().manual_seed(5)
-    for shape in CONV_NESTED:
+    for shape, dtype in [(s, d) for d in (torch.float32, torch.bfloat16) for s in CONV_NESTED]:
         Cl, B, H, W, ci, co = shape
-        x = torch.randn(Cl, B, H, W, ci, generator=gen).to(dev)
-        w1 = (torch.randn(Cl, 3, 3, ci, co, generator=gen) * 0.3).to(dev)
-        w2 = (torch.randn(Cl, 3, 3, co, co, generator=gen) * 0.3).to(dev)
+        x = torch.randn(Cl, B, H, W, ci, generator=gen).to(dev, dtype)
+        w1 = (torch.randn(Cl, 3, 3, ci, co, generator=gen) * 0.3).to(dev, dtype)
+        w2 = (torch.randn(Cl, 3, 3, co, co, generator=gen) * 0.3).to(dev, dtype)
 
         def loss(w, x1):
             h = torch.tanh(C.conv3x3(x1[None], w[0]))
@@ -1006,8 +1036,12 @@ def check_conv_nested(dev):
 
         run = vmap(vmap(grad(loss), in_dims=(None, 0)), in_dims=(0, 0))
         before = (C.conv3x3_lanes.launches, C.conv3x3_dw_lanes.launches)
+        dw_before = dict(C.conv3x3_dw_lanes.route_launches)
         got = run((w1, w2), x)
         launches = (C.conv3x3_lanes.launches - before[0], C.conv3x3_dw_lanes.launches - before[1])
+        dw_routes = {r: n - dw_before[r] for r, n in C.conv3x3_dw_lanes.route_launches.items()
+                     if n != dw_before[r]}
+        want_routes = Counter((C.dw_route(ci, co, dtype), C.dw_route(co, co, dtype)))
         kernels = (C._Conv3x3Lanes.kernel, C._Conv3x3DwLanes.kernel)
         C._Conv3x3Lanes.kernel = staticmethod(C.conv3x3_plain)
         C._Conv3x3DwLanes.kernel = staticmethod(C.conv3x3_dw_plain)
@@ -1016,14 +1050,18 @@ def check_conv_nested(dev):
         finally:
             C._Conv3x3Lanes.kernel, C._Conv3x3DwLanes.kernel = map(staticmethod, kernels)
         # each gradient's error against its largest magnitude
-        errs = [((g - wt).abs().max() / wt.abs().max()).item() for g, wt in zip(got, want)]
+        errs = [((g.float() - wt.float()).abs().max() / wt.float().abs().max()).item()
+                for g, wt in zip(got, want)]
+        tol = CONV_NESTED_TOL_BF16 if dtype == torch.bfloat16 else CONV_TOL
         # two forwards, one dx (the first conv's input needs none), two dw
-        if launches != (3, 2) or not max(errs) <= CONV_TOL:
-            raise AssertionError(f"nested-vmap conv at {shape}: launches {launches} (want "
-                                 f"(3, 2)), normalised errors {errs} (tol {CONV_TOL})")
-        emit("kernel_conv3x3_nested", shape=list(shape), lanes=Cl * B, launches=list(launches),
-             normalised_err=max(errs), tol=CONV_TOL,
-             max_abs_err=max((g - wt).abs().max().item() for g, wt in zip(got, want)))
+        if launches != (3, 2) or dw_routes != want_routes or not max(errs) <= tol:
+            raise AssertionError(f"nested-vmap conv at {shape} {dtype}: launches {launches} "
+                                 f"(want (3, 2)), dw routes {dw_routes} (want {want_routes}), "
+                                 f"normalised errors {errs} (tol {tol})")
+        emit("kernel_conv3x3_nested", shape=list(shape), dtype=str(dtype), lanes=Cl * B,
+             launches=list(launches), dw_route_launches=dw_routes, normalised_err=max(errs),
+             tol=tol, max_abs_err=max((g.float() - wt.float()).abs().max().item()
+                                      for g, wt in zip(got, want)))
 
 
 def small_resnet_config(device, cohort_schedule="even"):
@@ -1278,14 +1316,15 @@ def _resnet_conv_channels(args):
 
 
 def _resnet_conv_want(args, sim, conv_channels, plans):
-    """(evals, eval batches, launches, launches per forward route) that the
+    """(evals, eval batches, launches, launches per route) that the
     simulator's round plans imply: per local step (a packed slot, padded
     ones included, an even step of all clients, or a bucket's step of its
     clients), one forward per stride-1 3x3 conv, one dx per such conv but
     the stem (its input, the data, needs no gradient) and one dw per conv;
     per eval, one forward per conv and test batch of 256. Under use_bf16
     the kernels are the bf16 routes (launches keyed ``conv3x3_bf16`` and
-    ``conv3x3_dw_bf16``)."""
+    ``conv3x3_dw_bf16``). Launches per route: {"conv3x3": forward routes,
+    "conv3x3_dw": weight-gradient routes}."""
     from fedml_tpu_torch.ops import conv as C
     from fedml_tpu_torch.simulation.fed_sim import EVAL_BATCH_SIZE
 
@@ -1305,35 +1344,37 @@ def _resnet_conv_want(args, sim, conv_channels, plans):
     want = {f"conv3x3{suffix}": steps * (convs + convs - 1) + evals * eval_batches * convs,
             f"conv3x3_dw{suffix}": steps * convs}
     # per forward route: each conv's forward at its (Ci, Co), its dx (not
-    # the stem's) at (Co, Ci)
-    want_routes = dict.fromkeys(C.FWD_ROUTES, 0)
+    # the stem's) at (Co, Ci); per weight-gradient route each conv's dw
+    fwd, dw = dict.fromkeys(C.FWD_ROUTES, 0), dict.fromkeys(C.DW_ROUTES, 0)
     for i, (ci, co) in enumerate(conv_channels):
-        want_routes[C.fwd_route(ci, co, dtype)] += steps + evals * eval_batches
+        fwd[C.fwd_route(ci, co, dtype)] += steps + evals * eval_batches
         if i:
-            want_routes[C.fwd_route(co, ci, dtype)] += steps
-    return evals, eval_batches, want, want_routes
+            fwd[C.fwd_route(co, ci, dtype)] += steps
+        dw[C.dw_route(ci, co, dtype)] += steps
+    return evals, eval_batches, want, {"conv3x3": fwd, "conv3x3_dw": dw}
 
 
 def _counted(run):
     """``run()`` with the conv kernels' counts set to 0 just before it and
-    read just after: (its result, launches by dtype, forward launches per
-    route)."""
+    read just after: (its result, launches by dtype, launches per route:
+    {"conv3x3": forward routes, "conv3x3_dw": weight-gradient routes})."""
     from fedml_tpu_torch.ops import conv as C
 
     C.conv3x3_lanes.launches = 0
     C.conv3x3_lanes.route_launches = dict.fromkeys(C.FWD_ROUTES, 0)
     C.conv3x3_dw_lanes.launches = 0
-    C.conv3x3_dw_lanes.dtype_launches = dict.fromkeys(C.conv3x3_dw_lanes.dtype_launches, 0)
+    C.conv3x3_dw_lanes.route_launches = dict.fromkeys(C.DW_ROUTES, 0)
     out = run()
     torch.cuda.synchronize()
-    routes = dict(C.conv3x3_lanes.route_launches)
-    dws = C.conv3x3_dw_lanes.dtype_launches
-    launches = {"conv3x3": routes["tf32x3"] + routes["fma"],
-                "conv3x3_dw": dws["float32"],
-                "conv3x3_bf16": routes["bf16_tc"] + routes["fma_bf16"],
-                "conv3x3_dw_bf16": dws["bfloat16"]}
+    routes = {"conv3x3": dict(C.conv3x3_lanes.route_launches),
+              "conv3x3_dw": dict(C.conv3x3_dw_lanes.route_launches)}
+    fwd, dws = routes["conv3x3"], routes["conv3x3_dw"]
+    launches = {"conv3x3": fwd["tf32x3"] + fwd["fma"],
+                "conv3x3_dw": dws["fma"],
+                "conv3x3_bf16": fwd["bf16_tc"] + fwd["fma_bf16"],
+                "conv3x3_dw_bf16": dws["bf16_tc"] + dws["fma_bf16"]}
     if sum(launches.values()) != C.conv3x3_lanes.launches + C.conv3x3_dw_lanes.launches:
-        raise AssertionError(f"conv launches by route {routes} and dtype {dws} do not add up")
+        raise AssertionError(f"conv launches by route {routes} do not add up")
     return out, {k: v for k, v in launches.items() if v}, routes
 
 
@@ -1552,14 +1593,15 @@ def phase_resnet_bn():
 
 def phase_resnet_bf16(bn_row):
     """The same with use_bf16: true: bf16 compute over float32 parameters,
-    every stride-1 3x3 conv on the bf16 kernels (the block convs on the
-    tensor cores, the stem on the FMA kernel, dw in float32 sums rounded to
-    bf16), launches equal the plans (zero on the float32 routes); the loss
-    finite. Round and device times beside resnet_bn's."""
+    every stride-1 3x3 conv on the bf16 kernels (the block convs' forward,
+    dx and dw on the tensor cores, the stem's forward and dw on the FMA
+    kernel; dw in float32 sums rounded to bf16), launches by route equal
+    the plans (zero on the float32 routes); the loss finite. Round and
+    device times beside resnet_bn's."""
     row, launches = _stateful_resnet_phase("bf16", dict(norm="batch", use_bf16=True),
                                            _bn_auto_rule, _bn_check)
     routes = row["conv3x3_route_launches"]
-    if not (routes["bf16_tc"] and routes["fma_bf16"] and launches.get("conv3x3_dw_bf16")):
+    if not all(routes[k][r] for k in routes for r in ("bf16_tc", "fma_bf16")):
         raise AssertionError(f"resnet bf16 did not run every bf16 kernel: {routes}, {launches}")
     emit("resnet_bf16_vs_f32", round_time_s={"bn_f32": bn_row["round_time_s"],
                                              "bn_bf16": row["round_time_s"]},
@@ -1754,24 +1796,33 @@ def phase_resume():
 # (lm_wide: --dim 2048 over 8 heads), a full f32 one at T 4352 (small_lm_256's
 # T, where auto picks flash in f32), a ragged bf16 causal one, a ragged f32
 # causal one and a ragged full bf16 one (the Dh-256 kernels' non-causal
-# branch, and TMA's zero fill at a T that is not a multiple of 64)
+# branch, and TMA's zero fill at a T that is not a multiple of 64); last
+# small_lm's attention (f32, one head of 64 at T 4096) and small_lm_128's
+# (f32, one head of 128 at T 4608)
 FLASH_SLICE = (2, 8192, 16, 64)
 FLASH_WIDE = (8, 4608, 8, 256)
 FLASH_WIDE_F32 = (1, 4352, 2, 256)
-FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), ((1, 2048, 8, 128), torch.float32, False),
+FLASH_F32_128 = (1, 2048, 8, 128)
+FLASH_SMALL_LM = (1, 4096, 1, 64)
+FLASH_SMALL_LM_128 = (1, 4608, 1, 128)
+FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float32, False),
                ((3, 333, 2, 64), torch.float32, True), ((2, 100, 3, 128), torch.bfloat16, True),
                ((1, 1000, 4, 64), torch.bfloat16, False),
                (FLASH_WIDE, torch.bfloat16, True), (FLASH_WIDE_F32, torch.float32, False),
                ((2, 333, 3, 256), torch.bfloat16, True), ((3, 130, 2, 256), torch.float32, True),
-               ((1, 1000, 2, 256), torch.bfloat16, False))
+               ((1, 1000, 2, 256), torch.bfloat16, False), (FLASH_SMALL_LM, torch.float32, True),
+               (FLASH_SMALL_LM_128, torch.float32, True))
 # the timed shapes and the suffix of their kernels line entries (the launch
-# counts of lm_main, lm_wide and small_lm_256 fill them in)
-FLASH_TIMED = {FLASH_SLICE: "", FLASH_WIDE: "_dh256", FLASH_WIDE_F32: "_dh256_f32"}
+# counts of lm_main, lm_wide, small_lm_256, small_lm and small_lm_128 fill
+# them in, each at the shape its path gives the kernels)
+FLASH_TIMED = {FLASH_SLICE: "", FLASH_WIDE: "_dh256", FLASH_WIDE_F32: "_dh256_f32",
+               FLASH_SMALL_LM: "_f32", FLASH_SMALL_LM_128: "_dh128_f32"}
 # the earlier design's time of a kernel redesigned since (ms at FLASH_WIDE: the
-# bf16 Dh-256 forward and dk/dv of flash_attention_sm90.cu, measured by this
-# script on an H100 80GB HBM3 at 700 W before their redesign), printed beside
-# the new time on the kernel's own line; `flash DIR` times both in one call
-FLASH_WAS_MS = {"flash_fwd_dh256": 5.208, "flash_dkv_dh256": 9.373}
+# bf16 Dh-256 forward, dq and dk/dv of flash_attention_sm90.cu, measured by
+# this script on an H100 80GB HBM3 at 700 W before their redesign), printed
+# beside the new time on the kernel's own line; `flash DIR` times both in one
+# call
+FLASH_WAS_MS = {"flash_fwd_dh256": 5.208, "flash_dkv_dh256": 9.373, "flash_dq_dh256": 7.771}
 # |kernel - plain| / max|plain|, plain in float32. Each output sums up to
 # T * Dh = 5e5 float32 products in another order than the plain version's
 # cuBLAS calls: a random walk of sqrt(n) * 2^-24 ~ 4e-5 of the terms'
@@ -1924,7 +1975,7 @@ def check_flash(dev):
                      "library_ms": lib_ms, **_bound(f32_ops, bytes_in + bytes_out, bf16_ops)}
             entries.append(entry)
             was = {"was_ms": FLASH_WAS_MS[entry["name"]],
-                   "was_from": "flash_attention_sm90.cu's earlier Dh-256 design"} \
+                   "was_from": "flash_attention_sm90.cu's two-warpgroup Dh-256 design"} \
                 if entry["name"] in FLASH_WAS_MS else {}
             emit("kernel_" + entry["name"], **row, **was, gflop=(bf16_ops + f32_ops) / 1e9,
                  bf16_gflop=bf16_ops / 1e9, kernel_source=entry["source"],
@@ -1935,21 +1986,45 @@ def check_flash(dev):
     return entries
 
 
+# (B, T, H, Dh) of phase_flash_times, bf16 causal: the wide LM's attention,
+# then the LM slice's (Dh 64) and one at Dh 128 with its width (H Dh 1024)
+# and tokens, where the bf16 kernels of flash_attention_sm90.cu run
+FLASH_MODE_SHAPES = (FLASH_WIDE, FLASH_SLICE, (2, 8192, 8, 128))
+
+
 def phase_flash_times(dev, reps=3, rounds=5):
-    """Kernel ms of flash forward, dq and dk/dv at FLASH_WIDE (bf16 causal,
-    the wide LM's attention) for the package first on sys.path: with
-    ``flash DIR`` a checkout's, so two commits compare in one call (parent,
-    change, change, parent)."""
+    """Kernel ms of flash forward, dq and dk/dv at FLASH_MODE_SHAPES (bf16
+    causal) for the package first on sys.path: with ``flash DIR`` a
+    checkout's, so two commits compare in one call (parent, change, change,
+    parent)."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = _flash_inputs(FLASH_WIDE, torch.bfloat16, torch.Generator().manual_seed(5),
-                                dev)
-    out, lse = fa.flash_forward(q, k, v, True)
-    delta = fa.attention_delta(do, out)
-    emit("flash_times", shape=list(FLASH_WIDE), package=str(Path(fa.__file__).parents[2]),
-         fwd_ms=time_ms(lambda: fa.flash_forward(q, k, v, True), reps, rounds),
-         dq_ms=time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, True), reps, rounds),
-         dkv_ms=time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, True), reps, rounds))
+    gen = torch.Generator().manual_seed(5)
+    for shape in FLASH_MODE_SHAPES:
+        q, k, v, do = _flash_inputs(shape, torch.bfloat16, gen, dev)
+        out, lse = fa.flash_forward(q, k, v, True)
+        delta = fa.attention_delta(do, out)
+        emit("flash_times", shape=list(shape), package=str(Path(fa.__file__).parents[2]),
+             fwd_ms=time_ms(lambda: fa.flash_forward(q, k, v, True), reps, rounds),
+             dq_ms=time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, True), reps, rounds),
+             dkv_ms=time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, True), reps, rounds))
+        del q, k, v, do, out, lse, delta
+
+
+def phase_conv_times(dev):
+    """Device ms of the bf16 weight gradient (kernel 3b under use_bf16, on
+    the route conv3x3_dw_lanes picks) at CONV_MAIN, for the package first
+    on sys.path: with ``conv DIR`` a checkout's, so two commits compare in
+    one call (parent, change, change, parent)."""
+    from fedml_tpu_torch.ops import conv as C
+
+    gen = torch.Generator().manual_seed(14)
+    rows = []
+    for shape in CONV_MAIN:
+        x, _, dy, *_ = (t.to(torch.bfloat16) for t in _conv_case(shape, gen, dev))
+        rows.append({"shape": list(shape),
+                     "ms": device_ms(lambda: C.conv3x3_dw_lanes(x, dy), CONV_DW_KERNELS)})
+    emit("conv_dw_bf16_times", package=str(Path(C.__file__).parents[2]), rows=rows)
 
 
 def lm_data(vocab, B, T, seed=0):
@@ -1963,8 +2038,9 @@ def lm_data(vocab, B, T, seed=0):
 
 
 SMALL_LM = dict(vocab_size=256, dim=64, num_heads=1, num_layers=2, max_len=4096)
-# the float32 Dh-256 kernels under the trainer: one head of 256 at T 4352,
-# where auto dispatch picks flash in float32
+# the float32 Dh-128 and Dh-256 kernels under the trainer: one head of 128 at
+# T 4608 and one of 256 at T 4352, where auto dispatch picks flash in float32
+SMALL_LM_128 = dict(vocab_size=256, dim=128, num_heads=1, num_layers=2, max_len=4608)
 SMALL_LM_256 = dict(vocab_size=256, dim=256, num_heads=1, num_layers=2, max_len=4352)
 
 def _zero_flash_counts():
@@ -1989,7 +2065,7 @@ def _want_flash(layers, steps, suffix=""):
             "flash_dkv" + suffix: layers * steps}
 
 
-def phase_small_lm(phase="small_lm", model=SMALL_LM, steps=3, suffix=""):
+def phase_small_lm(phase="small_lm", model=SMALL_LM, steps=3, suffix="_f32"):
     """The trainer at f32 and T = max_len, where auto dispatch picks flash, on
     the card (the kernels) vs on the CPU (their plain versions). Returns the
     card run's flash launches, keyed with ``suffix``."""
@@ -2125,12 +2201,15 @@ def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
     """Where an LM step's time goes: two warm steps of an LM phase's trainer."""
     emit(phase, **profile_run(lambda: tr.train(data, steps, log_fn=None), steps, (
         "flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
-        "flash_fwd_dh256_kernel", "flash_dkv_dh256_kernel"), unit="step", groups=LM_GROUPS))
+        "flash_fwd_dh256_kernel", "flash_dq_dh256_kernel", "flash_dkv_dh256_kernel"),
+        unit="step", groups=LM_GROUPS))
 
 
 def main(argv):
-    if not (argv in ([], ["kernels"]) or (argv[:1] in (["agg"], ["flash"]) and len(argv) <= 2)):
-        print("usage: python3 chip_smoke.py [kernels | agg [DIR] | flash [DIR]]", file=sys.stderr)
+    modes = (["agg"], ["flash"], ["conv"])
+    if not (argv in ([], ["kernels"]) or (argv[:1] in modes and len(argv) <= 2)):
+        print("usage: python3 chip_smoke.py [kernels | agg [DIR] | flash [DIR] | conv [DIR]]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2138,14 +2217,12 @@ def main(argv):
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if argv[:1] in (["agg"], ["flash"]):
+    if argv[:1] in modes:
         if len(argv) == 2:  # before any import of the package
             sys.path.insert(0, str(Path(argv[1]).resolve()))
         phase_device()
-        if argv[0] == "agg":
-            phase_agg()
-        else:
-            phase_flash_times(dev)
+        {"agg": phase_agg, "flash": lambda: phase_flash_times(dev),
+         "conv": lambda: phase_conv_times(dev)}[argv[0]]()
         return 0
     smi = phase_device()
     phase_build()
@@ -2172,7 +2249,8 @@ def main(argv):
     phase_resnet_fedopt()
     bn_row, _ = phase_resnet_bn()
     launches.update(phase_resnet_bf16(bn_row))
-    phase_small_lm()
+    launches.update(phase_small_lm())
+    launches.update(phase_small_lm("small_lm_128", SMALL_LM_128, suffix="_dh128_f32"))
     tr, data, lm_launches = phase_lm_main()
     launches.update(lm_launches)
     phase_lm_profile(tr, data)

@@ -52,8 +52,9 @@
 // pixel spans across blocks as in agg_robust.cu (the wrapper picks the
 // count: at most two blocks per SM, one wave, which keeps the partials
 // small and leaves no SM a block more than the others), each writing a
-// partial tile, and a second kernel sums the partials of each element in
-// the fixed order s = 0..S-1: no float atomics, so dw repeats bit for bit.
+// partial tile, and a second kernel (conv_dw_reduce.cuh) sums the partials
+// of each element in the fixed order s = 0..S-1: no float atomics, so dw
+// repeats bit for bit.
 //
 // Inputs may broadcast over lanes (lane stride 0): the first local step,
 // where every client still holds the global weights.
@@ -63,9 +64,11 @@
 // product and sum is float32 as in the TPU kernel (preferred_element_type
 // float32, conv.py:147 and :251); the forward rounds each output once to
 // bfloat16 (round to nearest even) on store, the weight gradient sums its
-// float32 partials in the fixed split order and rounds once. The forward
-// FMA kernel serves the stem (3 -> 16) and any width conv3x3_sm90.cu's
-// bf16 tensor-core kernel does not take. Copies of 2-byte elements (Ci or
+// float32 partials in the fixed split order and rounds once. Both serve only
+// the stem (3 -> 16) and the widths conv3x3_sm90.cu's bf16 tensor-core
+// kernels do not take: ResNet's block convs (Ci = Co in {16, 32, 64}) run
+// their bf16 forward, dx and weight gradient there (ops/conv.py::fwd_route
+// and dw_route). Copies of 2-byte elements (Ci or
 // Co not a multiple of 4: the stem's x) have no cp.async form and are plain
 // loads and shared-memory stores into the same ring; 4-element chunks are
 // 8-byte cp.async copies. Bound: half the bytes of float32, the same FMA
@@ -74,6 +77,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "conv_dw_reduce.cuh"
 
 namespace {
 
@@ -439,20 +444,6 @@ conv3x3_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// dw[l, e] = sum over s = 0..splits-1 of part[l, s, e], in that order, in
-// float32, rounded once to T
-template <class T>
-__global__ void conv3x3_dw_reduce_kernel(const float* __restrict__ part, int64_t kn,
-                                         int splits, int64_t total, T* __restrict__ dw) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  const int64_t lane = e / kn, r = e - lane * kn;
-  const float* src = part + lane * splits * kn + r;
-  float acc = 0.0f;
-  for (int s = 0; s < splits; ++s) acc += src[(int64_t)s * kn];
-  dw[e] = from_f<T>(acc);
-}
-
 int block_cols(int Co) { return Co <= 16 ? 16 : (Co <= 32 ? 32 : 64); }
 
 bool shapes_ok(int L, int B, int H, int W, int Ci, int Co) {
@@ -556,10 +547,7 @@ int dw(const T* x, const T* dy, float* part, T* out, int L, int B, int H, int W,
       err = launch_dw_cols<64, true>(x, dy, part, L, B, H, W, Ci, Co, x_lane, span, splits, st);
   }
   if (err != cudaSuccess) return (int)err;
-  const int64_t kn = 9LL * Ci * Co, total = kn * L;
-  conv3x3_dw_reduce_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, kn, splits,
-                                                                               total, out);
-  return (int)cudaGetLastError();
+  return (int)launch_dw_reduce<T>(part, 9LL * Ci * Co, splits, L, out, st);
 }
 
 }  // namespace

@@ -3,9 +3,11 @@
 // TF32 products (3xTF32). Activations NHWC, weights HWIO, float32. It runs
 // the forward (and so dx, the forward of dy with the flipped,
 // channel-transposed kernel) for Ci = Co in {16, 32, 64}: ResNet's block
-// convs. Other channel counts (the stem's 3 -> 16, ragged shapes) keep the
-// FMA kernel of conv3x3.cu; ops/conv.py::fwd_route picks by (Ci, Co) and
-// mirrors tc_channels() below.
+// convs; in bfloat16 (use_bf16) the forward and the weight gradient (both
+// at the end of this file). Other channel counts (the stem's 3 -> 16,
+// ragged shapes), and the float32 weight gradient, keep the FMA kernels of
+// conv3x3.cu; ops/conv.py::fwd_route and dw_route pick by (Ci, Co) and
+// dtype and mirror tc_channels() below.
 //
 // Replaces: fedml_tpu/ops/conv.py::conv2d_pallas — the forward Pallas kernel
 // _fwd_kernel (:143, pallas_call :208), which builds the [Bt H W, 9 Ci] patch
@@ -105,10 +107,56 @@
 // path's block shapes (L = 10, B = 64): 42.0, 21.0 and 10.5 MB of bytes,
 // 0.0125, 0.0063 and 0.0031 ms at 3.35 TB/s, against 2.9, 2.8 and 2.6 us of
 // operations (in-image taps) at 989 TFLOP/s: all three are bound by bytes.
+//
+// bfloat16 weight gradient (fedml_conv3x3_dw_sm90_bf16). Replaces the same
+// Pallas kernel's _dw_kernel (:152, pallas_call :240) on bf16 x and dy: dw =
+// patches(x)^T dy, float32 sums over the batch-block grid (:156),
+// .astype(w.dtype) once (:252). Here it is an mma.sync.m16n8k16 product
+// whose M is the 9 Ci rows of dw (144, 288 or 576: whole 16-row tiles), N
+// its Co columns and K the pixels, 16 a k-step: bf16 x bf16 products exact
+// in float32, float32 sums. Bound as the forward (the same bytes; the
+// in-image multiply-adds at the bf16 rate): bytes at the path's shapes.
+// Before it, the bf16 dw ran conv3x3.cu's FMA kernel on the CUDA cores (the
+// same operations at the float32 FMA rate, >= 45 us at L = 10, 32 x 32).
+//   Tiles: up to 128 pixel slots of one image, whole rows (or 128 columns
+// of a wider row); the tile's (rows + 2) x (cols + 2) halo of x and its dy
+// rows are staged by cp.async (zero-filled outside the image and past the
+// tile) into one of two buffers while the other's products run, one
+// barrier a tile. Both operands are pixel-major in shared memory, 16-byte
+// rows Ci + 8 elements apart (conflict-free), and ldmatrix.x4.trans turns
+// them into row.col fragments: A from the halo at the tap's shift (each
+// 16-row tile of dw is one tap and 16 channels), B from the dy rows. Warps
+// own MT 16-row tiles over all Co columns (Ci 16: 3 warps x 3 tiles, the
+// whole 144 rows; Ci 32: 6 x 3, all 288; Ci 64: 6 x 2, a third of 576, so a
+// lane's rows take three blocks). A lane's tiles are cut into spans across
+// blocks (ops/conv.py::dw_split_plan: at most two blocks per SM, one wave),
+// each writing its float32 partial; conv3x3.cu's second kernel
+// (conv_dw_reduce.cuh) adds the partials in the fixed order s = 0..S-1 and
+// rounds once to bf16: no atomics, dw repeats bit for bit. x may broadcast over lanes (stride 0).
+//   The tensor cores' float32 sums lean one way (as the forward's and the
+// flash kernels'), so each tile's k-steps (at most 8) start from a zero
+// accumulator and the tile is added to the running sum in float32
+// registers, rounded to nearest. How long a chain may run (a sweep of
+// this kernel rebuilt at other chain lengths, one block per lane, 64
+// images, on an H100 80GB HBM3 at 700 W; PERF.md): chains of 1 and 4 tiles
+// (<= 512 pixels) leave 0.043% of the outputs off the exactly rounded value
+// at 32 x 32 x 16, 16 tiles 0.17%, 64 tiles 0.56% and one chain over all
+// 65,536 pixels 3.9%, past chip_smoke.py's 0.25% gate; the smaller convs
+// (16,384 and 4,096 pixels a lane) move less. The chain is one tile.
+//   Tried and not kept, each timed against this form in one call on the
+// card: staging without divisions (the forward's walk: within 8% either
+// way); more blocks per SM than two (faster only at Ci 16 with ten lanes,
+// slower at one or two, where more partials lengthen the reduce's chains);
+// loads batched in the reduce (no change); at Ci 64, warps of one 16-row
+// tile, or nine or twelve warps a block (all slower at ten lanes).
+// ptxas -v for sm_90a (chip_smoke.py's build phase): Ci 16 108 registers,
+// Ci 32 156, Ci 64 167, no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "conv_dw_reduce.cuh"
 
 namespace {
 
@@ -629,6 +677,207 @@ cudaError_t launch_bf16(const bf16* x, const bf16* w, bf16* y, int L, int B, int
   return cudaGetLastError();
 }
 
+// --- bfloat16 weight gradient: mma.sync m16n8k16 over pixels --------------
+
+// dw[tap, ci, co] = sum over the pixels m of x[m + shift(tap), ci] dy[m, co]:
+// a product whose M is the 9 Ci rows of dw, N its Co columns and K the
+// pixels. A tile is up to kDwSlots pixel slots of one image: whole rows
+// (as many as fit) or kDwSlots columns of one row; its (rows + 2) x (cols +
+// 2) halo of x and its dy rows are staged in shared memory, pixel-major, and
+// each 16-slot k-step reads both with ldmatrix.trans.
+constexpr int kDwSlots = 128;
+
+// Ci = Co channels; warps of MT 16-row tiles of dw each, all Co columns; NW
+// warps; a block covers ROWS of the 9 Ci rows, so a lane takes RTILES
+// blocks along the rows
+template <int CI, int MT, int NW>
+struct DwCfg {
+  static constexpr int CO = CI;
+  static constexpr int NT = 32 * NW;           // threads
+  static constexpr int ROWS = 16 * MT * NW;    // rows of dw one block covers
+  static constexpr int RTILES = 9 * CI / ROWS;
+  static constexpr int N8 = CO / 8;            // 8-column mma tiles
+  // elements between staged pixels (x and dy alike): 2 XS bytes = 16, 48 or
+  // 80 mod 128, so the eight 16-byte rows of an ldmatrix matrix (eight
+  // consecutive pixels) fall in distinct banks
+  static constexpr int XS = CI + 8;
+  static_assert(CI % 16 == 0 && (9 * CI) % ROWS == 0, "channels the kernel takes");
+};
+
+// A dw tile: rb rows x cb columns of one image; tiles along h and w; the
+// halo's rows and columns; 16-slot k-steps
+struct DwGeo {
+  int rb, cb, nh, nw, hr, hc, steps;
+};
+
+// ops/conv.py::dw_tc_geometry mirrors this
+DwGeo dw_geometry(int H, int W) {
+  DwGeo g;
+  g.cb = W < kDwSlots ? W : kDwSlots;
+  g.rb = g.cb < W ? 1 : (H < kDwSlots / W ? H : kDwSlots / W);
+  g.nh = (H + g.rb - 1) / g.rb;
+  g.nw = (W + g.cb - 1) / g.cb;
+  g.hr = g.rb + 2;
+  g.hc = g.cb + 2;
+  g.steps = (g.rb * g.cb + 15) / 16;
+  return g;
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// One block per (tile span s, row tile, lane): rows [ROWS rt, ROWS (rt + 1))
+// of dw summed over the span's tiles into part[lane, s]. The next tile is
+// staged while this one's products run (two buffers, one barrier a tile).
+template <int CI, int MT, int NW, int MINB>
+__global__ void __launch_bounds__(DwCfg<CI, MT, NW>::NT, MINB)
+conv3x3_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                       float* __restrict__ part, int B, int H, int W, int64_t x_lane, DwGeo g,
+                       int tiles, int span, int splits) {
+  using C = DwCfg<CI, MT, NW>;
+  constexpr int CO = C::CO, XS = C::XS;
+  extern __shared__ float4 smem4[];
+  bf16* smem = reinterpret_cast<bf16*>(smem4);
+  const int halo_elems = g.hr * g.hc * XS;
+  const int stage_elems = halo_elems + 16 * g.steps * XS;  // the halo, then dy's slots
+
+  const int t = threadIdx.x, s = blockIdx.x, lane = blockIdx.z;
+  const bf16* xl = x + (int64_t)lane * x_lane;
+  const bf16* gl = dy + (int64_t)lane * B * H * W * CO;
+  const int t_begin = s * span, t_end = t_begin + span < tiles ? t_begin + span : tiles;
+  const int slots = g.rb * g.cb;
+
+  // tile -> its halo (pixel (pr, pc) holds x[b, h0 + pr - 1, w0 + pc - 1],
+  // zero outside the image) and its dy slots (slot (r, c): dy[b, h0 + r,
+  // w0 + c], zero past the image and past the tile's slots)
+  auto stage = [&](bf16* dst, int tile) {
+    const int w0 = (tile % g.nw) * g.cb;
+    tile /= g.nw;
+    const int h0 = (tile % g.nh) * g.rb, b = tile / g.nh;
+    for (int e = t; e < g.hr * g.hc * (CI / 8); e += C::NT) {
+      const int p = e / (CI / 8), c = 8 * (e % (CI / 8));
+      const int h = h0 + p / g.hc - 1, w = w0 + p % g.hc - 1;
+      const bool ok = h >= 0 && h < H && w >= 0 && w < W;
+      cp_async16b(dst + p * XS + c, ok ? xl + (((int64_t)b * H + h) * W + w) * CI + c : xl, ok);
+    }
+    bf16* gd = dst + halo_elems;
+    for (int e = t; e < 16 * g.steps * (CO / 8); e += C::NT) {
+      const int sl = e / (CO / 8), c = 8 * (e % (CO / 8));
+      const int h = h0 + sl / g.cb, w = w0 + sl % g.cb;
+      const bool ok = sl < slots && h < H && w < W;
+      cp_async16b(gd + sl * XS + c, ok ? gl + (((int64_t)b * H + h) * W + w) * CO + c : gl, ok);
+    }
+  };
+
+  const int warp = t / 32, ln = t % 32, gid = ln >> 2, tig = ln & 3;
+  const int mt0 = blockIdx.y * (MT * NW) + warp * MT;  // this warp's first 16-row tile of dw
+  // A (x^T, 16 channels x 16 slots): lanes 0-7 address rows (slots) 0-7 of
+  // channels 0-7, lanes 8-15 the same slots' channels 8-15, lanes 16-31 slots
+  // 8-15; transposed, these are the a0..a3 registers of the fragment
+  int aoff[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int mt = mt0 + i, tap = mt / (CI / 16);
+    aoff[i] = ((tap / 3) * g.hc + tap % 3) * XS + 16 * (mt % (CI / 16)) + 8 * ((ln >> 3) & 1);
+  }
+  int hoff[kDwSlots / 16];  // per k-step: the halo pixel of this lane's slot, tap (0, 0)
+#pragma unroll
+  for (int j = 0; j < kDwSlots / 16; ++j) {
+    const int sl = 16 * j + (ln & 7) + 8 * (ln >> 4);
+    hoff[j] = sl < slots ? ((sl / g.cb) * g.hc + sl % g.cb) * XS : 0;
+  }
+  // B (dy, 16 slots x 16 columns): lanes 0-7 slots 0-7, 8-15 slots 8-15 of
+  // columns 0-7, lanes 16-31 the same of columns 8-15: b0 b1 of two n8 tiles
+  const int boff = ((ln & 7) + 8 * ((ln >> 3) & 1)) * XS + 8 * (ln >> 4);
+
+  float acc[MT][C::N8][4], sacc[MT][C::N8][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int n = 0; n < C::N8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = sacc[i][n][e] = 0.f;
+
+  if (t_begin < t_end) stage(smem, t_begin);
+  cp_async_commit();
+#pragma unroll 1
+  for (int i = t_begin; i < t_end; ++i) {
+    const bf16* hb = smem + ((i - t_begin) & 1) * stage_elems;
+    const bf16* gb = hb + halo_elems;
+    cp_async_wait<0>();  // this tile has landed
+    __syncthreads();     // ... for every thread, and the other buffer is free
+    if (i + 1 < t_end) stage(smem + ((i + 1 - t_begin) & 1) * stage_elems, i + 1);
+    cp_async_commit();
+#pragma unroll
+    for (int j = 0; j < kDwSlots / 16; ++j) {
+      if (j < g.steps) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) ldsm_x4_trans(a[mi], hb + hoff[j] + aoff[mi]);
+#pragma unroll
+        for (int n16 = 0; n16 < CO / 16; ++n16) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, gb + 16 * j * XS + boff + 16 * n16);
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi) {
+            mma_bf16(sacc[mi][2 * n16], a[mi][0], a[mi][1], a[mi][2], a[mi][3], b[0], b[1]);
+            mma_bf16(sacc[mi][2 * n16 + 1], a[mi][0], a[mi][1], a[mi][2], a[mi][3], b[2], b[3]);
+          }
+        }
+      }
+    }
+    // the tile's sums, from zero, join the running sum (see the design comment)
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int n = 0; n < C::N8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[mi][n][e] += sacc[mi][n][e];
+          sacc[mi][n][e] = 0.f;
+        }
+  }
+  cp_async_wait<0>();
+
+  // c0, c1: row gid, columns 2 tig and + 1; c2, c3: row gid + 8
+  float* out = part + ((int64_t)lane * splits + s) * 9 * CI * CO;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float* dst = out + (int64_t)(16 * (mt0 + mi) + gid + 8 * hh) * CO + 2 * tig;
+#pragma unroll
+      for (int n = 0; n < C::N8; ++n)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(acc[mi][n][2 * hh], acc[mi][n][2 * hh + 1]);
+    }
+}
+
+template <int CI, int MT, int NW, int MINB>
+cudaError_t launch_dw_bf16(const bf16* x, const bf16* dy, float* part, bf16* out, int L, int B,
+                           int H, int W, int64_t x_lane, int span, int splits, cudaStream_t st) {
+  using C = DwCfg<CI, MT, NW>;
+  const DwGeo g = dw_geometry(H, W);
+  const int64_t tiles = (int64_t)B * g.nh * g.nw;
+  if (tiles > 0x7fffffff || (int64_t)(splits - 1) * span >= tiles ||
+      (int64_t)splits * span < tiles)
+    return cudaErrorInvalidValue;
+  const int bytes = 2 * (g.hr * g.hc + 16 * g.steps) * C::XS * (int)sizeof(bf16);
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = conv3x3_dw_bf16_kernel<CI, MT, NW, MINB>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3((unsigned)splits, (unsigned)C::RTILES, (unsigned)L), C::NT, bytes, st>>>(
+      x, dy, part, B, H, W, x_lane, g, (int)tiles, span, splits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_dw_reduce<bf16>(part, 9LL * CI * CI, splits, L, out, st);
+}
+
 // the channel counts this kernel takes (ops/conv.py::fwd_route)
 bool tc_channels(int Ci, int Co) { return Ci == Co && (Ci == 16 || Ci == 32 || Ci == 64); }
 
@@ -677,5 +926,37 @@ extern "C" int fedml_conv3x3_fwd_sm90_bf16(const bf16* x, const bf16* w, bf16* y
     case 16: return (int)launch_bf16<16, 4, 2>(x, w, y, L, B, H, W, x_lane, w_lane, st);
     case 32: return (int)launch_bf16<32, 4, 2>(x, w, y, L, B, H, W, x_lane, w_lane, st);
     default: return (int)launch_bf16<64, 4, 1>(x, w, y, L, B, H, W, x_lane, w_lane, st);
+  }
+}
+
+// dw (L, 3, 3, Ci, Co) = sum over (B, H, W) of patches(x)^T dy per lane, for
+// bfloat16 x (L | 1, B, H, W, Ci) (lane stride x_lane elements, 0 to
+// broadcast) and dy (L, B, H, W, Co), Ci = Co in {16, 32, 64}, both 16-byte
+// aligned: conv3x3.cu's fedml_conv3x3_dw_bf16 arguments, with the
+// contraction cut into `splits` spans of `span` pixel tiles
+// (ops/conv.py::dw_tc_geometry) instead of pixels; part is (L, splits, 9 Ci,
+// Co) float32 scratch. float32 sums, dw rounded once to bfloat16. Returns the
+// cudaError_t.
+extern "C" int fedml_conv3x3_dw_sm90_bf16(const bf16* x, const bf16* dy, float* part,
+                                          bf16* dw_out, int L, int B, int H, int W, int Ci,
+                                          int Co, long long x_lane, long long span, int splits,
+                                          void* stream) {
+  if (!tc_channels(Ci, Co) || L <= 0 || L > 65535 || B <= 0 || H <= 0 || W <= 0 ||
+      (int64_t)B * H * W >= (1LL << 31) || x_lane < 0 || span <= 0 || span > 0x7fffffff ||
+      splits <= 0 || splits > 65535 || ((uintptr_t)x & 15) || ((uintptr_t)dy & 15))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  // <Ci, 16-row tiles per warp, warps, blocks per SM the registers are cut
+  // for>: Ci 16 and 32 a block covers all 9 Ci rows, Ci 64 a third of them
+  switch (Ci) {
+    case 16:
+      return (int)launch_dw_bf16<16, 3, 3, 4>(x, dy, part, dw_out, L, B, H, W, x_lane,
+                                              (int)span, splits, st);
+    case 32:
+      return (int)launch_dw_bf16<32, 3, 6, 2>(x, dy, part, dw_out, L, B, H, W, x_lane,
+                                              (int)span, splits, st);
+    default:
+      return (int)launch_dw_bf16<64, 2, 6, 2>(x, dy, part, dw_out, L, B, H, W, x_lane,
+                                              (int)span, splits, st);
   }
 }

@@ -1,8 +1,7 @@
 // Flash attention's forward and its backward (dq; dk and dv) on the Hopper
 // tensor cores (wgmma), for bfloat16 (B, T, H, Dh) inputs, causal or full,
-// any T: all three at Dh 64 and 128, dq at Dh 256. The forward and dk/dv at
-// Dh 256 are flash_dh256_sm90.cu's; float32 inputs keep the FMA kernels of
-// flash_attention.cu.
+// any T, at Dh 64 and 128. All three at Dh 256 are flash_dh256_sm90.cu's;
+// float32 inputs keep the FMA kernels of flash_attention.cu.
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (:66,
 // the forward), _dq_kernel (:167, dq) and _dkv_kernel (:213, dk and dv).
@@ -69,51 +68,26 @@
 // causal rows start first, and every sum runs in one fixed order without
 // atomics, so dq, dk and dv repeat bit for bit.
 //
-// Dh 256 (dq). One warpgroup's 64 x 256 float32 accumulator would take 128
-// registers a thread. So a Dh-256 dq block runs two warpgroups (256
-// threads); each owns 128 of the Dh columns of dq and works exactly as a
-// Dh-128 block on them. Both compute the whole 64 x 64 score products over
-// all 256 columns, the same instructions on the same tiles, so both hold the
-// same bits of s and ds without exchanging them (4 + 3 products' work
-// instead of 2 + 3). Q and dO (32 KB each) and two k/v stages take 194 KB:
-// one block per SM. flash_dh256_sm90.cu computes the forward's and dk/dv's
-// score products once per block instead and streams its tiles by TMA.
-//
 // Left for later: a producer warp with TMA and setmaxnreg (warp
-// specialisation), persistent blocks, the dk/dv pipeline (its registers do
-// not fit the forward's scheme), 16-byte stores of the outputs, and dq at
-// Dh 256 on flash_dh256_sm90.cu's design.
+// specialisation, as flash_dh256_sm90.cu has it), persistent blocks, the
+// dk/dv pipeline (its registers do not fit the forward's scheme), and
+// 16-byte stores of the outputs.
 
 #include "flash_sm90.cuh"
 
 namespace {
 
-// warpgroups per block: one, or two at Dh 256 (dq), each owning 128 output columns
-template <int DH>
-__host__ __device__ constexpr int warpgroups() { return DH == 256 ? 2 : 1; }
-template <int DH>
-__host__ __device__ constexpr int threads() { return kWG * warpgroups<DH>(); }
 // blocks per SM the register budget is cut for: the forward keeps its
 // pipeline without spills (2 blocks); dk/dv spills a little at 3 blocks,
 // which ran faster than 2 blocks without spills; dq fits 3 blocks at Dh 64
-// and 2 without spills at Dh 128. At Dh 256 shared memory allows one block.
+// and 2 without spills at Dh 128.
 constexpr int kFwdBlocks = 2;
 template <int DH>
-__host__ __device__ constexpr int dq_blocks() { return DH == 64 ? 3 : DH == 128 ? 2 : 1; }
+__host__ __device__ constexpr int dq_blocks() { return DH == 64 ? 3 : 2; }
 constexpr int kDkvBlocks = 3;
-// ring depth of the streamed tiles: three, two for dq's two resident tiles
-// at Dh 256
+// ring depth of the streamed tiles
 constexpr int kFwdStages = 3;
-template <int DH>
-__host__ __device__ constexpr int bwd_stages() { return DH == 256 ? 2 : 3; }
-
-// Byte offset of 16-byte chunk c (8 bf16) of row r in an R-row tile. The
-// tile is Dh/64 column groups of R rows x 128 bytes; each 8-row group is one
-// 1024-byte atom of the 128-byte swizzle (chunk ^ row % 8), as wgmma reads it.
-template <int R>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (c >> 3) * (R * kRowBytes) + r * kRowBytes + (((c & 7) ^ (r & 7)) << 4);
-}
+constexpr int kBwdStages = 3;
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
@@ -146,7 +120,7 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src, int64_t
                                           int Tn) {
   constexpr int CH = DH / 8;
   const uint32_t base = smem_addr(dst);
-  for (int i = threadIdx.x; i < R * CH; i += threads<DH>()) {
+  for (int i = threadIdx.x; i < R * CH; i += kWG) {
     const int r = i / CH, c = i % CH;
     const bool ok = r0 + r < Tn;
     cp_async16(base + swz<R>(r, c), src + (int64_t)(ok ? r0 + r : 0) * st + c * 8, ok);
@@ -294,6 +268,17 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// dqa += scale * t, once the products into t are done
+template <int G>
+__device__ __forceinline__ void add_dq(float (&dqa)[G][32], float (&t)[G][32], float scale) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    pin(t[g]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[g][i] += scale * t[g][i];
+  }
+}
+
 // d = A B^T of two 64-row swizzled bf16 tiles for this thread's rows (r,
 // r + 8 of A) and columns (8 j + c2 + e of B), each a chain of fmaf over
 // the Dh columns in increasing order from zero: the order of a plain
@@ -331,60 +316,23 @@ __device__ __forceinline__ void dots_fma(float (&d)[32], const uint8_t* a_tile,
     }
 }
 
-// ds = p * (dp - delta) of one 64-key tile at k0 for this thread's two q
-// rows (row0, row0 + 8), p = exp(scale s - lse), in dp; keys at or past T
-// give p = 0 (their rows of K and V are zero-filled)
-__device__ __forceinline__ void ds_tile(const float (&s)[32], float (&dp)[32],
-                                        const float (&lr)[2], const float (&dr)[2], int k0,
-                                        int q0, int row0, int c2, int Tn, int causal,
-                                        float scale) {
-  // only a tile across T or on the diagonal needs the mask
-  const bool edge = k0 + kTile > Tn || (causal && k0 + kTile - 1 > q0);
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = k0 + 8 * j + c2 + e;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int at = 4 * j + 2 * hh + e;
-        float x = scale * s[at];
-        if (edge && causal && col > row0 + 8 * hh) x = kNegInf;
-        const float p = !edge || col < Tn ? expf(x - lr[hh]) : 0.f;
-        dp[at] = p * (dp[at] - dr[hh]);
-      }
-    }
-}
-
-// dqa += scale * t, once the products into t are done
-template <int G>
-__device__ __forceinline__ void add_dq(float (&dqa)[G][32], float (&t)[G][32], float scale) {
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    pin(t[g]);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dqa[g][i] += scale * t[g][i];
-  }
-}
-
-// One block (one warpgroup, two at Dh 256) per (bh, 64-row q tile): dq (B, T,
-// H, Dh) contiguous. dout is contiguous; lse and delta are (B*H, T).
+// One block (one warpgroup) per (bh, 64-row q tile): dq (B, T, H, Dh)
+// contiguous. dout is contiguous; lse and delta are (B*H, T).
 template <int DH>
-__global__ void __launch_bounds__(threads<DH>(), dq_blocks<DH>())
+__global__ void __launch_bounds__(kWG, dq_blocks<DH>())
 flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       bf16* __restrict__ dq, int H, int Tn, int64_t sb, int64_t st, int64_t sh,
                       float scale, int causal) {
-  constexpr int G = DH / 64 / warpgroups<DH>();  // 64-column groups of this warpgroup
+  constexpr int G = DH / 64;  // 64-column groups
   constexpr int kBytes = kTile * DH * 2;  // one tile
-  constexpr int kStages = bwd_stages<DH>();
+  constexpr int kStages = kBwdStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);
   uint8_t* Os = Qs + kBytes;    // dO
   uint8_t* ring = Os + kBytes;  // stage s: K at ring + 2 s kBytes, V after it
-  const int wg = threadIdx.x / kWG, warp = threadIdx.x % kWG / 32, lane = threadIdx.x % 32;
-  const uint32_t cols = wg * G * kTile * kRowBytes;  // this warpgroup's columns of a tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nt = (Tn + kTile - 1) / kTile;
   const int q0 = (nt - 1 - (int)blockIdx.y) * kTile;  // the longest causal rows first
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -438,7 +386,7 @@ flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     ds_tile(s, dp, lr, dr, kt * kTile, q0, row0, c2, Tn, causal, scale);
     split_frags(dp, a);
     wg_fence();
-    mma_split<G>(t, a, stage(kt) + cols);  // dS K
+    mma_split<G>(t, a, stage(kt));  // dS K
     wg_commit();
     wg_wait<0>();
     add_dq(dqa, t, scale);
@@ -449,7 +397,7 @@ flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row0 + 8 * hh;
     if (row >= Tn) continue;
-    bf16* dst = dq + (((int64_t)b * Tn + row) * H + h) * DH + 64 * G * wg + c2;
+    bf16* dst = dq + (((int64_t)b * Tn + row) * H + h) * DH + c2;
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -470,7 +418,7 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        int64_t st, int64_t sh, float scale, int causal) {
   constexpr int G = DH / 64;  // 64-column groups
   constexpr int kBytes = kTile * DH * 2;  // one tile
-  constexpr int kStages = bwd_stages<DH>();
+  constexpr int kStages = kBwdStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Ks = align1024(smem_raw);
   uint8_t* Vs = Ks + kBytes;
@@ -631,10 +579,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       const float* lse, const float* delta, void* dq, const Args& a,
                       cudaStream_t st) {
   // q and dO tiles, the k/v ring, + alignment slack
-  constexpr int bytes = (2 + 2 * bwd_stages<DH>()) * kTile * DH * 2 + 1024;
+  constexpr int bytes = (2 + 2 * kBwdStages) * kTile * DH * 2 + 1024;
   cudaError_t e = prepare(flash_dq_wgmma_kernel<DH>, bytes);
   if (e != cudaSuccess) return e;
-  flash_dq_wgmma_kernel<DH><<<grid(a), threads<DH>(), bytes, st>>>(
+  flash_dq_wgmma_kernel<DH><<<grid(a), kWG, bytes, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dq,
       a.H, a.T, a.sb, a.st, a.sh, a.scale, a.causal);
   return cudaGetLastError();
@@ -645,7 +593,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const float* lse, const float* delta, void* dk, void* dv, const Args& a,
                        cudaStream_t st) {
   // k and v tiles, the q/dO ring with its lse and delta, + alignment slack
-  constexpr int S = bwd_stages<DH>();
+  constexpr int S = kBwdStages;
   constexpr int bytes = (2 + 2 * S) * kTile * DH * 2 + S * 2 * kTile * 4 + 1024;
   cudaError_t e = prepare(flash_dkv_wgmma_kernel<DH>, bytes);
   if (e != cudaSuccess) return e;
@@ -686,7 +634,6 @@ extern "C" int fedml_flash_dq_sm90(const void* q, const void* k, const void* v,
   switch (Dh) {
     case 64: return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, a, s);
     case 128: return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, a, s);
-    case 256: return (int)launch_dq<256>(q, k, v, dout, lse, delta, dq, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,12 +1,13 @@
-// Flash attention's forward and dk/dv at head dim 256 for bfloat16 (B, T, H,
-// 256) inputs on the Hopper tensor cores, causal or full, any T: the Cheetah
-// LM's attention at --dim 2048 (8 heads of 256). dq at Dh 256, and every
-// other head dim, stay in flash_attention_sm90.cu.
+// Flash attention's forward, dq and dk/dv at head dim 256 for bfloat16 (B,
+// T, H, 256) inputs on the Hopper tensor cores, causal or full, any T: the
+// Cheetah LM's attention at --dim 2048 (8 heads of 256). Every other head
+// dim stays in flash_attention_sm90.cu.
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (:66,
-// the forward: o = softmax(scale q k^T, causal mask) v and lse = m + log l)
-// and _dkv_kernel (:213: p = exp(scale q k^T - lse), dv = sum p^T dO, ds =
-// p (dO v^T - delta), dk = scale sum ds^T q). The arithmetic is
+// the forward: o = softmax(scale q k^T, causal mask) v and lse = m + log l),
+// _dq_kernel (:167: p = exp(scale q k^T - lse), ds = p (dO v^T - delta), dq
+// = sum scale ds k) and _dkv_kernel (:213: dv = sum p^T dO, dk = scale sum
+// ds^T q). The arithmetic is
 // flash_attention_sm90.cu's: bf16 x bf16 score products exact with float32
 // sums, p and ds as three bf16 terms (exact to float32), each 64-row tile's
 // products from a zero accumulator added in float32, finfo(float32).min
@@ -15,14 +16,16 @@
 // Bound on the H100 at the wide LM's shape (B 8, T 4608, H 8, causal):
 // 6.796e8 unmasked (q, k) pairs x 2 x 256 operations = 0.348 TFLOP a
 // product. The forward does one bf16 product and one split product (1 + 3
-// tensor-core products), dk/dv two and two (2 + 6): 1.41 and 2.82 ms at 989
-// TFLOP/s, against ~0.2 ms of bytes at 3.35 TB/s. Bound by operations.
+// tensor-core products), dq two and one (2 + 3), dk/dv two and two (2 +
+// 6): 1.41, 1.76 and 2.82 ms at 989 TFLOP/s, against ~0.2 ms of bytes at
+// 3.35 TB/s. Bound by operations.
 //
 // What held flash_attention_sm90.cu's Dh-256 forms back: a 64 x 256 float32
 // accumulator takes 128 registers a thread, so their two warpgroups each
 // owned 128 output columns and both computed every score product (5 product
-// units for the forward's 4, 10 for dk/dv's 8), with the softmax, the
-// three-term split and every load's address work done twice, in lockstep.
+// units for the forward's 4, 7 for dq's 5, 10 for dk/dv's 8), with the
+// softmax, the three-term split and every load's address work done twice,
+// in lockstep, and every thread issuing cp.async and its address work.
 // Here every score product, exponential and split runs once per block.
 //
 // Forward. A block takes 128 q rows; warpgroups 0 and 1 each own 64 of them
@@ -55,21 +58,50 @@
 // mbarrier. A producer warpgroup here (registers capped at 232 or 240) ran
 // 1.1-2.4 ms slower.
 //
-// Both. Blocks go by (b, h), and within one the longest causal rows (dk/dv:
-// the keys seen by the most rows) first. Tiles arrive by the tensor memory
+// dq. The forward's layout: a block takes 128 q rows, warpgroups 0 and 1
+// own 64 each over all 256 columns (a 128-register dq accumulator), and
+// warpgroup 2 issues the copies (setmaxnreg: 240 and 24 registers). Per k
+// tile a warpgroup computes its own S = Q K^T and dP = dO V^T (two wgmma
+// m64n64k16 chains over the 256 columns), forms ds = p (dP - delta) in the
+// accumulator registers, splits it into three bf16 terms as the register A
+// operand, and runs dS K one 64-column group at a time into a 32-register
+// accumulator from zero, adding scale times it to dq in float32: the
+// bits of the earlier kernel. q and dO stay resident (128 KB); v is read
+// only by dP, so its slot frees before dS K starts and one v stage beside
+// two k stages suffices: 7 tiles, 230,456 bytes with barriers and
+// alignment (static_assert below); two stages of both would take 256 KB.
+// lse and delta are two plain loads a thread, once per block. On the
+// causal diagonal dP is summed on the CUDA cores in a plain float32
+// product's order (dots_plain), which repeats the plain version's rounding
+// noise in row 0, where p = 1 on one key and dp - delta cancels. That tile
+// is a separate instance after the loop: a branch inside the loop that
+// wrote dP's accumulator made ptxas serialize every wgmma (warning C7520;
+// 5.86 against 4.70 ms). The warpgroup index goes through a shuffle so that
+// ptxas knows it is warp-uniform (40 -> 8 bytes spilled). Without the
+// producer warpgroup (thread 0 of warpgroup 1 issuing, 255 registers) it
+// ran 0.85 ms slower and spilled 300 bytes. The diagonal still costs ~0.6
+// ms of the 4 at the wide LM's shape: its four warps per SM (one per
+// scheduler) wait on their shared-memory loads, and warpgroup 1 waits for
+// warpgroup 0's diagonal to free the v slot.
+//
+// All three. Blocks go by (b, h), and within one the longest causal rows
+// (dk/dv: the keys seen by the most rows) first. Tiles arrive by the tensor memory
 // accelerator (TMA): one 4-D tensor map per operand, (Dh, H, T, B) with the
 // caller's element strides (q, k, v are strided views of one projection),
 // boxes of 64 columns x 64 rows in the 128-byte swizzle, the layout desc_k
 // and desc_mn read; the hardware zero-fills rows at or past T. lse and delta
 // come by a 1-D map over the (B*H*T) vector (a row stride of T floats need
 // not be a multiple of 16 bytes), in boxes that start on a 16-byte boundary,
-// as TMA requires. One thread issues every copy into full mbarriers that
-// count the bytes; no thread computes a load address. Exchange tiles are 64
+// as TMA requires (dk/dv; dq reads its rows' values directly). One thread
+// issues every copy into full mbarriers that count the bytes; no thread
+// computes a load address. Exchange tiles are 64
 // x 64 floats, row r's columns XOR-swizzled by 8 (r % 4), so a warp's float2
 // accesses (4 rows x 4 lanes per half warp) hit 32 distinct banks. No
 // atomics and one fixed order of every sum: dk and dv repeat bit for bit.
 
 #include <cuda.h>
+
+#include <type_traits>
 
 #include "flash_sm90.cuh"
 
@@ -77,8 +109,8 @@ namespace {
 
 constexpr int kDh = 256;
 constexpr int kThreads = 2 * kWG;                 // dk/dv: two warpgroups
-// forward: two consumer warpgroups and a producer warpgroup, whose registers
-// go to the consumers (2 x 128 x 240 + 128 x 24 <= 65,536)
+// forward and dq: two consumer warpgroups and a producer warpgroup, whose
+// registers go to the consumers (2 x 128 x 240 + 128 x 24 <= 65,536)
 constexpr int kFwdThreads = 3 * kWG;
 constexpr int kConsumerRegs = 240, kProducerRegs = 24;
 constexpr int kGroupBytes = kTile * kRowBytes;    // 64 columns of a tile: 8 KB
@@ -93,7 +125,11 @@ constexpr int kVecSlot = 384;
 constexpr int kFwdSmem = 6 * kTileBytes + 9 * 8 + 1024;
 // dk/dv: k, v, q/dO stages, two p tiles, lse/delta stages, 5 barriers
 constexpr int kDkvSmem = 6 * kTileBytes + 2 * kXFloats * 4 + 4 * kVecSlot + 5 * 8 + 1024;
-static_assert(kFwdSmem <= 232448 && kDkvSmem <= 232448, "shared memory of one H100 block");
+// dq: 128 q rows and their dO rows (4 tiles), two k stages and one v stage, 7
+// barriers: 229,376 + 56 + 1,024 = 230,456 bytes
+constexpr int kDqSmem = 7 * kTileBytes + 7 * 8 + 1024;
+static_assert(kFwdSmem <= 232448 && kDkvSmem <= 232448 && kDqSmem <= 232448,
+              "shared memory of one H100 block");
 
 // --- mbarriers and TMA -------------------------------------------------------
 
@@ -490,6 +526,201 @@ flash_dkv_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// eight bf16 (one 16-byte chunk) as float32, exactly
+__device__ __forceinline__ void unpack8(const uint4 u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// flash_attention_sm90.cu's dots_fma (d = A B^T for this thread's rows and
+// columns, each output a chain of fmaf over the 256 columns in increasing
+// order from zero: the bits of a plain float32 product) with 16-byte loads,
+// one chunk of 8 columns of a row each: a quarter of the loads and of their
+// address work, ~0.4 ms of the wide LM's dq, where the diagonal's warps wait
+// on their loads. The Dh 64/128 dq keeps dots_fma: under its 3-block
+// register cap (168) these loads spilled 128 bytes at Dh 64 and its dq ran
+// ~1% slower (2.525 against 2.492-2.505 ms, H100 80GB HBM3 at 700 W).
+__device__ __forceinline__ void dots_plain(float (&d)[32], const uint8_t* a_tile,
+                                           const uint8_t* b_tile, int r, int c2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < kDh / 8; ++c) {
+    float a[2][8];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      unpack8(*reinterpret_cast<const uint4*>(a_tile + swz<kTile>(r + 8 * hh, c)), a[hh]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float f[8];
+        unpack8(*reinterpret_cast<const uint4*>(b_tile + swz<kTile>(8 * j + c2 + e, c)), f);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int x = 0; x < 8; ++x)
+            d[4 * j + 2 * hh + e] = fmaf(a[hh][x], f[x], d[4 * j + 2 * hh + e]);
+      }
+  }
+}
+
+// One block per (bh, 128-row q tile): dq (B, T, H, 256) contiguous. dO is
+// contiguous; lse and delta are (B*H, T). Warpgroups 0 and 1 each own 64 of
+// the rows over all 256 columns; warpgroup 2 issues the copies.
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_dq_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap omap, const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Tn,
+                      float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  const uint32_t Qs = smem_addr(base);      // warpgroup w's q rows at Qs + w kTileBytes
+  const uint32_t Os = Qs + 2 * kTileBytes;  // ... its dO rows at Os + w kTileBytes
+  const uint32_t Ks = Os + 2 * kTileBytes;  // k stage s at Ks + s kTileBytes
+  const uint32_t Vs = Ks + 2 * kTileBytes;  // the v stage
+  // barriers: q and dO; k stage s full (+ 8 s) and read by both warpgroups
+  // (empty, + 8 s); v full and read
+  const uint32_t qbar = smem_addr(base + 7 * kTileBytes);
+  const uint32_t kfull = qbar + 8, kempty = qbar + 24, vfull = qbar + 40, vempty = qbar + 48;
+  const int tid = threadIdx.x, warp = tid % kWG / 32, lane = tid % 32;
+  // the warpgroup, through a shuffle, so that ptxas knows it is warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, tid / kWG, 0);
+  const int nt = (Tn + kTile - 1) / kTile, nb = (Tn + 2 * kTile - 1) / (2 * kTile);
+  // blocks by (b, h), and within one the longest causal rows first
+  const int bh = (int)blockIdx.x / nb, b = bh / H, h = bh % H;
+  const int q0 = (nb - 1 - (int)blockIdx.x % nb) * 2 * kTile;
+  // k tiles of warpgroup w: causal, none past its diagonal
+  auto tiles = [&](int w) { return causal ? min(q0 / kTile + w + 1, nt) : nt; };
+  const int n = tiles(1);  // the block's k tiles: warpgroup 1's
+  auto load_qo = [&] {
+    mbar_expect(qbar, 4 * kTileBytes);
+    tma_tile(Qs, &qmap, qbar, h, q0, b);
+    tma_tile(Qs + kTileBytes, &qmap, qbar, h, q0 + kTile, b);
+    tma_tile(Os, &omap, qbar, h, q0, b);
+    tma_tile(Os + kTileBytes, &omap, qbar, h, q0 + kTile, b);
+  };
+  auto load_k = [&](int t) {
+    const uint32_t full = kfull + 8 * (t % 2);
+    mbar_expect(full, kTileBytes);
+    tma_tile(Ks + (t % 2) * kTileBytes, &kmap, full, h, t * kTile, b);
+  };
+  auto load_v = [&](int t) {
+    mbar_expect(vfull, kTileBytes);
+    tma_tile(Vs, &vmap, vfull, h, t * kTile, b);
+  };
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    mbar_init(kfull, 1);
+    mbar_init(kfull + 8, 1);
+    mbar_init(vfull, 1);
+    mbar_init(kempty, kThreads);
+    mbar_init(kempty + 8, kThreads);
+    mbar_init(vempty, kThreads);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer: k tile t once tile t - 2 is read, v tile t once t - 1 is
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 2 * kWG) {
+      load_qo();
+      for (int t = 0; t < n; ++t) {
+        if (t >= 2) mbar_wait(kempty + 8 * (t % 2), (t / 2 - 1) & 1);
+        load_k(t);
+        if (t >= 1) mbar_wait(vempty, (t - 1) & 1);
+        load_v(t);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int qw = q0 + wg * kTile;              // this warpgroup's first row
+  const int row0 = qw + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  const int c2 = 2 * (lane % 4);
+  const int nk = tiles(wg);
+  const uint32_t q_tile = Qs + wg * kTileBytes, o_tile = Os + wg * kTileBytes;
+  float lr[2], dr[2];  // lse and delta of this thread's rows
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    lr[hh] = row < Tn ? lse[(int64_t)bh * Tn + row] : 0.f;
+    dr[hh] = row < Tn ? delta[(int64_t)bh * Tn + row] : 0.f;
+  }
+  float dqa[kDh / 64][32];
+#pragma unroll
+  for (int g = 0; g < kDh / 64; ++g)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[g][i] = 0.f;
+  // k tile kt: S = Q K^T, issued before v has landed; dP = dO V^T, on the
+  // causal diagonal (DIAG) summed by dots_plain in a plain float32 product's
+  // order instead; ds; dS K one 64-column group at a time. The diagonal is
+  // a separate instance, so no branch inside the loop writes a wgmma
+  // accumulator (ptxas serialized every wgmma of the loop when one did).
+  auto tile = [&](int kt, auto diag) {
+    constexpr bool DIAG = decltype(diag)::value;
+    const int sk = kt % 2;
+    const uint32_t k_tile = Ks + sk * kTileBytes;
+    float s[32], dp[32];
+    mbar_wait(kfull + 8 * sk, (kt / 2) & 1);
+    wg_fence();
+    scores(s, q_tile, k_tile);
+    wg_commit();
+    mbar_wait(vfull, kt & 1);
+    if constexpr (DIAG) {
+      dots_plain(dp, base + 2 * kTileBytes + wg * kTileBytes, base + 6 * kTileBytes,
+                 row0 - qw, c2);
+    } else {
+      wg_fence();
+      scores(dp, o_tile, Vs);
+      wg_commit();
+    }
+    wg_wait<0>();
+    pin(s);
+    pin(dp);
+    mbar_arrive(vempty);  // this thread is done with v
+    ds_tile(s, dp, lr, dr, kt * kTile, qw, row0, c2, Tn, causal, scale);
+    uint32_t a[4][3][4];
+    split_frags(dp, a);
+#pragma unroll
+    for (int g = 0; g < kDh / 64; ++g) {
+      float t[32];
+      wg_fence();
+      mma_split_group(t, a, k_tile, g);
+      wg_commit();
+      wg_wait<0>();
+      pin(t);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dqa[g][i] += scale * t[i];
+    }
+    mbar_arrive(kempty + 8 * sk);  // ... and with this k stage
+  };
+  mbar_wait(qbar, 0);
+  const int nfull = causal ? nk - 1 : nk;  // causal: the last k tile is the diagonal
+  for (int kt = 0; kt < nfull; ++kt) tile(kt, std::false_type());
+  if (causal) tile(nk - 1, std::true_type());
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= Tn) continue;
+    bf16* dst = dq + (((int64_t)b * Tn + row) * H + h) * kDh + c2;
+#pragma unroll
+    for (int g = 0; g < kDh / 64; ++g)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 64 * g + 8 * j) =
+            __floats2bfloat162_rn(dqa[g][4 * j + 2 * hh], dqa[g][4 * j + 2 * hh + 1]);
+  }
+}
+
 // --- tensor maps and launches --------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -594,5 +825,25 @@ extern "C" int fedml_flash_dkv_dh256_sm90(const void* q, const void* k, const vo
   flash_dkv_dh256_kernel<<<grid(B, H, T, kTile), kThreads, kDkvSmem,
                            (cudaStream_t)stream>>>(
       qm, km, vm, om, lm, dm, (bf16*)dk, (bf16*)dv, H, T, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fedml_flash_dq_dh256_sm90(const void* q, const void* k, const void* v,
+                                         const void* dout, const float* lse, const float* delta,
+                                         void* dq, int B, int H, int T, int Dh, int is_bf16,
+                                         int causal, long long sb, long long st, long long sh,
+                                         float scale, void* stream) {
+  CUtensorMap qm, km, vm, om;
+  const int64_t hd = (int64_t)H * kDh;  // dO's row stride
+  if (!args_ok(B, H, T, Dh, is_bf16) || !map_rows(&qm, q, B, H, T, sb, st, sh) ||
+      !map_rows(&km, k, B, H, T, sb, st, sh) || !map_rows(&vm, v, B, H, T, sb, st, sh) ||
+      !map_rows(&om, dout, B, H, T, T * hd, hd, kDh))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_dq_dh256_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  if (e != cudaSuccess) return (int)e;
+  flash_dq_dh256_kernel<<<grid(B, H, T, 2 * kTile), kFwdThreads, kDqSmem,
+                          (cudaStream_t)stream>>>(qm, km, vm, om, lse, delta, (bf16*)dq, H, T,
+                                                  scale, causal);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,9 @@
 // Building blocks shared by the bf16 flash kernels on the Hopper tensor cores
-// (flash_attention_sm90.cu: Dh 64 and 128, and dq at 256; flash_dh256_sm90.cu:
-// the forward and dk/dv at Dh 256): shared-memory descriptors of the
-// 128-byte-swizzled tiles, wgmma, the three-term split of a float32 operand,
-// and the online softmax of one 64-key tile. flash_attention_sm90.cu's header
-// states the arithmetic they implement.
+// (flash_attention_sm90.cu: Dh 64 and 128; flash_dh256_sm90.cu: Dh 256): the
+// 128-byte-swizzled tile layout and its shared-memory descriptors, wgmma,
+// the three-term split of a float32 operand, the online softmax of one
+// 64-key tile, and dq's ds.
+// flash_attention_sm90.cu's header states the arithmetic they implement.
 
 #pragma once
 
@@ -26,6 +26,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+// Byte offset of 16-byte chunk c (8 bf16) of row r in an R-row tile. The
+// tile is Dh/64 column groups of R rows x 128 bytes; each 8-row group is one
+// 1024-byte atom of the 128-byte swizzle (chunk ^ row % 8), as wgmma reads it.
+template <int R>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 3) * (R * kRowBytes) + r * kRowBytes + (((c & 7) ^ (r & 7)) << 4);
 }
 
 // --- wgmma -------------------------------------------------------------------
@@ -181,6 +189,33 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], floa
     l[hh] = l[hh] * corr[hh] + ps;
     m[hh] = nm;
   }
+}
+
+// --- the backward's dq: ds ---------------------------------------------------
+
+// ds = p * (dp - delta) of one 64-key tile at k0 for this thread's two q
+// rows (row0, row0 + 8), p = exp(scale s - lse), in dp; keys at or past T
+// give p = 0 (their rows of K and V are zero-filled)
+__device__ __forceinline__ void ds_tile(const float (&s)[32], float (&dp)[32],
+                                        const float (&lr)[2], const float (&dr)[2], int k0,
+                                        int q0, int row0, int c2, int Tn, int causal,
+                                        float scale) {
+  // only a tile across T or on the diagonal needs the mask
+  const bool edge = k0 + kTile > Tn || (causal && k0 + kTile - 1 > q0);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = k0 + 8 * j + c2 + e;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int at = 4 * j + 2 * hh + e;
+        float x = scale * s[at];
+        if (edge && causal && col > row0 + 8 * hh) x = kNegInf;
+        const float p = !edge || col < Tn ? expf(x - lr[hh]) : 0.f;
+        dp[at] = p * (dp[at] - dr[hh]);
+      }
+    }
 }
 
 }  // namespace

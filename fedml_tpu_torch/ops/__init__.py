@@ -3,10 +3,11 @@ version: ``agg_quant.quantize_pack`` (codec q8/q4 stage),
 ``agg_robust.gram`` (Krum's Gram plane), ``conv.conv3x3_lanes`` /
 ``conv.conv3x3_dw_lanes`` (the 3x3 multi-weight conv in float32 or bf16,
 its forward on the tensor cores from ``conv3x3_sm90`` for ResNet's block
-convs, and its weight gradient) and ``flash_attention.flash_forward`` / ``flash_dq`` /
+convs, and its weight gradient, in bf16 at those widths from
+``conv3x3_sm90`` too) and ``flash_attention.flash_forward`` / ``flash_dq`` /
 ``flash_dkv`` (causal flash attention and its backward; bf16 inputs on
-the tensor cores from ``flash_attention_sm90``, the forward and dk/dv at
-Dh 256 from ``flash_dh256_sm90``). Sources are in ``../csrc``."""
+the tensor cores from ``flash_attention_sm90``, at Dh 256 from
+``flash_dh256_sm90``). Sources are in ``../csrc``."""
 
 KERNELS = ("agg_quant", "agg_robust", "conv3x3", "conv3x3_sm90", "flash_attention",
            "flash_attention_sm90", "flash_dh256_sm90")

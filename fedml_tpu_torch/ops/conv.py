@@ -6,11 +6,13 @@ so every conv of a client sees that client's own weights. Left to
 package met the same problem on the TPU and wrote ``conv2d_pallas``; here
 the same op is hand-written CUDA: the forward (also dx) on the tensor cores
 in three TF32 products for ResNet's block convs (Ci = Co in {16, 32, 64},
-``csrc/conv3x3_sm90.cu``), else on the CUDA cores (``csrc/conv3x3.cu``,
-which also holds the weight gradient); :func:`fwd_route` picks by channels
-and dtype. Each kernel takes float32 or bfloat16 operands (the JAX
-package's ``use_bf16``): bfloat16 products are summed in float32 and the
-result rounded once to bfloat16, one ``mma.sync`` bf16 product on the
+``csrc/conv3x3_sm90.cu``), else on the CUDA cores (``csrc/conv3x3.cu``);
+:func:`fwd_route` picks by channels and dtype. The weight gradient runs on
+the CUDA cores of ``csrc/conv3x3.cu``, except bfloat16 at those block
+widths, which runs on the tensor cores of ``csrc/conv3x3_sm90.cu``
+(:func:`dw_route`). Each kernel takes float32 or bfloat16 operands (the
+JAX package's ``use_bf16``): bfloat16 products are summed in float32 and
+the result rounded once to bfloat16, one ``mma.sync`` bf16 product on the
 tensor cores in place of three TF32 ones:
 
 - :func:`conv3x3` — the differentiable 3x3 / stride-1 / SAME conv, NHWC
@@ -124,6 +126,10 @@ def conv3x3_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 SLICE = 16                # the forward's contraction elements per step (csrc kSlice)
 GROUP_PIXELS = 16         # pixels of a dw slice one thread group sums (kGroupPixels)
 TARGET_BLOCKS = 132 * 2   # dw blocks: two per H100 SM, one wave
+DW_SLOTS = 128            # pixel slots of a tensor-core dw tile (csrc kDwSlots)
+# (16-row tiles per warp, warps) of the tensor-core dw block by Ci (csrc
+# fedml_conv3x3_dw_sm90_bf16's dispatch)
+DW_TC_WARPS = {16: (3, 3), 32: (3, 6), 64: (2, 6)}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -135,23 +141,41 @@ def block_cols(co: int) -> int:
     return 16 if co <= 16 else 32 if co <= 32 else 64
 
 
-def dw_tile(ci: int, co: int) -> Tuple[int, int, int, int]:
+def dw_tile(ci: int, co: int, route: str = "fma") -> Tuple[int, int, int, int]:
     """(rows, columns, threads, slice pixels) of the weight-gradient block
-    (csrc ``dw_rows``, ``block_cols``, ``dw_groups`` and ``kGroupPixels``):
-    rows sized to the contraction K = 9 Ci — all of K <= 32 (the stem's
-    27), 144 where they divide K, else 64 — and groups of ``rows`` threads,
-    256 or 288 in all, each summing 16 pixels of a slice."""
+    of ``route``. FMA routes (csrc ``dw_rows``, ``block_cols``,
+    ``dw_groups`` and ``kGroupPixels``): rows sized to the contraction K =
+    9 Ci — all of K <= 32 (the stem's 27), 144 where they divide K, else 64
+    — and groups of ``rows`` threads, 256 or 288 in all, each summing 16
+    pixels of a slice. "bf16_tc" (csrc ``DwCfg``): warps of 16-row mma tiles
+    over all Co columns, a slice one pixel tile of up to DW_SLOTS slots."""
+    if route == "bf16_tc":
+        mt, nw = DW_TC_WARPS[ci]
+        return 16 * mt * nw, co, 32 * nw, DW_SLOTS
     k = 9 * ci
     rows = 32 if k <= 32 else 144 if k % 144 == 0 else 64
     groups = 2 if rows == 144 else 256 // rows
     return rows, block_cols(co), groups * rows, groups * GROUP_PIXELS
 
 
-def dw_split_plan(L: int, P: int, ci: int, co: int) -> Tuple[int, int]:
-    """(span, splits): each lane's P = B*H*W pixels are cut into ``splits``
-    spans of ``span`` (a multiple of the block's slice) so that lanes x
-    tiles x splits is at most TARGET_BLOCKS, one wave of blocks."""
-    rows, cols, _, sl = dw_tile(ci, co)
+def dw_tc_geometry(B: int, H: int, W: int) -> Tuple[int, int, int]:
+    """(rows, columns, tiles) of the tensor-core dw's pixel tiles (csrc
+    ``dw_geometry``): whole image rows, as many as DW_SLOTS slots hold, or
+    DW_SLOTS columns of a wider row; tiles never cross an image."""
+    cb = min(W, DW_SLOTS)
+    rb = 1 if cb < W else min(H, DW_SLOTS // W)
+    return rb, cb, B * _cdiv(H, rb) * _cdiv(W, cb)
+
+
+def dw_split_plan(L: int, P: int, ci: int, co: int, route: str = "fma") -> Tuple[int, int]:
+    """(span, splits): each lane's contraction of P units — pixels on the
+    FMA routes, pixel tiles (:func:`dw_tc_geometry`) on "bf16_tc" — is cut
+    into ``splits`` spans of ``span`` (on the FMA routes a multiple of the
+    block's slice) so that lanes x tiles x splits is at most
+    TARGET_BLOCKS, one wave of blocks."""
+    rows, cols, _, sl = dw_tile(ci, co, route)
+    if route == "bf16_tc":
+        sl = 1
     tiles = _cdiv(9 * ci, rows) * _cdiv(co, cols)
     splits = min(max(1, TARGET_BLOCKS // (tiles * L)), _cdiv(P, sl), 65535)
     span = _cdiv(_cdiv(P, splits), sl) * sl
@@ -174,7 +198,8 @@ def _lane_stride(t: torch.Tensor, name: str) -> int:
     return t[0].numel() if t.shape[0] > 1 else 0
 
 
-def _check_lanes(x: torch.Tensor, other: torch.Tensor, x_name: str, o_name: str) -> None:
+def _check_lanes(x: torch.Tensor, other: torch.Tensor, x_name: str, o_name: str,
+                 align_other: bool = False) -> None:
     if x.dim() != 5 or other.dim() != 5 or x.shape[0] != other.shape[0] or x.shape[0] < 1:
         raise ValueError(f"{x_name} and {o_name} must be 5-D with the same lane count, got "
                          f"{tuple(x.shape)} and {tuple(other.shape)}")
@@ -185,9 +210,11 @@ def _check_lanes(x: torch.Tensor, other: torch.Tensor, x_name: str, o_name: str)
                          f"{x.dtype} and {other.dtype}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    if x.device.type == "cuda" and x.shape[-1] % SLICE == 0 and x.data_ptr() % 16:
-        # the kernels read such x with 16-byte loads
-        raise ValueError(f"{x_name} must be 16-byte aligned")
+    # the kernels read such x (and the weight gradient such dy) with 16-byte loads
+    read16 = [(x, x_name), (other, o_name)] if align_other else [(x, x_name)]
+    for t, name in read16:
+        if t.device.type == "cuda" and t.shape[-1] % SLICE == 0 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 # (kernel library, C entry point) of each forward route; all take the same
@@ -199,9 +226,11 @@ FWD_ROUTES = {"tf32x3": ("conv3x3_sm90", "fedml_conv3x3_fwd_sm90"),
 ROUTE_DTYPE = {"tf32x3": torch.float32, "fma": torch.float32, "bf16_tc": torch.bfloat16,
                "fma_bf16": torch.bfloat16}
 TC_CHANNELS = (16, 32, 64)  # csrc conv3x3_sm90.cu tc_channels
-# (kernel library, C entry point) of the weight gradient by dtype
-DW_ROUTES = {torch.float32: ("conv3x3", "fedml_conv3x3_dw"),
-             torch.bfloat16: ("conv3x3", "fedml_conv3x3_dw_bf16")}
+# (kernel library, C entry point) of each weight-gradient route; all take the
+# same arguments (the contraction's span in the route's units, dw_split_plan)
+DW_ROUTES = {"fma": ("conv3x3", "fedml_conv3x3_dw"),
+             "bf16_tc": ("conv3x3_sm90", "fedml_conv3x3_dw_sm90_bf16"),
+             "fma_bf16": ("conv3x3", "fedml_conv3x3_dw_bf16")}
 _FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + \
     [ctypes.c_void_p]
 _DW_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + \
@@ -219,6 +248,18 @@ def fwd_route(ci: int, co: int, dtype: torch.dtype = torch.float32) -> str:
     if dtype == torch.bfloat16:
         return "bf16_tc" if tc else "fma_bf16"
     return "tf32x3" if tc else "fma"
+
+
+def dw_route(ci: int, co: int, dtype: torch.dtype = torch.float32) -> str:
+    """The weight-gradient kernel for Ci -> Co channels of ``dtype``: bf16
+    with Ci = Co in {16, 32, 64} (ResNet's block convs) on the tensor cores
+    of ``conv3x3_sm90.cu`` ("bf16_tc", one bf16 mma.sync product per 16
+    pixels, float32 sums); other bf16 convs (the stem's 3 -> 16, ragged
+    channels) on the CUDA cores of ``conv3x3.cu`` ("fma_bf16"); float32
+    there too ("fma")."""
+    if dtype == torch.bfloat16:
+        return "bf16_tc" if ci == co and ci in TC_CHANNELS else "fma_bf16"
+    return "fma"
 
 
 def conv3x3_fwd_route(x: torch.Tensor, w: torch.Tensor, route: str) -> torch.Tensor:
@@ -266,37 +307,56 @@ conv3x3_lanes.launches = 0
 conv3x3_lanes.route_launches = dict.fromkeys(FWD_ROUTES, 0)
 
 
+def conv3x3_dw_route(x: torch.Tensor, dy: torch.Tensor, route: str) -> torch.Tensor:
+    """The weight-gradient kernel named by ``route`` on CUDA lane-stacked
+    x, dy (as :func:`conv3x3_dw_lanes` takes them); counts no launch.
+    :func:`conv3x3_dw_lanes` calls it with :func:`dw_route`; a benchmark may
+    name another route of the same dtype where it takes the shape."""
+    L, B, H, W, Ci = x.shape
+    Co = dy.shape[-1]
+    if ROUTE_DTYPE[route] != x.dtype:
+        raise ValueError(f"route {route} takes {ROUTE_DTYPE[route]}, not {x.dtype}")
+    x_lane = _lane_stride(x, "x")
+    if _lane_stride(dy, "dy") == 0 and L > 1:
+        dy = dy.contiguous()
+    if route == "bf16_tc":
+        if dw_route(Ci, Co, x.dtype) != route:
+            raise ValueError(f"the {route} kernel takes Ci = Co in {TC_CHANNELS}, got "
+                             f"{Ci} -> {Co}")
+        span, splits = dw_split_plan(L, dw_tc_geometry(B, H, W)[2], Ci, Co, route)
+    else:
+        span, splits = dw_split_plan(L, B * H * W, Ci, Co, route)
+    part = torch.empty((L, splits, 9 * Ci, Co), dtype=torch.float32, device=x.device)
+    dw = torch.empty((L, 3, 3, Ci, Co), dtype=x.dtype, device=x.device)
+    lib, entry = DW_ROUTES[route]
+    fn = _build.function(lib, entry, _DW_ARGS)
+    err = fn(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), L, B, H, W, Ci, Co,
+             x_lane, span, splits, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, entry)
+    return dw
+
+
 def conv3x3_dw_lanes(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Weight-gradient kernel: x (L, B, H, W, Ci), dy (L, B, H, W, Co),
     both float32 or both bfloat16 -> dw (L, 3, 3, Ci, Co) of their dtype,
-    summed in float32 (and rounded once to bfloat16). x may be one lane
-    broadcast over L. ``.launches`` counts every launch,
-    ``.dtype_launches`` each dtype's."""
-    _check_lanes(x, dy, "x", "dy")
+    summed in float32 (and rounded once to bfloat16) on the kernel
+    :func:`dw_route` names. x may be one lane broadcast over L.
+    ``.launches`` counts every launch, ``.route_launches`` each route's."""
+    _check_lanes(x, dy, "x", "dy", align_other=True)
     L, B, H, W, Ci = x.shape
     if tuple(dy.shape[1:4]) != (B, H, W):
         raise ValueError(f"dy must be (L, {B}, {H}, {W}, Co), got {tuple(dy.shape)}")
     if x.device.type == "cpu":
         return conv3x3_dw_plain(x, dy)
-    x_lane = _lane_stride(x, "x")
-    if _lane_stride(dy, "dy") == 0 and L > 1:
-        dy = dy.contiguous()
-    Co = dy.shape[-1]
-    span, splits = dw_split_plan(L, B * H * W, Ci, Co)
-    part = torch.empty((L, splits, 9 * Ci, Co), dtype=torch.float32, device=x.device)
-    dw = torch.empty((L, 3, 3, Ci, Co), dtype=x.dtype, device=x.device)
-    lib, entry = DW_ROUTES[x.dtype]
-    fn = _build.function(lib, entry, _DW_ARGS)
-    err = fn(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), L, B, H, W, Ci, Co,
-             x_lane, span, splits, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, entry)
+    route = dw_route(Ci, dy.shape[-1], x.dtype)
+    dw = conv3x3_dw_route(x, dy, route)
     conv3x3_dw_lanes.launches += 1
-    conv3x3_dw_lanes.dtype_launches[str(x.dtype)[len("torch."):]] += 1
+    conv3x3_dw_lanes.route_launches[route] += 1
     return dw
 
 
 conv3x3_dw_lanes.launches = 0
-conv3x3_dw_lanes.dtype_launches = {"float32": 0, "bfloat16": 0}
+conv3x3_dw_lanes.route_launches = dict.fromkeys(DW_ROUTES, 0)
 
 
 # --- the differentiable, vmappable op ----------------------------------------

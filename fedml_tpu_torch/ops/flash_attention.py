@@ -2,9 +2,9 @@
 
 Hand-written CUDA kernels on (B, T, H, Dh) tensors, bf16 or float32 with
 Dh 64, 128 or 256, causal or not. bf16 inputs run on the tensor cores
-(``csrc/flash_attention_sm90.cu``, wgmma, exact to float32 through a
-three-term bf16 split of p and ds; the forward and dk/dv at Dh 256 in
-``csrc/flash_dh256_sm90.cu``, score products once per block, tiles by
+(wgmma, exact to float32 through a three-term bf16 split of p and ds): at
+Dh 64 and 128 in ``csrc/flash_attention_sm90.cu``, at Dh 256 in
+``csrc/flash_dh256_sm90.cu`` (score products once per block, tiles by
 TMA); float32 inputs run the FMA kernels of ``csrc/flash_attention.cu``
 (:func:`route`):
 
@@ -245,12 +245,12 @@ def _argtypes(n_ptrs):
 # entry points with a tensor-core (wgmma) version for bf16 inputs
 TENSOR_CORE = ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv")
 # of those, the ones with a Dh-256 design of their own (scores once, TMA)
-DH256 = ("fedml_flash_fwd", "fedml_flash_dkv")
+DH256 = ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv")
 
 
 def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
     """(kernel library, C entry point) that runs ``name`` on inputs of
-    ``dtype`` and head dim ``Dh``: bf16 forward and dk/dv at Dh 256 go to
+    ``dtype`` and head dim ``Dh``: bf16 calls at Dh 256 go to
     ``flash_dh256_sm90``, other bf16 calls to ``flash_attention_sm90``,
     float32 to the FMA kernels of ``flash_attention``. All take the same
     arguments."""

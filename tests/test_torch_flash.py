@@ -226,8 +226,8 @@ def test_flash_kernels_match_plain_on_card(shape, dtype, causal):
 @pytest.mark.parametrize("Dh", [64, 128, 256])
 def test_route_sends_bf16_forward_and_dkv_to_the_tensor_cores(Dh):
     """float32 to the FMA kernels at every Dh; bf16 to the wgmma kernels,
-    the forward and dk/dv at Dh 256 to their own design (scores once, TMA),
-    dq at Dh 256 where it was."""
+    the forward, dq and dk/dv at Dh 256 to their own design (scores once,
+    TMA)."""
     for name in ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv"):
         assert tfa.route(name, torch.float32, Dh) == ("flash_attention", name)
     if Dh == 256:
@@ -239,7 +239,7 @@ def test_route_sends_bf16_forward_and_dkv_to_the_tensor_cores(Dh):
     assert tfa.route("fedml_flash_dkv", torch.bfloat16, Dh) == \
         (fwd_dkv[0], "fedml_flash_dkv" + fwd_dkv[1])
     assert tfa.route("fedml_flash_dq", torch.bfloat16, Dh) == \
-        ("flash_attention_sm90", "fedml_flash_dq_sm90")
+        (fwd_dkv[0], "fedml_flash_dq" + fwd_dkv[1])
 
 
 # --- the tensor-core kernels' arithmetic, emulated on the CPU -----------------

@@ -1,5 +1,5 @@
-"""The arithmetic of the bf16 Dh-256 flash kernels (forward and dk/dv of
-``fedml_tpu_torch/csrc/flash_dh256_sm90.cu``), emulated on the CPU.
+"""The arithmetic of the bf16 Dh-256 flash kernels (forward, dq and dk/dv
+of ``fedml_tpu_torch/csrc/flash_dh256_sm90.cu``), emulated on the CPU.
 
 The CUDA kernels run only on the card. Here their arithmetic is written out
 in float32 torch, tile by tile, as the kernels order it:
@@ -12,7 +12,12 @@ in float32 torch, tile by tile, as the kernels order it:
 - dk/dv: per k tile and q tile, S^T = K Q^T and p = exp(scale S^T - lse) (the
   exchanged tile: its values cross shared memory unchanged), dP^T = V dO^T,
   ds = p (dP^T - delta), and P^T dO and dS^T Q as three bf16 terms from a zero
-  accumulator per q tile, added in float32; dk scaled at the end.
+  accumulator per q tile, added in float32; dk scaled at the end;
+- dq: per q tile and k tile, S = Q K^T and dP = dO V^T in one product each
+  over all 256 columns, except dP on the causal diagonal, summed column by
+  column in float32 from zero (a plain float32 product's order), ds = p (dP
+  - delta), and dS K as three bf16 terms from a zero accumulator per k tile,
+  scale times it added to dq in float32.
 
 Held against float64 at (1, 1024, 2, 256) (bf16 outputs almost never off the
 exactly rounded value, float32 summation noise) and against the JAX
@@ -165,3 +170,83 @@ def test_dh256_kernel_arithmetic_matches_jax(causal):
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, 0], atol=FWD_ATOL)
     np.testing.assert_allclose(jax_layout(dk), np.asarray(jdk), atol=GRAD_ATOL)
     np.testing.assert_allclose(jax_layout(dv), np.asarray(jdv), atol=GRAD_ATOL)
+
+
+def _plain_order_dots(a, b):
+    """a (..., 64, Dh) b^T as the kernel's diagonal sums it: per output, a
+    chain of float32 multiply-adds over the columns in increasing order from
+    zero (each product of two bf16 values is exact in float32)."""
+    d = torch.zeros(*a.shape[:-1], b.shape[-2])
+    for c in range(a.shape[-1]):
+        d = d + a[..., c, None] * b[..., None, :, c]
+    return d
+
+
+def emulate_dq(q, k, v, do, lse, delta, causal):
+    """From (H, T, 256) bf16-valued q, k, v, dO and (H, T) lse and delta ->
+    dq (H, T, 256) in float32. Every q tile at once; causal k tiles past a q
+    tile's diagonal give p = 0, adding exact zeros."""
+    H, T, Dh = q.shape
+    nt = -(-T // TILE)
+    scale = Dh ** -0.5
+    qt, kt, vt, ot = (_tiles(x, nt) for x in (q, k, v, do))
+    lse_t, delta_t = (F.pad(x, (0, nt * TILE - T)).view(H, nt, TILE, 1) for x in (lse, delta))
+    rows = torch.arange(nt * TILE).view(nt, TILE, 1)
+    dq = torch.zeros(H, nt, TILE, Dh)
+    for j in range(nt):
+        cols = torch.arange(j * TILE, (j + 1) * TILE)
+        x = (scale * (qt @ kt[:, j, None].transpose(-1, -2))).masked_fill(
+            causal & (cols > rows), tfa.NEG_INF)
+        p = torch.where(cols < T, torch.exp(x - lse_t), 0.0)
+        dp = ot @ vt[:, j, None].transpose(-1, -2)
+        if causal:  # q tile j's diagonal: dP in a plain product's order
+            dp[:, j] = _plain_order_dots(ot[:, j], vt[:, j])
+        ds = p * (dp - delta_t)
+        dq = dq + scale * _split_mm(ds, kt[:, j, None])  # per k tile, from zero
+    return dq.view(H, nt * TILE, Dh)[:, :T]
+
+
+def _exact_backward(q, k, v, do, causal):
+    """(lse, delta, dq) in float64 from float32 (H, T, Dh) inputs."""
+    T, Dh = q.shape[1], q.shape[2]
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    s64 = Dh ** -0.5 * (q64 @ k64.transpose(1, 2))
+    if causal:
+        s64 = s64.masked_fill(torch.ones(T, T, dtype=torch.bool).triu(1), float("-inf"))
+    lse64 = torch.logsumexp(s64, -1)
+    p64 = torch.exp(s64 - lse64[..., None])
+    delta64 = (do64 * (p64 @ v64)).sum(-1)
+    ds64 = p64 * (do64 @ v64.transpose(1, 2) - delta64[..., None])
+    return lse64, delta64, Dh ** -0.5 * (ds64 @ k64)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_dh256_dq_arithmetic_is_float32_exact(causal):
+    """At (1, 1024, 2, 256), dq against float64 (from float64's lse and
+    delta): within float32 summation noise, and its bf16 outputs off the
+    exactly rounded value within the card's gate. Causal row 0 is rounding
+    noise of dp - delta (p = 1 on one key; exactly 0 in float64), so its 256
+    values per head count among those off: 0.1% of the outputs, which is
+    why this holds to the card's share and not to a quarter of it."""
+    q, k, v, do = (_heads(a) for a in _bf16_inputs((1, 1024, 2, 256), seed=13))
+    lse64, delta64, want = _exact_backward(q, k, v, do, causal)
+    got = emulate_dq(q, k, v, do, lse64.float(), delta64.float(), causal)
+    share, err = _vs_exact(got, want)
+    assert share <= GATE_SHARE, share
+    assert err <= 1e-5, err  # float32 summation noise over <= 1024 terms
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_dh256_dq_arithmetic_matches_jax(causal):
+    """At (1, 256, 2, 256), the emulated dq (lse and delta from the emulated
+    forward, as the port's backward forms them) against the gradient of the
+    JAX package's flash_attention on the same bf16-valued inputs."""
+    q, k, v, do = _bf16_inputs((1, 256, 2, 256), seed=14)
+    jdq = jax.grad(lambda q: (jfa.flash_attention(q, jnp.asarray(k), jnp.asarray(v), causal)
+                              * do).sum())(jnp.asarray(q))
+    th = [_heads(a) for a in (q, k, v, do)]
+    out, lse = emulate_forward(*th[:3], causal)
+    dq = emulate_dq(*th, lse, (th[3] * out).sum(-1), causal)
+    np.testing.assert_allclose(dq.permute(1, 0, 2)[None].numpy(), np.asarray(jdq),
+                               atol=GRAD_ATOL)
+
