@@ -4,12 +4,16 @@
     python3 chip_smoke.py kernels    # phases 1-3 only (no result line)
     python3 chip_smoke.py agg [DIR]  # the robust path's aggregation half only,
                                      # of the package in checkout DIR (no result line)
-    python3 chip_smoke.py flash [DIR]  # flash's bf16 kernel times at Dh 256,
-                                       # 64 and 128, of the package in
-                                       # checkout DIR (no result line)
+    python3 chip_smoke.py flash [DIR]  # flash's kernel times, bf16 at Dh 256,
+                                       # 64 and 128 and float32 at Dh 256, of
+                                       # the package in checkout DIR (no
+                                       # result line)
     python3 chip_smoke.py conv [DIR]   # the bf16 conv weight gradient's times
                                        # at the ResNet-56 shapes, of the package
                                        # in checkout DIR (no result line)
+    python3 chip_smoke.py lm_f32 [DIR] # lm_wide_f32 and its profile on the
+                                       # package in checkout DIR (no result
+                                       # line)
 
 Phases, each printing one JSON line; any failure ends the run with a
 non-zero exit code and no result line:
@@ -38,11 +42,14 @@ non-zero exit code and no result line:
    vmap levels (DP-SGD's per-example gradients), and
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
    flash_dkv; SDPA as the library call, with the backend it ran; bf16
-   inputs on the tensor cores, float32 on the FMA kernels), at Dh 64 and
-   128 (the _f32 and _dh128_f32 entries: the FMA kernels at small_lm's
-   and small_lm_128's shapes) and at Dh 256 (the _dh256 entries at the
-   wide LM's bf16 shape, on flash_dh256_sm90.cu, with the earlier design's
-   time as was_ms; the _dh256_f32 ones at a float32 shape);
+   inputs on the tensor cores, float32 on the FMA kernels but for the
+   forward and dq at Dh 256), at Dh 64 and 128 (the _f32 and _dh128_f32
+   entries: the FMA kernels at small_lm's and small_lm_128's shapes) and
+   at Dh 256 (the _dh256 entries at the wide LM's bf16 shape, on
+   flash_dh256_sm90.cu; the _dh256_f32 ones at lm_wide_f32's shape and the
+   _dh256_f32_small ones at small_lm_256's, the forward and dq on
+   flash_f32_sm90.cu's three TF32 products, dk/dv on the FMA kernel; each
+   redesigned kernel with the earlier design's time as was_ms);
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
 4b. repeat — the small robust path on cnn_fedavg, the small resnet8 path,
@@ -93,8 +100,9 @@ non-zero exit code and no result line:
     B 2, T 8192) for 5 steps; causal flash on every layer, with 24
     forward, 12 dq and 12 dk/dv launches per step;
 12. lm_profile — torch.profiler over two warm steps of that trainer;
-13. small_lm_256 — small_lm with one head of Dh 256 at T 4352 (float32 on
-    the Dh-256 FMA kernels), card against CPU;
+13. small_lm_256 — small_lm with one head of Dh 256 at T 4352 (float32:
+    the forward and dq on flash_f32_sm90.cu, dk/dv on the FMA kernel),
+    card against CPU;
 14. lm_wide — the Cheetah example at --dim 2048 (vocab 32000, 8 heads, so
     Dh 256, 8 layers, bf16, full remat, chunked CE, B 8, T 4608) for 5
     steps: auto dispatch picks flash, 16 forward, 8 dq and 8 dk/dv
@@ -102,7 +110,12 @@ non-zero exit code and no result line:
     warm steps of it under torch.profiler;
 15. lm_wide_dots — the same from the same seed for 2 steps under remat
     "dots" (matrix products saved, flash recomputed): the same launches
-    per step and full remat's losses.
+    per step and full remat's losses;
+16. lm_wide_f32 — the wide LM trained in float32 (DistributedLMTrainer's
+    dtype) at B 8, T 4352 (auto dispatch picks flash) for 3 steps: 16
+    forward and 8 dq launches per step on flash_f32_sm90.cu, 8 dk/dv on
+    the FMA kernel; lm_wide_f32_profile, one warm step under
+    torch.profiler.
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or fedml_tpu.
@@ -1793,36 +1806,51 @@ def phase_resume():
 # path gives the kernels), then a full f32 shape with Dh 128, a ragged f32
 # causal one, a small ragged bf16 one and a ragged full bf16 one (bf16 runs the
 # tensor-core kernels, f32 the FMA ones); then Dh 256: the wide LM's attention
-# (lm_wide: --dim 2048 over 8 heads), a full f32 one at T 4352 (small_lm_256's
-# T, where auto picks flash in f32), a ragged bf16 causal one, a ragged f32
-# causal one and a ragged full bf16 one (the Dh-256 kernels' non-causal
-# branch, and TMA's zero fill at a T that is not a multiple of 64); last
-# small_lm's attention (f32, one head of 64 at T 4096) and small_lm_128's
-# (f32, one head of 128 at T 4608)
+# (lm_wide: --dim 2048 over 8 heads), the wide float32 LM's (lm_wide_f32: the
+# same widths at T 4352, where auto picks flash in f32), small_lm_256's (one
+# head at T 4352), a full f32 one at T 4352 (the float32 kernels' non-causal
+# branch), a ragged bf16 causal one, a ragged f32 causal one and a ragged full
+# bf16 one (the bf16 kernels' non-causal branch, and TMA's zero fill at a T
+# that is not a multiple of 64); last small_lm's attention (f32, one head of
+# 64 at T 4096) and small_lm_128's (f32, one head of 128 at T 4608)
 FLASH_SLICE = (2, 8192, 16, 64)
 FLASH_WIDE = (8, 4608, 8, 256)
-FLASH_WIDE_F32 = (1, 4352, 2, 256)
+FLASH_WIDE_F32 = (8, 4352, 8, 256)
+FLASH_SMALL_LM_256 = (1, 4352, 1, 256)
+FLASH_F32_256_FULL = (1, 4352, 2, 256)
 FLASH_F32_128 = (1, 2048, 8, 128)
 FLASH_SMALL_LM = (1, 4096, 1, 64)
 FLASH_SMALL_LM_128 = (1, 4608, 1, 128)
 FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float32, False),
                ((3, 333, 2, 64), torch.float32, True), ((2, 100, 3, 128), torch.bfloat16, True),
                ((1, 1000, 4, 64), torch.bfloat16, False),
-               (FLASH_WIDE, torch.bfloat16, True), (FLASH_WIDE_F32, torch.float32, False),
+               (FLASH_WIDE, torch.bfloat16, True), (FLASH_WIDE_F32, torch.float32, True),
+               (FLASH_SMALL_LM_256, torch.float32, True),
+               (FLASH_F32_256_FULL, torch.float32, False),
                ((2, 333, 3, 256), torch.bfloat16, True), ((3, 130, 2, 256), torch.float32, True),
                ((1, 1000, 2, 256), torch.bfloat16, False), (FLASH_SMALL_LM, torch.float32, True),
                (FLASH_SMALL_LM_128, torch.float32, True))
 # the timed shapes and the suffix of their kernels line entries (the launch
-# counts of lm_main, lm_wide, small_lm_256, small_lm and small_lm_128 fill
-# them in, each at the shape its path gives the kernels)
+# counts of lm_main, lm_wide, lm_wide_f32, small_lm_256, small_lm and
+# small_lm_128 fill them in, each at the shape its path gives the kernels)
 FLASH_TIMED = {FLASH_SLICE: "", FLASH_WIDE: "_dh256", FLASH_WIDE_F32: "_dh256_f32",
-               FLASH_SMALL_LM: "_f32", FLASH_SMALL_LM_128: "_dh128_f32"}
-# the earlier design's time of a kernel redesigned since (ms at FLASH_WIDE: the
-# bf16 Dh-256 forward, dq and dk/dv of flash_attention_sm90.cu, measured by
-# this script on an H100 80GB HBM3 at 700 W before their redesign), printed
-# beside the new time on the kernel's own line; `flash DIR` times both in one
-# call
-FLASH_WAS_MS = {"flash_fwd_dh256": 5.208, "flash_dkv_dh256": 9.373, "flash_dq_dh256": 7.771}
+               FLASH_SMALL_LM_256: "_dh256_f32_small", FLASH_SMALL_LM: "_f32",
+               FLASH_SMALL_LM_128: "_dh128_f32"}
+# the earlier design's time of a kernel redesigned since, and that design,
+# printed beside the new time on the kernel's own line: ms at FLASH_WIDE of
+# the bf16 Dh-256 forward, dq and dk/dv of flash_attention_sm90.cu, and at
+# FLASH_WIDE_F32 and FLASH_SMALL_LM_256 of the float32 Dh-256 forward and dq
+# of flash_attention.cu's FMA kernels, each measured by this script on an
+# H100 80GB HBM3 at 700 W before its redesign; `flash DIR` times both
+# designs in one call
+_WAS_BF16 = "flash_attention_sm90.cu's two-warpgroup Dh-256 design"
+_WAS_F32 = "flash_attention.cu's float32 FMA kernel"
+FLASH_WAS_MS = {"flash_fwd_dh256": (5.208, _WAS_BF16), "flash_dkv_dh256": (9.373, _WAS_BF16),
+                "flash_dq_dh256": (7.771, _WAS_BF16),
+                "flash_fwd_dh256_f32": (20.61, _WAS_F32),
+                "flash_dq_dh256_f32": (33.60, _WAS_F32),
+                "flash_fwd_dh256_f32_small": (1.223, _WAS_F32),
+                "flash_dq_dh256_f32_small": (2.001, _WAS_F32)}
 # |kernel - plain| / max|plain|, plain in float32. Each output sums up to
 # T * Dh = 5e5 float32 products in another order than the plain version's
 # cuBLAS calls: a random walk of sqrt(n) * 2^-24 ~ 4e-5 of the terms'
@@ -1879,17 +1907,24 @@ def _flash_pairs(B, T, H, causal):
     return B * H * (T * (T + 1) // 2 if causal else T * T)
 
 
-def _flash_products(dtype):
-    """Per kernel, (bf16 tensor-core products, float32 products) per unmasked
-    (q, k) pair, each 2 * Dh operations. With bf16 inputs, Q.K^T and dO.V^T
+def _flash_products(name, dtype, Dh):
+    """(bf16 tensor-core, float32, TF32 tensor-core) products per unmasked
+    (q, k) pair, each 2 * Dh operations, of kernel ``name`` (flash_fwd,
+    flash_dq or flash_dkv) on its route. With bf16 inputs, Q.K^T and dO.V^T
     multiply two bf16 operands, exact on the tensor cores with float32 sums
     (the score is scaled after the product); P.V, dS.K, P^T.dO and dS^T.Q take
     a float32 probability or score, which is exact there only as three bf16
-    terms, so each counts as three bf16 products. Float32 inputs: every
-    product runs at the float32 rate."""
-    if dtype != torch.bfloat16:
-        return {"flash_fwd": (0, 2), "flash_dq": (0, 3), "flash_dkv": (0, 4)}
-    return {"flash_fwd": (1 + 3, 0), "flash_dq": (2 + 3, 0), "flash_dkv": (2 + 2 * 3, 0)}
+    terms, so each counts as three bf16 products. Float32 inputs: on
+    flash_f32_sm90 (the forward and dq at Dh 256) each product is three TF32
+    products; elsewhere every product runs at the float32 rate."""
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    n = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}[name]
+    if dtype == torch.bfloat16:
+        return {"flash_fwd": 1 + 3, "flash_dq": 2 + 3, "flash_dkv": 2 + 2 * 3}[name], 0, 0
+    if fa.route("fedml_" + name, dtype, Dh)[0] == "flash_f32_sm90":
+        return 0, 0, 3 * n
+    return 0, n, 0
 
 
 def _sdpa_backend(q, k, v, causal):
@@ -1900,11 +1935,14 @@ def _sdpa_backend(q, k, v, causal):
     return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal)).name
 
 
-def check_flash(dev):
+def check_flash(dev, tc_rate):
     """Kernels 4a-4c (flash forward, dq, dk/dv) against their plain versions
     at FLASH_CASES; dq, dk and dv repeat bit for bit; timings at the
     FLASH_TIMED shapes beside SDPA (forward for 4a; its backward, which
-    computes dq, dk and dv together, for 4b and 4c) and the backend it ran."""
+    computes dq, dk and dv together, for 4b and 4c) and the backend it ran.
+    A kernel on three TF32 products (flash_f32_sm90) also reports its
+    operations at the float32 FMA rate (fma_bound_ms) and at ``tc_rate``,
+    the rate mma.sync TF32 reached in phase tc_rate (mma_sync_ms)."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator().manual_seed(5)
@@ -1941,7 +1979,6 @@ def check_flash(dev):
         nb = B * T * H * Dh * q.element_size()  # one (B, T, H, Dh) tensor
         rows_b = B * H * T * 4                   # one float32 row vector (lse or delta)
         pairs = _flash_pairs(B, T, H, causal)
-        products = _flash_products(dtype)
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         row["sdpa_backend"] = _sdpa_backend(qt, kt, vt, causal)
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
@@ -1965,20 +2002,26 @@ def check_flash(dev):
              max((dk - dk_p).abs().max(), (dv - dv_p).abs().max())),
         )
         for name, line, bytes_in, bytes_out, kern, plain, lib_ms, err, abs_err in cases:
-            bf16_ops, f32_ops = (n * 2 * Dh * pairs for n in products[name])
+            bf16_ops, f32_ops, tf32_ops = (n * 2 * Dh * pairs
+                                           for n in _flash_products(name, dtype, Dh))
             lib = fa.route("fedml_" + name, dtype, Dh)[0]
             entry = {"name": name + FLASH_TIMED[shape], "route": "cuda",
                      "source": f"fedml_tpu_torch/csrc/{lib}.cu",
                      "replaces": "fedml_tpu/ops/pallas/flash_attention.py" + line,
                      "max_abs_err": float(abs_err), "ms": time_ms(kern, reps=3, rounds=3),
                      "plain_ms": time_ms(plain, reps=2, rounds=3),
-                     "library_ms": lib_ms, **_bound(f32_ops, bytes_in + bytes_out, bf16_ops)}
+                     "library_ms": lib_ms,
+                     **_bound(f32_ops, bytes_in + bytes_out, bf16_ops, tf32_ops)}
             entries.append(entry)
-            was = {"was_ms": FLASH_WAS_MS[entry["name"]],
-                   "was_from": "flash_attention_sm90.cu's two-warpgroup Dh-256 design"} \
-                if entry["name"] in FLASH_WAS_MS else {}
-            emit("kernel_" + entry["name"], **row, **was, gflop=(bf16_ops + f32_ops) / 1e9,
-                 bf16_gflop=bf16_ops / 1e9, kernel_source=entry["source"],
+            was = {}
+            if entry["name"] in FLASH_WAS_MS:
+                was = dict(zip(("was_ms", "was_from"), FLASH_WAS_MS[entry["name"]]))
+            if tf32_ops:
+                was.update(fma_bound_ms=_bound(tf32_ops / 3, bytes_in + bytes_out)["bound_ms"],
+                           mma_sync_ms=tf32_ops / tc_rate * 1e3)
+            emit("kernel_" + entry["name"], **row, **was,
+                 gflop=(bf16_ops + f32_ops + tf32_ops / 3) / 1e9, bf16_gflop=bf16_ops / 1e9,
+                 tf32_gflop=tf32_ops / 1e9, kernel_source=entry["source"],
                  library="F.scaled_dot_product_attention " +
                  ("forward" if name == "flash_fwd" else "backward (dq, dk and dv together)"),
                  **{k: v for k, v in entry.items() if k not in ("name", "route", "source")})
@@ -1986,28 +2029,34 @@ def check_flash(dev):
     return entries
 
 
-# (B, T, H, Dh) of phase_flash_times, bf16 causal: the wide LM's attention,
-# then the LM slice's (Dh 64) and one at Dh 128 with its width (H Dh 1024)
-# and tokens, where the bf16 kernels of flash_attention_sm90.cu run
-FLASH_MODE_SHAPES = (FLASH_WIDE, FLASH_SLICE, (2, 8192, 8, 128))
+# (B, T, H, Dh), dtype and causal of phase_flash_times: in bf16 causal the
+# wide LM's attention, then the LM slice's (Dh 64) and one at Dh 128 with its
+# width (H Dh 1024) and tokens, where the bf16 kernels of
+# flash_attention_sm90.cu run; in float32 the wide float32 LM's attention,
+# small_lm_256's, and a full one at T 4352
+FLASH_MODE_SHAPES = ((FLASH_WIDE, torch.bfloat16, True), (FLASH_SLICE, torch.bfloat16, True),
+                     ((2, 8192, 8, 128), torch.bfloat16, True),
+                     (FLASH_WIDE_F32, torch.float32, True),
+                     (FLASH_SMALL_LM_256, torch.float32, True),
+                     (FLASH_F32_256_FULL, torch.float32, False))
 
 
 def phase_flash_times(dev, reps=3, rounds=5):
-    """Kernel ms of flash forward, dq and dk/dv at FLASH_MODE_SHAPES (bf16
-    causal) for the package first on sys.path: with ``flash DIR`` a
-    checkout's, so two commits compare in one call (parent, change, change,
-    parent)."""
+    """Kernel ms of flash forward, dq and dk/dv at FLASH_MODE_SHAPES for the
+    package first on sys.path: with ``flash DIR`` a checkout's, so two
+    commits compare in one call (parent, change, change, parent)."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator().manual_seed(5)
-    for shape in FLASH_MODE_SHAPES:
-        q, k, v, do = _flash_inputs(shape, torch.bfloat16, gen, dev)
-        out, lse = fa.flash_forward(q, k, v, True)
+    for shape, dtype, causal in FLASH_MODE_SHAPES:
+        q, k, v, do = _flash_inputs(shape, dtype, gen, dev)
+        out, lse = fa.flash_forward(q, k, v, causal)
         delta = fa.attention_delta(do, out)
-        emit("flash_times", shape=list(shape), package=str(Path(fa.__file__).parents[2]),
-             fwd_ms=time_ms(lambda: fa.flash_forward(q, k, v, True), reps, rounds),
-             dq_ms=time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, True), reps, rounds),
-             dkv_ms=time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, True), reps, rounds))
+        emit("flash_times", shape=list(shape), dtype=str(dtype), causal=causal,
+             package=str(Path(fa.__file__).parents[2]),
+             fwd_ms=time_ms(lambda: fa.flash_forward(q, k, v, causal), reps, rounds),
+             dq_ms=time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, causal), reps, rounds),
+             dkv_ms=time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal), reps, rounds))
         del q, k, v, do, out, lse, delta
 
 
@@ -2113,20 +2162,25 @@ LM_B, LM_T, LM_STEPS = 2, 8192, 5
 # refuses Dh 256 (block 1024); at 4608 (block 512) auto picks flash
 LM_WIDE_MODEL = dict(vocab_size=32000, dim=2048, num_heads=8, num_layers=8, max_len=4608)
 LM_WIDE_B, LM_WIDE_T, LM_WIDE_STEPS, LM_WIDE_DOTS_STEPS = 8, 4608, 5, 2
+# the wide LM trained in float32 (DistributedLMTrainer's dtype): the same
+# widths and batch at T 4352, the T near the example's where auto picks flash
+# in float32 (at 4096 and 4608 it picks dense); cut: 3 steps of its 100
+LM_WIDE_F32_MODEL = dict(LM_WIDE_MODEL, max_len=4352)
+LM_WIDE_F32_T, LM_WIDE_F32_STEPS = 4352, 3
 
 
-def _lm_phase(phase, model, train, B, T, steps, suffix):
+def _lm_phase(phase, model, train, B, T, steps, suffix, dtype=torch.bfloat16):
     """``steps`` steps of DistributedLMTrainer.train at (model, train) on
-    batches of B x T: the flash launches (zeroed just before, read just
-    after) must be those of rematerialized blocks, the losses finite and
-    falling, the first within 1.5 of ln V (at init the logits have unit
-    variance, which adds ~0.5 to ln V). Returns (trainer, data, launches,
-    losses)."""
+    batches of B x T in ``dtype``: the flash launches (zeroed just before,
+    read just after) must be those of rematerialized blocks, the losses
+    finite and falling, the first within 1.5 of ln V (at init the logits
+    have unit variance, which adds ~0.5 to ln V). Returns (trainer, data,
+    launches, losses)."""
     from fedml_tpu_torch.parallel import DistTrainConfig, DistributedLMTrainer
 
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    tr = DistributedLMTrainer(DistTrainConfig(**train), dtype=torch.bfloat16,
+    tr = DistributedLMTrainer(DistTrainConfig(**train), dtype=dtype,
                               device="cuda", seed=0, **model)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t
@@ -2146,7 +2200,8 @@ def _lm_phase(phase, model, train, B, T, steps, suffix):
     if not (all(math.isfinite(x) for x in losses) and abs(losses[0] - ln_v) < 1.5
             and losses[-1] < losses[0]):
         raise AssertionError(f"{phase} losses {losses} (ln V = {ln_v})")
-    emit(phase, model=model, train=train, batch=B, seq_len=T, steps=steps, params=n_params,
+    emit(phase, model=model, train=train, dtype=str(dtype), batch=B, seq_len=T, steps=steps,
+         params=n_params,
          setup_s=setup_s, losses=losses, ln_vocab=ln_v, step_s=step_s,
          tokens_per_s_after_first=B * T * (steps - 1) / sum(step_s[1:]),
          launches=launches, peak_mem_bytes=torch.cuda.max_memory_allocated())
@@ -2192,24 +2247,41 @@ def phase_lm_wide_dots(full_losses):
     emit("lm_wide_dots_vs_full", dots=losses, full=full_losses[:2], second_loss_rel_diff=rel)
 
 
+def phase_lm_wide_f32():
+    """The wide LM in float32 for LM_WIDE_F32_STEPS steps under full remat:
+    auto dispatch must pick flash, and per step the float32 Dh-256 forward
+    and dq (flash_f32_sm90.cu) launch 2 x 8 and 8 times, dk/dv (the FMA
+    kernel) 8 times. Returns (trainer, data, launches)."""
+    from fedml_tpu_torch.ops.attention import auto_attention_impl
+
+    H = LM_WIDE_F32_MODEL["num_heads"]
+    if auto_attention_impl(LM_WIDE_B, H, LM_WIDE_F32_T, LM_WIDE_F32_MODEL["dim"] // H,
+                           4) != "flash":
+        raise AssertionError(f"auto dispatch must pick flash at {LM_WIDE_B, H, LM_WIDE_F32_T}")
+    return _lm_phase("lm_wide_f32", LM_WIDE_F32_MODEL, LM_TRAIN, LM_WIDE_B, LM_WIDE_F32_T,
+                     LM_WIDE_F32_STEPS, "_dh256_f32", dtype=torch.float32)[:3]
+
+
 # the LM profiles' kernel groups: the flash kernels, the matrix products
 # (cuBLAS's Hopper kernels are named nvjet_*, sm90_xmma_gemm_* or cutlass_*)
 LM_GROUPS = {"flash": ("flash_",), "gemm": ("nvjet", "gemm", "cutlass")}
 
 
 def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
-    """Where an LM step's time goes: two warm steps of an LM phase's trainer."""
+    """Where an LM step's time goes: ``steps`` warm steps of an LM phase's
+    trainer."""
     emit(phase, **profile_run(lambda: tr.train(data, steps, log_fn=None), steps, (
         "flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
-        "flash_fwd_dh256_kernel", "flash_dq_dh256_kernel", "flash_dkv_dh256_kernel"),
+        "flash_fwd_dh256_kernel", "flash_dq_dh256_kernel", "flash_dkv_dh256_kernel",
+        "flash_fwd_f32tc_kernel", "flash_dq_f32tc_kernel", "flash_dkv_kernel"),
         unit="step", groups=LM_GROUPS))
 
 
 def main(argv):
-    modes = (["agg"], ["flash"], ["conv"])
+    modes = (["agg"], ["flash"], ["conv"], ["lm_f32"])
     if not (argv in ([], ["kernels"]) or (argv[:1] in modes and len(argv) <= 2)):
-        print("usage: python3 chip_smoke.py [kernels | agg [DIR] | flash [DIR] | conv [DIR]]",
-              file=sys.stderr)
+        print("usage: python3 chip_smoke.py [kernels | agg [DIR] | flash [DIR] | conv [DIR] | "
+              "lm_f32 [DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2222,13 +2294,15 @@ def main(argv):
             sys.path.insert(0, str(Path(argv[1]).resolve()))
         phase_device()
         {"agg": phase_agg, "flash": lambda: phase_flash_times(dev),
-         "conv": lambda: phase_conv_times(dev)}[argv[0]]()
+         "conv": lambda: phase_conv_times(dev),
+         "lm_f32": lambda: phase_lm_profile(*phase_lm_wide_f32()[:2], steps=1,
+                                            phase="lm_wide_f32_profile")}[argv[0]]()
         return 0
     smi = phase_device()
     phase_build()
     tc_rate, bf16_rate = phase_tc_rate(dev)
     entries = [check_quant(dev), check_gram(dev), check_conv(dev, tc_rate), check_conv_dw(dev),
-               check_conv_bf16(dev, bf16_rate), check_conv_dw_bf16(dev), *check_flash(dev)]
+               check_conv_bf16(dev, bf16_rate), check_conv_dw_bf16(dev), *check_flash(dev, tc_rate)]
     check_conv_nested(dev)
     if argv == ["kernels"]:
         return 0
@@ -2255,12 +2329,16 @@ def main(argv):
     launches.update(lm_launches)
     phase_lm_profile(tr, data)
     del tr
-    launches.update(phase_small_lm("small_lm_256", SMALL_LM_256, suffix="_dh256_f32"))
+    launches.update(phase_small_lm("small_lm_256", SMALL_LM_256, suffix="_dh256_f32_small"))
     tr, data, lm_launches, full_losses = phase_lm_wide()
     launches.update(lm_launches)
     phase_lm_profile(tr, data, phase="lm_wide_profile")
     del tr
     phase_lm_wide_dots(full_losses)
+    tr, data, lm_launches = phase_lm_wide_f32()
+    launches.update(lm_launches)
+    phase_lm_profile(tr, data, steps=1, phase="lm_wide_f32_profile")
+    del tr
     for e in entries:
         e["launches"] = launches[e["name"]]
         e.pop("bytes", None)

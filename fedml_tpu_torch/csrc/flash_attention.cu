@@ -1,8 +1,10 @@
 // Flash attention on (B, T, H, Dh), causal or full: the forward with its
 // per-row logsumexp, and the two backward kernels (dq; dk and dv), all
 // products as float32 FMA, for float32 inputs: bfloat16 inputs run on the
-// tensor cores (flash_attention_sm90.cu). Dh 64, 128 or 256; all arithmetic
-// is float32.
+// tensor cores (flash_attention_sm90.cu, flash_dh256_sm90.cu), and so do the
+// float32 forward and dq at Dh 256 (flash_f32_sm90.cu). Here: the forward
+// and dq at Dh 64 and 128, dk/dv at Dh 64, 128 and 256; all arithmetic is
+// float32.
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (the
 // forward, called from _flash_forward), _dq_kernel and _dkv_kernel (both
@@ -44,20 +46,18 @@
 // causal rows are launched first. dq, dk and dv each sum in one fixed order
 // and use no atomics, so all three repeat bit for bit.
 //
-// Dh 256. A (64, Dh) float32 tile padded to Dh + 4 is 66.5 KB, and a
-// thread's accumulator 4 x 16 floats. The forward's q, k and v tiles with
-// its 64 x 64 probability tile fit (212 KB of the 227). dq and dk/dv hold
-// four tiles, 266 KB: so at Dh 256 the two they stream (k and v for dq, q
-// and dO for dk/dv) are 32 rows, and the resident two stay 64 rows (204 and
-// 213 KB). Their score tile is 64 x 32, two columns a thread; the float32
-// sums over the 32-key (or 32-query) tiles add per tile as the 64-row ones
-// do. The products with a probability tile run in passes of 128 output
-// columns (prob_times' g0), so that a pass's partial sums take 32 registers
-// beside the accumulators (dk/dv holds two, 128 registers); each output
-// column's sum is the same chain of fmaf whatever the pass. One block per
-// SM. Bound at the wide LM's float32 cell (B 1, T 4352, H 2, Dh 256, full):
-// 3.79e7 pairs x 512 operations per product, 0.019 TFLOP: 0.58, 0.87 and
-// 1.16 ms at 67 TFLOP/s.
+// dk/dv at Dh 256. A (64, Dh) float32 tile padded to Dh + 4 is 66.5 KB,
+// and a thread's accumulator 4 x 16 floats. dk/dv holds four tiles, 266 KB
+// at 64 rows: so the two it streams (q and dO) are 32 rows, and the
+// resident k and v stay 64 rows (213 KB). Its score tile is 64 x 32, two
+// columns a thread; the float32 sums over the 32-query tiles add per tile
+// as the 64-row ones do. The products with a probability tile run in passes
+// of 128 output columns (prob_times' g0), so that a pass's partial sums
+// take 32 registers beside the two accumulators (128 registers); each
+// output column's sum is the same chain of fmaf whatever the pass. One
+// block per SM. Bound at the wide float32 LM's shape (B 8, T 4352, H 8, Dh
+// 256, causal): 606,216,192 pairs x 512 operations per product, four
+// products: 18.53 ms at 67 TFLOP/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,8 +74,8 @@ struct Shape {
   static constexpr int LD = DH + 4;   // row stride of a (64, Dh) tile in shared memory
   static constexpr int NJ = DH / 16;  // accumulator columns of one thread
   static constexpr int G = DH / 64;   // 64-wide column groups
-  // rows of the tiles that dq and dk/dv stream: 32 at Dh 256, where four
-  // 64-row tiles do not fit in shared memory
+  // rows of the tiles that dq and dk/dv stream: 32 at Dh 256 (dk/dv only
+  // runs there), where four 64-row tiles do not fit in shared memory
   static constexpr int KR = DH == 256 ? 32 : kTile;
   static constexpr int LP = KR + 4;   // row stride of their 64 x KR probability tiles
   static constexpr int NS = KR / 16;  // score columns of one thread in those tiles
@@ -519,8 +519,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 // q, k, v (B, T, H, Dh) share the element strides (sb, st, sh) with Dh
 // contiguous and 16-byte aligned rows; o (B, T, H, Dh) and lse (B*H, T) are
-// contiguous outputs. Float32 only (is_bf16 = 0): fedml_flash_fwd_sm90
-// takes bfloat16. Returns the cudaError_t of the launch.
+// contiguous outputs. Float32 at Dh 64 and 128 only (is_bf16 = 0):
+// fedml_flash_fwd_sm90 takes bfloat16, fedml_flash_fwd_f32_sm90 float32 at
+// Dh 256. Returns the cudaError_t of the launch.
 extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                                int B, int H, int T, int Dh, int is_bf16, int causal, long long sb,
                                long long st, long long sh, float scale, void* stream) {
@@ -530,15 +531,15 @@ extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void
   switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
     case 128: return (int)launch_fwd<64>(q, k, v, o, lse, a, s);
     case 256: return (int)launch_fwd<128>(q, k, v, o, lse, a, s);
-    case 512: return (int)launch_fwd<256>(q, k, v, o, lse, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // dq (B, T, H, Dh) contiguous from q, k, v (strided as for the forward), dout
 // (B, T, H, Dh) contiguous, and the forward's lse and delta = rowsum(dO * O),
-// both (B*H, T) float32. Float32 only (is_bf16 = 0): fedml_flash_dq_sm90
-// takes bfloat16.
+// both (B*H, T) float32. Float32 at Dh 64 and 128 only (is_bf16 = 0):
+// fedml_flash_dq_sm90 takes bfloat16, fedml_flash_dq_f32_sm90 float32 at
+// Dh 256.
 extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                               const float* lse, const float* delta, void* dq, int B, int H, int T,
                               int Dh, int is_bf16, int causal, long long sb, long long st,
@@ -549,7 +550,6 @@ extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v, const
   switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
     case 128: return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, a, s);
     case 256: return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, a, s);
-    case 512: return (int)launch_dq<256>(q, k, v, dout, lse, delta, dq, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
