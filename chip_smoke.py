@@ -5,15 +5,16 @@
     python3 chip_smoke.py agg [DIR]  # the robust path's aggregation half only,
                                      # of the package in checkout DIR (no result line)
     python3 chip_smoke.py flash [DIR]  # flash's kernel times, bf16 at Dh 256,
-                                       # 64 and 128 and float32 at Dh 256, of
-                                       # the package in checkout DIR (no
-                                       # result line)
+                                       # 64 and 128 and float32 at Dh 256 and
+                                       # 128, of the package in checkout DIR
+                                       # (no result line)
     python3 chip_smoke.py conv [DIR]   # the bf16 conv weight gradient's times
                                        # at the ResNet-56 shapes, of the package
                                        # in checkout DIR (no result line)
     python3 chip_smoke.py lm_f32 [DIR] # lm_wide_f32 and its profile on the
                                        # package in checkout DIR (no result
                                        # line)
+    python3 chip_smoke.py lm_mid [DIR] # lm_mid_f32 and its profile, likewise
 
 Phases, each printing one JSON line; any failure ends the run with a
 non-zero exit code and no result line:
@@ -42,14 +43,16 @@ non-zero exit code and no result line:
    vmap levels (DP-SGD's per-example gradients), and
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
    flash_dkv; SDPA as the library call, with the backend it ran; bf16
-   inputs on the tensor cores, float32 on the FMA kernels but for the
-   forward and dq at Dh 256), at Dh 64 and 128 (the _f32 and _dh128_f32
-   entries: the FMA kernels at small_lm's and small_lm_128's shapes) and
-   at Dh 256 (the _dh256 entries at the wide LM's bf16 shape, on
-   flash_dh256_sm90.cu; the _dh256_f32 ones at lm_wide_f32's shape and the
-   _dh256_f32_small ones at small_lm_256's, the forward and dq on
-   flash_f32_sm90.cu's three TF32 products, dk/dv on the FMA kernel; each
-   redesigned kernel with the earlier design's time as was_ms);
+   inputs on the tensor cores, float32 on flash_f32_sm90.cu's three TF32
+   products at Dh 256 and for the forward at Dh 128, on the FMA kernels
+   otherwise), at Dh 64 (the _f32 entries at small_lm's shape), at Dh 128
+   (the _dh128_f32 entries at small_lm_128's shape and the _dh128_f32_mid
+   ones at lm_mid_f32's: the forward on flash_f32_sm90.cu, dq and dk/dv on
+   the FMA kernels) and at Dh 256 (the _dh256 entries at the wide LM's bf16
+   shape, on flash_dh256_sm90.cu; the _dh256_f32 ones at lm_wide_f32's
+   shape and the _dh256_f32_small ones at small_lm_256's, all three on
+   flash_f32_sm90.cu); each redesigned kernel with the earlier design's
+   time as was_ms;
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
 4b. repeat — the small robust path on cnn_fedavg, the small resnet8 path,
@@ -94,15 +97,15 @@ non-zero exit code and no result line:
    bf16 kernels, its round and device times beside resnet_bn's;
 10. small_lm — the Cheetah LM trainer at f32, T 4096 (auto dispatch picks
     flash) on the card against the same run on the CPU (plain versions);
-    small_lm_128 the same with one head of Dh 128 at T 4608;
+    small_lm_128 the same with one head of Dh 128 at T 4608 (the forward
+    on flash_f32_sm90.cu, dq and dk/dv on the FMA kernels);
 11. lm_main — the Cheetah trainer at the LM slice's configuration (vocab
     32000, dim 1024, 16 heads, 12 layers, bf16, full remat, chunked CE,
     B 2, T 8192) for 5 steps; causal flash on every layer, with 24
     forward, 12 dq and 12 dk/dv launches per step;
 12. lm_profile — torch.profiler over two warm steps of that trainer;
 13. small_lm_256 — small_lm with one head of Dh 256 at T 4352 (float32:
-    the forward and dq on flash_f32_sm90.cu, dk/dv on the FMA kernel),
-    card against CPU;
+    the forward, dq and dk/dv on flash_f32_sm90.cu), card against CPU;
 14. lm_wide — the Cheetah example at --dim 2048 (vocab 32000, 8 heads, so
     Dh 256, 8 layers, bf16, full remat, chunked CE, B 8, T 4608) for 5
     steps: auto dispatch picks flash, 16 forward, 8 dq and 8 dk/dv
@@ -113,9 +116,14 @@ non-zero exit code and no result line:
     per step and full remat's losses;
 16. lm_wide_f32 — the wide LM trained in float32 (DistributedLMTrainer's
     dtype) at B 8, T 4352 (auto dispatch picks flash) for 3 steps: 16
-    forward and 8 dq launches per step on flash_f32_sm90.cu, 8 dk/dv on
-    the FMA kernel; lm_wide_f32_profile, one warm step under
-    torch.profiler.
+    forward, 8 dq and 8 dk/dv launches per step, all on
+    flash_f32_sm90.cu; lm_wide_f32_profile, one warm step under
+    torch.profiler;
+17. lm_mid_f32 — the Cheetah example at --dim 1024 (vocab 32000, 8 heads
+    of 128, 8 layers) trained in float32 at B 8, T 4608 (auto dispatch
+    picks flash) for 3 steps: 16 forward launches per step on
+    flash_f32_sm90.cu, 8 dq and 8 dk/dv on the FMA kernels;
+    lm_mid_f32_profile, one warm step under torch.profiler.
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or fedml_tpu.
@@ -1812,7 +1820,9 @@ def phase_resume():
 # branch), a ragged bf16 causal one, a ragged f32 causal one and a ragged full
 # bf16 one (the bf16 kernels' non-causal branch, and TMA's zero fill at a T
 # that is not a multiple of 64); last small_lm's attention (f32, one head of
-# 64 at T 4096) and small_lm_128's (f32, one head of 128 at T 4608)
+# 64 at T 4096), small_lm_128's (f32, one head of 128 at T 4608), the float32
+# LM's at --dim 1024 (lm_mid_f32: 8 heads of 128 at T 4608) and a ragged f32
+# causal one at Dh 128
 FLASH_SLICE = (2, 8192, 16, 64)
 FLASH_WIDE = (8, 4608, 8, 256)
 FLASH_WIDE_F32 = (8, 4352, 8, 256)
@@ -1821,6 +1831,7 @@ FLASH_F32_256_FULL = (1, 4352, 2, 256)
 FLASH_F32_128 = (1, 2048, 8, 128)
 FLASH_SMALL_LM = (1, 4096, 1, 64)
 FLASH_SMALL_LM_128 = (1, 4608, 1, 128)
+FLASH_MID_F32 = (8, 4608, 8, 128)
 FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float32, False),
                ((3, 333, 2, 64), torch.float32, True), ((2, 100, 3, 128), torch.bfloat16, True),
                ((1, 1000, 4, 64), torch.bfloat16, False),
@@ -1829,20 +1840,23 @@ FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float3
                (FLASH_F32_256_FULL, torch.float32, False),
                ((2, 333, 3, 256), torch.bfloat16, True), ((3, 130, 2, 256), torch.float32, True),
                ((1, 1000, 2, 256), torch.bfloat16, False), (FLASH_SMALL_LM, torch.float32, True),
-               (FLASH_SMALL_LM_128, torch.float32, True))
+               (FLASH_SMALL_LM_128, torch.float32, True), (FLASH_MID_F32, torch.float32, True),
+               ((3, 130, 2, 128), torch.float32, True))
 # the timed shapes and the suffix of their kernels line entries (the launch
-# counts of lm_main, lm_wide, lm_wide_f32, small_lm_256, small_lm and
-# small_lm_128 fill them in, each at the shape its path gives the kernels)
+# counts of lm_main, lm_wide, lm_wide_f32, small_lm_256, small_lm,
+# small_lm_128 and lm_mid_f32 fill them in, each at the shape its path gives
+# the kernels)
 FLASH_TIMED = {FLASH_SLICE: "", FLASH_WIDE: "_dh256", FLASH_WIDE_F32: "_dh256_f32",
                FLASH_SMALL_LM_256: "_dh256_f32_small", FLASH_SMALL_LM: "_f32",
-               FLASH_SMALL_LM_128: "_dh128_f32"}
+               FLASH_SMALL_LM_128: "_dh128_f32", FLASH_MID_F32: "_dh128_f32_mid"}
 # the earlier design's time of a kernel redesigned since, and that design,
 # printed beside the new time on the kernel's own line: ms at FLASH_WIDE of
-# the bf16 Dh-256 forward, dq and dk/dv of flash_attention_sm90.cu, and at
-# FLASH_WIDE_F32 and FLASH_SMALL_LM_256 of the float32 Dh-256 forward and dq
-# of flash_attention.cu's FMA kernels, each measured by this script on an
-# H100 80GB HBM3 at 700 W before its redesign; `flash DIR` times both
-# designs in one call
+# the bf16 Dh-256 forward, dq and dk/dv of flash_attention_sm90.cu, at
+# FLASH_WIDE_F32 and FLASH_SMALL_LM_256 of the float32 Dh-256 forward, dq
+# and dk/dv and at FLASH_SMALL_LM_128 of the float32 Dh-128 forward, of
+# flash_attention.cu's FMA kernels, each measured by this script on an H100
+# 80GB HBM3 at 700 W before its redesign; `flash DIR` times both designs in
+# one call
 _WAS_BF16 = "flash_attention_sm90.cu's two-warpgroup Dh-256 design"
 _WAS_F32 = "flash_attention.cu's float32 FMA kernel"
 FLASH_WAS_MS = {"flash_fwd_dh256": (5.208, _WAS_BF16), "flash_dkv_dh256": (9.373, _WAS_BF16),
@@ -1850,7 +1864,10 @@ FLASH_WAS_MS = {"flash_fwd_dh256": (5.208, _WAS_BF16), "flash_dkv_dh256": (9.373
                 "flash_fwd_dh256_f32": (20.61, _WAS_F32),
                 "flash_dq_dh256_f32": (33.60, _WAS_F32),
                 "flash_fwd_dh256_f32_small": (1.223, _WAS_F32),
-                "flash_dq_dh256_f32_small": (2.001, _WAS_F32)}
+                "flash_dq_dh256_f32_small": (2.001, _WAS_F32),
+                "flash_dkv_dh256_f32": (42.24, _WAS_F32),
+                "flash_dkv_dh256_f32_small": (2.434, _WAS_F32),
+                "flash_fwd_dh128_f32": (0.7493, _WAS_F32)}
 # |kernel - plain| / max|plain|, plain in float32. Each output sums up to
 # T * Dh = 5e5 float32 products in another order than the plain version's
 # cuBLAS calls: a random walk of sqrt(n) * 2^-24 ~ 4e-5 of the terms'
@@ -1915,8 +1932,9 @@ def _flash_products(name, dtype, Dh):
     (the score is scaled after the product); P.V, dS.K, P^T.dO and dS^T.Q take
     a float32 probability or score, which is exact there only as three bf16
     terms, so each counts as three bf16 products. Float32 inputs: on
-    flash_f32_sm90 (the forward and dq at Dh 256) each product is three TF32
-    products; elsewhere every product runs at the float32 rate."""
+    flash_f32_sm90 (every kernel at Dh 256, the forward at Dh 128) each
+    product is three TF32 products; elsewhere every product runs at the
+    float32 rate."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     n = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}[name]
@@ -2033,12 +2051,14 @@ def check_flash(dev, tc_rate):
 # wide LM's attention, then the LM slice's (Dh 64) and one at Dh 128 with its
 # width (H Dh 1024) and tokens, where the bf16 kernels of
 # flash_attention_sm90.cu run; in float32 the wide float32 LM's attention,
-# small_lm_256's, and a full one at T 4352
+# small_lm_256's, a full one at T 4352, lm_mid_f32's and small_lm_128's
 FLASH_MODE_SHAPES = ((FLASH_WIDE, torch.bfloat16, True), (FLASH_SLICE, torch.bfloat16, True),
                      ((2, 8192, 8, 128), torch.bfloat16, True),
                      (FLASH_WIDE_F32, torch.float32, True),
                      (FLASH_SMALL_LM_256, torch.float32, True),
-                     (FLASH_F32_256_FULL, torch.float32, False))
+                     (FLASH_F32_256_FULL, torch.float32, False),
+                     (FLASH_MID_F32, torch.float32, True),
+                     (FLASH_SMALL_LM_128, torch.float32, True))
 
 
 def phase_flash_times(dev, reps=3, rounds=5):
@@ -2167,6 +2187,13 @@ LM_WIDE_B, LM_WIDE_T, LM_WIDE_STEPS, LM_WIDE_DOTS_STEPS = 8, 4608, 5, 2
 # in float32 (at 4096 and 4608 it picks dense); cut: 3 steps of its 100
 LM_WIDE_F32_MODEL = dict(LM_WIDE_MODEL, max_len=4352)
 LM_WIDE_F32_T, LM_WIDE_F32_STEPS = 4352, 3
+# the float32 LM at --dim 1024: examples/cheetah_lm/main.py's model at that
+# width (its 8 heads, so Dh 128, its 8 layers) trained in float32 at its
+# batch 8 and T 4608 (max_len = T), where auto picks flash (at 4096 the
+# shared guard's budget refuses block 1024 in float32); cut: 3 steps of its
+# 100
+LM_MID_F32_MODEL = dict(LM_WIDE_MODEL, dim=1024)
+LM_MID_F32_T, LM_MID_F32_STEPS = 4608, 3
 
 
 def _lm_phase(phase, model, train, B, T, steps, suffix, dtype=torch.bfloat16):
@@ -2249,9 +2276,9 @@ def phase_lm_wide_dots(full_losses):
 
 def phase_lm_wide_f32():
     """The wide LM in float32 for LM_WIDE_F32_STEPS steps under full remat:
-    auto dispatch must pick flash, and per step the float32 Dh-256 forward
-    and dq (flash_f32_sm90.cu) launch 2 x 8 and 8 times, dk/dv (the FMA
-    kernel) 8 times. Returns (trainer, data, launches)."""
+    auto dispatch must pick flash, and per step the float32 Dh-256 forward,
+    dq and dk/dv (flash_f32_sm90.cu) launch 2 x 8, 8 and 8 times. Returns
+    (trainer, data, launches)."""
     from fedml_tpu_torch.ops.attention import auto_attention_impl
 
     H = LM_WIDE_F32_MODEL["num_heads"]
@@ -2260,6 +2287,21 @@ def phase_lm_wide_f32():
         raise AssertionError(f"auto dispatch must pick flash at {LM_WIDE_B, H, LM_WIDE_F32_T}")
     return _lm_phase("lm_wide_f32", LM_WIDE_F32_MODEL, LM_TRAIN, LM_WIDE_B, LM_WIDE_F32_T,
                      LM_WIDE_F32_STEPS, "_dh256_f32", dtype=torch.float32)[:3]
+
+
+def phase_lm_mid_f32():
+    """The float32 LM at --dim 1024 for LM_MID_F32_STEPS steps under full
+    remat: auto dispatch must pick flash, and per step the float32 Dh-128
+    forward (flash_f32_sm90.cu) launches 2 x 8 times, dq and dk/dv (the FMA
+    kernels) 8 times each. Returns (trainer, data, launches)."""
+    from fedml_tpu_torch.ops.attention import auto_attention_impl
+
+    H = LM_MID_F32_MODEL["num_heads"]
+    if auto_attention_impl(LM_WIDE_B, H, LM_MID_F32_T, LM_MID_F32_MODEL["dim"] // H,
+                           4) != "flash":
+        raise AssertionError(f"auto dispatch must pick flash at {LM_WIDE_B, H, LM_MID_F32_T}")
+    return _lm_phase("lm_mid_f32", LM_MID_F32_MODEL, LM_TRAIN, LM_WIDE_B, LM_MID_F32_T,
+                     LM_MID_F32_STEPS, "_dh128_f32_mid", dtype=torch.float32)[:3]
 
 
 # the LM profiles' kernel groups: the flash kernels, the matrix products
@@ -2273,15 +2315,16 @@ def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
     emit(phase, **profile_run(lambda: tr.train(data, steps, log_fn=None), steps, (
         "flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
         "flash_fwd_dh256_kernel", "flash_dq_dh256_kernel", "flash_dkv_dh256_kernel",
-        "flash_fwd_f32tc_kernel", "flash_dq_f32tc_kernel", "flash_dkv_kernel"),
+        "flash_fwd_f32tc_kernel", "flash_dq_f32tc_kernel", "flash_dkv_f32tc_kernel",
+        "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
         unit="step", groups=LM_GROUPS))
 
 
 def main(argv):
-    modes = (["agg"], ["flash"], ["conv"], ["lm_f32"])
+    modes = (["agg"], ["flash"], ["conv"], ["lm_f32"], ["lm_mid"])
     if not (argv in ([], ["kernels"]) or (argv[:1] in modes and len(argv) <= 2)):
         print("usage: python3 chip_smoke.py [kernels | agg [DIR] | flash [DIR] | conv [DIR] | "
-              "lm_f32 [DIR]]", file=sys.stderr)
+              "lm_f32 [DIR] | lm_mid [DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2296,7 +2339,9 @@ def main(argv):
         {"agg": phase_agg, "flash": lambda: phase_flash_times(dev),
          "conv": lambda: phase_conv_times(dev),
          "lm_f32": lambda: phase_lm_profile(*phase_lm_wide_f32()[:2], steps=1,
-                                            phase="lm_wide_f32_profile")}[argv[0]]()
+                                            phase="lm_wide_f32_profile"),
+         "lm_mid": lambda: phase_lm_profile(*phase_lm_mid_f32()[:2], steps=1,
+                                            phase="lm_mid_f32_profile")}[argv[0]]()
         return 0
     smi = phase_device()
     phase_build()
@@ -2338,6 +2383,10 @@ def main(argv):
     tr, data, lm_launches = phase_lm_wide_f32()
     launches.update(lm_launches)
     phase_lm_profile(tr, data, steps=1, phase="lm_wide_f32_profile")
+    del tr
+    tr, data, lm_launches = phase_lm_mid_f32()
+    launches.update(lm_launches)
+    phase_lm_profile(tr, data, steps=1, phase="lm_mid_f32_profile")
     del tr
     for e in entries:
         e["launches"] = launches[e["name"]]

@@ -2,9 +2,9 @@
 // per-row logsumexp, and the two backward kernels (dq; dk and dv), all
 // products as float32 FMA, for float32 inputs: bfloat16 inputs run on the
 // tensor cores (flash_attention_sm90.cu, flash_dh256_sm90.cu), and so do the
-// float32 forward and dq at Dh 256 (flash_f32_sm90.cu). Here: the forward
-// and dq at Dh 64 and 128, dk/dv at Dh 64, 128 and 256; all arithmetic is
-// float32.
+// float32 forward, dq and dk/dv at Dh 256 and the float32 forward at Dh 128
+// (flash_f32_sm90.cu). Here: the forward at Dh 64, dq and dk/dv at Dh 64 and
+// 128; all arithmetic is float32.
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (the
 // forward, called from _flash_forward), _dq_kernel and _dkv_kernel (both
@@ -44,20 +44,10 @@
 // whole and the diagonal tile is masked; rows and columns at or past T are
 // masked too, so T need not be a multiple of 64. Blocks of the longest
 // causal rows are launched first. dq, dk and dv each sum in one fixed order
-// and use no atomics, so all three repeat bit for bit.
-//
-// dk/dv at Dh 256. A (64, Dh) float32 tile padded to Dh + 4 is 66.5 KB,
-// and a thread's accumulator 4 x 16 floats. dk/dv holds four tiles, 266 KB
-// at 64 rows: so the two it streams (q and dO) are 32 rows, and the
-// resident k and v stay 64 rows (213 KB). Its score tile is 64 x 32, two
-// columns a thread; the float32 sums over the 32-query tiles add per tile
-// as the 64-row ones do. The products with a probability tile run in passes
-// of 128 output columns (prob_times' g0), so that a pass's partial sums
-// take 32 registers beside the two accumulators (128 registers); each
-// output column's sum is the same chain of fmaf whatever the pass. One
-// block per SM. Bound at the wide float32 LM's shape (B 8, T 4352, H 8, Dh
-// 256, causal): 606,216,192 pairs x 512 operations per product, four
-// products: 18.53 ms at 67 TFLOP/s.
+// and use no atomics, so all three repeat bit for bit. On the main paths
+// these kernels run in the float32 LM at --dim 1024 (dq and dk/dv at Dh
+// 128, chip_smoke.py's lm_mid_f32) and in the one-head card-against-CPU
+// checks (small_lm at Dh 64, small_lm_128).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,12 +64,10 @@ struct Shape {
   static constexpr int LD = DH + 4;   // row stride of a (64, Dh) tile in shared memory
   static constexpr int NJ = DH / 16;  // accumulator columns of one thread
   static constexpr int G = DH / 64;   // 64-wide column groups
-  // rows of the tiles that dq and dk/dv stream: 32 at Dh 256 (dk/dv only
-  // runs there), where four 64-row tiles do not fit in shared memory
-  static constexpr int KR = DH == 256 ? 32 : kTile;
+  static constexpr int KR = kTile;    // rows of the tiles that dq and dk/dv stream
   static constexpr int LP = KR + 4;   // row stride of their 64 x KR probability tiles
   static constexpr int NS = KR / 16;  // score columns of one thread in those tiles
-  static constexpr int GN = G < 2 ? G : 2;  // column groups per prob_times pass
+  static constexpr int GN = G;        // column groups per prob_times pass: all
 };
 
 __device__ __forceinline__ float at(const float4& v, int e) {
@@ -519,9 +507,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 // q, k, v (B, T, H, Dh) share the element strides (sb, st, sh) with Dh
 // contiguous and 16-byte aligned rows; o (B, T, H, Dh) and lse (B*H, T) are
-// contiguous outputs. Float32 at Dh 64 and 128 only (is_bf16 = 0):
+// contiguous outputs. Float32 at Dh 64 only (is_bf16 = 0):
 // fedml_flash_fwd_sm90 takes bfloat16, fedml_flash_fwd_f32_sm90 float32 at
-// Dh 256. Returns the cudaError_t of the launch.
+// Dh 128 and 256. Returns the cudaError_t of the launch.
 extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                                int B, int H, int T, int Dh, int is_bf16, int causal, long long sb,
                                long long st, long long sh, float scale, void* stream) {
@@ -530,7 +518,6 @@ extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void
   cudaStream_t s = (cudaStream_t)stream;
   switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
     case 128: return (int)launch_fwd<64>(q, k, v, o, lse, a, s);
-    case 256: return (int)launch_fwd<128>(q, k, v, o, lse, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -555,7 +542,8 @@ extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v, const
 }
 
 // dk and dv (B, T, H, Dh) contiguous, from the same inputs as dq. Float32
-// only (is_bf16 = 0): fedml_flash_dkv_sm90 takes bfloat16.
+// at Dh 64 and 128 only (is_bf16 = 0): fedml_flash_dkv_sm90 takes bfloat16,
+// fedml_flash_dkv_f32_sm90 float32 at Dh 256.
 extern "C" int fedml_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                                const float* lse, const float* delta, void* dk, void* dv, int B,
                                int H, int T, int Dh, int is_bf16, int causal, long long sb,
@@ -566,7 +554,6 @@ extern "C" int fedml_flash_dkv(const void* q, const void* k, const void* v, cons
   switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
     case 128: return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, a, s);
     case 256: return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, a, s);
-    case 512: return (int)launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,77 +1,97 @@
-// Flash attention's forward and dq at head dim 256 for float32 inputs, on
-// the Hopper tensor cores, exact to float32 through three TF32 products
-// (3xTF32, tf32x3.cuh). dk/dv at Dh 256 and every float32 kernel at Dh 64
-// and 128 keep the FMA kernels of flash_attention.cu; bf16 inputs run the
-// wgmma kernels (flash_dh256_sm90.cu at Dh 256). ops/flash_attention.py's
-// route() picks.
+// Flash attention for float32 inputs on the Hopper tensor cores, exact to
+// float32 through three TF32 products (3xTF32, tf32x3.cuh): the forward at
+// Dh 128 and 256, dq and dk/dv at Dh 256. dq and dk/dv at Dh 128 and every
+// float32 kernel at Dh 64 keep the FMA kernels of flash_attention.cu; bf16
+// inputs run the wgmma kernels (flash_dh256_sm90.cu at Dh 256).
+// ops/flash_attention.py's route() picks.
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (:66,
-// the forward, pallas_call :140) and _dq_kernel (:167, pallas_call :287)
-// at Dh 256 on float32 inputs. The TPU kernels walk a sequential (bh, q
-// block, k block) grid and carry m, l and the accumulator in VMEM scratch;
-// here one block owns 64 q rows and walks the k tiles in a loop, with that
-// state in registers.
+// the forward, pallas_call :140) at Dh 128 and 256, _dq_kernel (:167,
+// pallas_call :287) and _dkv_kernel (:213, pallas_call :299) at Dh 256, on
+// float32 inputs. The TPU kernels walk a sequential (bh, q block, k block)
+// grid and carry m, l and the accumulators in VMEM scratch; here one block
+// owns 64 q rows (the forward, dq) or 64 key rows (dk/dv) and walks the
+// other axis in a loop, with that state in registers.
 //
 // Arithmetic (the contract of flash_attention.cu, unchanged): float32
-// inputs and outputs; the forward scales q before Q K^T, dq scales the
-// product after it; masked scores are finfo(float32).min; the online
-// softmax keeps m, l and corr per row, o = acc / max(l, 1e-30) and lse =
-// m + log(max(l, 1e-30)); dq recomputes p = exp(scale q.k - lse), ds = p
-// (dO.v - delta) and adds scale (dS K) per k tile. Every product is three
+// inputs and outputs; the forward scales q before Q K^T, the backward
+// scales the product after it; masked scores are finfo(float32).min; the
+// online softmax keeps m, l and corr per row, o = acc / max(l, 1e-30) and
+// lse = m + log(max(l, 1e-30)); the backward recomputes p = exp(scale q.k
+// - lse) and ds = p (dO.v - delta); dq adds scale (dS K) per k tile, dk/dv
+// add P^T dO and scale (dS^T Q) per q tile. Every product is three
 // mma.sync.m16n8k8 TF32 products (a_lo b_hi, a_hi b_lo, a_hi b_hi, small
 // terms first), each operand split where it is loaded (split_tf32); the
 // dropped a_lo b_lo and the tensor core's read of lo leave ~1.2e-6 of the
 // magnitudes (conv3x3_sm90.cu's analysis). The tensor cores' float32 sums
-// lean one way over long runs, so each k tile's P V (dS K) starts from a
-// zero accumulator and is added to the running registers in float32,
-// rescaled by corr (times scale in dq); a score (and dq's dP) is the float32
-// sum of two accumulators, one per half of the 256 columns. Each output is
-// summed in one fixed order with no atomics: runs repeat bit for bit.
-// Blocks of the longest causal rows launch first; rows and columns at or
-// past T are zero-filled and masked, so T need not be a multiple of a tile.
+// lean one way over long runs, so each streamed tile's product (P V, dS K,
+// P^T dO, dS^T Q) starts from a zero accumulator and is added to the
+// running registers in float32 (rescaled by corr in the forward, times
+// scale in dq and dk). Each output is summed in one fixed order with no
+// atomics: runs repeat bit for bit. Blocks of the longest causal rows (or
+// the keys the most rows see) launch first; rows and columns at or past T
+// are zero-filled and masked, so T need not be a multiple of a tile.
 //
-// Design. 256 threads, eight warps in four pairs; pair p owns q rows 16 p ..
-// 16 p + 15 of the block's 64. The two warps of a pair split the work by
-// halves of Dh: warp half h sums the score products (Q K^T, and dO V^T in
-// dq) over columns 128 h .. 128 h + 127 and the output (P V, dS K) over the
-// same 128 output columns. Its (16, 128) float32 accumulator is 16 m16n8
-// tiles, 64 registers a thread: with two warps per scheduler the products'
-// and loads' latencies overlap, which one warp of 16 x 256 (128 registers,
-// 255 in all) could not do. The partial scores cross shared memory once a
-// tile (each lane writes its 16 values, a pair barrier, each adds its
-// partner's: a + b is b + a, so both warps hold the same score, softmax and
-// P without a second exchange). q (and dO) stay resident in shared memory,
-// rows 260 floats apart; k and v stream through a two-stage cp.async ring,
-// the next tile in flight during this tile's products, one block barrier a
-// tile. The forward's k/v tiles are 32 rows (64 q rows + 2 x (32 + 32)
-// rows + the exchange: 211 KB); dq's resident q and dO leave room for
-// 16-row k/v tiles (also 211 KB). Q K^T's and dO V^T's fragments load with
-// ldmatrix (four 8 x 4 float matrices: an A fragment, or the B fragments of
-// two 8-key tiles); row padding 260 (4 mod 32 banks) keeps those reads and
-// P V's (rows 2 t and 2 t + 1 at column g: bank 8 t + g, 8 t + 4 + g) free
-// of bank conflicts. S's accumulator holds columns 2 t and 2 t + 1 of rows
-// g and g + 8; read as the k index t and t + 4 of the next product's A
-// fragment, it is P's A fragment as it stands, once the B operand's rows
-// are taken in the same order (keys 2 t and 2 t + 1): no shuffle. P V (dS
-// K) runs in two passes of 64 output columns, each pass's zero-started sums
-// in 32 registers. On an H100 at the shape below (chip_smoke.py flash,
-// PERF.md): a first design, four warps of 16 rows x 256 columns with scalar
-// fragment loads (one warp a scheduler, 255 registers), took 20.3 ms for
-// the forward and 25.8 for dq; this one takes 12.5 and 18.8. Builds with
-// phases removed showed the products themselves taking most of the time,
-// below the rate mma.sync reaches, and the k/v staging and the exchange and
-// softmax adding to them rather than hiding behind them. No faster: pairs
-// on two schedulers, an unroll of 8, 64-key forward tiles each loaded one
-// phase ahead, one bulk copy (cp.async.bulk) a row issued by one warp.
+// Forward and dq. Four groups of 16 q rows, each group's 16 x Dh output
+// owned by Dh / 128 warps, each summing the score products (Q K^T, and dO
+// V^T in dq) over its 128 columns and owning those 128 output columns: a
+// (16, 128) float32 accumulator, 16 m16n8 tiles, 64 registers a thread. At
+// Dh 256 the two warps of a pair add each other's partial scores through
+// shared memory once a tile (each lane writes its values, a pair barrier,
+// each adds its partner's: a + b is b + a, so both hold the same score,
+// softmax and P); at Dh 128 one warp holds a row group's whole scores and
+// a block is four warps, so two blocks share an SM. q (and dO) stay
+// resident in shared memory, rows Dh + 4 floats apart; k and v stream
+// through a two-stage cp.async ring, the next tile in flight during this
+// tile's products, one block barrier a tile. The forward's k/v tiles are 32
+// rows (at Dh 256 64 q rows + 2 x (32 + 32) rows + the exchange: 211 KB; at
+// Dh 128 99 KB); dq's resident q and dO leave room for 16-row k/v tiles
+// (211 KB). Q K^T's and dO V^T's fragments load with ldmatrix (four 8 x 4
+// float matrices: an A fragment, or the B fragments of two 8-key tiles);
+// the row padding (4 mod 32 banks) keeps those reads and P V's (rows 2 t
+// and 2 t + 1 at column g: bank 8 t + g, 8 t + 4 + g) free of bank
+// conflicts. S's accumulator holds columns 2 t and 2 t + 1 of rows g and g
+// + 8; read as the k index t and t + 4 of the next product's A fragment, it
+// is P's A fragment as it stands, once the B operand's rows are taken in
+// the same order (keys 2 t and 2 t + 1): no shuffle. P V (dS K) runs in
+// passes of 64 output columns, each pass's zero-started sums in 32
+// registers. On an H100 (PERF.md): a first Dh-256 design of four warps of
+// 16 rows x 256 columns (one warp a scheduler, 255 registers) took 20.3 ms
+// for the forward and 25.8 for dq at the wide shape below; this layout
+// 12.5 and 18.8.
 //
-// Bound on the H100 at the wide float32 LM's shape (B 8, T 4352, H 8, Dh
-// 256, causal): 606,216,192 unmasked (q, k) pairs, 512 operations per pair
-// and product; the forward's two products as three TF32 products each at
-// 495 TFLOP/s take 3.762 ms, dq's three 5.643 ms (at the float32 FMA rate,
-// 67 TFLOP/s, 9.265 and 13.90 ms); bytes (q, k, v, o once: 0.29 GB) take
-// 0.09 ms. Bound by operations. mma.sync reaches ~64% of the TF32 peak the
-// bound counts (chip_smoke.py's tc_rate); the splits and fragment loads
-// share the warps' issue slots with the products.
+// dk/dv (Dh 256). One block per 64 key rows: k and v resident (2 x 64 rows
+// of 260 floats, 130 KB), q and dO streaming in 16-row tiles through the
+// two-stage ring (65 KB), with a 4 KB hand-over slot: 199 KB, one block of
+// eight warps an SM. Warps in four pairs; pair p owns keys 16 p .. 16 p +
+// 15, and its two warps split the work by output: warp 0 of the pair
+// computes S = K Q^T over all 256 columns, p = exp(scale S - lse) and dv
+// += P^T dO; warp 1 computes dP = V dO^T, takes p from warp 0 through
+// shared memory (one pair barrier a tile), forms dS = p (dP - delta) and
+// dk += scale dS^T Q. Each warp holds one (16, 256) accumulator, 32 tiles,
+// 128 registers, and the two do equal work: one score product and one
+// output product a tile each. S (dP) has keys as rows, so it is P's (dS's)
+// A fragment as it stands, and the streamed dO (Q) rows load as the B
+// operand as V does in the forward. A score product has two accumulator
+// tiles a warp (16 queries), so its even and odd 8-column steps sum into
+// separate tiles, added at the end: twice the independent mma chains. A
+// Dh split as the forward's (each warp half the columns of both score
+// products and of both outputs) would trade two partial scores a tile,
+// not one p. On an H100 at the wide shape below (PERF.md): 27.0 ms, against
+// 42.2 for a float32 FMA kernel of the same tiles; the Dh-128 forward at
+// the float32 LM's shape below 6.6 ms, against 13.2 (flash_attention.cu's
+// FMA design).
+//
+// Bounds on the H100, bound by operations (bytes take < 0.1 ms): at the
+// wide float32 LM's shape (B 8, T 4352, H 8, Dh 256, causal), 606,216,192
+// unmasked (q, k) pairs, 512 operations per pair and product; as three
+// TF32 products at 495 TFLOP/s the forward's two products take 3.762 ms,
+// dq's three 5.643 ms and dk/dv's four 7.524 ms (at the float32 FMA rate,
+// 67 TFLOP/s, 9.265, 13.90 and 18.53 ms). At the float32 LM's Dh-128 shape
+// (B 8, T 4608, H 8, Dh 128, causal), 679,624,704 pairs x 256 operations:
+// the forward 2.109 ms (5.194 at the FMA rate). mma.sync reaches ~64% of
+// the TF32 peak the bound counts (chip_smoke.py's tc_rate); the splits and
+// fragment loads share the warps' issue slots with the products.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,14 +100,12 @@
 
 namespace {
 
-constexpr int kDh = 256;
-constexpr int kHalf = kDh / 2;      // columns of one warp's half
-constexpr int kLD = kDh + 4;        // floats between rows of a tile in shared memory
-constexpr int kRows = 64;           // q rows of a block
-constexpr int kThreads = 256;       // four pairs of warps, 16 q rows a pair
+constexpr int kRows = 64;           // q rows of a forward or dq block, key rows of a dk/dv block
+constexpr int kWarpCols = 128;      // score columns a forward or dq warp sums
 constexpr int kFwdKeys = 32;        // rows of the forward's k and v tiles
 constexpr int kDqKeys = 16;         // rows of dq's k and v tiles
-constexpr int kPass = 8;            // 8-column tiles of one P V (dS K) pass: 64 columns
+constexpr int kDkvQueries = 16;     // rows of dk/dv's q and dO tiles
+constexpr int kPass = 8;            // 8-column tiles of one output pass: 64 columns
 constexpr int kExchange = 16 * 32;  // floats of one warp's partial scores
 constexpr float kNegInf = -3.4028234663852886e38f;  // finfo(float32).min
 
@@ -124,23 +142,24 @@ __device__ __forceinline__ void ldsm_x4(const float* p, uint32_t (&r)[4]) {
                : "r"(smem_addr(p)));
 }
 
-// rows r0 .. r0 + R - 1 of one (b, h) slice (row stride st floats, Dh
-// contiguous) into a tile of row stride kLD; rows at or past T zero-filled.
-// A thread copies 16-byte chunk tid % 64 of rows tid / 64 + 4 j: a pointer
-// step per copy (a generic index loop spent ~28 integer instructions on
-// each copy's division and 64-bit address)
-template <int R>
+// rows r0 .. r0 + R - 1 of one (b, h) slice (row stride st floats, DH
+// contiguous) into a tile of row stride DH + 4, by a block of THREADS; rows
+// at or past T zero-filled. A thread copies 16-byte chunk tid % (DH / 4) of
+// rows tid / (DH / 4) + step j: a pointer step per copy (a generic index
+// loop spent ~28 integer instructions on each copy's division and 64-bit
+// address)
+template <int DH, int THREADS, int R>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, int64_t st, int r0,
                                            int Tn) {
-  constexpr unsigned kChunks = kDh / 4, kStep = kThreads / kChunks;  // 64 chunks, 4 rows a pass
+  constexpr unsigned kChunks = DH / 4, kStep = THREADS / kChunks;
   static_assert(R % kStep == 0, "whole passes");
   const unsigned c = 4 * (threadIdx.x % kChunks), row = threadIdx.x / kChunks;
   const float* s = src + (int64_t)(r0 + (int)row) * st + c;
-  float* d = dst + row * kLD + c;
+  float* d = dst + row * (DH + 4) + c;
 #pragma unroll
   for (int j = 0; j < R / (int)kStep; ++j) {
     const bool valid = r0 + (int)row + (int)kStep * j < Tn;
-    cp_async16(d + kStep * j * kLD, valid ? s : src, valid);
+    cp_async16(d + kStep * j * (DH + 4), valid ? s : src, valid);
     s += kStep * st;
   }
 }
@@ -170,37 +189,65 @@ __device__ __forceinline__ void mma3(float (&x)[4], const uint32_t (&ah)[4],
   mma_tf32(x, ah, bh);
 }
 
-// This lane's ldmatrix row addresses into a tile (row stride kLD): for the
+// This lane's ldmatrix row addresses into a tile of row stride LD: for the
 // A fragment of rows r0 .. r0 + 15 (matrices: rows 0-7 and 8-15 at columns
 // 0-3, then both at 4-7), and for the B fragments of two 8-row groups of b
 // (matrices: group 0 at columns 0-3 and 4-7, then group 1)
+template <int LD>
 __device__ __forceinline__ const float* a_lane(const float* a, int r0, int lane) {
-  return a + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLD + 4 * (lane >> 4);
+  return a + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 4 * (lane >> 4);
 }
+template <int LD>
 __device__ __forceinline__ const float* b_lane(const float* b, int lane) {
-  return b + ((lane & 7) + 8 * (lane >> 4)) * kLD + 4 * ((lane >> 3) & 1);
+  return b + ((lane & 7) + 8 * (lane >> 4)) * LD + 4 * ((lane >> 3) & 1);
 }
 
-// s[n] += (16 rows of a) (rows 8 n .. 8 n + 7 of b)^T over the 128 columns
-// from d0, for N 8-row groups of b (N even); al and bl are a_lane / b_lane
-// addresses
-template <int N>
-__device__ __forceinline__ void half_scores(float (&s)[N][4], const float* al_, const float* bl_,
-                                            int d0) {
+// s[n] += (16 rows of a) (rows 8 n .. 8 n + 7 of b)^T over the COLS columns
+// from d0, for N 8-row groups of b (N even); al_ and bl_ are a_lane /
+// b_lane addresses
+template <int N, int LD, int COLS>
+__device__ __forceinline__ void scores(float (&s)[N][4], const float* al_, const float* bl_,
+                                       int d0) {
 #pragma unroll 4
-  for (int d = d0; d < d0 + kHalf; d += 8) {
+  for (int d = d0; d < d0 + COLS; d += 8) {
     uint32_t r[4], ah[4], al[4];
     ldsm_x4(al_ + d, r);
     split4(r, ah, al);
 #pragma unroll
     for (int n = 0; n < N; n += 2) {
       uint32_t bh[4], bl[4];
-      ldsm_x4(bl_ + n * 8 * kLD + d, r);
+      ldsm_x4(bl_ + n * 8 * LD + d, r);
       split4(r, bh, bl);
       const uint32_t b0h[2] = {bh[0], bh[1]}, b0l[2] = {bl[0], bl[1]};
       const uint32_t b1h[2] = {bh[2], bh[3]}, b1l[2] = {bl[2], bl[3]};
       mma3(s[n], ah, al, b0h, b0l);
       mma3(s[n + 1], ah, al, b1h, b1l);
+    }
+  }
+}
+
+// scores() with the even and the odd k steps summed into s0 and s1: twice
+// the independent mma chains, for dk/dv's two accumulator tiles a warp
+template <int N, int LD, int COLS>
+__device__ __forceinline__ void scores2(float (&s0)[N][4], float (&s1)[N][4], const float* al_,
+                                        const float* bl_, int d0) {
+#pragma unroll 2
+  for (int d = d0; d < d0 + COLS; d += 16) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t r[4], ah[4], al[4];
+      ldsm_x4(al_ + d + 8 * h, r);
+      split4(r, ah, al);
+#pragma unroll
+      for (int n = 0; n < N; n += 2) {
+        uint32_t bh[4], bl[4];
+        ldsm_x4(bl_ + n * 8 * LD + d + 8 * h, r);
+        split4(r, bh, bl);
+        const uint32_t b0h[2] = {bh[0], bh[1]}, b0l[2] = {bl[0], bl[1]};
+        const uint32_t b1h[2] = {bh[2], bh[3]}, b1l[2] = {bl[2], bl[3]};
+        mma3(h ? s1[n] : s0[n], ah, al, b0h, b0l);
+        mma3(h ? s1[n + 1] : s0[n + 1], ah, al, b1h, b1l);
+      }
     }
   }
 }
@@ -221,8 +268,8 @@ __device__ __forceinline__ void prob_fragments(const float (&p)[N][4], uint32_t 
 }
 
 // out[n] = P (rows 8 kk + 2 t, + 1 of x at columns c0 + 8 n + g), over the
-// N key steps, from zero: one 64-column pass of P V or dS K
-template <int N>
+// N key steps, from zero: one 64-column pass of P V, dS K, P^T dO or dS^T Q
+template <int N, int LD>
 __device__ __forceinline__ void prob_pass(float (&out)[kPass][4], const uint32_t (&ph)[N][4],
                                           const uint32_t (&pl)[N][4], const float* x, int c0,
                                           int g, int t) {
@@ -232,12 +279,12 @@ __device__ __forceinline__ void prob_pass(float (&out)[kPass][4], const uint32_t
     for (int e = 0; e < 4; ++e) out[n][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < N; ++kk) {
-    const float* xr = x + (8 * kk + 2 * t) * kLD + c0 + g;
+    const float* xr = x + (8 * kk + 2 * t) * LD + c0 + g;
 #pragma unroll
     for (int n = 0; n < kPass; ++n) {
       uint32_t bh[2], bl[2];
       split_tf32(xr[8 * n], bh[0], bl[0]);
-      split_tf32(xr[kLD + 8 * n], bh[1], bl[1]);
+      split_tf32(xr[LD + 8 * n], bh[1], bl[1]);
       mma3(out[n], ph[kk], pl[kk], bh, bl);
     }
   }
@@ -262,10 +309,11 @@ __device__ __forceinline__ void pair_add(float (&v)[N][4], float* xs, int warp, 
     for (int e = 0; e < 4; ++e) v[i][e] += other[(4 * i + e) * 32 + lane];
 }
 
-// rows row0 (values e = 0, 1) and row0 + 8 (e = 2, 3) of a warp's (16, 128)
-// accumulator, divided by div0 / div1, into columns c0 .. c0 + 127 of a
-// contiguous (B, T, H, Dh) output
-__device__ __forceinline__ void store_rows(float* out, const float (&acc)[16][4], float div0,
+// rows row0 (values e = 0, 1) and row0 + 8 (e = 2, 3) of a warp's (16, 8 N)
+// accumulator, divided by div0 / div1, into columns c0 .. c0 + 8 N - 1 of a
+// contiguous (B, T, H, DH) output
+template <int DH, int N>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[N][4], float div0,
                                            float div1, int b, int h, int H, int Tn, int row0,
                                            int c0, int t) {
 #pragma unroll
@@ -273,27 +321,38 @@ __device__ __forceinline__ void store_rows(float* out, const float (&acc)[16][4]
     const int row = row0 + 8 * half;
     if (row >= Tn) continue;
     const float div = half ? div1 : div0;
-    float* dst = out + (((int64_t)b * Tn + row) * H + h) * kDh + c0 + 2 * t;
+    float* dst = out + (((int64_t)b * Tn + row) * H + h) * DH + c0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < 16; ++n)
+    for (int n = 0; n < N; ++n)
       *reinterpret_cast<float2*>(dst + 8 * n) =
           make_float2(acc[n][2 * half] / div, acc[n][2 * half + 1] / div);
   }
 }
 
-// One block per (bh, 64 q rows): o (B, T, H, Dh) contiguous, lse (B*H, T).
-__global__ void __launch_bounds__(kThreads, 1)
+// the forward's block: DH / 128 warps share each 16-row group
+template <int DH>
+struct Fwd {
+  static constexpr int kSplit = DH / kWarpCols;
+  static constexpr int kThreads = 128 * kSplit;
+  static constexpr int kFloats = kRows * (DH + 4) + 2 * 2 * kFwdKeys * (DH + 4) +
+                                 (kSplit > 1 ? 8 * kExchange : 0);
+};
+
+// One block per (bh, 64 q rows): o (B, T, H, DH) contiguous, lse (B*H, T).
+template <int DH>
+__global__ void __launch_bounds__(Fwd<DH>::kThreads, 256 / Fwd<DH>::kThreads)
 flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        float* __restrict__ lse, int H, int Tn, int64_t sb, int64_t st,
                        int64_t sh, float scale, int causal) {
-  constexpr int KT = kFwdKeys, NS = KT / 8, STAGE = 2 * KT * kLD;
+  constexpr int LD = DH + 4, THREADS = Fwd<DH>::kThreads, NT = kWarpCols / 8;
+  constexpr int KT = kFwdKeys, NS = KT / 8, STAGE = 2 * KT * LD;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* ring = Qs + kRows * kLD;  // stage s: k tile at ring + s STAGE, v tile after it
-  float* xs = ring + 2 * STAGE;    // the partial scores' exchange, one slot a warp
+  float* ring = Qs + kRows * LD;  // stage s: k tile at ring + s STAGE, v tile after it
+  float* xs = ring + 2 * STAGE;   // the partial scores' exchange, one slot a warp (Dh 256)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int pr = warp & 3, half = warp >> 2, c0 = half * kHalf;
+  const int pr = warp & 3, half = warp >> 2, c0 = half * kWarpCols;
   const int nt = (Tn + kRows - 1) / kRows;
   // the q tiles of one (b, h) in a row, its longest causal rows first
   const int bh = (int)blockIdx.x / nt, b = bh / H, h = bh % H;
@@ -305,25 +364,25 @@ flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int nk = causal ? min((q0 + kRows + KT - 1) / KT, ntk) : ntk;
   auto stage_kv = [&](int i) {
     float* dst = ring + (i & 1) * STAGE;
-    stage_rows<KT>(dst, kg, st, i * KT, Tn);
-    stage_rows<KT>(dst + KT * kLD, vg, st, i * KT, Tn);
+    stage_rows<DH, THREADS, KT>(dst, kg, st, i * KT, Tn);
+    stage_rows<DH, THREADS, KT>(dst + KT * LD, vg, st, i * KT, Tn);
     cp_async_commit();
   };
   stage_kv(0);
   // q, scaled before the product as the TPU kernel does (:92); rows past T zero
-  for (int idx = threadIdx.x; idx < kRows * (kDh / 4); idx += kThreads) {
-    const int row = idx / (kDh / 4), c = 4 * (idx % (kDh / 4));
+  for (int idx = threadIdx.x; idx < kRows * (DH / 4); idx += THREADS) {
+    const int row = idx / (DH / 4), c = 4 * (idx % (DH / 4));
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + row < Tn) x = *reinterpret_cast<const float4*>(q + off + (int64_t)(q0 + row) * st + c);
-    *reinterpret_cast<float4*>(Qs + row * kLD + c) =
+    *reinterpret_cast<float4*>(Qs + row * LD + c) =
         make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
   }
 
-  const float* qa = a_lane(Qs, 16 * pr, lane);
+  const float* qa = a_lane<LD>(Qs, 16 * pr, lane);
   const int row0 = q0 + 16 * pr + g;  // this thread's rows: row0 and row0 + 8
-  float acc[16][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -332,15 +391,15 @@ flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // tile i has landed, and every warp is done with tile i - 1
     if (i + 1 < nk) stage_kv(i + 1);
     const float* Ks = ring + (i & 1) * STAGE;
-    const float* Vs = Ks + KT * kLD;
+    const float* Vs = Ks + KT * LD;
     const int k0 = i * KT;
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    half_scores<NS>(s, qa, b_lane(Ks, lane), c0);
-    pair_add<NS>(s, xs, warp, lane);
+    scores<NS, LD, kWarpCols>(s, qa, b_lane<LD>(Ks, lane), c0);
+    if constexpr (Fwd<DH>::kSplit > 1) pair_add<NS>(s, xs, warp, lane);
     if (k0 + KT > Tn || (causal && k0 + KT - 1 > q0)) {
 #pragma unroll
       for (int n = 0; n < NS; ++n)
@@ -372,9 +431,9 @@ flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     uint32_t ph[NS][4], pl[NS][4];
     prob_fragments<NS>(s, ph, pl);
 #pragma unroll
-    for (int c = 0; c < 16 / kPass; ++c) {
+    for (int c = 0; c < NT / kPass; ++c) {
       float pv[kPass][4];
-      prob_pass<NS>(pv, ph, pl, Vs, c0 + 8 * kPass * c, g, t);
+      prob_pass<NS, LD>(pv, ph, pl, Vs, c0 + 8 * kPass * c, g, t);
 #pragma unroll
       for (int n = 0; n < kPass; ++n)
 #pragma unroll
@@ -388,8 +447,15 @@ flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row0 < Tn) lse[(int64_t)bh * Tn + row0] = m[0] + logf(ls0);
     if (row0 + 8 < Tn) lse[(int64_t)bh * Tn + row0 + 8] = m[1] + logf(ls1);
   }
-  store_rows(o, acc, ls0, ls1, b, h, H, Tn, row0, c0, t);
+  store_rows<DH, NT>(o, acc, ls0, ls1, b, h, H, Tn, row0, c0, t);
 }
+
+constexpr int kDh = 256;            // dq's and dk/dv's head dim
+constexpr int kLD = kDh + 4;        // floats between rows of their tiles in shared memory
+constexpr int kThreads = 256;       // their blocks: four pairs of warps
+constexpr int kDqFloats = 2 * kRows * kLD + 2 * 2 * kDqKeys * kLD + 8 * kExchange;
+// resident k and v, the q/dO ring, p's hand-over slot (one per pair)
+constexpr int kDkvFloats = 2 * kRows * kLD + 2 * 2 * kDkvQueries * kLD + 4 * 16 * kDkvQueries;
 
 // One block per (bh, 64 q rows): dq (B, T, H, Dh) contiguous. dout is
 // contiguous; lse and delta are (B*H, T). k and v stream in 16-row tiles.
@@ -399,14 +465,14 @@ flash_dq_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       float* __restrict__ dq, int H, int Tn, int64_t sb, int64_t st,
                       int64_t sh, float scale, int causal) {
-  constexpr int KT = kDqKeys, NS = KT / 8, STAGE = 2 * KT * kLD;
+  constexpr int KT = kDqKeys, NS = KT / 8, STAGE = 2 * KT * kLD, NT = kWarpCols / 8;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Os = Qs + kRows * kLD;    // dO
   float* ring = Os + kRows * kLD;  // stage s: k tile at ring + s STAGE, v tile after it
   float* xs = ring + 2 * STAGE;    // the partial products' exchange, one slot a warp
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int pr = warp & 3, half = warp >> 2, c0 = half * kHalf;
+  const int pr = warp & 3, half = warp >> 2, c0 = half * kWarpCols;
   const int nt = (Tn + kRows - 1) / kRows;
   const int bh = (int)blockIdx.x / nt, b = bh / H, h = bh % H;
   const int q0 = (nt - 1 - (int)blockIdx.x % nt) * kRows;
@@ -418,16 +484,16 @@ flash_dq_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int nk = causal ? min((q0 + kRows) / KT, ntk) : ntk;
   auto stage_kv = [&](int i) {
     float* dst = ring + (i & 1) * STAGE;
-    stage_rows<KT>(dst, kg, st, i * KT, Tn);
-    stage_rows<KT>(dst + KT * kLD, vg, st, i * KT, Tn);
+    stage_rows<kDh, kThreads, KT>(dst, kg, st, i * KT, Tn);
+    stage_rows<kDh, kThreads, KT>(dst + KT * kLD, vg, st, i * KT, Tn);
     cp_async_commit();
   };
-  stage_rows<kRows>(Qs, q + off, st, q0, Tn);
-  stage_rows<kRows>(Os, dout + doff, (int64_t)H * kDh, q0, Tn);
+  stage_rows<kDh, kThreads, kRows>(Qs, q + off, st, q0, Tn);
+  stage_rows<kDh, kThreads, kRows>(Os, dout + doff, (int64_t)H * kDh, q0, Tn);
   stage_kv(0);  // one group with q and dO
 
-  const float* qa = a_lane(Qs, 16 * pr, lane);
-  const float* oa = a_lane(Os, 16 * pr, lane);
+  const float* qa = a_lane<kLD>(Qs, 16 * pr, lane);
+  const float* oa = a_lane<kLD>(Os, 16 * pr, lane);
   const int row0 = q0 + 16 * pr + g;
   float lr[2], dr[2];
 #pragma unroll
@@ -436,9 +502,9 @@ flash_dq_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     lr[r] = row < Tn ? lse[(int64_t)bh * Tn + row] : 0.f;
     dr[r] = row < Tn ? delta[(int64_t)bh * Tn + row] : 0.f;
   }
-  float acc[16][4];
+  float acc[NT][4];
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -457,9 +523,9 @@ flash_dq_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sp[n][e] = 0.f;
     {
-      const float *kb = b_lane(Ks, lane), *vb = b_lane(Vs, lane);
+      const float *kb = b_lane<kLD>(Ks, lane), *vb = b_lane<kLD>(Vs, lane);
 #pragma unroll 4
-      for (int d = c0; d < c0 + kHalf; d += 8) {
+      for (int d = c0; d < c0 + kWarpCols; d += 8) {
         uint32_t r[4], qh[4], ql[4], oh[4], ol[4], kh[4], kl[4], vh[4], vl[4];
         ldsm_x4(qa + d, r);
         split4(r, qh, ql);
@@ -495,9 +561,9 @@ flash_dq_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     uint32_t dh[NS][4], dl[NS][4];
     prob_fragments<NS>(ds, dh, dl);
 #pragma unroll
-    for (int c = 0; c < 16 / kPass; ++c) {
+    for (int c = 0; c < NT / kPass; ++c) {
       float tk[kPass][4];
-      prob_pass<NS>(tk, dh, dl, Ks, c0 + 8 * kPass * c, g, t);
+      prob_pass<NS, kLD>(tk, dh, dl, Ks, c0 + 8 * kPass * c, g, t);
 #pragma unroll
       for (int n = 0; n < kPass; ++n)
 #pragma unroll
@@ -505,7 +571,122 @@ flash_dq_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
           acc[kPass * c + n][e] = acc[kPass * c + n][e] + scale * tk[n][e];
     }
   }
-  store_rows(dq, acc, 1.f, 1.f, b, h, H, Tn, row0, c0, t);
+  store_rows<kDh, NT>(dq, acc, 1.f, 1.f, b, h, H, Tn, row0, c0, t);
+}
+
+// One block per (bh, 64 key rows): dk and dv (B, T, H, Dh) contiguous. dout
+// is contiguous; lse and delta are (B*H, T). k and v stay resident; q and
+// dO stream in 16-row tiles. Warp p of the block (pair p & 3) sums dv for
+// p < 4 and dk for p >= 4, over keys 16 (p & 3) .. 16 (p & 3) + 15.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkv_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dk, float* __restrict__ dv, int H, int Tn,
+                       int64_t sb, int64_t st, int64_t sh, float scale, int causal) {
+  constexpr int QT = kDkvQueries, NS = QT / 8, STAGE = 2 * QT * kLD, NT = kDh / 8;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + kRows * kLD;
+  float* ring = Vs + kRows * kLD;  // stage s: q tile at ring + s STAGE, dO tile after it
+  float* xs = ring + 2 * STAGE;    // p, handed from each pair's dv warp to its dk warp
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int pr = warp & 3, role = warp >> 2;  // role 0 sums dv, role 1 dk
+  const int nt = (Tn + kRows - 1) / kRows;
+  // the key tiles of one (b, h) in a row, the keys the most causal rows see first
+  const int bh = (int)blockIdx.x / nt, b = bh / H, h = bh % H;
+  const int k0 = ((int)blockIdx.x % nt) * kRows;
+  const int64_t off = (int64_t)b * sb + (int64_t)h * sh;
+  const int64_t doff = ((int64_t)b * Tn * H + h) * kDh;
+  const float *qg = q + off, *og = dout + doff;
+  const int ntq = (Tn + QT - 1) / QT;
+  // causal: no row of an earlier q tile sees these keys
+  const int first = causal ? k0 / QT : 0;
+  auto stage_qo = [&](int j) {
+    float* dst = ring + (j & 1) * STAGE;
+    stage_rows<kDh, kThreads, QT>(dst, qg, st, j * QT, Tn);
+    stage_rows<kDh, kThreads, QT>(dst + QT * kLD, og, (int64_t)H * kDh, j * QT, Tn);
+    cp_async_commit();
+  };
+  stage_rows<kDh, kThreads, kRows>(Ks, k + off, st, k0, Tn);
+  stage_rows<kDh, kThreads, kRows>(Vs, v + off, st, k0, Tn);
+  stage_qo(first);  // one group with k and v
+
+  // role 0: S = K Q^T and P dO; role 1: dP = V dO^T and dS Q
+  const float* ra = a_lane<kLD>(role ? Vs : Ks, 16 * pr, lane);
+  const float* rows = (role ? delta : lse) + (int64_t)bh * Tn;
+  const float mul = role ? scale : 1.f;
+  const int row0 = k0 + 16 * pr + g;  // this thread's keys: row0 and row0 + 8
+  float* slot = xs + pr * 16 * QT;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = first; j < ntq; ++j) {
+    const int q0 = j * QT;
+    // lse (role 0) or delta (role 1) of this lane's queries; 0 past T
+    float rv[NS][2];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = q0 + 8 * n + 2 * t + e;
+        rv[n][e] = col < Tn ? rows[col] : 0.f;
+      }
+    cp_async_wait_all();
+    __syncthreads();  // tile j has landed, and every warp is done with tile j - 1
+    if (j + 1 < ntq) stage_qo(j + 1);
+    const float* Qt = ring + (j & 1) * STAGE;
+    const float* Ot = Qt + QT * kLD;
+    // S = K Q^T (role 0) or dP = V dO^T (role 1) over all 256 columns
+    float s[NS][4], s1[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = s1[n][e] = 0.f;
+    scores2<NS, kLD, kDh>(s, s1, ra, b_lane<kLD>(role ? Ot : Qt, lane), 0);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += s1[n][e];
+    if (role == 0) {
+      // p = exp(scale s - lse); 0 where causal masks (key > query) and past T
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = q0 + 8 * n + 2 * t + (e & 1), row = row0 + 8 * (e >> 1);
+          float x = scale * s[n][e];
+          if (causal && row > col) x = kNegInf;
+          s[n][e] = col < Tn ? expf(x - rv[n][e & 1]) : 0.f;
+          slot[(4 * n + e) * 32 + lane] = s[n][e];
+        }
+      pair_sync(pr);
+    } else {
+      pair_sync(pr);  // ds = p (dp - delta)
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = slot[(4 * n + e) * 32 + lane] * (s[n][e] - rv[n][e & 1]);
+    }
+    uint32_t fh[NS][4], fl[NS][4];
+    prob_fragments<NS>(s, fh, fl);
+    const float* x = role ? Qt : Ot;
+#pragma unroll
+    for (int c = 0; c < NT / kPass; ++c) {
+      float tk[kPass][4];
+      prob_pass<NS, kLD>(tk, fh, fl, x, 8 * kPass * c, g, t);
+#pragma unroll
+      for (int n = 0; n < kPass; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[kPass * c + n][e] = acc[kPass * c + n][e] + mul * tk[n][e];
+    }
+  }
+  store_rows<kDh, NT>(role ? dk : dv, acc, 1.f, 1.f, b, h, H, Tn, row0, 0, t);
 }
 
 struct Args {
@@ -515,12 +696,12 @@ struct Args {
   int causal;
 };
 
-bool args_ok(int B, int H, int T, int Dh, int is_bf16) {
-  return Dh == kDh && !is_bf16 && B > 0 && H > 0 && T > 0 &&
+bool args_ok(int B, int H, int T, int is_bf16) {
+  return !is_bf16 && B > 0 && H > 0 && T > 0 &&
          (int64_t)B * H * ((T + kRows - 1) / kRows) <= 0x7fffffffLL;
 }
 
-// one block per (bh, q tile), the q tiles of one bh consecutive (the
+// one block per (bh, 64-row tile), the tiles of one bh consecutive (the
 // blocks on the card at once share one or two heads' k and v; a bh-fastest
 // order measured the same at the wide shape)
 dim3 grid(const Args& a) { return dim3((unsigned)(a.B * a.H * ((a.T + kRows - 1) / kRows))); }
@@ -531,25 +712,36 @@ cudaError_t prepare(Kernel kernel, int floats) {
                               floats * (int)sizeof(float));
 }
 
+template <int DH>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                       const Args& a, cudaStream_t s) {
+  constexpr int floats = Fwd<DH>::kFloats;
+  cudaError_t e = prepare(flash_fwd_f32tc_kernel<DH>, floats);
+  if (e != cudaSuccess) return e;
+  flash_fwd_f32tc_kernel<DH><<<grid(a), Fwd<DH>::kThreads, floats * sizeof(float), s>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, a.H, a.T, a.sb, a.st,
+      a.sh, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q, k, v (B, T, H, 256) float32 sharing the element strides (sb, st, sh),
-// Dh contiguous, 16-byte aligned rows; o (B, T, H, 256) and lse (B*H, T)
-// contiguous outputs. Takes Dh 256 and is_bf16 = 0 only. Returns the
-// cudaError_t of the launch.
+// q, k, v (B, T, H, Dh) float32 sharing the element strides (sb, st, sh),
+// Dh contiguous, 16-byte aligned rows; o (B, T, H, Dh) and lse (B*H, T)
+// contiguous outputs. Takes Dh 128 and 256 with is_bf16 = 0 only. Returns
+// the cudaError_t of the launch.
 extern "C" int fedml_flash_fwd_f32_sm90(const void* q, const void* k, const void* v, void* o,
                                         float* lse, int B, int H, int T, int Dh, int is_bf16,
                                         int causal, long long sb, long long st, long long sh,
                                         float scale, void* stream) {
-  if (!args_ok(B, H, T, Dh, is_bf16)) return (int)cudaErrorInvalidValue;
+  if (!args_ok(B, H, T, is_bf16)) return (int)cudaErrorInvalidValue;
   const Args a{B, H, T, sb, st, sh, scale, causal};
-  const int floats = kRows * kLD + 2 * 2 * kFwdKeys * kLD + 8 * kExchange;
-  cudaError_t e = prepare(flash_fwd_f32tc_kernel, floats);
-  if (e != cudaSuccess) return (int)e;
-  flash_fwd_f32tc_kernel<<<grid(a), kThreads, floats * sizeof(float), (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, a.H, a.T, a.sb, a.st,
-      a.sh, a.scale, a.causal);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (Dh) {
+    case 128: return (int)launch_fwd<128>(q, k, v, o, lse, a, s);
+    case 256: return (int)launch_fwd<256>(q, k, v, o, lse, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // dq (B, T, H, 256) contiguous from q, k, v (strided as for the forward),
@@ -560,13 +752,30 @@ extern "C" int fedml_flash_dq_f32_sm90(const void* q, const void* k, const void*
                                        void* dq, int B, int H, int T, int Dh, int is_bf16,
                                        int causal, long long sb, long long st, long long sh,
                                        float scale, void* stream) {
-  if (!args_ok(B, H, T, Dh, is_bf16)) return (int)cudaErrorInvalidValue;
+  if (Dh != kDh || !args_ok(B, H, T, is_bf16)) return (int)cudaErrorInvalidValue;
   const Args a{B, H, T, sb, st, sh, scale, causal};
-  const int floats = 2 * kRows * kLD + 2 * 2 * kDqKeys * kLD + 8 * kExchange;
-  cudaError_t e = prepare(flash_dq_f32tc_kernel, floats);
+  cudaError_t e = prepare(flash_dq_f32tc_kernel, kDqFloats);
   if (e != cudaSuccess) return (int)e;
-  flash_dq_f32tc_kernel<<<grid(a), kThreads, floats * sizeof(float), (cudaStream_t)stream>>>(
+  flash_dq_f32tc_kernel<<<grid(a), kThreads, kDqFloats * sizeof(float), (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
       (float*)dq, a.H, a.T, a.sb, a.st, a.sh, a.scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
+// dk and dv (B, T, H, 256) contiguous, from the same inputs as dq. Takes
+// Dh 256 and is_bf16 = 0 only.
+extern "C" int fedml_flash_dkv_f32_sm90(const void* q, const void* k, const void* v,
+                                        const void* dout, const float* lse, const float* delta,
+                                        void* dk, void* dv, int B, int H, int T, int Dh,
+                                        int is_bf16, int causal, long long sb, long long st,
+                                        long long sh, float scale, void* stream) {
+  if (Dh != kDh || !args_ok(B, H, T, is_bf16)) return (int)cudaErrorInvalidValue;
+  const Args a{B, H, T, sb, st, sh, scale, causal};
+  cudaError_t e = prepare(flash_dkv_f32tc_kernel, kDkvFloats);
+  if (e != cudaSuccess) return (int)e;
+  flash_dkv_f32tc_kernel<<<grid(a), kThreads, kDkvFloats * sizeof(float),
+                           (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
+      (float*)dk, (float*)dv, a.H, a.T, a.sb, a.st, a.sh, a.scale, a.causal);
   return (int)cudaGetLastError();
 }

@@ -5,11 +5,11 @@ Dh 64, 128 or 256, causal or not. bf16 inputs run on the tensor cores
 (wgmma, exact to float32 through a three-term bf16 split of p and ds): at
 Dh 64 and 128 in ``csrc/flash_attention_sm90.cu``, at Dh 256 in
 ``csrc/flash_dh256_sm90.cu`` (score products once per block, tiles by
-TMA). Float32 inputs at Dh 256 run the forward and dq on the tensor cores
-too, in ``csrc/flash_f32_sm90.cu`` (``mma.sync`` as three TF32 products,
-exact to float32); float32 dk/dv at Dh 256 and every float32 kernel at Dh
-64 and 128 run the FMA kernels of ``csrc/flash_attention.cu``
-(:func:`route`):
+TMA). Float32 inputs run on the tensor cores too, in
+``csrc/flash_f32_sm90.cu`` (``mma.sync`` as three TF32 products, exact to
+float32), for the forward, dq and dk/dv at Dh 256 and the forward at Dh
+128; float32 dq and dk/dv at Dh 128 and every float32 kernel at Dh 64 run
+the FMA kernels of ``csrc/flash_attention.cu`` (:func:`route`):
 
 - :func:`flash_forward` — online-softmax attention; returns ``out`` in q's
   dtype and the per-row logsumexp ``lse`` (B*H, 1, T) float32, the TPU
@@ -249,23 +249,25 @@ def _argtypes(n_ptrs):
 TENSOR_CORE = ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv")
 # of those, the ones with a Dh-256 design of their own (scores once, TMA)
 DH256 = ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv")
-# entry points with a tensor-core (3xTF32 mma.sync) version for float32
-# inputs at Dh 256
-F32_TENSOR_CORE = ("fedml_flash_fwd", "fedml_flash_dq")
+# the head dims at which each entry point has a tensor-core (3xTF32
+# mma.sync) version for float32 inputs
+F32_TENSOR_CORE = {"fedml_flash_fwd": (128, 256), "fedml_flash_dq": (256,),
+                   "fedml_flash_dkv": (256,)}
 
 
 def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
     """(kernel library, C entry point) that runs ``name`` on inputs of
     ``dtype`` and head dim ``Dh``: bf16 calls at Dh 256 go to
     ``flash_dh256_sm90``, other bf16 calls to ``flash_attention_sm90``,
-    the float32 forward and dq at Dh 256 to ``flash_f32_sm90``, the rest of
-    float32 to the FMA kernels of ``flash_attention``. All take the same
+    the float32 forward at Dh 128 and 256 and dq and dk/dv at Dh 256 to
+    ``flash_f32_sm90``, the rest of float32 (Dh 64; dq and dk/dv at Dh 128)
+    to the FMA kernels of ``flash_attention``. All take the same
     arguments."""
     if dtype == torch.bfloat16 and name in TENSOR_CORE:
         if Dh == 256 and name in DH256:
             return "flash_dh256_sm90", name + "_dh256_sm90"
         return "flash_attention_sm90", name + "_sm90"
-    if dtype == torch.float32 and Dh == 256 and name in F32_TENSOR_CORE:
+    if dtype == torch.float32 and Dh in F32_TENSOR_CORE.get(name, ()):
         return "flash_f32_sm90", name + "_f32_sm90"
     return "flash_attention", name
 

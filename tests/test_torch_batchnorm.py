@@ -4,9 +4,12 @@
 float32 and bfloat16, outputs and updated statistics), resnet8 with
 ``norm: batch`` (leaves, train and eval forwards), the BN local update
 against ``_make_bn_local_update`` (two epochs, a partial and a fully padded
-batch), FedOpt's split server update, a whole 2-round FedAvg history under
-the even and bucketed schedules, the refusals, and the variables' and the
-checkpoint's round trips with ``batch_stats``.
+batch), FedOpt's split server update, the auto schedule, the refusals, and
+the variables' round trip with ``batch_stats``. The simulator-scale cases
+have files of their own, so that ``--dist loadfile`` spreads them over the
+workers: the 2-round FedAvg history under the even and bucketed schedules
+(``test_torch_batchnorm_slice.py``) and the checkpoint's resume
+(``test_torch_batchnorm_resume.py``).
 """
 
 import functools
@@ -249,36 +252,6 @@ SLICE = dict(dataset="cifar10", model="resnet8", norm="batch", conv_impl="xla",
              random_seed=0, epochs=1)
 
 
-@pytest.mark.parametrize("cohort_schedule", ["even", "bucketed"])
-def test_bn_slice_matches_jax(cohort_schedule):
-    """A 2-round resnet8 BatchNorm FedAvg run through both packages'
-    build_simulator from the same variables: train and test metrics per
-    round, and the final running statistics."""
-    cfg = dict(SLICE, cohort_schedule=cohort_schedule)
-    jsim, japply = jbuild(fedml_tpu.init(config=dict(cfg, prefetch=False)))
-    init = _np(jsim.params)
-    jhist = jsim.run(japply, log_fn=None)
-    tsim, tapply = tbuild(fedml_tpu_torch.init(config=dict(cfg, device="cpu")),
-                          variables=variables_from_jax(init))
-    assert tsim.schedule == jsim_schedule(jsim) == cohort_schedule
-    thist = tsim.run(tapply, log_fn=None)
-    assert len(thist) == len(jhist) == SLICE["comm_round"]
-    for jr, tr in zip(jhist, thist):
-        # as the GroupNorm slice: f32 sums in another order, grown through
-        # SGD; eval on the running averages
-        for k in ("train_loss", "test_loss"):
-            assert tr[k] == pytest.approx(jr[k], rel=5e-4), (k, jr, tr)
-        assert abs(tr["train_acc"] - jr["train_acc"]) <= 1e-6
-        assert abs(tr["test_acc"] - jr["test_acc"]) <= 1.0 / 200
-    # the running statistics are averages of activations of parameters that
-    # differ as above: measured up to 3.6e-4 of each leaf's largest value
-    jfinal = flatten_paths(_np(jsim.params))
-    for p, v in jfinal.items():
-        if p.startswith("batch_stats/"):
-            np.testing.assert_allclose(tsim.params[p].numpy(), v, rtol=0,
-                                       atol=2e-3 * np.abs(v).max(), err_msg=p)
-
-
 def jsim_schedule(jsim):
     return "packed" if jsim._packed else "bucketed" if jsim._bucketed else "even"
 
@@ -324,29 +297,3 @@ def test_batch_stats_convert_round_trip():
     for p, v in flatten_paths(jv).items():
         np.testing.assert_array_equal(flatten_paths(back)[p], v)
     assert list(state_from_jax(jv)) == list(flat)
-
-
-def test_bn_checkpoint_resume_bit_equal(tmp_path):
-    """An interrupted BatchNorm FedOpt run resumes bit-equal: the checkpoint
-    holds the batch_stats beside the params and FedOpt's split adam state."""
-    cfg = dict(SLICE, comm_round=4, frequency_of_the_test=10, federated_optimizer="FedOpt",
-               server_optimizer="adam", server_lr=0.01, device="cpu")
-    full, apply_fn = tbuild(fedml_tpu_torch.init(config=cfg))
-    want = full.run(apply_fn, log_fn=None)
-    ckpt = str(tmp_path / "ckpt")
-    part, apply_fn = tbuild(fedml_tpu_torch.init(config=dict(
-        cfg, comm_round=2, checkpoint_dir=ckpt, checkpoint_frequency=1)))
-    part.run(apply_fn, log_fn=None)
-    from fedml_tpu_torch.utils.checkpoint import CheckpointManager
-
-    saved = CheckpointManager(ckpt).restore()
-    assert {k for k in saved["params"] if k.startswith("batch_stats/")} == \
-        {k for k in full.params if k.startswith("batch_stats/")}
-    assert set(saved["server_state"][0]["mu"]) == \
-        {k for k in full.params if k.startswith("params/")}
-    resumed, apply_fn = tbuild(fedml_tpu_torch.init(config=dict(
-        cfg, checkpoint_dir=ckpt, checkpoint_frequency=1)))
-    got = resumed.run(apply_fn, log_fn=None)
-    assert [r["train_loss"] for r in got] == [r["train_loss"] for r in want][2:]
-    for k, v in full.params.items():
-        assert torch.equal(resumed.params[k], v), k

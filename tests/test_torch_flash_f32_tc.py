@@ -92,27 +92,28 @@ def _tiles(x, rows, n):
     return F.pad(x, (0, 0, 0, n * rows - T)).view(H, n, rows, Dh)
 
 
-def emulate_forward(q, k, v, causal, terms=3, drop_key=None):
-    """q, k, v (H, T, 256) float32 -> (out (H, T, 256), lse (H, T)). Every
-    q tile at once; causal key tiles past a q tile's diagonal are fully
-    masked, which leaves m, l and the output as the kernel's skipping them
-    does. ``drop_key``: the key tile that holds it is left out (a planted
-    fault)."""
+def emulate_forward(q, k, v, causal, terms=3, drop_key=None, rows=ROWS, keys=FWD_KEYS):
+    """q, k, v (H, T, Dh) float32, Dh 128 or 256 -> (out (H, T, Dh), lse
+    (H, T)), in blocks of ``rows`` q rows and tiles of ``keys`` k/v rows.
+    Every q tile at once; causal key tiles past a q tile's diagonal are
+    fully masked, which leaves m, l and the output as the kernel's skipping
+    them does. ``drop_key``: the key tile that holds it is left out (a
+    planted fault)."""
     H, T, Dh = q.shape
-    nq, nk = -(-T // ROWS), -(-T // FWD_KEYS)
+    nq, nk = -(-T // rows), -(-T // keys)
     scale = Dh ** -0.5
-    qt = _split(_tiles(q * scale, ROWS, nq))  # scaled before the product
-    kt, vt = _tiles(k, FWD_KEYS, nk), _tiles(v, FWD_KEYS, nk)
-    rows = torch.arange(nq * ROWS).view(nq, ROWS, 1)
-    m = torch.full((H, nq, ROWS, 1), tfa.NEG_INF)
-    l = torch.zeros(H, nq, ROWS, 1)
-    acc = torch.zeros(H, nq, ROWS, Dh)
+    qt = _split(_tiles(q * scale, rows, nq))  # scaled before the product
+    kt, vt = _tiles(k, keys, nk), _tiles(v, keys, nk)
+    qrows = torch.arange(nq * rows).view(nq, rows, 1)
+    m = torch.full((H, nq, rows, 1), tfa.NEG_INF)
+    l = torch.zeros(H, nq, rows, 1)
+    acc = torch.zeros(H, nq, rows, Dh)
     for j in range(nk):
-        if drop_key is not None and j == drop_key // FWD_KEYS:
+        if drop_key is not None and j == drop_key // keys:
             continue
         s = _tf32x3(qt, _split_t(kt[:, j, None]), terms)
-        cols = torch.arange(j * FWD_KEYS, (j + 1) * FWD_KEYS)
-        x = s.masked_fill((cols >= T) | (causal & (cols > rows)), tfa.NEG_INF)
+        cols = torch.arange(j * keys, (j + 1) * keys)
+        x = s.masked_fill((cols >= T) | (causal & (cols > qrows)), tfa.NEG_INF)
         nm = torch.maximum(m, x.amax(-1, keepdim=True))
         corr = torch.exp(m - nm)
         p = torch.exp(x - nm)
@@ -120,8 +121,8 @@ def emulate_forward(q, k, v, causal, terms=3, drop_key=None):
         m = nm
         acc = acc * corr + _tf32x3(_split(p), _split(vt[:, j, None]), terms)  # from zero
     ls = l.clamp_min(1e-30)
-    out = (acc / ls).view(H, nq * ROWS, Dh)[:, :T]
-    return out, (m + torch.log(ls)).view(H, nq * ROWS)[:, :T]
+    out = (acc / ls).view(H, nq * rows, Dh)[:, :T]
+    return out, (m + torch.log(ls)).view(H, nq * rows)[:, :T]
 
 
 def emulate_dq(q, k, v, do, lse, delta, causal, terms=3, drop_key=None):
@@ -167,7 +168,8 @@ def _jax_layout(x):
 
 
 def _exact(q, k, v, do, causal):
-    """(out, lse, delta, dq) in float64 from float32 (H, T, Dh) inputs."""
+    """(out, lse, delta, dq, dk, dv) in float64 from float32 (H, T, Dh)
+    inputs."""
     T, Dh = q.shape[1], q.shape[2]
     q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
     s64 = Dh ** -0.5 * (q64 @ k64.transpose(1, 2))
@@ -178,7 +180,8 @@ def _exact(q, k, v, do, causal):
     out64 = p64 @ v64
     delta64 = (do64 * out64).sum(-1)
     ds64 = p64 * (do64 @ v64.transpose(1, 2) - delta64[..., None])
-    return out64, lse64, delta64, Dh ** -0.5 * (ds64 @ k64)
+    return (out64, lse64, delta64, Dh ** -0.5 * (ds64 @ k64),
+            Dh ** -0.5 * (ds64.transpose(1, 2) @ q64), p64.transpose(1, 2) @ do64)
 
 
 def _rel(got, exact):
@@ -206,7 +209,7 @@ def test_f32_dh256_arithmetic_is_float32_exact(t1024, causal, fault):
     EXACT_TOL of the largest exact value when sound; each planted fault
     fails that limit for out and for dq."""
     (q, k, v, do), exact = t1024
-    out64, lse64, delta64, dq64 = exact[causal]
+    out64, lse64, delta64, dq64 = exact[causal][:4]
     terms, drop = FAULTS[fault]
     out, lse = emulate_forward(q, k, v, causal, terms, drop)
     dq = emulate_dq(q, k, v, do, lse64.float(), delta64.float(), causal, terms, drop)
@@ -280,14 +283,15 @@ def test_f32_dh256_arithmetic_at_ragged_t_matches_jax_dense(causal):
 
 @pytest.mark.parametrize("Dh", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_route_sends_f32_dh256_forward_and_dq_to_flash_f32_sm90(Dh, dtype):
-    """Only the float32 forward and dq at Dh 256 go to flash_f32_sm90;
-    float32 dk/dv and every float32 kernel at Dh 64 and 128 keep the FMA
-    kernels, bf16 keeps the wgmma kernels."""
+def test_route_sends_f32_tensor_core_kernels_to_flash_f32_sm90(Dh, dtype):
+    """The float32 forward, dq and dk/dv at Dh 256 and the float32 forward
+    at Dh 128 go to flash_f32_sm90; float32 dq and dk/dv at Dh 128 and every
+    float32 kernel at Dh 64 keep the FMA kernels, bf16 keeps the wgmma
+    kernels."""
     assert "flash_f32_sm90" in tops.KERNELS
     for name in ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv"):
         lib, entry = tfa.route(name, dtype, Dh)
-        if dtype == torch.float32 and Dh == 256 and name != "fedml_flash_dkv":
+        if dtype == torch.float32 and (Dh == 256 or (Dh == 128 and name == "fedml_flash_fwd")):
             assert (lib, entry) == ("flash_f32_sm90", name + "_f32_sm90")
         elif dtype == torch.float32:
             assert (lib, entry) == ("flash_attention", name)
