@@ -15,6 +15,7 @@
                                        # package in checkout DIR (no result
                                        # line)
     python3 chip_smoke.py lm_mid [DIR] # lm_mid_f32 and its profile, likewise
+    python3 chip_smoke.py lm_xl [DIR]  # lm_xl and its profile, likewise
 
 Phases, each printing one JSON line; any failure ends the run with a
 non-zero exit code and no result line:
@@ -51,7 +52,8 @@ non-zero exit code and no result line:
    the FMA kernels) and at Dh 256 (the _dh256 entries at the wide LM's bf16
    shape, on flash_dh256_sm90.cu; the _dh256_f32 ones at lm_wide_f32's
    shape and the _dh256_f32_small ones at small_lm_256's, all three on
-   flash_f32_sm90.cu); each redesigned kernel with the earlier design's
+   flash_f32_sm90.cu; the _dh384 entries at lm_xl's bf16 shape, on
+   flash_dh384_sm90.cu); each redesigned kernel with the earlier design's
    time as was_ms;
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
@@ -123,7 +125,19 @@ non-zero exit code and no result line:
     of 128, 8 layers) trained in float32 at B 8, T 4608 (auto dispatch
     picks flash) for 3 steps: 16 forward launches per step on
     flash_f32_sm90.cu, 8 dq and 8 dk/dv on the FMA kernels;
-    lm_mid_f32_profile, one warm step under torch.profiler.
+    lm_mid_f32_profile, one warm step under torch.profiler;
+18. lm_xl — the Cheetah example at --dim 3072 --seq_len 4352 (vocab
+    32000, 8 heads of 384, 8 layers, 1,116.2 M parameters, bf16, full
+    remat, B 8) for 3 steps: 16 forward, 8 dq and 8 dk/dv launches a step
+    on flash_dh384_sm90.cu; lm_xl_profile, one warm step under
+    torch.profiler;
+19. small_lm_384 — one bf16 head of Dh 384 at T 4352 (auto picks flash),
+    card against CPU, within SMALL_LM_384_FACTOR of the same comparison
+    with dense attention.
+
+Every LM profile must show as many flash kernels a step as the wrappers
+count (profile_run's ``calls``), and every device_ms profile as many events
+as the calls launch, or it is taken again and then fails.
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or fedml_tpu.
@@ -223,43 +237,99 @@ def time_ms(fn, reps=20, rounds=5):
     return statistics.median(out)
 
 
+# spin kernels (torch.cuda._sleep) launched at both ends of every profile
+# window. torch.profiler loses a window's first device records, a few or
+# all of a short window's, at times its last ones, more later in a process:
+# on an H100, 40 windows of two kernels lost one window whole, and an LM
+# profile late in a run its first two copies, in another run one flash
+# forward; between bursts of 64 or 256 spin kernels nothing was lost (the
+# bursts lost one spin kernel in 40). The bursts take the loss; their
+# events are left out of every count and sum.
+PROFILE_PAD = 128
+PAD_KERNEL = "spin_kernel"
+
+
+def _pad_burst():
+    for _ in range(PROFILE_PAD):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def _profiled(run):
+    """(profile, wall seconds) of ``run()`` under torch.profiler, the window
+    padded by PROFILE_PAD spin kernels at each end; the wall is run's own,
+    to its synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _pad_burst()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        _pad_burst()
+    return prof, wall
+
+
 def _device_events(prof):
-    """{name: (device us, count)} of a profile's device-side events, read
-    from the raw trace: the profiler's per-op tables (``key_averages``) take
-    minutes to build over the million events of a packed ResNet-56 round.
-    CPU ops are left out: their rows repeat their kernels' time."""
+    """{name: (device us, count)} of a profile's device-side events but the
+    window's spin kernels, read from the raw trace: the profiler's per-op
+    tables (``key_averages``) take minutes to build over the million events
+    of a packed ResNet-56 round. CPU ops are left out: their rows repeat
+    their kernels' time."""
     from torch.autograd import DeviceType
 
     out = {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
+        if e.device_type() == DeviceType.CUDA and PAD_KERNEL not in e.name():
             us, count = out.get(e.name(), (0.0, 0))
             out[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
     return out
 
 
+def _wrapper_launches():
+    """The sum of every kernel wrapper's launch counter (``.launches``)."""
+    from fedml_tpu_torch.ops import agg_quant, agg_robust, conv
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    return sum(f.launches for f in (agg_quant.quantize_pack, agg_robust.gram, conv.conv3x3_lanes,
+                                    conv.conv3x3_dw_lanes, fa.flash_forward, fa.flash_dq,
+                                    fa.flash_dkv))
+
+
 def device_ms(fn, names, reps=20, attempts=3):
     """Device ms per call of ``fn``: the device time of the kernels whose
     names contain one of ``names``, summed over ``reps`` calls under
-    torch.profiler after a warm-up call. Unlike time_ms it leaves out the
-    host's time between launches, which paces back-to-back calls of a
-    wrapper whose kernels are shorter than its Python. A profile that
-    recorded none of the kernels (the tracer dropped one profile's device
-    events in a run of ~100 profiles) is taken again, up to ``attempts``
-    times in all."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler after a warm-up call, divided by the calls whose events
+    the profile holds. Unlike time_ms it leaves out the host's time between
+    launches, which paces back-to-back calls of a wrapper whose kernels are
+    shorter than its Python. The profiler drops device events (PROFILE_PAD),
+    which would read as a faster kernel, so a profile counts only when it
+    holds exactly ``reps`` times the events of one call. One call's events
+    come from a profile of one call, which must hold at least one event for
+    each launch that the wrappers' counters count over it (a round of the
+    codec makes six; a call of a library or of a route that counts no
+    launch, at least one event). Both profiles are taken again on a
+    mismatch, up to ``attempts`` times in all, then it raises."""
+
+    def profiled(n):
+        prof, _ = _profiled(lambda: [fn() for _ in range(n)])
+        hits = [v for k, v in _device_events(prof).items() if any(x in k for x in names)]
+        return sum(v[0] for v in hits), sum(v[1] for v in hits)
 
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(v[0] for k, v in _device_events(prof).items() if any(n in k for n in names))
-        if us > 0:
-            return us / 1e3 / reps
-    raise AssertionError(f"the profiler saw no device time of {names} in {attempts} profiles")
+        before = _wrapper_launches()
+        _, per_call = profiled(1)
+        launches = _wrapper_launches() - before
+        us, events = profiled(reps)
+        if per_call >= max(launches, 1) and events == reps * per_call:
+            return us / 1e3 / (events / per_call)
+        seen.append({"launches": launches, "events_of_one_call": per_call,
+                     f"events_of_{reps}": events})
+    raise AssertionError(f"device_ms of {names}: every profile dropped events: {seen}")
 
 
 def host_us(fn, n=200, rounds=5):
@@ -632,29 +702,40 @@ def phase_main():
     return launches
 
 
-def profile_run(run, n, ours, unit="round", groups=None):
+def profile_run(run, n, ours, unit="round", groups=None, calls=None, attempts=3):
     """torch.profiler over ``run()``, which does ``n`` rounds or steps.
     Device busy time is the sum of the kernels' self device time (one
     stream, so they do not overlap); the idle share is 1 - busy / wall.
     ``ours`` names kernels whose ms per ``unit`` are reported; ``groups``
     maps a group to name parts, and each group's ms per ``unit`` (a kernel
-    in the first group it matches; "other" for the rest) is reported."""
-    from torch.profiler import ProfilerActivity, profile
+    in the first group it matches; "other" for the rest) is reported.
+    ``calls`` maps name parts to the device events per ``unit`` that the
+    run must show (the launches its wrappers count): the profiler drops
+    events (PROFILE_PAD), which would shrink the groups' times and raise the
+    idle share, so a profile that shows other counts is taken again,
+    ``run`` and all, up to ``attempts`` times in all, then it raises. The
+    counts are reported beside the groups."""
+    seen = []
+    for _ in range(attempts):
+        prof, wall = _profiled(run)
+        events = _device_events(prof)
+        counted = {part: sum(c for k, (_, c) in events.items() if part in k) / n
+                   for part in calls or ()}
+        if counted == (calls or {}):
+            break
+        seen.append(counted)
+    else:
+        raise AssertionError(f"every profile's device events per {unit} were {seen}, "
+                             f"expected {calls}")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-
-    rows = sorted(((k, us, c) for k, (us, c) in _device_events(prof).items() if us > 0),
-                  key=lambda r: -r[1])
+    rows = sorted(((k, us, c) for k, (us, c) in events.items() if us > 0), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
     split = {}
     for k, us, _ in rows if groups else ():
         g = next((g for g, parts in groups.items() if any(x in k for x in parts)), "other")
         split[g] = split.get(g, 0.0) + us / 1e3 / n
     return {f"{unit}s": n, **({f"groups_ms_per_{unit}": split} if groups else {}),
+            **({f"calls_per_{unit}": counted, "profiles_taken": len(seen) + 1} if calls else {}),
             f"wall_ms_per_{unit}": wall * 1e3 / n,
             f"device_busy_ms_per_{unit}": busy_ms / n,
             "idle_share": 1.0 - busy_ms / (wall * 1e3),
@@ -1832,6 +1913,8 @@ FLASH_F32_128 = (1, 2048, 8, 128)
 FLASH_SMALL_LM = (1, 4096, 1, 64)
 FLASH_SMALL_LM_128 = (1, 4608, 1, 128)
 FLASH_MID_F32 = (8, 4608, 8, 128)
+# lm_xl's attention: the Cheetah example at --dim 3072, 8 heads of 384, bf16
+FLASH_XL = (8, 4352, 8, 384)
 FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float32, False),
                ((3, 333, 2, 64), torch.float32, True), ((2, 100, 3, 128), torch.bfloat16, True),
                ((1, 1000, 4, 64), torch.bfloat16, False),
@@ -1841,14 +1924,16 @@ FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float3
                ((2, 333, 3, 256), torch.bfloat16, True), ((3, 130, 2, 256), torch.float32, True),
                ((1, 1000, 2, 256), torch.bfloat16, False), (FLASH_SMALL_LM, torch.float32, True),
                (FLASH_SMALL_LM_128, torch.float32, True), (FLASH_MID_F32, torch.float32, True),
-               ((3, 130, 2, 128), torch.float32, True))
+               ((3, 130, 2, 128), torch.float32, True), (FLASH_XL, torch.bfloat16, True),
+               ((2, 333, 3, 384), torch.bfloat16, True), ((1, 1000, 2, 384), torch.bfloat16, False))
 # the timed shapes and the suffix of their kernels line entries (the launch
 # counts of lm_main, lm_wide, lm_wide_f32, small_lm_256, small_lm,
-# small_lm_128 and lm_mid_f32 fill them in, each at the shape its path gives
-# the kernels)
+# small_lm_128, lm_mid_f32 and lm_xl fill them in, each at the shape its
+# path gives the kernels)
 FLASH_TIMED = {FLASH_SLICE: "", FLASH_WIDE: "_dh256", FLASH_WIDE_F32: "_dh256_f32",
                FLASH_SMALL_LM_256: "_dh256_f32_small", FLASH_SMALL_LM: "_f32",
-               FLASH_SMALL_LM_128: "_dh128_f32", FLASH_MID_F32: "_dh128_f32_mid"}
+               FLASH_SMALL_LM_128: "_dh128_f32", FLASH_MID_F32: "_dh128_f32_mid",
+               FLASH_XL: "_dh384"}
 # the earlier design's time of a kernel redesigned since, and that design,
 # printed beside the new time on the kernel's own line: ms at FLASH_WIDE of
 # the bf16 Dh-256 forward, dq and dk/dv of flash_attention_sm90.cu, at
@@ -1953,6 +2038,27 @@ def _sdpa_backend(q, k, v, causal):
     return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal)).name
 
 
+def _sdpa_ms(q, k, v, do, causal):
+    """(backend, forward ms, backward ms, error) of
+    scaled_dot_product_attention on the kernels' inputs, the library
+    yardstick (its backward computes dq, dk and dv together). At a head dim
+    its fused backends refuse (Dh 384) it may run only its math backend, or
+    fail: then the times are None and the error is returned, to be
+    printed; the yardstick is not a gate."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    try:
+        backend = _sdpa_backend(qt, kt, vt, causal)
+        fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
+                         reps=3, rounds=3)
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        g = do.transpose(1, 2).contiguous()
+        bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), g, retain_graph=True),
+                         reps=3, rounds=3)
+        return backend, fwd_ms, bwd_ms, None
+    except RuntimeError as e:  # torch.OutOfMemoryError too
+        return None, None, None, f"{type(e).__name__}: {e}"[:400]
+
+
 def check_flash(dev, tc_rate):
     """Kernels 4a-4c (flash forward, dq, dk/dv) against their plain versions
     at FLASH_CASES; dq, dk and dv repeat bit for bit; timings at the
@@ -1997,18 +2103,15 @@ def check_flash(dev, tc_rate):
         nb = B * T * H * Dh * q.element_size()  # one (B, T, H, Dh) tensor
         rows_b = B * H * T * 4                   # one float32 row vector (lse or delta)
         pairs = _flash_pairs(B, T, H, causal)
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-        row["sdpa_backend"] = _sdpa_backend(qt, kt, vt, causal)
-        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-        sdpa_g = do.transpose(1, 2).contiguous()
-        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), sdpa_g,
-                                                          retain_graph=True), reps=3, rounds=3)
+        row["sdpa_backend"], sdpa_fwd_ms, sdpa_bwd_ms, sdpa_error = _sdpa_ms(q, k, v, do, causal)
+        if sdpa_error:
+            row["sdpa_error"] = sdpa_error
+        torch.cuda.empty_cache()
         cases = (
             ("flash_fwd", ":129", 3 * nb, nb + rows_b,
              lambda: fa.flash_forward(q, k, v, causal),
              lambda: fa.flash_forward_plain(q, k, v, causal),
-             time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
-                     reps=3, rounds=3), errs["out"][0], (out - out_p).abs().max()),
+             sdpa_fwd_ms, errs["out"][0], (out - out_p).abs().max()),
             ("flash_dq", ":167", 4 * nb + 2 * rows_b, nb,
              lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
              lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, causal),
@@ -2043,16 +2146,18 @@ def check_flash(dev, tc_rate):
                  library="F.scaled_dot_product_attention " +
                  ("forward" if name == "flash_fwd" else "backward (dq, dk and dv together)"),
                  **{k: v for k, v in entry.items() if k not in ("name", "route", "source")})
-        del qt, kt, vt, sdpa_out
     return entries
 
 
 # (B, T, H, Dh), dtype and causal of phase_flash_times: in bf16 causal the
-# wide LM's attention, then the LM slice's (Dh 64) and one at Dh 128 with its
-# width (H Dh 1024) and tokens, where the bf16 kernels of
-# flash_attention_sm90.cu run; in float32 the wide float32 LM's attention,
-# small_lm_256's, a full one at T 4352, lm_mid_f32's and small_lm_128's
-FLASH_MODE_SHAPES = ((FLASH_WIDE, torch.bfloat16, True), (FLASH_SLICE, torch.bfloat16, True),
+# XL LM's attention (Dh 384; a package without those kernels refuses it,
+# and the refusal is printed), the wide LM's, then the LM slice's (Dh 64)
+# and one at Dh 128 with its width (H Dh 1024) and tokens, where the bf16
+# kernels of flash_attention_sm90.cu run; in float32 the wide float32 LM's
+# attention, small_lm_256's, a full one at T 4352, lm_mid_f32's and
+# small_lm_128's
+FLASH_MODE_SHAPES = ((FLASH_XL, torch.bfloat16, True),
+                     (FLASH_WIDE, torch.bfloat16, True), (FLASH_SLICE, torch.bfloat16, True),
                      ((2, 8192, 8, 128), torch.bfloat16, True),
                      (FLASH_WIDE_F32, torch.float32, True),
                      (FLASH_SMALL_LM_256, torch.float32, True),
@@ -2068,12 +2173,17 @@ def phase_flash_times(dev, reps=3, rounds=5):
     from fedml_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator().manual_seed(5)
+    package = str(Path(fa.__file__).parents[2])
     for shape, dtype, causal in FLASH_MODE_SHAPES:
         q, k, v, do = _flash_inputs(shape, dtype, gen, dev)
-        out, lse = fa.flash_forward(q, k, v, causal)
+        try:
+            out, lse = fa.flash_forward(q, k, v, causal)
+        except ValueError as e:  # a package without kernels at this head dim
+            emit("flash_times", shape=list(shape), dtype=str(dtype), package=package,
+                 refused=str(e))
+            continue
         delta = fa.attention_delta(do, out)
-        emit("flash_times", shape=list(shape), dtype=str(dtype), causal=causal,
-             package=str(Path(fa.__file__).parents[2]),
+        emit("flash_times", shape=list(shape), dtype=str(dtype), causal=causal, package=package,
              fwd_ms=time_ms(lambda: fa.flash_forward(q, k, v, causal), reps, rounds),
              dq_ms=time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, causal), reps, rounds),
              dkv_ms=time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal), reps, rounds))
@@ -2194,6 +2304,13 @@ LM_WIDE_F32_T, LM_WIDE_F32_STEPS = 4352, 3
 # 100
 LM_MID_F32_MODEL = dict(LM_WIDE_MODEL, dim=1024)
 LM_MID_F32_T, LM_MID_F32_STEPS = 4608, 3
+# the XL LM: examples/cheetah_lm/main.py --dim 3072 --seq_len 4352 (vocab
+# 32000, its 8 heads, so Dh 384, its 8 layers; 1,116,174,336 parameters) at
+# its batch 8 in bf16 (the trainer's dtype), max_len = T; cut: 3 steps of its
+# 100. At T 4352 auto picks flash (block 256); at 2048, 4096, 4608 and 8192
+# dense
+LM_XL_MODEL = dict(LM_WIDE_MODEL, dim=3072, max_len=4352)
+LM_XL_T, LM_XL_STEPS, LM_XL_PARAMS = 4352, 3, 1_116_174_336
 
 
 def _lm_phase(phase, model, train, B, T, steps, suffix, dtype=torch.bfloat16):
@@ -2304,6 +2421,85 @@ def phase_lm_mid_f32():
                      LM_MID_F32_STEPS, "_dh128_f32_mid", dtype=torch.float32)[:3]
 
 
+def phase_lm_xl():
+    """The XL LM (Dh 384) for LM_XL_STEPS steps under full remat: auto
+    dispatch must pick flash, the model must hold the example's parameter
+    count, and per step the bf16 Dh-384 forward, dq and dk/dv
+    (flash_dh384_sm90.cu) launch 2 x 8, 8 and 8 times. Returns (trainer,
+    data, launches)."""
+    from fedml_tpu_torch.ops.attention import auto_attention_impl
+
+    H = LM_XL_MODEL["num_heads"]
+    if auto_attention_impl(LM_WIDE_B, H, LM_XL_T, LM_XL_MODEL["dim"] // H, 2) != "flash":
+        raise AssertionError(f"auto dispatch must pick flash at {LM_WIDE_B, H, LM_XL_T}")
+    tr, data, launches, _ = _lm_phase("lm_xl", LM_XL_MODEL, LM_TRAIN, LM_WIDE_B, LM_XL_T,
+                                      LM_XL_STEPS, "_dh384")
+    n_params = sum(p.numel() for p in tr.params.values())
+    if n_params != LM_XL_PARAMS:
+        raise AssertionError(f"lm_xl holds {n_params} parameters, not {LM_XL_PARAMS}")
+    return tr, data, launches
+
+
+# the bf16 Dh-384 kernels under the trainer: one head of 384 at T 4352,
+# where auto dispatch picks flash in bf16
+SMALL_LM_384 = dict(vocab_size=256, dim=384, num_heads=1, num_layers=2, max_len=4352)
+# small_lm_384's gate. bf16 GEMMs round differently on the card and on the
+# CPU, so small_lm's float32 bounds do not apply; the same comparison with
+# dense attention on both devices measures what that rounding alone does
+# over the same steps, and the flash run's loss and parameter differences
+# (card kernels against the CPU's plain versions, both float32 inside and
+# rounded once to bf16) must stay within this multiple of the dense run's.
+SMALL_LM_384_FACTOR = 4.0
+
+
+def phase_small_lm_384(steps=3):
+    """One bf16 head of 384 at T 4352 for ``steps`` trainer steps on the
+    card (the Dh-384 kernels) and on the CPU (their plain versions), from
+    the same parameters and data, then the same with dense attention on
+    both devices; the flash run's differences must stay within
+    SMALL_LM_384_FACTOR of the dense run's."""
+    from fedml_tpu_torch.ops.attention import auto_attention_impl
+    from fedml_tpu_torch.parallel import DistTrainConfig, DistributedLMTrainer
+
+    T, layers = SMALL_LM_384["max_len"], SMALL_LM_384["num_layers"]
+    if auto_attention_impl(1, 1, T, 384, 2) != "flash":
+        raise AssertionError(f"auto dispatch must pick flash at T {T}")
+    cfg = DistTrainConfig(lr=3e-4, weight_decay=0.01, use_remat=True, ce_chunk=256)
+    row = {}
+    for impl in ("flash", "dense"):
+        losses, params = {}, {}
+        for device in ("cuda", "cpu"):
+            tr = DistributedLMTrainer(cfg, dtype=torch.bfloat16, device=device, seed=0,
+                                      **SMALL_LM_384)
+            if impl == "dense":
+                for i in range(layers):
+                    getattr(tr.model, f"block_{i}").SelfAttention_0.attn_impl = "dense"
+            _zero_flash_counts()
+            losses[device] = tr.train(lm_data(SMALL_LM_384["vocab_size"], 1, T), steps,
+                                      log_fn=None)
+            if device == "cuda":
+                launches = _flash_counts("_dh384")
+                want = _want_flash(layers, steps if impl == "flash" else 0, "_dh384")
+                if launches != want:
+                    raise AssertionError(f"small_lm_384 ({impl}) launches {launches}, "
+                                         f"expected {want}")
+            params[device] = {k: p.detach().float().cpu() for k, p in tr.params.items()}
+        row[impl] = dict(
+            cuda=losses["cuda"], cpu=losses["cpu"], launches=launches,
+            loss_max_rel_diff=max(abs(lg - lc) / abs(lc)
+                                  for lg, lc in zip(losses["cuda"], losses["cpu"])),
+            param_max_abs_diff=max((params["cuda"][k] - params["cpu"][k]).abs().max().item()
+                                   for k in params["cpu"]))
+    flash, dense = row["flash"], row["dense"]
+    keys = ("loss_max_rel_diff", "param_max_abs_diff")
+    if not all(flash[k] <= SMALL_LM_384_FACTOR * dense[k] for k in keys):
+        raise AssertionError(f"small_lm_384: the flash run's differences exceed "
+                             f"{SMALL_LM_384_FACTOR} x the dense run's: {row}")
+    ratios = {k: flash[k] / dense[k] if dense[k] else None for k in keys}
+    emit("small_lm_384", config=SMALL_LM_384, steps=steps, ratio_to_dense=ratios,
+         factor=SMALL_LM_384_FACTOR, **row)
+
+
 # the LM profiles' kernel groups: the flash kernels, the matrix products
 # (cuBLAS's Hopper kernels are named nvjet_*, sm90_xmma_gemm_* or cutlass_*)
 LM_GROUPS = {"flash": ("flash_",), "gemm": ("nvjet", "gemm", "cutlass")}
@@ -2311,20 +2507,31 @@ LM_GROUPS = {"flash": ("flash_",), "gemm": ("nvjet", "gemm", "cutlass")}
 
 def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
     """Where an LM step's time goes: ``steps`` warm steps of an LM phase's
-    trainer."""
-    emit(phase, **profile_run(lambda: tr.train(data, steps, log_fn=None), steps, (
+    trainer. Each profile must show the flash kernels of rematerialized
+    blocks a step (2 x layers forward, one dq and one dk/dv a layer), and
+    the wrappers' counters must count the same over the profiled runs."""
+    want = _want_flash(tr.model.num_layers, 1)
+    _zero_flash_counts()
+    row = profile_run(lambda: tr.train(data, steps, log_fn=None), steps, (
         "flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
         "flash_fwd_dh256_kernel", "flash_dq_dh256_kernel", "flash_dkv_dh256_kernel",
+        "flash_fwd_dh384_kernel", "flash_dq_dh384_kernel", "flash_dkv_dh384_kernel",
         "flash_fwd_f32tc_kernel", "flash_dq_f32tc_kernel", "flash_dkv_f32tc_kernel",
         "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
-        unit="step", groups=LM_GROUPS))
+        unit="step", groups=LM_GROUPS, calls=want)
+    launches = _flash_counts()
+    runs = steps * row["profiles_taken"]
+    if launches != {k: v * runs for k, v in want.items()}:
+        raise AssertionError(f"{phase}: the wrappers counted {launches} over {runs} steps, "
+                             f"the profile {row['calls_per_step']} a step")
+    emit(phase, **row, launches=launches)
 
 
 def main(argv):
-    modes = (["agg"], ["flash"], ["conv"], ["lm_f32"], ["lm_mid"])
+    modes = (["agg"], ["flash"], ["conv"], ["lm_f32"], ["lm_mid"], ["lm_xl"])
     if not (argv in ([], ["kernels"]) or (argv[:1] in modes and len(argv) <= 2)):
         print("usage: python3 chip_smoke.py [kernels | agg [DIR] | flash [DIR] | conv [DIR] | "
-              "lm_f32 [DIR] | lm_mid [DIR]]", file=sys.stderr)
+              "lm_f32 [DIR] | lm_mid [DIR] | lm_xl [DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2341,7 +2548,9 @@ def main(argv):
          "lm_f32": lambda: phase_lm_profile(*phase_lm_wide_f32()[:2], steps=1,
                                             phase="lm_wide_f32_profile"),
          "lm_mid": lambda: phase_lm_profile(*phase_lm_mid_f32()[:2], steps=1,
-                                            phase="lm_mid_f32_profile")}[argv[0]]()
+                                            phase="lm_mid_f32_profile"),
+         "lm_xl": lambda: phase_lm_profile(*phase_lm_xl()[:2], steps=1,
+                                           phase="lm_xl_profile")}[argv[0]]()
         return 0
     smi = phase_device()
     phase_build()
@@ -2388,6 +2597,11 @@ def main(argv):
     launches.update(lm_launches)
     phase_lm_profile(tr, data, steps=1, phase="lm_mid_f32_profile")
     del tr
+    tr, data, lm_launches = phase_lm_xl()
+    launches.update(lm_launches)
+    phase_lm_profile(tr, data, steps=1, phase="lm_xl_profile")
+    del tr
+    phase_small_lm_384()
     for e in entries:
         e["launches"] = launches[e["name"]]
         e.pop("bytes", None)

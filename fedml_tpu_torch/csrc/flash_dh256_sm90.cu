@@ -99,11 +99,9 @@
 // accesses (4 rows x 4 lanes per half warp) hit 32 distinct banks. No
 // atomics and one fixed order of every sum: dk and dv repeat bit for bit.
 
-#include <cuda.h>
-
 #include <type_traits>
 
-#include "flash_sm90.cuh"
+#include "flash_tma_sm90.cuh"
 
 namespace {
 
@@ -113,13 +111,7 @@ constexpr int kThreads = 2 * kWG;                 // dk/dv: two warpgroups
 // registers go to the consumers (2 x 128 x 240 + 128 x 24 <= 65,536)
 constexpr int kFwdThreads = 3 * kWG;
 constexpr int kConsumerRegs = 240, kProducerRegs = 24;
-constexpr int kGroupBytes = kTile * kRowBytes;    // 64 columns of a tile: 8 KB
 constexpr int kTileBytes = kDh / 64 * kGroupBytes;  // a 64 x 256 bf16 tile: 32 KB
-constexpr int kXFloats = kTile * kTile;           // one exchange tile
-// lse and delta of a q tile: a box of 68 floats from the 16-byte boundary at
-// or below the tile's first (TMA copies start on one), 384 bytes apart
-constexpr int kVecBox = kTile + 4;
-constexpr int kVecSlot = 384;
 
 // forward: 128 q rows, k stages, v stages, 9 barriers (+ alignment slack)
 constexpr int kFwdSmem = 6 * kTileBytes + 9 * 8 + 1024;
@@ -131,121 +123,10 @@ constexpr int kDqSmem = 7 * kTileBytes + 7 * 8 + 1024;
 static_assert(kFwdSmem <= 232448 && kDkvSmem <= 232448 && kDqSmem <= 232448,
               "shared memory of one H100 block");
 
-// --- mbarriers and TMA -------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// the one arrival of this phase, expecting `bytes` of copies
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// the phase of `parity` has completed; the loop stays inside one asm block,
-// so the warp leaves it converged, as the .aligned wgmma instructions after
-// it require
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                       int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
-      : "memory");
-}
-
-// rows t0 .. t0 + 63 of head h of batch b, all 256 columns, as four swizzled
-// 64-column groups
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int h,
-                                         int t0, int b) {
-#pragma unroll
-  for (int g = 0; g < kDh / 64; ++g) tma_4d(dst + g * kGroupBytes, map, bar, 64 * g, h, t0, b);
-}
-
 // named barriers of dk/dv's two warpgroups (0 is __syncthreads): p tile
 // i % 2 written (kPFull + i % 2) and read (kPEmpty + i % 2)
 constexpr int kPFull = 1, kPEmpty = 3;
 
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
-}
-
-// --- products and the exchange tile -------------------------------------------
-
-// d = A B^T of two 64-row tiles over all 256 columns (issued, not waited)
-__device__ __forceinline__ void scores(float (&d)[32], uint32_t a_tile, uint32_t b_tile) {
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk)
-    wgmma_ss(d, desc_k<kTile>(a_tile, kk), desc_k<kTile>(b_tile, kk), kk);
-}
-
-// element (r, c) of an exchange tile
-__device__ __forceinline__ int xat(int r, int c) { return r * kTile + (c ^ ((r & 3) << 3)); }
-
-// the whole exchange tile from the m64n64 accumulator layout
-__device__ __forceinline__ void put_tile(float* X, const float (&s)[32], int r, int c2) {
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<float2*>(X + xat(r + 8 * hh, 8 * j + c2)) =
-          make_float2(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]);
-}
-
-// the whole exchange tile in the m64n64 accumulator layout
-__device__ __forceinline__ void get_tile(const float* X, float (&s)[32], int r, int c2) {
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 x = *reinterpret_cast<const float2*>(X + xat(r + 8 * hh, 8 * j + c2));
-      s[4 * j + 2 * hh] = x.x;
-      s[4 * j + 2 * hh + 1] = x.y;
-    }
-}
-
-// d = A B for 64-column group g of B: A 64 x 64 in three register terms, B
-// the 64-row `tile` MN-major. Per k step lo, mid, hi: flash_attention_sm90.cu's
-// order (issued, not waited)
-__device__ __forceinline__ void mma_split_group(float (&d)[32], const uint32_t (&a)[4][3][4],
-                                                uint32_t tile, int g) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int t = 2; t >= 0; --t)
-      wgmma_rs(d, a[kk][t], desc_mn<kTile>(tile, kk, g), kk > 0 || t < 2);
-}
 
 // --- the kernels ---------------------------------------------------------------
 
@@ -288,17 +169,17 @@ flash_fwd_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (tid == 2 * kWG) {
       mbar_expect(qbar, 2 * kTileBytes);
-      tma_tile(Qs, &qmap, qbar, h, q0, b);
-      tma_tile(Qs + kTileBytes, &qmap, qbar, h, q0 + kTile, b);
+      tma_tile<kDh>(Qs, &qmap, qbar, h, q0, b);
+      tma_tile<kDh>(Qs + kTileBytes, &qmap, qbar, h, q0 + kTile, b);
       const int n = tiles(1);
       for (int t = 0; t < n; ++t) {
         const int s = t % 2;
         if (t >= 2) mbar_wait(kempty + 8 * s, (t / 2 - 1) & 1);
         mbar_expect(kfull + 8 * s, kTileBytes);
-        tma_tile(Ks + s * kTileBytes, &kmap, kfull + 8 * s, h, t * kTile, b);
+        tma_tile<kDh>(Ks + s * kTileBytes, &kmap, kfull + 8 * s, h, t * kTile, b);
         if (t >= 2) mbar_wait(vempty + 8 * s, (t / 2 - 1) & 1);
         mbar_expect(vfull + 8 * s, kTileBytes);
-        tma_tile(Vs + s * kTileBytes, &vmap, vfull + 8 * s, h, t * kTile, b);
+        tma_tile<kDh>(Vs + s * kTileBytes, &vmap, vfull + 8 * s, h, t * kTile, b);
       }
     }
     return;
@@ -322,7 +203,7 @@ flash_fwd_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
     float x[32], corr[2];
     mbar_wait(kfull + 8 * s, parity);
     wg_fence();
-    scores(x, q_tile, Ks + s * kTileBytes);
+    scores<kDh / 16>(x, q_tile, Ks + s * kTileBytes);
     wg_commit();
     wg_wait<0>();
     pin(x);
@@ -402,8 +283,8 @@ flash_dkv_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t vec = smem_addr(vecs + (i % 2) * 2 * kVecSlot);
       const int v0 = bh * Tn + q0 - vec_skip(q0);
       mbar_expect(bar, 2 * kTileBytes + 2 * kVecBox * 4);
-      tma_tile(dst, &qmap, bar, h, q0, b);
-      tma_tile(dst + kTileBytes, &omap, bar, h, q0, b);
+      tma_tile<kDh>(dst, &qmap, bar, h, q0, b);
+      tma_tile<kDh>(dst + kTileBytes, &omap, bar, h, q0, b);
       tma_1d(vec, &lmap, bar, v0);
       tma_1d(vec + kVecSlot, &dmap, bar, v0);
     }
@@ -419,8 +300,8 @@ flash_dkv_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
   __syncthreads();
   if (issuer) {
     mbar_expect(kvbar, 2 * kTileBytes);
-    tma_tile(Ks, &kmap, kvbar, h, k0, b);
-    tma_tile(Vs, &vmap, kvbar, h, k0, b);
+    tma_tile<kDh>(Ks, &kmap, kvbar, h, k0, b);
+    tma_tile<kDh>(Vs, &vmap, kvbar, h, k0, b);
     load_q(0);
     load_q(1);
   }
@@ -442,9 +323,9 @@ flash_dkv_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
     float x[32];
     wg_fence();
     if (wg == 0)
-      scores(x, Ks, q_tile);  // S^T = K Q^T
+      scores<kDh / 16>(x, Ks, q_tile);  // S^T = K Q^T
     else
-      scores(x, Vs, o_tile);  // dP^T = V dO^T
+      scores<kDh / 16>(x, Vs, o_tile);  // dP^T = V dO^T
     wg_commit();
     wg_wait<0>();
     pin(x);
@@ -465,15 +346,15 @@ flash_dkv_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
             x[at] = !edge || col < Tn ? expf(s - lc) : 0.f;
           }
         }
-      if (i >= 2) named_sync(kPEmpty + i % 2);  // warpgroup 1 has read p of tile i - 2
+      if (i >= 2) named_sync<kThreads>(kPEmpty + i % 2);  // warpgroup 1 has read p of tile i - 2
       put_tile(Pi, x, r, c2);
-      named_arrive(kPFull + i % 2);
+      named_arrive<kThreads>(kPFull + i % 2);
     } else {
       const float* dl = lv + kVecSlot / 4;
-      named_sync(kPFull + i % 2);  // p of tile i is in Pi
+      named_sync<kThreads>(kPFull + i % 2);  // p of tile i is in Pi
       float p[32];
       get_tile(Pi, p, r, c2);
-      if (i + 2 < n) named_arrive(kPEmpty + i % 2);
+      if (i + 2 < n) named_arrive<kThreads>(kPEmpty + i % 2);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -526,49 +407,6 @@ flash_dkv_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// eight bf16 (one 16-byte chunk) as float32, exactly
-__device__ __forceinline__ void unpack8(const uint4 u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-// flash_attention_sm90.cu's dots_fma (d = A B^T for this thread's rows and
-// columns, each output a chain of fmaf over the 256 columns in increasing
-// order from zero: the bits of a plain float32 product) with 16-byte loads,
-// one chunk of 8 columns of a row each: a quarter of the loads and of their
-// address work, ~0.4 ms of the wide LM's dq, where the diagonal's warps wait
-// on their loads. The Dh 64/128 dq keeps dots_fma: under its 3-block
-// register cap (168) these loads spilled 128 bytes at Dh 64 and its dq ran
-// ~1% slower (2.525 against 2.492-2.505 ms, H100 80GB HBM3 at 700 W).
-__device__ __forceinline__ void dots_plain(float (&d)[32], const uint8_t* a_tile,
-                                           const uint8_t* b_tile, int r, int c2) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
-#pragma unroll 1
-  for (int c = 0; c < kDh / 8; ++c) {
-    float a[2][8];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      unpack8(*reinterpret_cast<const uint4*>(a_tile + swz<kTile>(r + 8 * hh, c)), a[hh]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float f[8];
-        unpack8(*reinterpret_cast<const uint4*>(b_tile + swz<kTile>(8 * j + c2 + e, c)), f);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-          for (int x = 0; x < 8; ++x)
-            d[4 * j + 2 * hh + e] = fmaf(a[hh][x], f[x], d[4 * j + 2 * hh + e]);
-      }
-  }
-}
-
 // One block per (bh, 128-row q tile): dq (B, T, H, 256) contiguous. dO is
 // contiguous; lse and delta are (B*H, T). Warpgroups 0 and 1 each own 64 of
 // the rows over all 256 columns; warpgroup 2 issues the copies.
@@ -601,19 +439,19 @@ flash_dq_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
   const int n = tiles(1);  // the block's k tiles: warpgroup 1's
   auto load_qo = [&] {
     mbar_expect(qbar, 4 * kTileBytes);
-    tma_tile(Qs, &qmap, qbar, h, q0, b);
-    tma_tile(Qs + kTileBytes, &qmap, qbar, h, q0 + kTile, b);
-    tma_tile(Os, &omap, qbar, h, q0, b);
-    tma_tile(Os + kTileBytes, &omap, qbar, h, q0 + kTile, b);
+    tma_tile<kDh>(Qs, &qmap, qbar, h, q0, b);
+    tma_tile<kDh>(Qs + kTileBytes, &qmap, qbar, h, q0 + kTile, b);
+    tma_tile<kDh>(Os, &omap, qbar, h, q0, b);
+    tma_tile<kDh>(Os + kTileBytes, &omap, qbar, h, q0 + kTile, b);
   };
   auto load_k = [&](int t) {
     const uint32_t full = kfull + 8 * (t % 2);
     mbar_expect(full, kTileBytes);
-    tma_tile(Ks + (t % 2) * kTileBytes, &kmap, full, h, t * kTile, b);
+    tma_tile<kDh>(Ks + (t % 2) * kTileBytes, &kmap, full, h, t * kTile, b);
   };
   auto load_v = [&](int t) {
     mbar_expect(vfull, kTileBytes);
-    tma_tile(Vs, &vmap, vfull, h, t * kTile, b);
+    tma_tile<kDh>(Vs, &vmap, vfull, h, t * kTile, b);
   };
 
   if (tid == 0) {
@@ -671,15 +509,15 @@ flash_dq_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
     float s[32], dp[32];
     mbar_wait(kfull + 8 * sk, (kt / 2) & 1);
     wg_fence();
-    scores(s, q_tile, k_tile);
+    scores<kDh / 16>(s, q_tile, k_tile);
     wg_commit();
     mbar_wait(vfull, kt & 1);
     if constexpr (DIAG) {
-      dots_plain(dp, base + 2 * kTileBytes + wg * kTileBytes, base + 6 * kTileBytes,
+      dots_plain<kDh>(dp, base + 2 * kTileBytes + wg * kTileBytes, base + 6 * kTileBytes,
                  row0 - qw, c2);
     } else {
       wg_fence();
-      scores(dp, o_tile, Vs);
+      scores<kDh / 16>(dp, o_tile, Vs);
       wg_commit();
     }
     wg_wait<0>();
@@ -721,67 +559,6 @@ flash_dq_dh256_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// --- tensor maps and launches --------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no -lcuda)
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (Dh, H, T, B) bf16 at element strides (sh, st, sb), 64 x 64 boxes of one
-// (b, h) in the 128-byte swizzle
-bool map_rows(CUtensorMap* map, const void* p, int B, int H, int T, int64_t sb, int64_t st,
-              int64_t sh) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kDh, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kTile, 1}, unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// a float32 vector of n, boxes of kVecBox
-bool map_vec(CUtensorMap* map, const float* p, int64_t n) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[1] = {(cuuint64_t)n}, strides[1] = {4};
-  const cuuint32_t box[1] = {(cuuint32_t)kVecBox}, unit[1] = {1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(p), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool args_ok(int B, int H, int T, int Dh, int is_bf16) {
-  return B > 0 && H > 0 && T > 0 && Dh == kDh && is_bf16 && (int64_t)B * H * T <= 0x7fffffffLL &&
-         (T + kTile - 1) / kTile <= 65535;
-}
-
-// one block per (b, h, `rows`-row tile), (b, h) outermost
-dim3 grid(int B, int H, int T, int rows) {
-  return dim3((unsigned)(B * H * ((T + rows - 1) / rows)));
-}
-
 }  // namespace
 
 // The entry points take the arguments of fedml_flash_fwd_sm90 and
@@ -795,8 +572,8 @@ extern "C" int fedml_flash_fwd_dh256_sm90(const void* q, const void* k, const vo
                                           int causal, long long sb, long long st, long long sh,
                                           float scale, void* stream) {
   CUtensorMap qm, km, vm;
-  if (!args_ok(B, H, T, Dh, is_bf16) || !map_rows(&qm, q, B, H, T, sb, st, sh) ||
-      !map_rows(&km, k, B, H, T, sb, st, sh) || !map_rows(&vm, v, B, H, T, sb, st, sh))
+  if (!args_ok<kDh>(B, H, T, Dh, is_bf16) || !map_rows<kDh>(&qm, q, B, H, T, sb, st, sh) ||
+      !map_rows<kDh>(&km, k, B, H, T, sb, st, sh) || !map_rows<kDh>(&vm, v, B, H, T, sb, st, sh))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_dh256_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
@@ -814,10 +591,10 @@ extern "C" int fedml_flash_dkv_dh256_sm90(const void* q, const void* k, const vo
                                           long long sh, float scale, void* stream) {
   CUtensorMap qm, km, vm, om, lm, dm;
   const int64_t hd = (int64_t)H * kDh;  // dO's row stride
-  if (!args_ok(B, H, T, Dh, is_bf16) || !map_rows(&qm, q, B, H, T, sb, st, sh) ||
-      !map_rows(&km, k, B, H, T, sb, st, sh) || !map_rows(&vm, v, B, H, T, sb, st, sh) ||
-      !map_rows(&om, dout, B, H, T, T * hd, hd, kDh) || !map_vec(&lm, lse, (int64_t)B * H * T) ||
-      !map_vec(&dm, delta, (int64_t)B * H * T))
+  if (!args_ok<kDh>(B, H, T, Dh, is_bf16) || !map_rows<kDh>(&qm, q, B, H, T, sb, st, sh) ||
+      !map_rows<kDh>(&km, k, B, H, T, sb, st, sh) || !map_rows<kDh>(&vm, v, B, H, T, sb, st, sh) ||
+      !map_rows<kDh>(&om, dout, B, H, T, T * hd, hd, kDh) ||
+      !map_vec(&lm, lse, (int64_t)B * H * T) || !map_vec(&dm, delta, (int64_t)B * H * T))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(flash_dkv_dh256_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
@@ -835,9 +612,9 @@ extern "C" int fedml_flash_dq_dh256_sm90(const void* q, const void* k, const voi
                                          float scale, void* stream) {
   CUtensorMap qm, km, vm, om;
   const int64_t hd = (int64_t)H * kDh;  // dO's row stride
-  if (!args_ok(B, H, T, Dh, is_bf16) || !map_rows(&qm, q, B, H, T, sb, st, sh) ||
-      !map_rows(&km, k, B, H, T, sb, st, sh) || !map_rows(&vm, v, B, H, T, sb, st, sh) ||
-      !map_rows(&om, dout, B, H, T, T * hd, hd, kDh))
+  if (!args_ok<kDh>(B, H, T, Dh, is_bf16) || !map_rows<kDh>(&qm, q, B, H, T, sb, st, sh) ||
+      !map_rows<kDh>(&km, k, B, H, T, sb, st, sh) || !map_rows<kDh>(&vm, v, B, H, T, sb, st, sh) ||
+      !map_rows<kDh>(&om, dout, B, H, T, T * hd, hd, kDh))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(flash_dq_dh256_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);

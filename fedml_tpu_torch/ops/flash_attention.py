@@ -1,11 +1,14 @@
 """Flash attention (port of ``fedml_tpu/ops/pallas/flash_attention.py``).
 
-Hand-written CUDA kernels on (B, T, H, Dh) tensors, bf16 or float32 with
-Dh 64, 128 or 256, causal or not. bf16 inputs run on the tensor cores
-(wgmma, exact to float32 through a three-term bf16 split of p and ds): at
-Dh 64 and 128 in ``csrc/flash_attention_sm90.cu``, at Dh 256 in
-``csrc/flash_dh256_sm90.cu`` (score products once per block, tiles by
-TMA). Float32 inputs run on the tensor cores too, in
+Hand-written CUDA kernels on (B, T, H, Dh) tensors, bf16 with Dh 64, 128,
+256 or 384 or float32 with Dh 64, 128 or 256 (:data:`HEAD_DIMS`), causal or
+not. bf16 inputs run on the tensor cores (wgmma, exact to float32 through a
+three-term bf16 split of p and ds): at Dh 64 and 128 in
+``csrc/flash_attention_sm90.cu``, at Dh 256 in ``csrc/flash_dh256_sm90.cu``
+and at Dh 384 in ``csrc/flash_dh384_sm90.cu`` (score products once per
+block, tiles by TMA; at Dh 384 two warpgroups split the output columns and
+share the scores through shared memory). Float32 inputs run on the tensor
+cores too, in
 ``csrc/flash_f32_sm90.cu`` (``mma.sync`` as three TF32 products, exact to
 float32), for the forward, dq and dk/dv at Dh 256 and the forward at Dh
 128; float32 dq and dk/dv at Dh 128 and every float32 kernel at Dh 64 run
@@ -187,8 +190,9 @@ def flash_dkv_plain(q, k, v, do, lse, delta, causal: bool):
 
 # --- the kernel wrappers ------------------------------------------------------
 
-HEAD_DIMS = (64, 128, 256)
-DTYPES = (torch.float32, torch.bfloat16)
+# the head dims the CUDA kernels take, by dtype
+HEAD_DIMS = {torch.float32: (64, 128, 256), torch.bfloat16: (64, 128, 256, 384)}
+DTYPES = tuple(HEAD_DIMS)
 
 
 def _check(q, k, v, *more) -> str:
@@ -206,16 +210,17 @@ def _check(q, k, v, *more) -> str:
         raise ValueError(f"q, k, v must share a dtype in {DTYPES}, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if dev.type == "cuda":
-        check_head_dim(q.shape[-1])
+        check_head_dim(q.shape[-1], q.dtype)
     return dev.type
 
 
-def check_head_dim(Dh: int) -> None:
-    """Raises unless the CUDA kernels take head dim ``Dh``."""
-    if Dh not in HEAD_DIMS:
+def check_head_dim(Dh: int, dtype: torch.dtype) -> None:
+    """Raises unless the CUDA kernels take head dim ``Dh`` in ``dtype``."""
+    dims = HEAD_DIMS[dtype]
+    if Dh not in dims:
         raise ValueError(
-            f"the flash kernels take Dh in {HEAD_DIMS}, got {Dh}: the other head dims "
-            "that flash_shapes_ok admits (384 to 1536) are not ported yet (ROADMAP.md Queue 2)")
+            f"the {dtype} flash kernels take Dh in {dims}, got {Dh}: the other head dims "
+            "that flash_shapes_ok admits (up to 1536) are not ported yet (ROADMAP.md Queue 2)")
 
 
 def _strided(q, k, v):
@@ -247,8 +252,9 @@ def _argtypes(n_ptrs):
 
 # entry points with a tensor-core (wgmma) version for bf16 inputs
 TENSOR_CORE = ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv")
-# of those, the ones with a Dh-256 design of their own (scores once, TMA)
-DH256 = ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv")
+# the bf16 head dims with a design of their own (scores once per block,
+# tiles by TMA), and its library
+BF16_TMA = {256: "flash_dh256_sm90", 384: "flash_dh384_sm90"}
 # the head dims at which each entry point has a tensor-core (3xTF32
 # mma.sync) version for float32 inputs
 F32_TENSOR_CORE = {"fedml_flash_fwd": (128, 256), "fedml_flash_dq": (256,),
@@ -258,14 +264,14 @@ F32_TENSOR_CORE = {"fedml_flash_fwd": (128, 256), "fedml_flash_dq": (256,),
 def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
     """(kernel library, C entry point) that runs ``name`` on inputs of
     ``dtype`` and head dim ``Dh``: bf16 calls at Dh 256 go to
-    ``flash_dh256_sm90``, other bf16 calls to ``flash_attention_sm90``,
-    the float32 forward at Dh 128 and 256 and dq and dk/dv at Dh 256 to
-    ``flash_f32_sm90``, the rest of float32 (Dh 64; dq and dk/dv at Dh 128)
-    to the FMA kernels of ``flash_attention``. All take the same
-    arguments."""
+    ``flash_dh256_sm90``, at Dh 384 to ``flash_dh384_sm90``, other bf16
+    calls to ``flash_attention_sm90``, the float32 forward at Dh 128 and
+    256 and dq and dk/dv at Dh 256 to ``flash_f32_sm90``, the rest of
+    float32 (Dh 64; dq and dk/dv at Dh 128) to the FMA kernels of
+    ``flash_attention``. All take the same arguments."""
     if dtype == torch.bfloat16 and name in TENSOR_CORE:
-        if Dh == 256 and name in DH256:
-            return "flash_dh256_sm90", name + "_dh256_sm90"
+        if Dh in BF16_TMA:
+            return BF16_TMA[Dh], f"{name}_dh{Dh}_sm90"
         return "flash_attention_sm90", name + "_sm90"
     if dtype == torch.float32 and Dh in F32_TENSOR_CORE.get(name, ()):
         return "flash_f32_sm90", name + "_f32_sm90"
