@@ -4,10 +4,10 @@
     python3 chip_smoke.py kernels    # phases 1-3 only (no result line)
     python3 chip_smoke.py agg [DIR]  # the robust path's aggregation half only,
                                      # of the package in checkout DIR (no result line)
-    python3 chip_smoke.py flash [DIR]  # flash's kernel times, bf16 at Dh 256,
-                                       # 64 and 128 and float32 at Dh 256 and
-                                       # 128, of the package in checkout DIR
-                                       # (no result line)
+    python3 chip_smoke.py flash [DIR]  # flash's kernel times, bf16 at Dh 384,
+                                       # 256, 64 and 128 and float32 at Dh 384,
+                                       # 256 and 128, of the package in
+                                       # checkout DIR (no result line)
     python3 chip_smoke.py conv [DIR]   # the bf16 conv weight gradient's times
                                        # at the ResNet-56 shapes, of the package
                                        # in checkout DIR (no result line)
@@ -16,6 +16,7 @@
                                        # line)
     python3 chip_smoke.py lm_mid [DIR] # lm_mid_f32 and its profile, likewise
     python3 chip_smoke.py lm_xl [DIR]  # lm_xl and its profile, likewise
+    python3 chip_smoke.py lm_xl_f32 [DIR]  # lm_xl_f32 and its profile, likewise
 
 Phases, each printing one JSON line; any failure ends the run with a
 non-zero exit code and no result line:
@@ -45,16 +46,19 @@ non-zero exit code and no result line:
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
    flash_dkv; SDPA as the library call, with the backend it ran; bf16
    inputs on the tensor cores, float32 on flash_f32_sm90.cu's three TF32
-   products at Dh 256 and for the forward at Dh 128, on the FMA kernels
-   otherwise), at Dh 64 (the _f32 entries at small_lm's shape), at Dh 128
+   products at Dh 256 and 384 and for the forward at Dh 128, on the FMA
+   kernels otherwise), at Dh 64 (the _f32 entries at small_lm's shape), at Dh 128
    (the _dh128_f32 entries at small_lm_128's shape and the _dh128_f32_mid
    ones at lm_mid_f32's: the forward on flash_f32_sm90.cu, dq and dk/dv on
    the FMA kernels) and at Dh 256 (the _dh256 entries at the wide LM's bf16
    shape, on flash_dh256_sm90.cu; the _dh256_f32 ones at lm_wide_f32's
    shape and the _dh256_f32_small ones at small_lm_256's, all three on
    flash_f32_sm90.cu; the _dh384 entries at lm_xl's bf16 shape, on
-   flash_dh384_sm90.cu); each redesigned kernel with the earlier design's
-   time as was_ms;
+   flash_dh384_sm90.cu; the _dh384_f32 ones at lm_xl_f32's shape and the
+   _dh384_f32_small ones at small_lm_384_f32's, on flash_f32_sm90.cu, whose
+   column parts at Dh 384 are also held bit-equal on inputs with repeated
+   column parts); each redesigned kernel with the earlier design's time as
+   was_ms;
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
 4b. repeat — the small robust path on cnn_fedavg, the small resnet8 path,
@@ -131,9 +135,14 @@ non-zero exit code and no result line:
     remat, B 8) for 3 steps: 16 forward, 8 dq and 8 dk/dv launches a step
     on flash_dh384_sm90.cu; lm_xl_profile, one warm step under
     torch.profiler;
-19. small_lm_384 — one bf16 head of Dh 384 at T 4352 (auto picks flash),
+19. lm_xl_f32 — the same model trained in float32 at B 8, T 4352 (auto
+    dispatch picks flash) for 3 steps: 16 forward, 8 dq and 8 dk/dv
+    launches a step on flash_f32_sm90.cu's Dh-384 kernels; lm_xl_f32_profile,
+    one warm step under torch.profiler;
+20. small_lm_384 — one bf16 head of Dh 384 at T 4352 (auto picks flash),
     card against CPU, within SMALL_LM_384_FACTOR of the same comparison
-    with dense attention.
+    with dense attention; small_lm_384_f32 the same head in float32, under
+    small_lm's float32 gates.
 
 Every LM profile must show as many flash kernels a step as the wrappers
 count (profile_run's ``calls``), and every device_ms profile as many events
@@ -1913,8 +1922,11 @@ FLASH_F32_128 = (1, 2048, 8, 128)
 FLASH_SMALL_LM = (1, 4096, 1, 64)
 FLASH_SMALL_LM_128 = (1, 4608, 1, 128)
 FLASH_MID_F32 = (8, 4608, 8, 128)
-# lm_xl's attention: the Cheetah example at --dim 3072, 8 heads of 384, bf16
+# lm_xl's attention: the Cheetah example at --dim 3072, 8 heads of 384, bf16;
+# lm_xl_f32's is the same shape in float32, small_lm_384_f32's one head of it
 FLASH_XL = (8, 4352, 8, 384)
+FLASH_XL_F32 = FLASH_XL
+FLASH_SMALL_LM_384 = (1, 4352, 1, 384)
 FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float32, False),
                ((3, 333, 2, 64), torch.float32, True), ((2, 100, 3, 128), torch.bfloat16, True),
                ((1, 1000, 4, 64), torch.bfloat16, False),
@@ -1925,15 +1937,22 @@ FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float3
                ((1, 1000, 2, 256), torch.bfloat16, False), (FLASH_SMALL_LM, torch.float32, True),
                (FLASH_SMALL_LM_128, torch.float32, True), (FLASH_MID_F32, torch.float32, True),
                ((3, 130, 2, 128), torch.float32, True), (FLASH_XL, torch.bfloat16, True),
-               ((2, 333, 3, 384), torch.bfloat16, True), ((1, 1000, 2, 384), torch.bfloat16, False))
-# the timed shapes and the suffix of their kernels line entries (the launch
-# counts of lm_main, lm_wide, lm_wide_f32, small_lm_256, small_lm,
-# small_lm_128, lm_mid_f32 and lm_xl fill them in, each at the shape its
-# path gives the kernels)
-FLASH_TIMED = {FLASH_SLICE: "", FLASH_WIDE: "_dh256", FLASH_WIDE_F32: "_dh256_f32",
-               FLASH_SMALL_LM_256: "_dh256_f32_small", FLASH_SMALL_LM: "_f32",
-               FLASH_SMALL_LM_128: "_dh128_f32", FLASH_MID_F32: "_dh128_f32_mid",
-               FLASH_XL: "_dh384"}
+               ((2, 333, 3, 384), torch.bfloat16, True), ((1, 1000, 2, 384), torch.bfloat16, False),
+               (FLASH_XL_F32, torch.float32, True), (FLASH_SMALL_LM_384, torch.float32, True),
+               ((1, 4352, 2, 384), torch.float32, False), ((3, 130, 2, 384), torch.float32, True))
+# the timed (shape, dtype) pairs and the suffix of their kernels line
+# entries (the launch counts of lm_main, lm_wide, lm_wide_f32, small_lm_256,
+# small_lm, small_lm_128, lm_mid_f32, lm_xl, lm_xl_f32 and small_lm_384_f32
+# fill them in, each at the shape its path gives the kernels); keyed by
+# dtype too, since lm_xl and lm_xl_f32 give the kernels one shape
+FLASH_TIMED = {(FLASH_SLICE, torch.bfloat16): "", (FLASH_WIDE, torch.bfloat16): "_dh256",
+               (FLASH_WIDE_F32, torch.float32): "_dh256_f32",
+               (FLASH_SMALL_LM_256, torch.float32): "_dh256_f32_small",
+               (FLASH_SMALL_LM, torch.float32): "_f32",
+               (FLASH_SMALL_LM_128, torch.float32): "_dh128_f32",
+               (FLASH_MID_F32, torch.float32): "_dh128_f32_mid",
+               (FLASH_XL, torch.bfloat16): "_dh384", (FLASH_XL_F32, torch.float32): "_dh384_f32",
+               (FLASH_SMALL_LM_384, torch.float32): "_dh384_f32_small"}
 # the earlier design's time of a kernel redesigned since, and that design,
 # printed beside the new time on the kernel's own line: ms at FLASH_WIDE of
 # the bf16 Dh-256 forward, dq and dk/dv of flash_attention_sm90.cu, at
@@ -2017,9 +2036,9 @@ def _flash_products(name, dtype, Dh):
     (the score is scaled after the product); P.V, dS.K, P^T.dO and dS^T.Q take
     a float32 probability or score, which is exact there only as three bf16
     terms, so each counts as three bf16 products. Float32 inputs: on
-    flash_f32_sm90 (every kernel at Dh 256, the forward at Dh 128) each
-    product is three TF32 products; elsewhere every product runs at the
-    float32 rate."""
+    flash_f32_sm90 (every kernel at Dh 256 and 384, the forward at Dh 128)
+    each product is three TF32 products; elsewhere every product runs at
+    the float32 rate."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     n = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}[name]
@@ -2059,11 +2078,64 @@ def _sdpa_ms(q, k, v, do, causal):
         return None, None, None, f"{type(e).__name__}: {e}"[:400]
 
 
+def _f32_dh384_parts_agree(fa, q, k, v, do, out, causal):
+    """The float32 Dh-384 kernels split each row's columns among warps:
+    three of 128 in the forward and dq, two of 192 for dk and for dv, the
+    split warps adding their partial scores in one fixed order, so that
+    all of them hold the same softmax, p and ds. On inputs whose column
+    parts repeat (v for the forward's out, k for dq, q for dk, dO for dv),
+    each output's parts must then be bit-equal; a warp that summed the
+    partial scores in its own order would give its part other low bits."""
+    def parts(x, n):
+        w = x.shape[-1] // n
+        return all(torch.equal(x[..., :w], x[..., i * w:(i + 1) * w]) for i in range(1, n))
+
+    def rep(x, n):
+        return x[..., :x.shape[-1] // n].repeat(1, 1, 1, n)
+
+    delta = fa.attention_delta(do, out)
+    v3, k3 = rep(v, 3), rep(k, 3)
+    q2, do2 = rep(q, 2), rep(do, 2)
+    _, lse_k3 = fa.flash_forward(q, k3, v, causal)
+    out2, lse2 = fa.flash_forward(q2, k, v, causal)
+    dk2, dv2 = fa.flash_dkv(q2, k, v, do2, lse2, fa.attention_delta(do2, out2), causal)
+    agree = {"out": parts(fa.flash_forward(q, k, v3, causal)[0], 3),
+             "dq": parts(fa.flash_dq(q, k3, v, do, lse_k3, delta, causal), 3),
+             "dk": parts(dk2, 2), "dv": parts(dv2, 2)}
+    if not all(agree.values()):
+        raise AssertionError(f"flash float32 Dh 384 at {tuple(q.shape)}: the column parts "
+                             f"of {[n for n, a in agree.items() if not a]} differ")
+    return agree
+
+
+def _check_flash_refusals(fa, dev):
+    """The head dims that the shared guard admits but no kernel takes yet
+    (Dh 512 and 1536, both dtypes) raise on the card with the queue that
+    lists them, before any launch and with no fallback."""
+    before = _flash_counts()
+    refused = {}
+    for Dh in (512, 1536):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.zeros(1, 128, 1, Dh, device=dev, dtype=dtype)
+            try:
+                fa.flash_forward(q, q, q, True)
+            except ValueError as e:
+                if "ROADMAP.md Queue 2" in str(e):
+                    refused[f"{dtype}_dh{Dh}"] = True
+                    continue
+                raise
+            raise AssertionError(f"flash at Dh {Dh} in {dtype} ran on the card")
+    if _flash_counts() != before:
+        raise AssertionError("a refused flash call counted a launch")
+    emit("kernel_flash_refusals", refused=refused)
+
+
 def check_flash(dev, tc_rate):
     """Kernels 4a-4c (flash forward, dq, dk/dv) against their plain versions
-    at FLASH_CASES; dq, dk and dv repeat bit for bit; timings at the
-    FLASH_TIMED shapes beside SDPA (forward for 4a; its backward, which
-    computes dq, dk and dv together, for 4b and 4c) and the backend it ran.
+    at FLASH_CASES, and Dh 512 and 1536 refused; dq, dk and dv repeat bit
+    for bit; timings at the FLASH_TIMED shapes beside SDPA (forward for 4a;
+    its backward, which computes dq, dk and dv together, for 4b and 4c) and
+    the backend it ran.
     A kernel on three TF32 products (flash_f32_sm90) also reports its
     operations at the float32 FMA rate (fma_bound_ms) and at ``tc_rate``,
     the rate mma.sync TF32 reached in phase tc_rate (mma_sync_ms)."""
@@ -2096,7 +2168,9 @@ def check_flash(dev, tc_rate):
                    mismatch_share={n: e[1] for n, e in errs.items()},
                    row_err={n: e[2] for n, e in errs.items()},
                    tol=FLASH_TOL_BF16 if dtype == torch.bfloat16 else FLASH_TOL)
-        if shape not in FLASH_TIMED:
+        if dtype == torch.float32 and Dh == 384:
+            row["column_parts_equal"] = _f32_dh384_parts_agree(fa, q, k, v, do, out, causal)
+        if (shape, dtype) not in FLASH_TIMED:
             emit("kernel_flash", **row)
             continue
         # timings at the main paths' shapes
@@ -2126,7 +2200,7 @@ def check_flash(dev, tc_rate):
             bf16_ops, f32_ops, tf32_ops = (n * 2 * Dh * pairs
                                            for n in _flash_products(name, dtype, Dh))
             lib = fa.route("fedml_" + name, dtype, Dh)[0]
-            entry = {"name": name + FLASH_TIMED[shape], "route": "cuda",
+            entry = {"name": name + FLASH_TIMED[shape, dtype], "route": "cuda",
                      "source": f"fedml_tpu_torch/csrc/{lib}.cu",
                      "replaces": "fedml_tpu/ops/pallas/flash_attention.py" + line,
                      "max_abs_err": float(abs_err), "ms": time_ms(kern, reps=3, rounds=3),
@@ -2146,6 +2220,7 @@ def check_flash(dev, tc_rate):
                  library="F.scaled_dot_product_attention " +
                  ("forward" if name == "flash_fwd" else "backward (dq, dk and dv together)"),
                  **{k: v for k, v in entry.items() if k not in ("name", "route", "source")})
+    _check_flash_refusals(fa, dev)
     return entries
 
 
@@ -2153,10 +2228,11 @@ def check_flash(dev, tc_rate):
 # XL LM's attention (Dh 384; a package without those kernels refuses it,
 # and the refusal is printed), the wide LM's, then the LM slice's (Dh 64)
 # and one at Dh 128 with its width (H Dh 1024) and tokens, where the bf16
-# kernels of flash_attention_sm90.cu run; in float32 the wide float32 LM's
-# attention, small_lm_256's, a full one at T 4352, lm_mid_f32's and
-# small_lm_128's
-FLASH_MODE_SHAPES = ((FLASH_XL, torch.bfloat16, True),
+# kernels of flash_attention_sm90.cu run; in float32 the XL float32 LM's
+# attention (refused likewise by a package without the float32 Dh-384
+# kernels), the wide float32 LM's, small_lm_256's, a full one at T 4352,
+# lm_mid_f32's and small_lm_128's
+FLASH_MODE_SHAPES = ((FLASH_XL, torch.bfloat16, True), (FLASH_XL_F32, torch.float32, True),
                      (FLASH_WIDE, torch.bfloat16, True), (FLASH_SLICE, torch.bfloat16, True),
                      ((2, 8192, 8, 128), torch.bfloat16, True),
                      (FLASH_WIDE_F32, torch.float32, True),
@@ -2311,6 +2387,11 @@ LM_MID_F32_T, LM_MID_F32_STEPS = 4608, 3
 # dense
 LM_XL_MODEL = dict(LM_WIDE_MODEL, dim=3072, max_len=4352)
 LM_XL_T, LM_XL_STEPS, LM_XL_PARAMS = 4352, 3, 1_116_174_336
+# the XL LM trained in float32 (DistributedLMTrainer's dtype): the same model,
+# batch and T, where auto picks flash with 4-byte items too; cut: 3 steps of
+# its 100
+LM_XL_F32_MODEL = LM_XL_MODEL
+LM_XL_F32_STEPS = 3
 
 
 def _lm_phase(phase, model, train, B, T, steps, suffix, dtype=torch.bfloat16):
@@ -2440,8 +2521,30 @@ def phase_lm_xl():
     return tr, data, launches
 
 
+def phase_lm_xl_f32():
+    """The XL LM in float32 for LM_XL_F32_STEPS steps under full remat: auto
+    dispatch must pick flash, the model must hold the example's parameter
+    count, and per step the float32 Dh-384 forward, dq and dk/dv
+    (flash_f32_sm90.cu) launch 2 x 8, 8 and 8 times. Returns (trainer,
+    data, launches)."""
+    from fedml_tpu_torch.ops.attention import auto_attention_impl
+
+    H = LM_XL_F32_MODEL["num_heads"]
+    if auto_attention_impl(LM_WIDE_B, H, LM_XL_T, LM_XL_F32_MODEL["dim"] // H, 4) != "flash":
+        raise AssertionError(f"auto dispatch must pick flash at {LM_WIDE_B, H, LM_XL_T} in "
+                             "float32")
+    tr, data, launches, _ = _lm_phase("lm_xl_f32", LM_XL_F32_MODEL, LM_TRAIN, LM_WIDE_B,
+                                      LM_XL_T, LM_XL_F32_STEPS, "_dh384_f32",
+                                      dtype=torch.float32)
+    n_params = sum(p.numel() for p in tr.params.values())
+    if n_params != LM_XL_PARAMS:
+        raise AssertionError(f"lm_xl_f32 holds {n_params} parameters, not {LM_XL_PARAMS}")
+    return tr, data, launches
+
+
 # the bf16 Dh-384 kernels under the trainer: one head of 384 at T 4352,
-# where auto dispatch picks flash in bf16
+# where auto dispatch picks flash in bf16 (and in float32: small_lm_384_f32
+# runs the float32 Dh-384 kernels under small_lm's gates)
 SMALL_LM_384 = dict(vocab_size=256, dim=384, num_heads=1, num_layers=2, max_len=4352)
 # small_lm_384's gate. bf16 GEMMs round differently on the card and on the
 # CPU, so small_lm's float32 bounds do not apply; the same comparison with
@@ -2517,6 +2620,8 @@ def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
         "flash_fwd_dh256_kernel", "flash_dq_dh256_kernel", "flash_dkv_dh256_kernel",
         "flash_fwd_dh384_kernel", "flash_dq_dh384_kernel", "flash_dkv_dh384_kernel",
         "flash_fwd_f32tc_kernel", "flash_dq_f32tc_kernel", "flash_dkv_f32tc_kernel",
+        "flash_fwd_f32tc_kernel<384>", "flash_dq_f32tc_kernel<384>",
+        "flash_dkv_f32tc_kernel<384>",
         "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
         unit="step", groups=LM_GROUPS, calls=want)
     launches = _flash_counts()
@@ -2528,10 +2633,11 @@ def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
 
 
 def main(argv):
-    modes = (["agg"], ["flash"], ["conv"], ["lm_f32"], ["lm_mid"], ["lm_xl"])
+    modes = (["agg"], ["flash"], ["conv"], ["lm_f32"], ["lm_mid"], ["lm_xl"], ["lm_xl_f32"])
     if not (argv in ([], ["kernels"]) or (argv[:1] in modes and len(argv) <= 2)):
         print("usage: python3 chip_smoke.py [kernels | agg [DIR] | flash [DIR] | conv [DIR] | "
-              "lm_f32 [DIR] | lm_mid [DIR] | lm_xl [DIR]]", file=sys.stderr)
+              "lm_f32 [DIR] | lm_mid [DIR] | lm_xl [DIR] | lm_xl_f32 [DIR]]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2550,7 +2656,9 @@ def main(argv):
          "lm_mid": lambda: phase_lm_profile(*phase_lm_mid_f32()[:2], steps=1,
                                             phase="lm_mid_f32_profile"),
          "lm_xl": lambda: phase_lm_profile(*phase_lm_xl()[:2], steps=1,
-                                           phase="lm_xl_profile")}[argv[0]]()
+                                           phase="lm_xl_profile"),
+         "lm_xl_f32": lambda: phase_lm_profile(*phase_lm_xl_f32()[:2], steps=1,
+                                               phase="lm_xl_f32_profile")}[argv[0]]()
         return 0
     smi = phase_device()
     phase_build()
@@ -2601,7 +2709,14 @@ def main(argv):
     launches.update(lm_launches)
     phase_lm_profile(tr, data, steps=1, phase="lm_xl_profile")
     del tr
+    torch.cuda.empty_cache()
+    tr, data, lm_launches = phase_lm_xl_f32()
+    launches.update(lm_launches)
+    phase_lm_profile(tr, data, steps=1, phase="lm_xl_f32_profile")
+    del tr
+    torch.cuda.empty_cache()
     phase_small_lm_384()
+    launches.update(phase_small_lm("small_lm_384_f32", SMALL_LM_384, suffix="_dh384_f32_small"))
     for e in entries:
         e["launches"] = launches[e["name"]]
         e.pop("bytes", None)

@@ -1,18 +1,20 @@
 """Flash attention (port of ``fedml_tpu/ops/pallas/flash_attention.py``).
 
-Hand-written CUDA kernels on (B, T, H, Dh) tensors, bf16 with Dh 64, 128,
-256 or 384 or float32 with Dh 64, 128 or 256 (:data:`HEAD_DIMS`), causal or
-not. bf16 inputs run on the tensor cores (wgmma, exact to float32 through a
-three-term bf16 split of p and ds): at Dh 64 and 128 in
+Hand-written CUDA kernels on (B, T, H, Dh) tensors, bf16 or float32 with Dh
+64, 128, 256 or 384 (:data:`HEAD_DIMS`), causal or not. bf16 inputs run on
+the tensor cores (wgmma, exact to float32 through a three-term bf16 split
+of p and ds): at Dh 64 and 128 in
 ``csrc/flash_attention_sm90.cu``, at Dh 256 in ``csrc/flash_dh256_sm90.cu``
 and at Dh 384 in ``csrc/flash_dh384_sm90.cu`` (score products once per
 block, tiles by TMA; at Dh 384 two warpgroups split the output columns and
 share the scores through shared memory). Float32 inputs run on the tensor
 cores too, in
 ``csrc/flash_f32_sm90.cu`` (``mma.sync`` as three TF32 products, exact to
-float32), for the forward, dq and dk/dv at Dh 256 and the forward at Dh
-128; float32 dq and dk/dv at Dh 128 and every float32 kernel at Dh 64 run
-the FMA kernels of ``csrc/flash_attention.cu`` (:func:`route`):
+float32), for the forward, dq and dk/dv at Dh 256 and 384 and the forward
+at Dh 128 (at Dh 384 three warps split each row group's columns and add
+their partial scores in one fixed order); float32 dq and dk/dv at Dh 128
+and every float32 kernel at Dh 64 run the FMA kernels of
+``csrc/flash_attention.cu`` (:func:`route`):
 
 - :func:`flash_forward` — online-softmax attention; returns ``out`` in q's
   dtype and the per-row logsumexp ``lse`` (B*H, 1, T) float32, the TPU
@@ -191,7 +193,7 @@ def flash_dkv_plain(q, k, v, do, lse, delta, causal: bool):
 # --- the kernel wrappers ------------------------------------------------------
 
 # the head dims the CUDA kernels take, by dtype
-HEAD_DIMS = {torch.float32: (64, 128, 256), torch.bfloat16: (64, 128, 256, 384)}
+HEAD_DIMS = {torch.float32: (64, 128, 256, 384), torch.bfloat16: (64, 128, 256, 384)}
 DTYPES = tuple(HEAD_DIMS)
 
 
@@ -257,17 +259,17 @@ TENSOR_CORE = ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv")
 BF16_TMA = {256: "flash_dh256_sm90", 384: "flash_dh384_sm90"}
 # the head dims at which each entry point has a tensor-core (3xTF32
 # mma.sync) version for float32 inputs
-F32_TENSOR_CORE = {"fedml_flash_fwd": (128, 256), "fedml_flash_dq": (256,),
-                   "fedml_flash_dkv": (256,)}
+F32_TENSOR_CORE = {"fedml_flash_fwd": (128, 256, 384), "fedml_flash_dq": (256, 384),
+                   "fedml_flash_dkv": (256, 384)}
 
 
 def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
     """(kernel library, C entry point) that runs ``name`` on inputs of
     ``dtype`` and head dim ``Dh``: bf16 calls at Dh 256 go to
     ``flash_dh256_sm90``, at Dh 384 to ``flash_dh384_sm90``, other bf16
-    calls to ``flash_attention_sm90``, the float32 forward at Dh 128 and
-    256 and dq and dk/dv at Dh 256 to ``flash_f32_sm90``, the rest of
-    float32 (Dh 64; dq and dk/dv at Dh 128) to the FMA kernels of
+    calls to ``flash_attention_sm90``, the float32 forward at Dh 128, 256
+    and 384 and dq and dk/dv at Dh 256 and 384 to ``flash_f32_sm90``, the
+    rest of float32 (Dh 64; dq and dk/dv at Dh 128) to the FMA kernels of
     ``flash_attention``. All take the same arguments."""
     if dtype == torch.bfloat16 and name in TENSOR_CORE:
         if Dh in BF16_TMA:
