@@ -4,10 +4,10 @@
     python3 chip_smoke.py kernels    # phases 1-3 only (no result line)
     python3 chip_smoke.py agg [DIR]  # the robust path's aggregation half only,
                                      # of the package in checkout DIR (no result line)
-    python3 chip_smoke.py flash [DIR]  # flash's kernel times, bf16 at Dh 384,
-                                       # 256, 64 and 128 and float32 at Dh 384,
-                                       # 256 and 128, of the package in
-                                       # checkout DIR (no result line)
+    python3 chip_smoke.py flash [DIR]  # flash's kernel times, bf16 at Dh 512,
+                                       # 384, 256, 64 and 128 and float32 at
+                                       # Dh 384, 256 and 128, of the package
+                                       # in checkout DIR (no result line)
     python3 chip_smoke.py conv [DIR]   # the bf16 conv weight gradient's times
                                        # at the ResNet-56 shapes, of the package
                                        # in checkout DIR (no result line)
@@ -17,6 +17,7 @@
     python3 chip_smoke.py lm_mid [DIR] # lm_mid_f32 and its profile, likewise
     python3 chip_smoke.py lm_xl [DIR]  # lm_xl and its profile, likewise
     python3 chip_smoke.py lm_xl_f32 [DIR]  # lm_xl_f32 and its profile, likewise
+    python3 chip_smoke.py lm_xxl [DIR]  # lm_xxl and its profile, likewise
 
 Phases, each printing one JSON line; any failure ends the run with a
 non-zero exit code and no result line:
@@ -57,7 +58,11 @@ non-zero exit code and no result line:
    flash_dh384_sm90.cu; the _dh384_f32 ones at lm_xl_f32's shape and the
    _dh384_f32_small ones at small_lm_384_f32's, on flash_f32_sm90.cu, whose
    column parts at Dh 384 are also held bit-equal on inputs with repeated
-   column parts); each redesigned kernel with the earlier design's time as
+   column parts; the _dh512 entries at lm_xxl's bf16 shape and the
+   _dh1536_small ones at small_lm_1536's, on flash_wide_sm90.cu, checked at
+   all nine of its head dims (512 ... 1536), each timed at one causal head
+   of T 4224, its column slices held bit-equal on inputs whose slices
+   repeat); each redesigned kernel with the earlier design's time as
    was_ms;
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
@@ -89,7 +94,7 @@ non-zero exit code and no result line:
 9. resnet_main — the CIFAR-10 ResNet-56 FedAvg example config
    (examples/tpu_fedavg_cifar10_resnet56) through load_arguments + init +
    the single-process simulator with conv_impl pallas, full width and
-   depth, 2 rounds of one epoch, under its own cohort schedule (auto ->
+   depth, 1 round of one epoch, under its own cohort schedule (auto ->
    packed, one lane on one card) and checkpointing (to a temporary
    directory); the conv kernels' launch counts, per forward route too, must
    equal those derived from the simulator's round plans, and the last
@@ -142,7 +147,15 @@ non-zero exit code and no result line:
 20. small_lm_384 — one bf16 head of Dh 384 at T 4352 (auto picks flash),
     card against CPU, within SMALL_LM_384_FACTOR of the same comparison
     with dense attention; small_lm_384_f32 the same head in float32, under
-    small_lm's float32 gates.
+    small_lm's float32 gates;
+21. lm_xxl — the Cheetah example at --dim 4096 --seq_len 4352 (vocab
+    32000, 8 heads of 512, 8 layers, 1,890.9 M parameters, bf16, full
+    remat, B 8) for 3 steps: 16 forward, 8 dq and 8 dk/dv launches a step
+    on flash_wide_sm90.cu; lm_xxl_profile, one warm step under
+    torch.profiler;
+22. small_lm_512 and small_lm_1536 — one bf16 head of Dh 512 at T 4352 and
+    one of Dh 1536 at T 4224 in one layer (auto picks flash), card against
+    CPU under small_lm_384's gate.
 
 Every LM profile must show as many flash kernels a step as the wrappers
 count (profile_run's ``calls``), and every device_ms profile as many events
@@ -1399,12 +1412,14 @@ def _lanes(inputs):
 
 RESNET_YAML = Path(__file__).resolve().parent / \
     "examples/tpu_fedavg_cifar10_resnet56/fedml_config.yaml"
-# cut: 1 epoch instead of 20, 2 rounds instead of 100. The port runs one
+# cut: 1 epoch instead of 20, 1 round instead of 100 (2 until lm_xxl,
+# small_lm_512 and small_lm_1536 joined the run; each phase's profiled round
+# runs on a fresh simulator after it, warm). The port runs one
 # card with the sp engine (the YAML's backend: TPU mesh is not ported), and
 # conv_impl pallas engages the conv kernels; the YAML's cohort_schedule
 # (auto: packed on this skewed partition) and checkpointing stay, with
 # checkpoint_dir pointed at a temporary directory by the phase.
-RESNET_OVERRIDES = dict(conv_impl="pallas", epochs=1, comm_round=2, backend="sp",
+RESNET_OVERRIDES = dict(conv_impl="pallas", epochs=1, comm_round=1, backend="sp",
                         device="cuda")
 
 
@@ -1575,7 +1590,7 @@ def phase_resnet_profile():
 def _stateful_resnet_phase(name, extra, want_schedule, check_ckpt):
     """One algorithm or model variant on the ResNet-56 example at full
     width: the YAML through load_arguments(--cf) with resnet_main's
-    overrides and ``extra``, 2 rounds of one epoch with checkpoints in a
+    overrides and ``extra``, 1 round of one epoch with checkpoints in a
     temporary directory; the schedule ``auto`` must resolve to (a callable:
     of the simulator), conv launches equal to the round plans, the last
     round's checkpoint checked by ``check_ckpt(saved state, runner)``; then
@@ -1927,6 +1942,14 @@ FLASH_MID_F32 = (8, 4608, 8, 128)
 FLASH_XL = (8, 4352, 8, 384)
 FLASH_XL_F32 = FLASH_XL
 FLASH_SMALL_LM_384 = (1, 4352, 1, 384)
+# lm_xxl's attention: the Cheetah example at --dim 4096, 8 heads of 512, bf16;
+# then every bf16 head dim of flash_wide_sm90.cu (Dh = 128 n, 512 ... 1536):
+# one causal head at small_lm_1536's T 4224 (timed), a ragged full (2, 333,
+# 3, Dh) (the non-causal branch, TMA's zero fill)
+FLASH_XXL = (8, 4352, 8, 512)
+FLASH_WIDE_DIMS = tuple(range(512, 1537, 128))
+FLASH_WIDE_SWEEP_T = 4224
+FLASH_SMALL_LM_1536 = (1, FLASH_WIDE_SWEEP_T, 1, 1536)
 FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float32, False),
                ((3, 333, 2, 64), torch.float32, True), ((2, 100, 3, 128), torch.bfloat16, True),
                ((1, 1000, 4, 64), torch.bfloat16, False),
@@ -1939,12 +1962,18 @@ FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float3
                ((3, 130, 2, 128), torch.float32, True), (FLASH_XL, torch.bfloat16, True),
                ((2, 333, 3, 384), torch.bfloat16, True), ((1, 1000, 2, 384), torch.bfloat16, False),
                (FLASH_XL_F32, torch.float32, True), (FLASH_SMALL_LM_384, torch.float32, True),
-               ((1, 4352, 2, 384), torch.float32, False), ((3, 130, 2, 384), torch.float32, True))
+               ((1, 4352, 2, 384), torch.float32, False), ((3, 130, 2, 384), torch.float32, True),
+               (FLASH_XXL, torch.bfloat16, True)) + tuple(
+    case for Dh in FLASH_WIDE_DIMS
+    for case in (((1, FLASH_WIDE_SWEEP_T, 1, Dh), torch.bfloat16, True),
+                 ((2, 333, 3, Dh), torch.bfloat16, False)))
 # the timed (shape, dtype) pairs and the suffix of their kernels line
 # entries (the launch counts of lm_main, lm_wide, lm_wide_f32, small_lm_256,
-# small_lm, small_lm_128, lm_mid_f32, lm_xl, lm_xl_f32 and small_lm_384_f32
-# fill them in, each at the shape its path gives the kernels); keyed by
-# dtype too, since lm_xl and lm_xl_f32 give the kernels one shape
+# small_lm, small_lm_128, lm_mid_f32, lm_xl, lm_xl_f32, small_lm_384_f32,
+# lm_xxl and small_lm_1536 fill them in, each at the shape its path gives
+# the kernels); keyed by dtype too, since lm_xl and lm_xl_f32 give the
+# kernels one shape. The other (1, FLASH_WIDE_SWEEP_T, 1, Dh) cases are timed
+# on their own lines (sweep_ms), not in the kernels line: no path runs them
 FLASH_TIMED = {(FLASH_SLICE, torch.bfloat16): "", (FLASH_WIDE, torch.bfloat16): "_dh256",
                (FLASH_WIDE_F32, torch.float32): "_dh256_f32",
                (FLASH_SMALL_LM_256, torch.float32): "_dh256_f32_small",
@@ -1952,7 +1981,9 @@ FLASH_TIMED = {(FLASH_SLICE, torch.bfloat16): "", (FLASH_WIDE, torch.bfloat16): 
                (FLASH_SMALL_LM_128, torch.float32): "_dh128_f32",
                (FLASH_MID_F32, torch.float32): "_dh128_f32_mid",
                (FLASH_XL, torch.bfloat16): "_dh384", (FLASH_XL_F32, torch.float32): "_dh384_f32",
-               (FLASH_SMALL_LM_384, torch.float32): "_dh384_f32_small"}
+               (FLASH_SMALL_LM_384, torch.float32): "_dh384_f32_small",
+               (FLASH_XXL, torch.bfloat16): "_dh512",
+               (FLASH_SMALL_LM_1536, torch.bfloat16): "_dh1536_small"}
 # the earlier design's time of a kernel redesigned since, and that design,
 # printed beside the new time on the kernel's own line: ms at FLASH_WIDE of
 # the bf16 Dh-256 forward, dq and dk/dv of flash_attention_sm90.cu, at
@@ -2078,14 +2109,18 @@ def _sdpa_ms(q, k, v, do, causal):
         return None, None, None, f"{type(e).__name__}: {e}"[:400]
 
 
-def _f32_dh384_parts_agree(fa, q, k, v, do, out, causal):
-    """The float32 Dh-384 kernels split each row's columns among warps:
-    three of 128 in the forward and dq, two of 192 for dk and for dv, the
-    split warps adding their partial scores in one fixed order, so that
-    all of them hold the same softmax, p and ds. On inputs whose column
-    parts repeat (v for the forward's out, k for dq, q for dk, dO for dv),
-    each output's parts must then be bit-equal; a warp that summed the
-    partial scores in its own order would give its part other low bits."""
+def _column_parts_agree(fa, q, k, v, do, causal, n_fq, n_kv, what):
+    """Kernels that split each row's output columns into parts, every part
+    holding the same softmax, p and ds bits: the float32 Dh-384 kernels
+    (three warps of 128 columns in the forward and dq, two of 192 for dk
+    and for dv, adding their partial scores in one fixed order) and the
+    bf16 kernels at Dh 512-1536 (a block per slice of 256 columns, 128
+    where Dh % 256 != 0, every slice summing its score chunks in one
+    order). On inputs whose column parts repeat (v for the forward's out, k
+    for dq, q and dO for dk and dv; n_fq parts for the forward and dq, n_kv
+    for dk/dv), each output's parts must then be bit-equal; a part that
+    read other columns or summed its scores in another order would give
+    other low bits."""
     def parts(x, n):
         w = x.shape[-1] // n
         return all(torch.equal(x[..., :w], x[..., i * w:(i + 1) * w]) for i in range(1, n))
@@ -2093,38 +2128,38 @@ def _f32_dh384_parts_agree(fa, q, k, v, do, out, causal):
     def rep(x, n):
         return x[..., :x.shape[-1] // n].repeat(1, 1, 1, n)
 
-    delta = fa.attention_delta(do, out)
-    v3, k3 = rep(v, 3), rep(k, 3)
-    q2, do2 = rep(q, 2), rep(do, 2)
-    _, lse_k3 = fa.flash_forward(q, k3, v, causal)
-    out2, lse2 = fa.flash_forward(q2, k, v, causal)
-    dk2, dv2 = fa.flash_dkv(q2, k, v, do2, lse2, fa.attention_delta(do2, out2), causal)
-    agree = {"out": parts(fa.flash_forward(q, k, v3, causal)[0], 3),
-             "dq": parts(fa.flash_dq(q, k3, v, do, lse_k3, delta, causal), 3),
-             "dk": parts(dk2, 2), "dv": parts(dv2, 2)}
+    kr, qr, dor = rep(k, n_fq), rep(q, n_kv), rep(do, n_kv)
+    out_k, lse_k = fa.flash_forward(q, kr, v, causal)
+    out_q, lse_q = fa.flash_forward(qr, k, v, causal)
+    dk, dv = fa.flash_dkv(qr, k, v, dor, lse_q, fa.attention_delta(dor, out_q), causal)
+    agree = {"out": parts(fa.flash_forward(q, k, rep(v, n_fq), causal)[0], n_fq),
+             "dq": parts(fa.flash_dq(q, kr, v, do, lse_k, fa.attention_delta(do, out_k),
+                                     causal), n_fq),
+             "dk": parts(dk, n_kv), "dv": parts(dv, n_kv)}
     if not all(agree.values()):
-        raise AssertionError(f"flash float32 Dh 384 at {tuple(q.shape)}: the column parts "
-                             f"of {[n for n, a in agree.items() if not a]} differ")
+        raise AssertionError(f"flash {what} at {tuple(q.shape)}: the column parts of "
+                             f"{[n for n, a in agree.items() if not a]} differ")
     return agree
 
 
 def _check_flash_refusals(fa, dev):
-    """The head dims that the shared guard admits but no kernel takes yet
-    (Dh 512 and 1536, both dtypes) raise on the card with the queue that
-    lists them, before any launch and with no fallback."""
+    """The head dims no kernel takes raise on the card with the queue that
+    lists them, before any launch and with no fallback: float32 at Dh 512
+    and 896 (admitted by the shared guard, not ported yet), bf16 at Dh 576
+    (no multiple of 128) and 1664 (past the guard's 1536)."""
     before = _flash_counts()
     refused = {}
-    for Dh in (512, 1536):
-        for dtype in (torch.bfloat16, torch.float32):
-            q = torch.zeros(1, 128, 1, Dh, device=dev, dtype=dtype)
-            try:
-                fa.flash_forward(q, q, q, True)
-            except ValueError as e:
-                if "ROADMAP.md Queue 2" in str(e):
-                    refused[f"{dtype}_dh{Dh}"] = True
-                    continue
-                raise
-            raise AssertionError(f"flash at Dh {Dh} in {dtype} ran on the card")
+    for Dh, dtype in ((512, torch.float32), (896, torch.float32), (576, torch.bfloat16),
+                      (1664, torch.bfloat16)):
+        q = torch.zeros(1, 128, 1, Dh, device=dev, dtype=dtype)
+        try:
+            fa.flash_forward(q, q, q, True)
+        except ValueError as e:
+            if "ROADMAP.md Queue 2" in str(e):
+                refused[f"{dtype}_dh{Dh}"] = True
+                continue
+            raise
+        raise AssertionError(f"flash at Dh {Dh} in {dtype} ran on the card")
     if _flash_counts() != before:
         raise AssertionError("a refused flash call counted a launch")
     emit("kernel_flash_refusals", refused=refused)
@@ -2169,14 +2204,33 @@ def check_flash(dev, tc_rate):
                    row_err={n: e[2] for n, e in errs.items()},
                    tol=FLASH_TOL_BF16 if dtype == torch.bfloat16 else FLASH_TOL)
         if dtype == torch.float32 and Dh == 384:
-            row["column_parts_equal"] = _f32_dh384_parts_agree(fa, q, k, v, do, out, causal)
-        if (shape, dtype) not in FLASH_TIMED:
-            emit("kernel_flash", **row)
-            continue
-        # timings at the main paths' shapes
+            row["column_parts_equal"] = _column_parts_agree(fa, q, k, v, do, causal, 3, 2,
+                                                            "float32 Dh 384")
+        if dtype == torch.bfloat16 and Dh in fa.BF16_WIDE:
+            n = Dh // (256 if Dh % 256 == 0 else 128)
+            row["column_parts_equal"] = _column_parts_agree(fa, q, k, v, do, causal, n, n,
+                                                            f"bf16 Dh {Dh}")
         nb = B * T * H * Dh * q.element_size()  # one (B, T, H, Dh) tensor
         rows_b = B * H * T * 4                   # one float32 row vector (lse or delta)
         pairs = _flash_pairs(B, T, H, causal)
+        if (shape, dtype) not in FLASH_TIMED:
+            if T == FLASH_WIDE_SWEEP_T and dtype == torch.bfloat16 and Dh in fa.BF16_WIDE:
+                # the head dims no path runs: kernel ms beside the bound
+                row["sweep_ms"] = {
+                    "flash_fwd": time_ms(lambda: fa.flash_forward(q, k, v, causal), 3, 3),
+                    "flash_dq": time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
+                                        3, 3),
+                    "flash_dkv": time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal),
+                                         3, 3)}
+                row["sweep_bound_ms"] = {
+                    name: _bound(0, nbytes, _flash_products(name, dtype, Dh)[0] * 2 * Dh
+                                 * pairs)["bound_ms"]
+                    for name, nbytes in (("flash_fwd", 4 * nb + rows_b),
+                                         ("flash_dq", 5 * nb + 2 * rows_b),
+                                         ("flash_dkv", 6 * nb + 2 * rows_b))}
+            emit("kernel_flash", **row)
+            continue
+        # timings at the main paths' shapes
         row["sdpa_backend"], sdpa_fwd_ms, sdpa_bwd_ms, sdpa_error = _sdpa_ms(q, k, v, do, causal)
         if sdpa_error:
             row["sdpa_error"] = sdpa_error
@@ -2225,14 +2279,15 @@ def check_flash(dev, tc_rate):
 
 
 # (B, T, H, Dh), dtype and causal of phase_flash_times: in bf16 causal the
-# XL LM's attention (Dh 384; a package without those kernels refuses it,
-# and the refusal is printed), the wide LM's, then the LM slice's (Dh 64)
-# and one at Dh 128 with its width (H Dh 1024) and tokens, where the bf16
-# kernels of flash_attention_sm90.cu run; in float32 the XL float32 LM's
-# attention (refused likewise by a package without the float32 Dh-384
-# kernels), the wide float32 LM's, small_lm_256's, a full one at T 4352,
-# lm_mid_f32's and small_lm_128's
-FLASH_MODE_SHAPES = ((FLASH_XL, torch.bfloat16, True), (FLASH_XL_F32, torch.float32, True),
+# XXL LM's attention (Dh 512) and the XL LM's (Dh 384; a package without
+# those kernels refuses them, and the refusal is printed), the wide LM's,
+# then the LM slice's (Dh 64) and one at Dh 128 with its width (H Dh 1024)
+# and tokens, where the bf16 kernels of flash_attention_sm90.cu run; in
+# float32 the XL float32 LM's attention (refused likewise by a package
+# without the float32 Dh-384 kernels), the wide float32 LM's,
+# small_lm_256's, a full one at T 4352, lm_mid_f32's and small_lm_128's
+FLASH_MODE_SHAPES = ((FLASH_XXL, torch.bfloat16, True), (FLASH_XL, torch.bfloat16, True),
+                     (FLASH_XL_F32, torch.float32, True),
                      (FLASH_WIDE, torch.bfloat16, True), (FLASH_SLICE, torch.bfloat16, True),
                      ((2, 8192, 8, 128), torch.bfloat16, True),
                      (FLASH_WIDE_F32, torch.float32, True),
@@ -2392,6 +2447,12 @@ LM_XL_T, LM_XL_STEPS, LM_XL_PARAMS = 4352, 3, 1_116_174_336
 # its 100
 LM_XL_F32_MODEL = LM_XL_MODEL
 LM_XL_F32_STEPS = 3
+# the XXL LM: examples/cheetah_lm/main.py --dim 4096 --seq_len 4352 (vocab
+# 32000, its 8 heads, so Dh 512, its 8 layers; 1,890,885,632 parameters) at
+# its batch 8 in bf16 (the trainer's dtype), max_len = T; cut: 3 steps of
+# its 100. At T 4352 auto picks flash in bf16 (in float32 dense)
+LM_XXL_MODEL = dict(LM_WIDE_MODEL, dim=4096, max_len=4352)
+LM_XXL_STEPS, LM_XXL_PARAMS = 3, 1_890_885_632
 
 
 def _lm_phase(phase, model, train, B, T, steps, suffix, dtype=torch.bfloat16):
@@ -2521,6 +2582,25 @@ def phase_lm_xl():
     return tr, data, launches
 
 
+def phase_lm_xxl():
+    """The XXL LM (Dh 512) for LM_XXL_STEPS steps under full remat: auto
+    dispatch must pick flash, the model must hold the example's parameter
+    count, and per step the bf16 forward, dq and dk/dv of
+    flash_wide_sm90.cu launch 2 x 8, 8 and 8 times. Returns (trainer, data,
+    launches)."""
+    from fedml_tpu_torch.ops.attention import auto_attention_impl
+
+    H = LM_XXL_MODEL["num_heads"]
+    if auto_attention_impl(LM_WIDE_B, H, LM_XL_T, LM_XXL_MODEL["dim"] // H, 2) != "flash":
+        raise AssertionError(f"auto dispatch must pick flash at {LM_WIDE_B, H, LM_XL_T}")
+    tr, data, launches, _ = _lm_phase("lm_xxl", LM_XXL_MODEL, LM_TRAIN, LM_WIDE_B, LM_XL_T,
+                                      LM_XXL_STEPS, "_dh512")
+    n_params = sum(p.numel() for p in tr.params.values())
+    if n_params != LM_XXL_PARAMS:
+        raise AssertionError(f"lm_xxl holds {n_params} parameters, not {LM_XXL_PARAMS}")
+    return tr, data, launches
+
+
 def phase_lm_xl_f32():
     """The XL LM in float32 for LM_XL_F32_STEPS steps under full remat: auto
     dispatch must pick flash, the model must hold the example's parameter
@@ -2544,9 +2624,15 @@ def phase_lm_xl_f32():
 
 # the bf16 Dh-384 kernels under the trainer: one head of 384 at T 4352,
 # where auto dispatch picks flash in bf16 (and in float32: small_lm_384_f32
-# runs the float32 Dh-384 kernels under small_lm's gates)
+# runs the float32 Dh-384 kernels under small_lm's gates); the bf16 kernels
+# of flash_wide_sm90.cu likewise: one head of 512 at T 4352 and one of 1536
+# at T 4224 (its slices of 256 columns: two, and six), where auto picks
+# flash in bf16; the latter in one layer (two took 100-118 s on the card's
+# host, most of it the CPU run)
 SMALL_LM_384 = dict(vocab_size=256, dim=384, num_heads=1, num_layers=2, max_len=4352)
-# small_lm_384's gate. bf16 GEMMs round differently on the card and on the
+SMALL_LM_512 = dict(SMALL_LM_384, dim=512)
+SMALL_LM_1536 = dict(SMALL_LM_384, dim=1536, num_layers=1, max_len=FLASH_WIDE_SWEEP_T)
+# the bf16 small LMs' gate. bf16 GEMMs round differently on the card and on the
 # CPU, so small_lm's float32 bounds do not apply; the same comparison with
 # dense attention on both devices measures what that rounding alone does
 # over the same steps, and the flash run's loss and parameter differences
@@ -2555,36 +2641,39 @@ SMALL_LM_384 = dict(vocab_size=256, dim=384, num_heads=1, num_layers=2, max_len=
 SMALL_LM_384_FACTOR = 4.0
 
 
-def phase_small_lm_384(steps=3):
-    """One bf16 head of 384 at T 4352 for ``steps`` trainer steps on the
-    card (the Dh-384 kernels) and on the CPU (their plain versions), from
+def phase_small_lm_bf16(phase="small_lm_384", model=SMALL_LM_384, suffix="_dh384", steps=3):
+    """One bf16 head (Dh = dim) at T = max_len for ``steps`` trainer steps
+    on the card (the kernels) and on the CPU (their plain versions), from
     the same parameters and data, then the same with dense attention on
     both devices; the flash run's differences must stay within
-    SMALL_LM_384_FACTOR of the dense run's."""
+    SMALL_LM_384_FACTOR of the dense run's. Returns the flash run's
+    launches, keyed with ``suffix``."""
     from fedml_tpu_torch.ops.attention import auto_attention_impl
     from fedml_tpu_torch.parallel import DistTrainConfig, DistributedLMTrainer
 
-    T, layers = SMALL_LM_384["max_len"], SMALL_LM_384["num_layers"]
-    if auto_attention_impl(1, 1, T, 384, 2) != "flash":
-        raise AssertionError(f"auto dispatch must pick flash at T {T}")
-    cfg = DistTrainConfig(lr=3e-4, weight_decay=0.01, use_remat=True, ce_chunk=256)
+    T, layers, Dh = model["max_len"], model["num_layers"], model["dim"]
+    if auto_attention_impl(1, 1, T, Dh, 2) != "flash":
+        raise AssertionError(f"auto dispatch must pick flash at T {T}, Dh {Dh}")
+    # the chunked cross-entropy's chunk divides T: 256, or 128 at an odd
+    # multiple of 128 (T 4224, where the guard's budget admits Dh 1536)
+    cfg = DistTrainConfig(lr=3e-4, weight_decay=0.01, use_remat=True,
+                          ce_chunk=math.gcd(T, 256))
     row = {}
     for impl in ("flash", "dense"):
         losses, params = {}, {}
         for device in ("cuda", "cpu"):
             tr = DistributedLMTrainer(cfg, dtype=torch.bfloat16, device=device, seed=0,
-                                      **SMALL_LM_384)
+                                      **model)
             if impl == "dense":
                 for i in range(layers):
                     getattr(tr.model, f"block_{i}").SelfAttention_0.attn_impl = "dense"
             _zero_flash_counts()
-            losses[device] = tr.train(lm_data(SMALL_LM_384["vocab_size"], 1, T), steps,
-                                      log_fn=None)
+            losses[device] = tr.train(lm_data(model["vocab_size"], 1, T), steps, log_fn=None)
             if device == "cuda":
-                launches = _flash_counts("_dh384")
-                want = _want_flash(layers, steps if impl == "flash" else 0, "_dh384")
+                launches = _flash_counts(suffix)
+                want = _want_flash(layers, steps if impl == "flash" else 0, suffix)
                 if launches != want:
-                    raise AssertionError(f"small_lm_384 ({impl}) launches {launches}, "
+                    raise AssertionError(f"{phase} ({impl}) launches {launches}, "
                                          f"expected {want}")
             params[device] = {k: p.detach().float().cpu() for k, p in tr.params.items()}
         row[impl] = dict(
@@ -2596,11 +2685,12 @@ def phase_small_lm_384(steps=3):
     flash, dense = row["flash"], row["dense"]
     keys = ("loss_max_rel_diff", "param_max_abs_diff")
     if not all(flash[k] <= SMALL_LM_384_FACTOR * dense[k] for k in keys):
-        raise AssertionError(f"small_lm_384: the flash run's differences exceed "
+        raise AssertionError(f"{phase}: the flash run's differences exceed "
                              f"{SMALL_LM_384_FACTOR} x the dense run's: {row}")
     ratios = {k: flash[k] / dense[k] if dense[k] else None for k in keys}
-    emit("small_lm_384", config=SMALL_LM_384, steps=steps, ratio_to_dense=ratios,
-         factor=SMALL_LM_384_FACTOR, **row)
+    emit(phase, config=model, steps=steps, ratio_to_dense=ratios, factor=SMALL_LM_384_FACTOR,
+         **row)
+    return flash["launches"]
 
 
 # the LM profiles' kernel groups: the flash kernels, the matrix products
@@ -2619,6 +2709,7 @@ def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
         "flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
         "flash_fwd_dh256_kernel", "flash_dq_dh256_kernel", "flash_dkv_dh256_kernel",
         "flash_fwd_dh384_kernel", "flash_dq_dh384_kernel", "flash_dkv_dh384_kernel",
+        "flash_fwd_wide_kernel", "flash_dq_wide_kernel", "flash_dkv_wide_kernel",
         "flash_fwd_f32tc_kernel", "flash_dq_f32tc_kernel", "flash_dkv_f32tc_kernel",
         "flash_fwd_f32tc_kernel<384>", "flash_dq_f32tc_kernel<384>",
         "flash_dkv_f32tc_kernel<384>",
@@ -2633,10 +2724,11 @@ def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
 
 
 def main(argv):
-    modes = (["agg"], ["flash"], ["conv"], ["lm_f32"], ["lm_mid"], ["lm_xl"], ["lm_xl_f32"])
+    modes = (["agg"], ["flash"], ["conv"], ["lm_f32"], ["lm_mid"], ["lm_xl"], ["lm_xl_f32"],
+             ["lm_xxl"])
     if not (argv in ([], ["kernels"]) or (argv[:1] in modes and len(argv) <= 2)):
         print("usage: python3 chip_smoke.py [kernels | agg [DIR] | flash [DIR] | conv [DIR] | "
-              "lm_f32 [DIR] | lm_mid [DIR] | lm_xl [DIR] | lm_xl_f32 [DIR]]",
+              "lm_f32 [DIR] | lm_mid [DIR] | lm_xl [DIR] | lm_xl_f32 [DIR] | lm_xxl [DIR]]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2658,7 +2750,9 @@ def main(argv):
          "lm_xl": lambda: phase_lm_profile(*phase_lm_xl()[:2], steps=1,
                                            phase="lm_xl_profile"),
          "lm_xl_f32": lambda: phase_lm_profile(*phase_lm_xl_f32()[:2], steps=1,
-                                               phase="lm_xl_f32_profile")}[argv[0]]()
+                                               phase="lm_xl_f32_profile"),
+         "lm_xxl": lambda: phase_lm_profile(*phase_lm_xxl()[:2], steps=1,
+                                            phase="lm_xxl_profile")}[argv[0]]()
         return 0
     smi = phase_device()
     phase_build()
@@ -2715,8 +2809,15 @@ def main(argv):
     phase_lm_profile(tr, data, steps=1, phase="lm_xl_f32_profile")
     del tr
     torch.cuda.empty_cache()
-    phase_small_lm_384()
+    phase_small_lm_bf16()
     launches.update(phase_small_lm("small_lm_384_f32", SMALL_LM_384, suffix="_dh384_f32_small"))
+    tr, data, lm_launches = phase_lm_xxl()
+    launches.update(lm_launches)
+    phase_lm_profile(tr, data, steps=1, phase="lm_xxl_profile")
+    del tr
+    torch.cuda.empty_cache()
+    phase_small_lm_bf16("small_lm_512", SMALL_LM_512, "_dh512_small")
+    launches.update(phase_small_lm_bf16("small_lm_1536", SMALL_LM_1536, "_dh1536_small"))
     for e in entries:
         e["launches"] = launches[e["name"]]
         e.pop("bytes", None)

@@ -107,10 +107,8 @@ constexpr int kDkvSmem = 4 * kTileBytes + kXBytes + 2 * kVecSlot + 3 * 8 + 1024;
 static_assert(kFwdSmem <= 232448 && kDqSmem <= 232448 && kDkvSmem <= 232448,
               "shared memory of one H100 block");
 
-// named barriers (0 is __syncthreads). Forward and dq: both exchange tiles
-// written; warpgroup 1 - w has read tile w (kRead + w). dk/dv: the p tile
-// written, and read
-constexpr int kWritten = 1, kRead = 2;
+// named barriers of dk/dv (0 is __syncthreads; the forward's and dq's are
+// exchange()'s): the p tile written, and read
 constexpr int kPFull = 1, kPEmpty = 2;
 
 __device__ __forceinline__ void zero(float (&acc)[kOwn][32]) {
@@ -118,18 +116,6 @@ __device__ __forceinline__ void zero(float (&acc)[kOwn][32]) {
   for (int g = 0; g < kOwn; ++g)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[g][i] = 0.f;
-}
-
-// the exchange of k tile kt of nk (forward and dq): this warpgroup's tile x
-// into its exchange tile, once the other has read it for tile kt - 1; the
-// other's into y, once both are written
-__device__ __forceinline__ void exchange(float* X, const float (&x)[32], float (&y)[32], int wg,
-                                         int kt, int nk, int r, int c2) {
-  if (kt > 0) named_sync<kThreads>(kRead + wg);
-  put_tile(X + wg * kXFloats, x, r, c2);
-  named_sync<kThreads>(kWritten);
-  get_tile(X + (1 - wg) * kXFloats, y, r, c2);
-  if (kt + 1 < nk) named_arrive<kThreads>(kRead + 1 - wg);  // I have read the other's
 }
 
 // rows row0, row0 + 8 of a (B, T, H, 384) output: this warpgroup's three

@@ -1,10 +1,11 @@
 // Staging and exchange helpers shared by the bf16 flash kernels that take
 // their tiles by TMA (flash_dh256_sm90.cu at Dh 256, flash_dh384_sm90.cu at
-// Dh 384): mbarriers, TMA copies of 64-row tiles and of lse/delta boxes,
-// named barriers, the float32 exchange tile between warpgroups, the
-// split-term P V style product of one 64-column group, the score product,
-// the plain float32 dot products of a causal diagonal tile, and the host's
-// tensor maps.
+// Dh 384, flash_wide_sm90.cu at Dh 512-1536): mbarriers, TMA copies of
+// 64-row tiles and of lse/delta boxes, named barriers, the float32 exchange
+// tile between two warpgroups and its protocol, the split-term P V style
+// product of one
+// 64-column group, the score product, the plain float32 dot products of a
+// causal diagonal tile, and the host's tensor maps.
 
 #pragma once
 
@@ -130,6 +131,23 @@ __device__ __forceinline__ void get_tile(const float* X, float (&s)[32], int r, 
     }
 }
 
+// named barriers of exchange() (0 is __syncthreads): both exchange tiles
+// written (kWritten); warpgroup 1 - w has read tile w (kRead + w)
+constexpr int kWritten = 1, kRead = 2;
+
+// the exchange of k tile kt of nk between two warpgroups (the forward's and
+// dq's at Dh 384 and 512-1536): this warpgroup's tile x into its exchange
+// tile, X + wg kXFloats, once the other has read it for tile kt - 1; the
+// other's into y, once both are written
+__device__ __forceinline__ void exchange(float* X, const float (&x)[32], float (&y)[32], int wg,
+                                         int kt, int nk, int r, int c2) {
+  if (kt > 0) named_sync<2 * kWG>(kRead + wg);
+  put_tile(X + wg * kXFloats, x, r, c2);
+  named_sync<2 * kWG>(kWritten);
+  get_tile(X + (1 - wg) * kXFloats, y, r, c2);
+  if (kt + 1 < nk) named_arrive<2 * kWG>(kRead + 1 - wg);  // I have read the other's
+}
+
 // d = A B for 64-column group g of B: A 64 x 64 in three register terms, B
 // the 64-row `tile` MN-major. Per k step lo, mid, hi: flash_attention_sm90.cu's
 // order (issued, not waited)
@@ -213,19 +231,24 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// (DH, H, T, B) bf16 at element strides (sh, st, sb), 64 x 64 boxes of one
+// (Dh, H, T, B) bf16 at element strides (sh, st, sb), 64 x 64 boxes of one
 // (b, h) in the 128-byte swizzle
-template <int DH>
-bool map_rows(CUtensorMap* map, const void* p, int B, int H, int T, int64_t sb, int64_t st,
-              int64_t sh) {
+bool map_heads(CUtensorMap* map, const void* p, int Dh, int B, int H, int T, int64_t sb,
+               int64_t st, int64_t sh) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)kTile, 1}, unit[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+bool map_rows(CUtensorMap* map, const void* p, int B, int H, int T, int64_t sb, int64_t st,
+              int64_t sh) {
+  return map_heads(map, p, DH, B, H, T, sb, st, sh);
 }
 
 // a float32 vector of n, boxes of kVecBox

@@ -210,7 +210,10 @@ CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-4 + 2.0 ** -7}
                                                 ((1, 1000, 2, 384), torch.bfloat16, False),
                                                 ((3, 130, 2, 384), torch.float32, True),
                                                 ((1, 1000, 2, 384), torch.float32, False),
-                                                ((2, 333, 3, 384), torch.float32, True)])
+                                                ((2, 333, 3, 384), torch.float32, True),
+                                                ((2, 333, 3, 512), torch.bfloat16, True),
+                                                ((1, 1000, 2, 1024), torch.bfloat16, False),
+                                                ((1, 300, 2, 1536), torch.bfloat16, True)])
 def test_flash_kernels_match_plain_on_card(shape, dtype, causal):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")

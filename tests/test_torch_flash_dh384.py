@@ -137,20 +137,25 @@ def test_dh384_transformer_lm_flash_loss_and_grads_match_jax():
 def test_route_sends_bf16_dh384_to_its_kernels_and_nothing_else():
     """bf16 at Dh 384 runs flash_dh384_sm90.cu's three entry points; float32
     at Dh 384 runs flash_f32_sm90.cu's, which the card's wrappers accept too;
-    Dh 512 and 1536 in either dtype go to neither, and the card's wrappers
-    refuse them (ROADMAP.md Queue 2). The XL LM's shape is one that auto
-    dispatch sends to flash, in both dtypes."""
+    Dh 512 and 1536 in either dtype go to neither: bf16 there runs
+    flash_wide_sm90.cu's entry points, which the card's wrappers accept,
+    and float32 there is refused (ROADMAP.md Queue 2). The XL LM's shape is
+    one that auto dispatch sends to flash, in both dtypes."""
     for name in ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv"):
         assert tfa.route(name, torch.bfloat16, 384) == ("flash_dh384_sm90", name + "_dh384_sm90")
         assert tfa.route(name, torch.float32, 384) == ("flash_f32_sm90", name + "_f32_sm90")
         for dtype, Dh in ((torch.bfloat16, 512), (torch.float32, 512),
                           (torch.bfloat16, 1536), (torch.float32, 1536)):
             assert tfa.route(name, dtype, Dh)[0] != "flash_dh384_sm90"
+        for Dh in (512, 1536):
+            assert tfa.route(name, torch.bfloat16, Dh) == ("flash_wide_sm90",
+                                                           name + "_wide_sm90")
     for dtype in (torch.bfloat16, torch.float32):
         tfa.check_head_dim(384, dtype)
-        for Dh in (512, 1536):
-            with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-                tfa.check_head_dim(Dh, dtype)
+    for Dh in (512, 1536):
+        tfa.check_head_dim(Dh, torch.bfloat16)
+        with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+            tfa.check_head_dim(Dh, torch.float32)
     for itemsize in (2, 4):
         assert auto_attention_impl(8, 8, 4352, 384, itemsize) == "flash"
     for T in (2048, 4096, 4608, 8192):
