@@ -6,7 +6,7 @@
                                      # of the package in checkout DIR (no result line)
     python3 chip_smoke.py flash [DIR]  # flash's kernel times, bf16 at Dh 512,
                                        # 384, 256, 64 and 128 and float32 at
-                                       # Dh 384, 256 and 128, of the package
+                                       # Dh 512, 384, 256 and 128, of the package
                                        # in checkout DIR (no result line)
     python3 chip_smoke.py conv [DIR]   # the bf16 conv weight gradient's times
                                        # at the ResNet-56 shapes, of the package
@@ -18,6 +18,7 @@
     python3 chip_smoke.py lm_xl [DIR]  # lm_xl and its profile, likewise
     python3 chip_smoke.py lm_xl_f32 [DIR]  # lm_xl_f32 and its profile, likewise
     python3 chip_smoke.py lm_xxl [DIR]  # lm_xxl and its profile, likewise
+    python3 chip_smoke.py lm_xxl_f32 [DIR]  # lm_xxl_f32 and its profile, likewise
 
 Phases, each printing one JSON line; any failure ends the run with a
 non-zero exit code and no result line:
@@ -62,8 +63,12 @@ non-zero exit code and no result line:
    _dh1536_small ones at small_lm_1536's, on flash_wide_sm90.cu, checked at
    all nine of its head dims (512 ... 1536), each timed at one causal head
    of T 4224, its column slices held bit-equal on inputs whose slices
-   repeat); each redesigned kernel with the earlier design's time as
-   was_ms;
+   repeat; the _dh512_f32 entries at lm_xxl_f32's shape and the
+   _dh896_f32_small ones at small_lm_896_f32's, on flash_wide_f32_sm90.cu,
+   checked at its four head dims (512 ... 896), timed at one head of T
+   4224, causal and full, its warps' column parts held bit-equal; each
+   swept head dim with its bound and SDPA's times); each redesigned kernel
+   with the earlier design's time as was_ms;
 4. small — the robust FedAvg path at a small size on the card against the
    same run on the CPU (plain versions), as a reference check;
 4b. repeat — the small robust path on cnn_fedavg, the small resnet8 path,
@@ -125,11 +130,11 @@ non-zero exit code and no result line:
 15. lm_wide_dots — the same from the same seed for 2 steps under remat
     "dots" (matrix products saved, flash recomputed): the same launches
     per step and full remat's losses;
-16. lm_wide_f32 — the wide LM trained in float32 (DistributedLMTrainer's
-    dtype) at B 8, T 4352 (auto dispatch picks flash) for 3 steps: 16
-    forward, 8 dq and 8 dk/dv launches per step, all on
-    flash_f32_sm90.cu; lm_wide_f32_profile, one warm step under
-    torch.profiler;
+16. lm_wide_f32 — the wide LM's widths trained in float32
+    (DistributedLMTrainer's dtype) at B 8, T 4352 (auto dispatch picks
+    flash), 2 of its 8 layers, for 3 steps: 4 forward, 2 dq and 2 dk/dv
+    launches per step, all on flash_f32_sm90.cu; lm_wide_f32_profile, one
+    warm step under torch.profiler;
 17. lm_mid_f32 — the Cheetah example at --dim 1024 (vocab 32000, 8 heads
     of 128, 8 layers) trained in float32 at B 8, T 4608 (auto dispatch
     picks flash) for 3 steps: 16 forward launches per step on
@@ -140,10 +145,10 @@ non-zero exit code and no result line:
     remat, B 8) for 3 steps: 16 forward, 8 dq and 8 dk/dv launches a step
     on flash_dh384_sm90.cu; lm_xl_profile, one warm step under
     torch.profiler;
-19. lm_xl_f32 — the same model trained in float32 at B 8, T 4352 (auto
-    dispatch picks flash) for 3 steps: 16 forward, 8 dq and 8 dk/dv
-    launches a step on flash_f32_sm90.cu's Dh-384 kernels; lm_xl_f32_profile,
-    one warm step under torch.profiler;
+19. lm_xl_f32 — the same widths trained in float32 at B 8, T 4352 (auto
+    dispatch picks flash), 2 of the 8 layers, for 3 steps: 4 forward, 2 dq
+    and 2 dk/dv launches a step on flash_f32_sm90.cu's Dh-384 kernels;
+    lm_xl_f32_profile, one warm step under torch.profiler;
 20. small_lm_384 — one bf16 head of Dh 384 at T 4352 (auto picks flash),
     card against CPU, within SMALL_LM_384_FACTOR of the same comparison
     with dense attention; small_lm_384_f32 the same head in float32, under
@@ -155,7 +160,15 @@ non-zero exit code and no result line:
     torch.profiler;
 22. small_lm_512 and small_lm_1536 — one bf16 head of Dh 512 at T 4352 and
     one of Dh 1536 at T 4224 in one layer (auto picks flash), card against
-    CPU under small_lm_384's gate.
+    CPU under small_lm_384's gate;
+23. lm_xxl_f32 — the Cheetah example at --dim 4096 --seq_len 4224
+    --ce_chunk 128 (vocab 32000, 8 heads of 512, 8 layers, 1,890.4 M
+    parameters) trained in float32 at B 8 (auto dispatch picks flash) for 3
+    steps: 16 forward, 8 dq and 8 dk/dv launches a step on
+    flash_wide_f32_sm90.cu; lm_xxl_f32_profile, one warm step under
+    torch.profiler;
+24. small_lm_896_f32 — one float32 head of Dh 896 at T 4224 in one layer
+    (auto picks flash), card against CPU under small_lm's float32 gates.
 
 Every LM profile must show as many flash kernels a step as the wrappers
 count (profile_run's ``calls``), and every device_ms profile as many events
@@ -1950,6 +1963,14 @@ FLASH_XXL = (8, 4352, 8, 512)
 FLASH_WIDE_DIMS = tuple(range(512, 1537, 128))
 FLASH_WIDE_SWEEP_T = 4224
 FLASH_SMALL_LM_1536 = (1, FLASH_WIDE_SWEEP_T, 1, 1536)
+# lm_xxl_f32's attention: the same model trained in float32 at T 4224 (where
+# auto picks flash with 4-byte items), 8 heads of 512; then every float32
+# head dim of flash_wide_f32_sm90.cu (Dh = 128 n, 512 ... 896): one head of
+# T 4224, causal (small_lm_896_f32's at Dh 896) and full, timed, and ragged
+# causal and full cases with B, H > 1 through the projection's strided views
+FLASH_XXL_F32 = (8, FLASH_WIDE_SWEEP_T, 8, 512)
+FLASH_F32_WIDE_DIMS = (512, 640, 768, 896)
+FLASH_SMALL_LM_896 = (1, FLASH_WIDE_SWEEP_T, 1, 896)
 FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float32, False),
                ((3, 333, 2, 64), torch.float32, True), ((2, 100, 3, 128), torch.bfloat16, True),
                ((1, 1000, 4, 64), torch.bfloat16, False),
@@ -1966,14 +1987,21 @@ FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float3
                (FLASH_XXL, torch.bfloat16, True)) + tuple(
     case for Dh in FLASH_WIDE_DIMS
     for case in (((1, FLASH_WIDE_SWEEP_T, 1, Dh), torch.bfloat16, True),
-                 ((2, 333, 3, Dh), torch.bfloat16, False)))
-# the timed (shape, dtype) pairs and the suffix of their kernels line
-# entries (the launch counts of lm_main, lm_wide, lm_wide_f32, small_lm_256,
-# small_lm, small_lm_128, lm_mid_f32, lm_xl, lm_xl_f32, small_lm_384_f32,
-# lm_xxl and small_lm_1536 fill them in, each at the shape its path gives
-# the kernels); keyed by dtype too, since lm_xl and lm_xl_f32 give the
-# kernels one shape. The other (1, FLASH_WIDE_SWEEP_T, 1, Dh) cases are timed
-# on their own lines (sweep_ms), not in the kernels line: no path runs them
+                 ((2, 333, 3, Dh), torch.bfloat16, False))) + (
+    (FLASH_XXL_F32, torch.float32, True), ((2, 333, 3, 512), torch.float32, True),
+    ((3, 130, 2, 640), torch.float32, False), ((2, 333, 3, 768), torch.float32, False),
+    ((3, 130, 2, 896), torch.float32, True)) + tuple(
+    ((1, FLASH_WIDE_SWEEP_T, 1, Dh), torch.float32, causal)
+    for Dh in FLASH_F32_WIDE_DIMS[1:] for causal in (True, False))
+# the timed (shape, dtype) pairs, causal as the paths run them, and the
+# suffix of their kernels line entries (the launch counts of lm_main,
+# lm_wide, lm_wide_f32, small_lm_256, small_lm, small_lm_128, lm_mid_f32,
+# lm_xl, lm_xl_f32, small_lm_384_f32, lm_xxl, small_lm_1536, lm_xxl_f32 and
+# small_lm_896_f32 fill them in, each at the shape its path gives the
+# kernels); keyed by dtype too, since lm_xl and lm_xl_f32 give the kernels
+# one shape. The other (1, FLASH_WIDE_SWEEP_T, 1, Dh) cases, full ones
+# too, are timed on their own lines (sweep_ms, beside their bounds and
+# SDPA's times), not in the kernels line: no path runs them
 FLASH_TIMED = {(FLASH_SLICE, torch.bfloat16): "", (FLASH_WIDE, torch.bfloat16): "_dh256",
                (FLASH_WIDE_F32, torch.float32): "_dh256_f32",
                (FLASH_SMALL_LM_256, torch.float32): "_dh256_f32_small",
@@ -1983,7 +2011,9 @@ FLASH_TIMED = {(FLASH_SLICE, torch.bfloat16): "", (FLASH_WIDE, torch.bfloat16): 
                (FLASH_XL, torch.bfloat16): "_dh384", (FLASH_XL_F32, torch.float32): "_dh384_f32",
                (FLASH_SMALL_LM_384, torch.float32): "_dh384_f32_small",
                (FLASH_XXL, torch.bfloat16): "_dh512",
-               (FLASH_SMALL_LM_1536, torch.bfloat16): "_dh1536_small"}
+               (FLASH_SMALL_LM_1536, torch.bfloat16): "_dh1536_small",
+               (FLASH_XXL_F32, torch.float32): "_dh512_f32",
+               (FLASH_SMALL_LM_896, torch.float32): "_dh896_f32_small"}
 # the earlier design's time of a kernel redesigned since, and that design,
 # printed beside the new time on the kernel's own line: ms at FLASH_WIDE of
 # the bf16 Dh-256 forward, dq and dk/dv of flash_attention_sm90.cu, at
@@ -2068,16 +2098,28 @@ def _flash_products(name, dtype, Dh):
     a float32 probability or score, which is exact there only as three bf16
     terms, so each counts as three bf16 products. Float32 inputs: on
     flash_f32_sm90 (every kernel at Dh 256 and 384, the forward at Dh 128)
-    each product is three TF32 products; elsewhere every product runs at
-    the float32 rate."""
+    and flash_wide_f32_sm90 (Dh 512-896) each product is three TF32
+    products; elsewhere every product runs at the float32 rate."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     n = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}[name]
     if dtype == torch.bfloat16:
         return {"flash_fwd": 1 + 3, "flash_dq": 2 + 3, "flash_dkv": 2 + 2 * 3}[name], 0, 0
-    if fa.route("fedml_" + name, dtype, Dh)[0] == "flash_f32_sm90":
+    if fa.route("fedml_" + name, dtype, Dh)[0] in ("flash_f32_sm90", "flash_wide_f32_sm90"):
         return 0, 0, 3 * n
     return 0, n, 0
+
+
+def _flash_ops(name, dtype, Dh, pairs):
+    """(bf16 tensor-core, float32, TF32 tensor-core) operations of kernel
+    ``name`` on ``pairs`` unmasked (q, k) pairs."""
+    return tuple(n * 2 * Dh * pairs for n in _flash_products(name, dtype, Dh))
+
+
+def _flash_bound(name, dtype, Dh, pairs, nbytes):
+    """_bound of kernel ``name`` on ``pairs`` unmasked pairs and ``nbytes``."""
+    bf16_ops, f32_ops, tf32_ops = _flash_ops(name, dtype, Dh, pairs)
+    return _bound(f32_ops, nbytes, bf16_ops, tf32_ops)
 
 
 def _sdpa_backend(q, k, v, causal):
@@ -2113,7 +2155,9 @@ def _column_parts_agree(fa, q, k, v, do, causal, n_fq, n_kv, what):
     """Kernels that split each row's output columns into parts, every part
     holding the same softmax, p and ds bits: the float32 Dh-384 kernels
     (three warps of 128 columns in the forward and dq, two of 192 for dk
-    and for dv, adding their partial scores in one fixed order) and the
+    and for dv, adding their partial scores in one fixed order), the
+    float32 kernels at Dh 512-896 (Dh / 128 warps of 128 columns a row or
+    key group, likewise) and the
     bf16 kernels at Dh 512-1536 (a block per slice of 256 columns, 128
     where Dh % 256 != 0, every slice summing its score chunks in one
     order). On inputs whose column parts repeat (v for the forward's out, k
@@ -2143,19 +2187,22 @@ def _column_parts_agree(fa, q, k, v, do, causal, n_fq, n_kv, what):
 
 
 def _check_flash_refusals(fa, dev):
-    """The head dims no kernel takes raise on the card with the queue that
-    lists them, before any launch and with no fallback: float32 at Dh 512
-    and 896 (admitted by the shared guard, not ported yet), bf16 at Dh 576
-    (no multiple of 128) and 1664 (past the guard's 1536)."""
+    """The head dims no kernel takes raise on the card, saying that the
+    shared guard admits them at no T, before any launch and with no
+    fallback: float32 at Dh 1024 (past the guard's budget in float32) and
+    576 (no multiple of 128), bf16 at Dh 576 and 1664 (past the guard's
+    1536). Every head dim the guard admits runs (FLASH_CASES)."""
     before = _flash_counts()
     refused = {}
-    for Dh, dtype in ((512, torch.float32), (896, torch.float32), (576, torch.bfloat16),
+    for Dh, dtype in ((1024, torch.float32), (576, torch.float32), (576, torch.bfloat16),
                       (1664, torch.bfloat16)):
         q = torch.zeros(1, 128, 1, Dh, device=dev, dtype=dtype)
+        if fa.flash_shapes_ok(FLASH_WIDE_SWEEP_T, Dh, q.element_size()):
+            raise AssertionError(f"the guard admits Dh {Dh} in {dtype}")
         try:
             fa.flash_forward(q, q, q, True)
         except ValueError as e:
-            if "ROADMAP.md Queue 2" in str(e):
+            if "admits this head dim at no T" in str(e):
                 refused[f"{dtype}_dh{Dh}"] = True
                 continue
             raise
@@ -2167,13 +2214,15 @@ def _check_flash_refusals(fa, dev):
 
 def check_flash(dev, tc_rate):
     """Kernels 4a-4c (flash forward, dq, dk/dv) against their plain versions
-    at FLASH_CASES, and Dh 512 and 1536 refused; dq, dk and dv repeat bit
-    for bit; timings at the FLASH_TIMED shapes beside SDPA (forward for 4a;
-    its backward, which computes dq, dk and dv together, for 4b and 4c) and
-    the backend it ran.
-    A kernel on three TF32 products (flash_f32_sm90) also reports its
-    operations at the float32 FMA rate (fma_bound_ms) and at ``tc_rate``,
-    the rate mma.sync TF32 reached in phase tc_rate (mma_sync_ms)."""
+    at FLASH_CASES, and the head dims without a kernel refused; dq, dk and
+    dv repeat bit for bit; timings at the FLASH_TIMED shapes beside SDPA
+    (forward for 4a; its backward, which computes dq, dk and dv together,
+    for 4b and 4c) and the backend it ran; at the swept head dims the
+    kernels' times beside their bounds and SDPA's.
+    A kernel on three TF32 products (flash_f32_sm90, flash_wide_f32_sm90)
+    also reports its operations at the float32 FMA rate (fma_bound_ms) and
+    at ``tc_rate``, the rate mma.sync TF32 reached in phase tc_rate
+    (mma_sync_ms)."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator().manual_seed(5)
@@ -2210,12 +2259,19 @@ def check_flash(dev, tc_rate):
             n = Dh // (256 if Dh % 256 == 0 else 128)
             row["column_parts_equal"] = _column_parts_agree(fa, q, k, v, do, causal, n, n,
                                                             f"bf16 Dh {Dh}")
+        if dtype == torch.float32 and Dh in fa.F32_WIDE:
+            row["column_parts_equal"] = _column_parts_agree(fa, q, k, v, do, causal, Dh // 128,
+                                                            Dh // 128, f"float32 Dh {Dh}")
         nb = B * T * H * Dh * q.element_size()  # one (B, T, H, Dh) tensor
         rows_b = B * H * T * 4                   # one float32 row vector (lse or delta)
         pairs = _flash_pairs(B, T, H, causal)
-        if (shape, dtype) not in FLASH_TIMED:
-            if T == FLASH_WIDE_SWEEP_T and dtype == torch.bfloat16 and Dh in fa.BF16_WIDE:
-                # the head dims no path runs: kernel ms beside the bound
+        if not (causal and (shape, dtype) in FLASH_TIMED):
+            if T == FLASH_WIDE_SWEEP_T and Dh in (fa.BF16_WIDE if dtype == torch.bfloat16
+                                                   else fa.F32_WIDE):
+                # the head dims no path runs: kernel ms beside the bound and SDPA's
+                backend, fwd_ms, bwd_ms, error = _sdpa_ms(q, k, v, do, causal)
+                row["sweep_sdpa"] = {"backend": backend, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                                     **({"error": error} if error else {})}
                 row["sweep_ms"] = {
                     "flash_fwd": time_ms(lambda: fa.flash_forward(q, k, v, causal), 3, 3),
                     "flash_dq": time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
@@ -2223,8 +2279,7 @@ def check_flash(dev, tc_rate):
                     "flash_dkv": time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal),
                                          3, 3)}
                 row["sweep_bound_ms"] = {
-                    name: _bound(0, nbytes, _flash_products(name, dtype, Dh)[0] * 2 * Dh
-                                 * pairs)["bound_ms"]
+                    name: _flash_bound(name, dtype, Dh, pairs, nbytes)["bound_ms"]
                     for name, nbytes in (("flash_fwd", 4 * nb + rows_b),
                                          ("flash_dq", 5 * nb + 2 * rows_b),
                                          ("flash_dkv", 6 * nb + 2 * rows_b))}
@@ -2251,8 +2306,7 @@ def check_flash(dev, tc_rate):
              max((dk - dk_p).abs().max(), (dv - dv_p).abs().max())),
         )
         for name, line, bytes_in, bytes_out, kern, plain, lib_ms, err, abs_err in cases:
-            bf16_ops, f32_ops, tf32_ops = (n * 2 * Dh * pairs
-                                           for n in _flash_products(name, dtype, Dh))
+            bf16_ops, f32_ops, tf32_ops = _flash_ops(name, dtype, Dh, pairs)
             lib = fa.route("fedml_" + name, dtype, Dh)[0]
             entry = {"name": name + FLASH_TIMED[shape, dtype], "route": "cuda",
                      "source": f"fedml_tpu_torch/csrc/{lib}.cu",
@@ -2260,7 +2314,7 @@ def check_flash(dev, tc_rate):
                      "max_abs_err": float(abs_err), "ms": time_ms(kern, reps=3, rounds=3),
                      "plain_ms": time_ms(plain, reps=2, rounds=3),
                      "library_ms": lib_ms,
-                     **_bound(f32_ops, bytes_in + bytes_out, bf16_ops, tf32_ops)}
+                     **_flash_bound(name, dtype, Dh, pairs, bytes_in + bytes_out)}
             entries.append(entry)
             was = {}
             if entry["name"] in FLASH_WAS_MS:
@@ -2283,11 +2337,11 @@ def check_flash(dev, tc_rate):
 # those kernels refuses them, and the refusal is printed), the wide LM's,
 # then the LM slice's (Dh 64) and one at Dh 128 with its width (H Dh 1024)
 # and tokens, where the bf16 kernels of flash_attention_sm90.cu run; in
-# float32 the XL float32 LM's attention (refused likewise by a package
-# without the float32 Dh-384 kernels), the wide float32 LM's,
+# float32 the XXL and XL float32 LMs' attention (refused likewise by a
+# package without the float32 Dh-512 or Dh-384 kernels), the wide float32 LM's,
 # small_lm_256's, a full one at T 4352, lm_mid_f32's and small_lm_128's
 FLASH_MODE_SHAPES = ((FLASH_XXL, torch.bfloat16, True), (FLASH_XL, torch.bfloat16, True),
-                     (FLASH_XL_F32, torch.float32, True),
+                     (FLASH_XXL_F32, torch.float32, True), (FLASH_XL_F32, torch.float32, True),
                      (FLASH_WIDE, torch.bfloat16, True), (FLASH_SLICE, torch.bfloat16, True),
                      ((2, 8192, 8, 128), torch.bfloat16, True),
                      (FLASH_WIDE_F32, torch.float32, True),
@@ -2385,7 +2439,9 @@ def phase_small_lm(phase="small_lm", model=SMALL_LM, steps=3, suffix="_f32"):
     T, H = model["max_len"], model["num_heads"]
     if auto_attention_impl(1, H, T, model["dim"] // H, 4) != "flash":
         raise AssertionError(f"auto dispatch must pick flash at T {T}")
-    cfg = DistTrainConfig(lr=3e-4, weight_decay=0.01, use_remat=True, ce_chunk=256)
+    # the chunked cross-entropy's chunk divides T: 256, or 128 at T 4224
+    cfg = DistTrainConfig(lr=3e-4, weight_decay=0.01, use_remat=True,
+                          ce_chunk=math.gcd(T, 256))
     losses, params = {}, {}
     for device in ("cuda", "cpu"):
         tr = DistributedLMTrainer(cfg, dtype=torch.float32, device=device, seed=0, **model)
@@ -2425,8 +2481,11 @@ LM_WIDE_MODEL = dict(vocab_size=32000, dim=2048, num_heads=8, num_layers=8, max_
 LM_WIDE_B, LM_WIDE_T, LM_WIDE_STEPS, LM_WIDE_DOTS_STEPS = 8, 4608, 5, 2
 # the wide LM trained in float32 (DistributedLMTrainer's dtype): the same
 # widths and batch at T 4352, the T near the example's where auto picks flash
-# in float32 (at 4096 and 4608 it picks dense); cut: 3 steps of its 100
-LM_WIDE_F32_MODEL = dict(LM_WIDE_MODEL, max_len=4352)
+# in float32 (at 4096 and 4608 it picks dense); cut: 3 steps of its 100, and
+# 2 of its 8 layers (8 until lm_xxl_f32 joined the run, which then took
+# 1,045 s of the 1,200 on one host; small_lm_256 and the kernel checks run
+# the same kernels)
+LM_WIDE_F32_MODEL = dict(LM_WIDE_MODEL, num_layers=2, max_len=4352)
 LM_WIDE_F32_T, LM_WIDE_F32_STEPS = 4352, 3
 # the float32 LM at --dim 1024: examples/cheetah_lm/main.py's model at that
 # width (its 8 heads, so Dh 128, its 8 layers) trained in float32 at its
@@ -2442,17 +2501,29 @@ LM_MID_F32_T, LM_MID_F32_STEPS = 4608, 3
 # dense
 LM_XL_MODEL = dict(LM_WIDE_MODEL, dim=3072, max_len=4352)
 LM_XL_T, LM_XL_STEPS, LM_XL_PARAMS = 4352, 3, 1_116_174_336
-# the XL LM trained in float32 (DistributedLMTrainer's dtype): the same model,
-# batch and T, where auto picks flash with 4-byte items too; cut: 3 steps of
-# its 100
-LM_XL_F32_MODEL = LM_XL_MODEL
-LM_XL_F32_STEPS = 3
+# the XL LM trained in float32 (DistributedLMTrainer's dtype): the same
+# widths, batch and T, where auto picks flash with 4-byte items too; cut: 3
+# steps of its 100 (2 fail the falling-loss check), and 2 of its 8 layers
+# (436,531,200 parameters; 8 until lm_xxl_f32 joined the run, as
+# lm_wide_f32; small_lm_384_f32 and the kernel checks run the same kernels)
+LM_XL_F32_MODEL = dict(LM_XL_MODEL, num_layers=2)
+LM_XL_F32_STEPS, LM_XL_F32_PARAMS = 3, 436_531_200
 # the XXL LM: examples/cheetah_lm/main.py --dim 4096 --seq_len 4352 (vocab
 # 32000, its 8 heads, so Dh 512, its 8 layers; 1,890,885,632 parameters) at
 # its batch 8 in bf16 (the trainer's dtype), max_len = T; cut: 3 steps of
 # its 100. At T 4352 auto picks flash in bf16 (in float32 dense)
 LM_XXL_MODEL = dict(LM_WIDE_MODEL, dim=4096, max_len=4352)
 LM_XXL_STEPS, LM_XXL_PARAMS = 3, 1_890_885_632
+# the XXL LM trained in float32 (DistributedLMTrainer's dtype):
+# examples/cheetah_lm/main.py --dim 4096 --seq_len 4224 --ce_chunk 128 at
+# its batch 8, max_len = T (1,890,361,344 parameters: 128 fewer rows of the
+# position table); cut: 3 steps of its 100. T 4224 = 33 x 128 is the T
+# nearest the example's where auto picks flash in float32 (at 4352 the
+# guard's budget refuses block 256 with 4-byte items); 4224 % 256 != 0, so
+# the chunked cross-entropy takes chunks of 128, as --ce_chunk 128 asks
+LM_XXL_F32_MODEL = dict(LM_XXL_MODEL, max_len=FLASH_WIDE_SWEEP_T)
+LM_XXL_F32_TRAIN = dict(LM_TRAIN, ce_chunk=128)
+LM_XXL_F32_PARAMS = 1_890_361_344
 
 
 def _lm_phase(phase, model, train, B, T, steps, suffix, dtype=torch.bfloat16):
@@ -2534,10 +2605,10 @@ def phase_lm_wide_dots(full_losses):
 
 
 def phase_lm_wide_f32():
-    """The wide LM in float32 for LM_WIDE_F32_STEPS steps under full remat:
-    auto dispatch must pick flash, and per step the float32 Dh-256 forward,
-    dq and dk/dv (flash_f32_sm90.cu) launch 2 x 8, 8 and 8 times. Returns
-    (trainer, data, launches)."""
+    """The wide LM in float32 (two layers) for LM_WIDE_F32_STEPS steps
+    under full remat: auto dispatch must pick flash, and per step the
+    float32 Dh-256 forward, dq and dk/dv (flash_f32_sm90.cu) launch 2 x 2, 2
+    and 2 times. Returns (trainer, data, launches)."""
     from fedml_tpu_torch.ops.attention import auto_attention_impl
 
     H = LM_WIDE_F32_MODEL["num_heads"]
@@ -2601,12 +2672,32 @@ def phase_lm_xxl():
     return tr, data, launches
 
 
-def phase_lm_xl_f32():
-    """The XL LM in float32 for LM_XL_F32_STEPS steps under full remat: auto
+def phase_lm_xxl_f32():
+    """The XXL LM in float32 for LM_XXL_STEPS steps under full remat: auto
     dispatch must pick flash, the model must hold the example's parameter
-    count, and per step the float32 Dh-384 forward, dq and dk/dv
-    (flash_f32_sm90.cu) launch 2 x 8, 8 and 8 times. Returns (trainer,
+    count, and per step the float32 forward, dq and dk/dv of
+    flash_wide_f32_sm90.cu launch 2 x 8, 8 and 8 times. Returns (trainer,
     data, launches)."""
+    from fedml_tpu_torch.ops.attention import auto_attention_impl
+
+    H, T = LM_XXL_F32_MODEL["num_heads"], LM_XXL_F32_MODEL["max_len"]
+    if auto_attention_impl(LM_WIDE_B, H, T, LM_XXL_F32_MODEL["dim"] // H, 4) != "flash":
+        raise AssertionError(f"auto dispatch must pick flash at {LM_WIDE_B, H, T} in float32")
+    tr, data, launches, _ = _lm_phase("lm_xxl_f32", LM_XXL_F32_MODEL, LM_XXL_F32_TRAIN,
+                                      LM_WIDE_B, T, LM_XXL_STEPS, "_dh512_f32",
+                                      dtype=torch.float32)
+    n_params = sum(p.numel() for p in tr.params.values())
+    if n_params != LM_XXL_F32_PARAMS:
+        raise AssertionError(f"lm_xxl_f32 holds {n_params} parameters, not {LM_XXL_F32_PARAMS}")
+    return tr, data, launches
+
+
+def phase_lm_xl_f32():
+    """The XL LM in float32 (two layers) for LM_XL_F32_STEPS steps under
+    full remat: auto dispatch must pick flash, the model must hold the
+    two-layer parameter count, and per step the float32 Dh-384 forward, dq
+    and dk/dv (flash_f32_sm90.cu) launch 2 x 2, 2 and 2 times. Returns
+    (trainer, data, launches)."""
     from fedml_tpu_torch.ops.attention import auto_attention_impl
 
     H = LM_XL_F32_MODEL["num_heads"]
@@ -2617,8 +2708,8 @@ def phase_lm_xl_f32():
                                       LM_XL_T, LM_XL_F32_STEPS, "_dh384_f32",
                                       dtype=torch.float32)
     n_params = sum(p.numel() for p in tr.params.values())
-    if n_params != LM_XL_PARAMS:
-        raise AssertionError(f"lm_xl_f32 holds {n_params} parameters, not {LM_XL_PARAMS}")
+    if n_params != LM_XL_F32_PARAMS:
+        raise AssertionError(f"lm_xl_f32 holds {n_params} parameters, not {LM_XL_F32_PARAMS}")
     return tr, data, launches
 
 
@@ -2632,6 +2723,10 @@ def phase_lm_xl_f32():
 SMALL_LM_384 = dict(vocab_size=256, dim=384, num_heads=1, num_layers=2, max_len=4352)
 SMALL_LM_512 = dict(SMALL_LM_384, dim=512)
 SMALL_LM_1536 = dict(SMALL_LM_384, dim=1536, num_layers=1, max_len=FLASH_WIDE_SWEEP_T)
+# the float32 kernels of flash_wide_f32_sm90.cu under the trainer: one head of
+# 896 (its widest row group, its fullest shared memory) at T 4224, where auto
+# picks flash in float32, in one layer, under small_lm's float32 gates
+SMALL_LM_896 = dict(SMALL_LM_1536, dim=896)
 # the bf16 small LMs' gate. bf16 GEMMs round differently on the card and on the
 # CPU, so small_lm's float32 bounds do not apply; the same comparison with
 # dense attention on both devices measures what that rounding alone does
@@ -2710,6 +2805,7 @@ def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
         "flash_fwd_dh256_kernel", "flash_dq_dh256_kernel", "flash_dkv_dh256_kernel",
         "flash_fwd_dh384_kernel", "flash_dq_dh384_kernel", "flash_dkv_dh384_kernel",
         "flash_fwd_wide_kernel", "flash_dq_wide_kernel", "flash_dkv_wide_kernel",
+        "flash_fwd_wide_f32_kernel", "flash_dq_wide_f32_kernel", "flash_dkv_wide_f32_kernel",
         "flash_fwd_f32tc_kernel", "flash_dq_f32tc_kernel", "flash_dkv_f32tc_kernel",
         "flash_fwd_f32tc_kernel<384>", "flash_dq_f32tc_kernel<384>",
         "flash_dkv_f32tc_kernel<384>",
@@ -2725,11 +2821,11 @@ def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
 
 def main(argv):
     modes = (["agg"], ["flash"], ["conv"], ["lm_f32"], ["lm_mid"], ["lm_xl"], ["lm_xl_f32"],
-             ["lm_xxl"])
+             ["lm_xxl"], ["lm_xxl_f32"])
     if not (argv in ([], ["kernels"]) or (argv[:1] in modes and len(argv) <= 2)):
         print("usage: python3 chip_smoke.py [kernels | agg [DIR] | flash [DIR] | conv [DIR] | "
-              "lm_f32 [DIR] | lm_mid [DIR] | lm_xl [DIR] | lm_xl_f32 [DIR] | lm_xxl [DIR]]",
-              file=sys.stderr)
+              "lm_f32 [DIR] | lm_mid [DIR] | lm_xl [DIR] | lm_xl_f32 [DIR] | lm_xxl [DIR] | "
+              "lm_xxl_f32 [DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2752,7 +2848,9 @@ def main(argv):
          "lm_xl_f32": lambda: phase_lm_profile(*phase_lm_xl_f32()[:2], steps=1,
                                                phase="lm_xl_f32_profile"),
          "lm_xxl": lambda: phase_lm_profile(*phase_lm_xxl()[:2], steps=1,
-                                            phase="lm_xxl_profile")}[argv[0]]()
+                                            phase="lm_xxl_profile"),
+         "lm_xxl_f32": lambda: phase_lm_profile(*phase_lm_xxl_f32()[:2], steps=1,
+                                                phase="lm_xxl_f32_profile")}[argv[0]]()
         return 0
     smi = phase_device()
     phase_build()
@@ -2818,6 +2916,12 @@ def main(argv):
     torch.cuda.empty_cache()
     phase_small_lm_bf16("small_lm_512", SMALL_LM_512, "_dh512_small")
     launches.update(phase_small_lm_bf16("small_lm_1536", SMALL_LM_1536, "_dh1536_small"))
+    tr, data, lm_launches = phase_lm_xxl_f32()
+    launches.update(lm_launches)
+    phase_lm_profile(tr, data, steps=1, phase="lm_xxl_f32_profile")
+    del tr
+    torch.cuda.empty_cache()
+    launches.update(phase_small_lm("small_lm_896_f32", SMALL_LM_896, suffix="_dh896_f32_small"))
     for e in entries:
         e["launches"] = launches[e["name"]]
         e.pop("bytes", None)

@@ -196,21 +196,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-__device__ __forceinline__ void split4(const uint32_t (&r)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), hi[i], lo[i]);
-}
-
-// x += a b in three TF32 products, small terms first
-__device__ __forceinline__ void mma3(float (&x)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  mma_tf32(x, al, bh);
-  mma_tf32(x, ah, bl);
-  mma_tf32(x, ah, bh);
-}
-
 // This lane's ldmatrix row addresses into a tile of row stride LD: for the
 // A fragment of rows r0 .. r0 + 15 (matrices: rows 0-7 and 8-15 at columns
 // 0-3, then both at 4-7), and for the B fragments of two 8-row groups of b

@@ -2,7 +2,8 @@
 
 Hand-written CUDA kernels on (B, T, H, Dh) tensors, causal or not: bf16
 with Dh 64, 128, 256, 384 or any multiple of 128 from 512 to 1536, float32
-with Dh 64, 128, 256 or 384 (:data:`HEAD_DIMS`). bf16 inputs run on the
+with Dh 64, 128, 256, 384 or any multiple of 128 from 512 to 896
+(:data:`HEAD_DIMS`): every head dim the dispatch guard admits. bf16 inputs run on the
 tensor cores (wgmma, exact to float32 through a three-term bf16 split of p
 and ds): at Dh 64 and 128 in ``csrc/flash_attention_sm90.cu``, at Dh 256 in
 ``csrc/flash_dh256_sm90.cu`` and at Dh 384 in ``csrc/flash_dh384_sm90.cu``
@@ -14,8 +15,10 @@ chunks). Float32 inputs run on the tensor cores too, in
 ``csrc/flash_f32_sm90.cu`` (``mma.sync`` as three TF32 products, exact to
 float32), for the forward, dq and dk/dv at Dh 256 and 384 and the forward
 at Dh 128 (at Dh 384 three warps split each row group's columns and add
-their partial scores in one fixed order); float32 dq and dk/dv at Dh 128
-and every float32 kernel at Dh 64 run the FMA kernels of
+their partial scores in one fixed order), and at Dh 512-896 in
+``csrc/flash_wide_f32_sm90.cu`` (the same arithmetic, Dh / 128 warps a row
+group, their number set at launch); float32 dq and dk/dv at Dh 128 and
+every float32 kernel at Dh 64 run the FMA kernels of
 ``csrc/flash_attention.cu`` (:func:`route`):
 
 - :func:`flash_forward` — online-softmax attention; returns ``out`` in q's
@@ -196,8 +199,10 @@ def flash_dkv_plain(q, k, v, do, lse, delta, causal: bool):
 
 # the bf16 head dims of csrc/flash_wide_sm90.cu: 128 n, 4 <= n <= 12
 BF16_WIDE = tuple(range(512, 1537, 128))
+# the float32 head dims of csrc/flash_wide_f32_sm90.cu: 128 n, 4 <= n <= 7
+F32_WIDE = tuple(range(512, 897, 128))
 # the head dims the CUDA kernels take, by dtype
-HEAD_DIMS = {torch.float32: (64, 128, 256, 384),
+HEAD_DIMS = {torch.float32: (64, 128, 256, 384) + F32_WIDE,
              torch.bfloat16: (64, 128, 256, 384) + BF16_WIDE}
 DTYPES = tuple(HEAD_DIMS)
 
@@ -226,9 +231,8 @@ def check_head_dim(Dh: int, dtype: torch.dtype) -> None:
     dims = HEAD_DIMS[dtype]
     if Dh not in dims:
         raise ValueError(
-            f"the {dtype} flash kernels take Dh in {dims}, got {Dh}: no kernel takes it; "
-            "the head dims that flash_shapes_ok admits (up to 1536) without a kernel yet "
-            "are listed in ROADMAP.md Queue 2")
+            f"the {dtype} flash kernels take Dh in {dims}, got {Dh}: no kernel takes it, "
+            "and flash_shapes_ok admits this head dim at no T")
 
 
 def _strided(q, k, v):
@@ -275,8 +279,9 @@ def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
     ``flash_dh256_sm90``, at Dh 384 to ``flash_dh384_sm90``, at Dh 512-1536
     to ``flash_wide_sm90``, other bf16 calls to ``flash_attention_sm90``,
     the float32 forward at Dh 128, 256 and 384 and dq and dk/dv at Dh 256
-    and 384 to ``flash_f32_sm90``, the rest of float32 (Dh 64; dq and dk/dv
-    at Dh 128) to the FMA kernels of ``flash_attention``. All take the same
+    and 384 to ``flash_f32_sm90``, all three at Dh 512-896 to
+    ``flash_wide_f32_sm90``, the rest of float32 (Dh 64; dq and dk/dv at Dh
+    128) to the FMA kernels of ``flash_attention``. All take the same
     arguments."""
     if dtype == torch.bfloat16 and name in TENSOR_CORE:
         if Dh in BF16_TMA:
@@ -284,6 +289,8 @@ def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
         if Dh in BF16_WIDE:
             return "flash_wide_sm90", name + "_wide_sm90"
         return "flash_attention_sm90", name + "_sm90"
+    if dtype == torch.float32 and name in TENSOR_CORE and Dh in F32_WIDE:
+        return "flash_wide_f32_sm90", name + "_wide_f32_sm90"
     if dtype == torch.float32 and Dh in F32_TENSOR_CORE.get(name, ()):
         return "flash_f32_sm90", name + "_f32_sm90"
     return "flash_attention", name

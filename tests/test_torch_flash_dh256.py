@@ -98,9 +98,10 @@ def test_plain_versions_dh256_at_ragged_t_match_jax_dense(monkeypatch):
 def test_head_dims_past_256_name_the_roadmap():
     """Dh 384-1536 pass the shared guard, as JAX's does. On the card both
     dtypes take Dh 384 (bf16 on flash_dh384_sm90.cu, float32 on
-    flash_f32_sm90.cu), and bf16 takes Dh 512 and 1536 (flash_wide_sm90.cu);
-    float32 at Dh 512 and 1536 has no kernel yet, and the wrappers refuse it
-    with the queue that lists it."""
+    flash_f32_sm90.cu) and Dh 512 (bf16 on flash_wide_sm90.cu, float32 on
+    flash_wide_f32_sm90.cu), and bf16 takes Dh 1536; float32 at Dh 1536,
+    which the guard admits at no T with 4-byte items, has no kernel, and
+    the wrappers refuse it, saying so."""
     for dtype in (torch.float32, torch.bfloat16):
         for Dh in (64, 128, 256, 384):
             tfa.check_head_dim(Dh, dtype)
@@ -108,8 +109,10 @@ def test_head_dims_past_256_name_the_roadmap():
         assert tfa.flash_shapes_ok(256, Dh) == jfa.flash_shapes_ok(256, Dh) is True
     for Dh in (512, 1536):
         tfa.check_head_dim(Dh, torch.bfloat16)
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-            tfa.check_head_dim(Dh, torch.float32)
+    tfa.check_head_dim(512, torch.float32)
+    assert not tfa.flash_shapes_ok(256, 1536, 4)
+    with pytest.raises(ValueError, match="admits this head dim at no T"):
+        tfa.check_head_dim(1536, torch.float32)
 
 
 # the Cheetah example's widths cut to a CPU test: dim 512 over 2 heads keeps

@@ -139,8 +139,9 @@ def test_route_sends_bf16_dh384_to_its_kernels_and_nothing_else():
     at Dh 384 runs flash_f32_sm90.cu's, which the card's wrappers accept too;
     Dh 512 and 1536 in either dtype go to neither: bf16 there runs
     flash_wide_sm90.cu's entry points, which the card's wrappers accept,
-    and float32 there is refused (ROADMAP.md Queue 2). The XL LM's shape is
-    one that auto dispatch sends to flash, in both dtypes."""
+    float32 at Dh 512 flash_wide_f32_sm90.cu's, and float32 at Dh 1536,
+    which the guard admits at no T, is refused. The XL LM's shape is one
+    that auto dispatch sends to flash, in both dtypes."""
     for name in ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv"):
         assert tfa.route(name, torch.bfloat16, 384) == ("flash_dh384_sm90", name + "_dh384_sm90")
         assert tfa.route(name, torch.float32, 384) == ("flash_f32_sm90", name + "_f32_sm90")
@@ -154,8 +155,9 @@ def test_route_sends_bf16_dh384_to_its_kernels_and_nothing_else():
         tfa.check_head_dim(384, dtype)
     for Dh in (512, 1536):
         tfa.check_head_dim(Dh, torch.bfloat16)
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-            tfa.check_head_dim(Dh, torch.float32)
+    tfa.check_head_dim(512, torch.float32)
+    with pytest.raises(ValueError, match="admits this head dim at no T"):
+        tfa.check_head_dim(1536, torch.float32)
     for itemsize in (2, 4):
         assert auto_attention_impl(8, 8, 4352, 384, itemsize) == "flash"
     for T in (2048, 4096, 4608, 8192):

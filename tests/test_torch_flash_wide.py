@@ -126,9 +126,10 @@ def test_dh512_transformer_lm_flash_loss_and_grads_match_jax():
 
 def test_route_sends_bf16_wide_head_dims_to_their_kernels():
     """bf16 at every Dh = 128 n from 512 to 1536 runs flash_wide_sm90.cu's
-    three entry points, and the card's wrappers accept it; float32 there,
-    and bf16 at a Dh that is no multiple of 128 (576) or past 1536 (1664),
-    go to no kernel and are refused with the queue that lists them."""
+    three entry points, and the card's wrappers accept it; float32 there
+    runs flash_wide_f32_sm90.cu up to Dh 896, and past it, like bf16 at a
+    Dh that is no multiple of 128 (576) or past 1536 (1664), goes to no
+    kernel and is refused: the guard admits those head dims at no T."""
     assert tfa.BF16_WIDE == (512, 640, 768, 896, 1024, 1152, 1280, 1408, 1536)
     for name in ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv"):
         for Dh in tfa.BF16_WIDE:
@@ -138,10 +139,13 @@ def test_route_sends_bf16_wide_head_dims_to_their_kernels():
             assert tfa.route(name, torch.bfloat16, Dh)[0] != "flash_wide_sm90"
     for Dh in tfa.BF16_WIDE:
         tfa.check_head_dim(Dh, torch.bfloat16)
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        if Dh <= 896:
+            tfa.check_head_dim(Dh, torch.float32)
+            continue
+        with pytest.raises(ValueError, match="admits this head dim at no T"):
             tfa.check_head_dim(Dh, torch.float32)
     for Dh in (576, 1664):
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        with pytest.raises(ValueError, match="admits this head dim at no T"):
             tfa.check_head_dim(Dh, torch.bfloat16)
     assert "flash_wide_sm90" in tfa._build.library_path("flash_wide_sm90").name
     from fedml_tpu_torch.ops import KERNELS
