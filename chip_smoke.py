@@ -27,7 +27,9 @@ non-zero exit code and no result line:
 2. build — nvcc builds every kernel of the port from csrc/, in parallel,
    and csrc/tc_rate.cu; tc_rate — the TF32 and bf16 rates mma.sync
    reaches on this card (the float32 and bf16 conv forwards'
-   instructions), against the dense peaks the bounds count;
+   instructions), against the dense peaks the bounds count, and the TF32
+   rate of wgmma.m64nNk8 at N 16, 32 and 64 with A from shared memory or
+   from registers (the float32 Dh-128 backward's instruction);
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and a few ragged ones, with timings of the
    kernel, the plain version and (where one exists) a library call: the
@@ -48,11 +50,13 @@ non-zero exit code and no result line:
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
    flash_dkv; SDPA as the library call, with the backend it ran; bf16
    inputs on the tensor cores, float32 on flash_f32_sm90.cu's three TF32
-   products at Dh 256 and 384 and for the forward at Dh 128, on the FMA
-   kernels otherwise), at Dh 64 (the _f32 entries at small_lm's shape), at Dh 128
-   (the _dh128_f32 entries at small_lm_128's shape and the _dh128_f32_mid
-   ones at lm_mid_f32's: the forward on flash_f32_sm90.cu, dq and dk/dv on
-   the FMA kernels) and at Dh 256 (the _dh256 entries at the wide LM's bf16
+   products at Dh 256 and 384 and for the forward at Dh 128, on
+   flash_f32_wgmma_sm90.cu's for dq and dk/dv at Dh 128, on the FMA
+   kernels at Dh 64), at Dh 64 (the _f32 entries at small_lm's shape), at
+   Dh 128 (the _dh128_f32 entries at small_lm_128's shape and the
+   _dh128_f32_mid ones at lm_mid_f32's: the forward on flash_f32_sm90.cu,
+   dq and dk/dv on flash_f32_wgmma_sm90.cu, each with the FMA kernels' time
+   beside as was_ms) and at Dh 256 (the _dh256 entries at the wide LM's bf16
    shape, on flash_dh256_sm90.cu; the _dh256_f32 ones at lm_wide_f32's
    shape and the _dh256_f32_small ones at small_lm_256's, all three on
    flash_f32_sm90.cu; the _dh384 entries at lm_xl's bf16 shape, on
@@ -114,7 +118,7 @@ non-zero exit code and no result line:
 10. small_lm — the Cheetah LM trainer at f32, T 4096 (auto dispatch picks
     flash) on the card against the same run on the CPU (plain versions);
     small_lm_128 the same with one head of Dh 128 at T 4608 (the forward
-    on flash_f32_sm90.cu, dq and dk/dv on the FMA kernels);
+    on flash_f32_sm90.cu, dq and dk/dv on flash_f32_wgmma_sm90.cu);
 11. lm_main — the Cheetah trainer at the LM slice's configuration (vocab
     32000, dim 1024, 16 heads, 12 layers, bf16, full remat, chunked CE,
     B 2, T 8192) for 5 steps; causal flash on every layer, with 24
@@ -138,7 +142,7 @@ non-zero exit code and no result line:
 17. lm_mid_f32 — the Cheetah example at --dim 1024 (vocab 32000, 8 heads
     of 128, 8 layers) trained in float32 at B 8, T 4608 (auto dispatch
     picks flash) for 3 steps: 16 forward launches per step on
-    flash_f32_sm90.cu, 8 dq and 8 dk/dv on the FMA kernels;
+    flash_f32_sm90.cu, 8 dq and 8 dk/dv on flash_f32_wgmma_sm90.cu;
     lm_mid_f32_profile, one warm step under torch.profiler;
 18. lm_xl — the Cheetah example at --dim 3072 --seq_len 4352 (vocab
     32000, 8 heads of 384, 8 layers, 1,116.2 M parameters, bf16, full
@@ -408,8 +412,9 @@ def phase_tc_rate(dev):
     """TFLOP/s of independent mma.sync chains over the whole card
     (csrc/tc_rate.cu): m16n8k8 TF32 (the float32 conv forward's
     instruction) beside TF32_OPS_PER_S, and m16n8k16 bf16 (the bf16 conv
-    forward's) beside BF16_OPS_PER_S. Returns the two rates in operations
-    per second."""
+    forward's) beside BF16_OPS_PER_S; then TF32 wgmma.m64nNk8 chains beside
+    TF32_OPS_PER_S. Returns the two mma.sync rates in operations per
+    second."""
     import ctypes
 
     from fedml_tpu_torch.ops import _build
@@ -436,6 +441,26 @@ def phase_tc_rate(dev):
         emit("tc_rate", instruction=instruction, blocks=blocks, threads=threads, ms=ms,
              tflops=rate / 1e12, share_of_peak=rate / peak)
         rates.append(rate)
+    # TF32 wgmma.m64nNk8 (csrc/flash_f32_wgmma_sm90.cu's instruction): one
+    # warpgroup a block, one and two blocks an SM
+    fn = _build.function("tc_rate", "fedml_wgmma_tf32_rate",
+                         [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    ops = _build.function("tc_rate", "fedml_wgmma_tf32_rate_ops", [ctypes.c_int] * 3,
+                          ctypes.c_longlong)
+    sms = blocks // 8
+    for per_sm in (1, 2):
+        out = torch.empty(sms * per_sm * 128, device=dev)
+        for n in (16, 32, 64):
+            for rs in (0, 1):
+                def run():
+                    _build.check(fn(out.data_ptr(), sms * per_sm, n, rs, 200,
+                                    torch.cuda.current_stream(dev).cuda_stream), "wgmma rate")
+
+                ms = time_ms(run, reps=3, rounds=3)
+                rate = ops(sms * per_sm, n, 200) / (ms * 1e-3)
+                emit("tc_rate", instruction=f"wgmma.m64n{n}k8 tf32, A from " +
+                     ("registers" if rs else "shared memory"), blocks_per_sm=per_sm, ms=ms,
+                     tflops=rate / 1e12, share_of_peak=rate / TF32_OPS_PER_S)
     return tuple(rates)
 
 
@@ -1980,7 +2005,8 @@ FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float3
                ((2, 333, 3, 256), torch.bfloat16, True), ((3, 130, 2, 256), torch.float32, True),
                ((1, 1000, 2, 256), torch.bfloat16, False), (FLASH_SMALL_LM, torch.float32, True),
                (FLASH_SMALL_LM_128, torch.float32, True), (FLASH_MID_F32, torch.float32, True),
-               ((3, 130, 2, 128), torch.float32, True), (FLASH_XL, torch.bfloat16, True),
+               ((3, 130, 2, 128), torch.float32, True), ((2, 333, 3, 128), torch.float32, False),
+               (FLASH_XL, torch.bfloat16, True),
                ((2, 333, 3, 384), torch.bfloat16, True), ((1, 1000, 2, 384), torch.bfloat16, False),
                (FLASH_XL_F32, torch.float32, True), (FLASH_SMALL_LM_384, torch.float32, True),
                ((1, 4352, 2, 384), torch.float32, False), ((3, 130, 2, 384), torch.float32, True),
@@ -2018,7 +2044,8 @@ FLASH_TIMED = {(FLASH_SLICE, torch.bfloat16): "", (FLASH_WIDE, torch.bfloat16): 
 # printed beside the new time on the kernel's own line: ms at FLASH_WIDE of
 # the bf16 Dh-256 forward, dq and dk/dv of flash_attention_sm90.cu, at
 # FLASH_WIDE_F32 and FLASH_SMALL_LM_256 of the float32 Dh-256 forward, dq
-# and dk/dv and at FLASH_SMALL_LM_128 of the float32 Dh-128 forward, of
+# and dk/dv, at FLASH_SMALL_LM_128 of the float32 Dh-128 forward, dq and
+# dk/dv and at FLASH_MID_F32 of the float32 Dh-128 dq and dk/dv, of
 # flash_attention.cu's FMA kernels, each measured by this script on an H100
 # 80GB HBM3 at 700 W before its redesign; `flash DIR` times both designs in
 # one call
@@ -2032,7 +2059,11 @@ FLASH_WAS_MS = {"flash_fwd_dh256": (5.208, _WAS_BF16), "flash_dkv_dh256": (9.373
                 "flash_dq_dh256_f32_small": (2.001, _WAS_F32),
                 "flash_dkv_dh256_f32": (42.24, _WAS_F32),
                 "flash_dkv_dh256_f32_small": (2.434, _WAS_F32),
-                "flash_fwd_dh128_f32": (0.7493, _WAS_F32)}
+                "flash_fwd_dh128_f32": (0.7493, _WAS_F32),
+                "flash_dq_dh128_f32": (0.9749, _WAS_F32),
+                "flash_dkv_dh128_f32": (1.238, _WAS_F32),
+                "flash_dq_dh128_f32_mid": (17.09, _WAS_F32),
+                "flash_dkv_dh128_f32_mid": (21.51, _WAS_F32)}
 # |kernel - plain| / max|plain|, plain in float32. Each output sums up to
 # T * Dh = 5e5 float32 products in another order than the plain version's
 # cuBLAS calls: a random walk of sqrt(n) * 2^-24 ~ 4e-5 of the terms'
@@ -2097,15 +2128,17 @@ def _flash_products(name, dtype, Dh):
     (the score is scaled after the product); P.V, dS.K, P^T.dO and dS^T.Q take
     a float32 probability or score, which is exact there only as three bf16
     terms, so each counts as three bf16 products. Float32 inputs: on
-    flash_f32_sm90 (every kernel at Dh 256 and 384, the forward at Dh 128)
-    and flash_wide_f32_sm90 (Dh 512-896) each product is three TF32
-    products; elsewhere every product runs at the float32 rate."""
+    flash_f32_sm90 (every kernel at Dh 256 and 384, the forward at Dh 128),
+    flash_f32_wgmma_sm90 (dq and dk/dv at Dh 128) and flash_wide_f32_sm90
+    (Dh 512-896) each product is three TF32 products; elsewhere every
+    product runs at the float32 rate."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     n = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}[name]
     if dtype == torch.bfloat16:
         return {"flash_fwd": 1 + 3, "flash_dq": 2 + 3, "flash_dkv": 2 + 2 * 3}[name], 0, 0
-    if fa.route("fedml_" + name, dtype, Dh)[0] in ("flash_f32_sm90", "flash_wide_f32_sm90"):
+    if fa.route("fedml_" + name, dtype, Dh)[0] in ("flash_f32_sm90", "flash_f32_wgmma_sm90",
+                                                   "flash_wide_f32_sm90"):
         return 0, 0, 3 * n
     return 0, n, 0
 
@@ -2219,8 +2252,8 @@ def check_flash(dev, tc_rate):
     (forward for 4a; its backward, which computes dq, dk and dv together,
     for 4b and 4c) and the backend it ran; at the swept head dims the
     kernels' times beside their bounds and SDPA's.
-    A kernel on three TF32 products (flash_f32_sm90, flash_wide_f32_sm90)
-    also reports its operations at the float32 FMA rate (fma_bound_ms) and
+    A kernel on three TF32 products (flash_f32_sm90, flash_f32_wgmma_sm90,
+    flash_wide_f32_sm90) also reports its operations at the float32 FMA rate (fma_bound_ms) and
     at ``tc_rate``, the rate mma.sync TF32 reached in phase tc_rate
     (mma_sync_ms)."""
     from fedml_tpu_torch.ops import flash_attention as fa
@@ -2553,6 +2586,11 @@ def _lm_phase(phase, model, train, B, T, steps, suffix, dtype=torch.bfloat16):
     want = _want_flash(model["num_layers"], steps, suffix)
     if launches != want:
         raise AssertionError(f"{phase} launches {launches}, expected {want}")
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    Dh = model["dim"] // model["num_heads"]
+    routes = {n: fa.route("fedml_" + n, dtype, Dh)[0] for n in ("flash_fwd", "flash_dq",
+                                                                 "flash_dkv")}
     ln_v = math.log(model["vocab_size"])
     if not (all(math.isfinite(x) for x in losses) and abs(losses[0] - ln_v) < 1.5
             and losses[-1] < losses[0]):
@@ -2561,7 +2599,7 @@ def _lm_phase(phase, model, train, B, T, steps, suffix, dtype=torch.bfloat16):
          params=n_params,
          setup_s=setup_s, losses=losses, ln_vocab=ln_v, step_s=step_s,
          tokens_per_s_after_first=B * T * (steps - 1) / sum(step_s[1:]),
-         launches=launches, peak_mem_bytes=torch.cuda.max_memory_allocated())
+         launches=launches, routes=routes, peak_mem_bytes=torch.cuda.max_memory_allocated())
     return tr, data, launches, losses
 
 
@@ -2619,17 +2657,24 @@ def phase_lm_wide_f32():
                      LM_WIDE_F32_STEPS, "_dh256_f32", dtype=torch.float32)[:3]
 
 
-def phase_lm_mid_f32():
+def phase_lm_mid_f32(check_routes=True):
     """The float32 LM at --dim 1024 for LM_MID_F32_STEPS steps under full
     remat: auto dispatch must pick flash, and per step the float32 Dh-128
-    forward (flash_f32_sm90.cu) launches 2 x 8 times, dq and dk/dv (the FMA
-    kernels) 8 times each. Returns (trainer, data, launches)."""
+    forward (flash_f32_sm90.cu) launches 2 x 8 times, dq and dk/dv
+    (flash_f32_wgmma_sm90.cu) 8 times each, none on the FMA kernels
+    (``check_routes``; ``lm_mid DIR`` runs an earlier checkout's routes).
+    Returns (trainer, data, launches)."""
+    from fedml_tpu_torch.ops import flash_attention as fa
     from fedml_tpu_torch.ops.attention import auto_attention_impl
 
     H = LM_MID_F32_MODEL["num_heads"]
-    if auto_attention_impl(LM_WIDE_B, H, LM_MID_F32_T, LM_MID_F32_MODEL["dim"] // H,
-                           4) != "flash":
+    Dh = LM_MID_F32_MODEL["dim"] // H
+    if auto_attention_impl(LM_WIDE_B, H, LM_MID_F32_T, Dh, 4) != "flash":
         raise AssertionError(f"auto dispatch must pick flash at {LM_WIDE_B, H, LM_MID_F32_T}")
+    routes = [fa.route(n, torch.float32, Dh)[0] for n in fa.TENSOR_CORE]
+    if check_routes and routes != ["flash_f32_sm90", "flash_f32_wgmma_sm90",
+                                   "flash_f32_wgmma_sm90"]:
+        raise AssertionError(f"lm_mid_f32's flash calls route to {routes}")
     return _lm_phase("lm_mid_f32", LM_MID_F32_MODEL, LM_TRAIN, LM_WIDE_B, LM_MID_F32_T,
                      LM_MID_F32_STEPS, "_dh128_f32_mid", dtype=torch.float32)[:3]
 
@@ -2808,7 +2853,7 @@ def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
         "flash_fwd_wide_f32_kernel", "flash_dq_wide_f32_kernel", "flash_dkv_wide_f32_kernel",
         "flash_fwd_f32tc_kernel", "flash_dq_f32tc_kernel", "flash_dkv_f32tc_kernel",
         "flash_fwd_f32tc_kernel<384>", "flash_dq_f32tc_kernel<384>",
-        "flash_dkv_f32tc_kernel<384>",
+        "flash_dkv_f32tc_kernel<384>", "flash_dq_f32wg_kernel", "flash_dkv_f32wg_kernel",
         "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
         unit="step", groups=LM_GROUPS, calls=want)
     launches = _flash_counts()
@@ -2841,7 +2886,7 @@ def main(argv):
          "conv": lambda: phase_conv_times(dev),
          "lm_f32": lambda: phase_lm_profile(*phase_lm_wide_f32()[:2], steps=1,
                                             phase="lm_wide_f32_profile"),
-         "lm_mid": lambda: phase_lm_profile(*phase_lm_mid_f32()[:2], steps=1,
+         "lm_mid": lambda: phase_lm_profile(*phase_lm_mid_f32(False)[:2], steps=1,
                                             phase="lm_mid_f32_profile"),
          "lm_xl": lambda: phase_lm_profile(*phase_lm_xl()[:2], steps=1,
                                            phase="lm_xl_profile"),

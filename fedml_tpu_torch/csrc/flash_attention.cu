@@ -1,10 +1,8 @@
 // Flash attention on (B, T, H, Dh), causal or full: the forward with its
 // per-row logsumexp, and the two backward kernels (dq; dk and dv), all
-// products as float32 FMA, for float32 inputs: bfloat16 inputs run on the
-// tensor cores (flash_attention_sm90.cu, flash_dh256_sm90.cu), and so do the
-// float32 forward, dq and dk/dv at Dh 256 and the float32 forward at Dh 128
-// (flash_f32_sm90.cu). Here: the forward at Dh 64, dq and dk/dv at Dh 64 and
-// 128; all arithmetic is float32.
+// products as float32 FMA, for float32 inputs at Dh 64. Every other head
+// dim, and bfloat16 inputs, run on the tensor cores in kernels of their own
+// (ops/flash_attention.py's route); all arithmetic here is float32.
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (the
 // forward, called from _flash_forward), _dq_kernel and _dkv_kernel (both
@@ -21,17 +19,12 @@
 // rowsum(dO * O) computed by the caller (XLA computes it outside the Pallas
 // kernels too).
 //
-// Bound on the H100: at the LM slice's shape (B 2, T 8192, H 16, Dh 64,
-// bf16, causal) each (q, k) pair below the diagonal costs 2*Dh operations
-// per product: the forward does two products (Q K^T, P V), dq three
-// (Q K^T, dO V^T, dS K) and dk/dv four (K Q^T, V dO^T, P^T dO, dS^T Q), each
-// 0.14 TFLOP, against ~134 MB of inputs and outputs. The products of two
-// bf16 inputs are exact on the bf16 tensor cores with float32 sums; one with
-// a float32 P or dS is exact there as three bf16 products (the split of
-// flash_attention_sm90.cu). So the least time, at 989 TFLOP/s, is 0.56, 0.70
-// and 1.11 ms, bound by operations, not by bytes (0.04-0.06 ms at 3.35
-// TB/s). Float32 inputs run at 67 TFLOP/s outside the tensor cores; this
-// file runs every product as fp32 FMA.
+// Bound on the H100: at small_lm's shape (B 1, T 4096, H 1, Dh 64, causal)
+// each (q, k) pair below the diagonal costs 2 Dh operations per product:
+// the forward does two products (Q K^T, P V), dq three (Q K^T, dO V^T, dS K)
+// and dk/dv four (K Q^T, V dO^T, P^T dO, dS^T Q), each 1.07 GFLOP, against
+// ~5 MB of inputs and outputs. At the float32 FMA rate (67 TFLOP/s) that is
+// 0.032, 0.048 and 0.064 ms, bound by operations.
 //
 // Design (simple and right first): 256 threads as 16 x 16. Each thread holds
 // a 4 x 4 register tile of a 64 x 64 score tile (rows ty*4 + i, columns
@@ -45,9 +38,8 @@
 // masked too, so T need not be a multiple of 64. Blocks of the longest
 // causal rows are launched first. dq, dk and dv each sum in one fixed order
 // and use no atomics, so all three repeat bit for bit. On the main paths
-// these kernels run in the float32 LM at --dim 1024 (dq and dk/dv at Dh
-// 128, chip_smoke.py's lm_mid_f32) and in the one-head card-against-CPU
-// checks (small_lm at Dh 64, small_lm_128).
+// these kernels run in chip_smoke.py's one-head card-against-CPU check at
+// Dh 64 (small_lm).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,10 +56,8 @@ struct Shape {
   static constexpr int LD = DH + 4;   // row stride of a (64, Dh) tile in shared memory
   static constexpr int NJ = DH / 16;  // accumulator columns of one thread
   static constexpr int G = DH / 64;   // 64-wide column groups
-  static constexpr int KR = kTile;    // rows of the tiles that dq and dk/dv stream
-  static constexpr int LP = KR + 4;   // row stride of their 64 x KR probability tiles
-  static constexpr int NS = KR / 16;  // score columns of one thread in those tiles
-  static constexpr int GN = G;        // column groups per prob_times pass: all
+  static constexpr int LP = kLP;      // row stride of dq's and dk/dv's probability tiles
+  static constexpr int NS = kTile / 16;  // score columns of one thread in those tiles
 };
 
 __device__ __forceinline__ float at(const float4& v, int e) {
@@ -202,7 +192,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                  int H, int Tn, int64_t sb, int64_t st, int64_t sh, float scale, int causal) {
-  constexpr int LD = Shape<DH>::LD, NJ = Shape<DH>::NJ, G = Shape<DH>::G, GN = Shape<DH>::GN;
+  constexpr int LD = Shape<DH>::LD, NJ = Shape<DH>::NJ, G = Shape<DH>::G;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + kTile * LD;
@@ -258,15 +248,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) Ps[(ty * 4 + i) * kLP + tx + 16 * j] = s[i][j];
     }
     __syncthreads();
-#pragma unroll
-    for (int g0 = 0; g0 < G; g0 += GN) {
-      float pv[4][4 * GN];
-      prob_times<DH, kTile, GN>(pv, Ps, Vs, g0, ty, tx);
+    {  // one pass over all G column groups
+      float pv[4][4 * G];
+      prob_times<DH, kTile, G>(pv, Ps, Vs, 0, ty, tx);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int n = 0; n < 4 * GN; ++n)
-          acc[i][4 * g0 + n] = acc[i][4 * g0 + n] * corr[i] + pv[i][n];
+        for (int n = 0; n < 4 * G; ++n)
+          acc[i][n] = acc[i][n] * corr[i] + pv[i][n];
     }
   }
 
@@ -281,7 +270,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // One block per (bh, q tile): dq (B, T, H, Dh) contiguous. dout is
-// contiguous; lse and delta are (B*H, T). k and v stream in KR-row tiles.
+// contiguous; lse and delta are (B*H, T). k and v stream in kTile-row tiles.
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -290,14 +279,13 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 float* __restrict__ dq, int H, int Tn, int64_t sb, int64_t st, int64_t sh,
                 float scale, int causal) {
   using S = Shape<DH>;
-  constexpr int LD = S::LD, NJ = S::NJ, KR = S::KR, LP = S::LP, NS = S::NS, G = S::G,
-                GN = S::GN;
+  constexpr int LD = S::LD, NJ = S::NJ, LP = S::LP, NS = S::NS, G = S::G;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Os = Qs + kTile * LD;  // dO
   float* Ks = Os + kTile * LD;
-  float* Vs = Ks + KR * LD;
-  float* Ds = Vs + KR * LD;  // dS
+  float* Vs = Ks + kTile * LD;
+  float* Ds = Vs + kTile * LD;  // dS
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int nt = (Tn + kTile - 1) / kTile;
   const int q0 = (nt - 1 - (int)blockIdx.y) * kTile;
@@ -316,13 +304,13 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < NJ; ++n) acc[i][n] = 0.f;
   }
   // causal: no k tile past the q tile's last row
-  const int ntk = (Tn + KR - 1) / KR;
-  const int nk = causal ? min((q0 + kTile) / KR, ntk) : ntk;
+  const int ntk = (Tn + kTile - 1) / kTile;
+  const int nk = causal ? min((q0 + kTile) / kTile, ntk) : ntk;
   for (int ki = 0; ki < nk; ++ki) {
-    const int k0 = ki * KR;
+    const int k0 = ki * kTile;
     __syncthreads();
-    load_tile<DH, KR>(Ks, k + off, st, k0, Tn, 1.f);
-    load_tile<DH, KR>(Vs, v + off, st, k0, Tn, 1.f);
+    load_tile<DH, kTile>(Ks, k + off, st, k0, Tn, 1.f);
+    load_tile<DH, kTile>(Vs, v + off, st, k0, Tn, 1.f);
     __syncthreads();
     float s[4][NS], dp[4][NS];
     dot_rows<DH, NS>(s, Qs, Ks, ty, tx);
@@ -340,14 +328,13 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-#pragma unroll
-    for (int g0 = 0; g0 < G; g0 += GN) {
-      float t[4][4 * GN];
-      prob_times<DH, KR, GN>(t, Ds, Ks, g0, ty, tx);
+    {  // one pass over all G column groups
+      float t[4][4 * G];
+      prob_times<DH, kTile, G>(t, Ds, Ks, 0, ty, tx);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int n = 0; n < 4 * GN; ++n) acc[i][4 * g0 + n] = acc[i][4 * g0 + n] + scale * t[i][n];
+        for (int n = 0; n < 4 * G; ++n) acc[i][n] = acc[i][n] + scale * t[i][n];
     }
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
@@ -355,7 +342,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // One block per (bh, k tile): dk and dv (B, T, H, Dh) contiguous. q and dO
-// stream in KR-row tiles.
+// stream in kTile-row tiles.
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -364,17 +351,16 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ dk, float* __restrict__ dv, int H, int Tn, int64_t sb,
                  int64_t st, int64_t sh, float scale, int causal) {
   using S = Shape<DH>;
-  constexpr int LD = S::LD, NJ = S::NJ, KR = S::KR, LP = S::LP, NS = S::NS, G = S::G,
-                GN = S::GN;
+  constexpr int LD = S::LD, NJ = S::NJ, LP = S::LP, NS = S::NS, G = S::G;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + kTile * LD;
   float* Qs = Vs + kTile * LD;
-  float* Os = Qs + KR * LD;  // dO
-  float* Ps = Os + KR * LD;  // P^T: rows are keys, columns queries
+  float* Os = Qs + kTile * LD;  // dO
+  float* Ps = Os + kTile * LD;  // P^T: rows are keys, columns queries
   float* Ds = Ps + kTile * LP; // dS^T
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int ntq = (Tn + KR - 1) / KR;
+  const int ntq = (Tn + kTile - 1) / kTile;
   const int ki = blockIdx.y;  // the keys seen by the most causal rows first
   const int k0 = ki * kTile;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -388,11 +374,11 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NJ; ++n) dka[i][n] = dva[i][n] = 0.f;
   // causal: q tiles before the diagonal see none of these keys
-  for (int qi = causal ? k0 / KR : 0; qi < ntq; ++qi) {
-    const int q0 = qi * KR;
+  for (int qi = causal ? k0 / kTile : 0; qi < ntq; ++qi) {
+    const int q0 = qi * kTile;
     __syncthreads();
-    load_tile<DH, KR>(Qs, q + off, st, q0, Tn, 1.f);
-    load_tile<DH, KR>(Os, dout + doff, (int64_t)H * DH, q0, Tn, 1.f);
+    load_tile<DH, kTile>(Qs, q + off, st, q0, Tn, 1.f);
+    load_tile<DH, kTile>(Os, dout + doff, (int64_t)H * DH, q0, Tn, 1.f);
     float lc[NS], dc[NS];
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
@@ -418,24 +404,22 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-#pragma unroll
-    for (int g0 = 0; g0 < G; g0 += GN) {
-      float t[4][4 * GN];
-      prob_times<DH, KR, GN>(t, Ps, Os, g0, ty, tx);
+    {  // one pass over all G column groups
+      float t[4][4 * G];
+      prob_times<DH, kTile, G>(t, Ps, Os, 0, ty, tx);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int n = 0; n < 4 * GN; ++n) dva[i][4 * g0 + n] = dva[i][4 * g0 + n] + t[i][n];
+        for (int n = 0; n < 4 * G; ++n) dva[i][n] = dva[i][n] + t[i][n];
     }
-#pragma unroll
-    for (int g0 = 0; g0 < G; g0 += GN) {
-      float t[4][4 * GN];
-      prob_times<DH, KR, GN>(t, Ds, Qs, g0, ty, tx);
+    {  // one pass over all G column groups
+      float t[4][4 * G];
+      prob_times<DH, kTile, G>(t, Ds, Qs, 0, ty, tx);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int n = 0; n < 4 * GN; ++n)
-          dka[i][4 * g0 + n] = dka[i][4 * g0 + n] + scale * t[i][n];
+        for (int n = 0; n < 4 * G; ++n)
+          dka[i][n] = dka[i][n] + scale * t[i][n];
     }
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
@@ -480,7 +464,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       const float* lse, const float* delta, void* dq, const Args& a,
                       cudaStream_t st) {
   using S = Shape<DH>;  // resident q and dO, streamed k and v, dS
-  const int floats = 2 * (kTile + S::KR) * S::LD + kTile * S::LP;
+  const int floats = 4 * kTile * S::LD + kTile * S::LP;
   cudaError_t e = prepare(flash_dq_kernel<DH>, floats);
   if (e != cudaSuccess) return e;
   flash_dq_kernel<DH><<<grid(a), kThreads, floats * sizeof(float), st>>>(
@@ -494,7 +478,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const float* lse, const float* delta, void* dk, void* dv, const Args& a,
                        cudaStream_t st) {
   using S = Shape<DH>;  // resident k and v, streamed q and dO, P^T and dS^T
-  const int floats = 2 * (kTile + S::KR) * S::LD + 2 * kTile * S::LP;
+  const int floats = 4 * kTile * S::LD + 2 * kTile * S::LP;
   cudaError_t e = prepare(flash_dkv_kernel<DH>, floats);
   if (e != cudaSuccess) return e;
   flash_dkv_kernel<DH><<<grid(a), kThreads, floats * sizeof(float), st>>>(
@@ -507,53 +491,36 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 // q, k, v (B, T, H, Dh) share the element strides (sb, st, sh) with Dh
 // contiguous and 16-byte aligned rows; o (B, T, H, Dh) and lse (B*H, T) are
-// contiguous outputs. Float32 at Dh 64 only (is_bf16 = 0):
-// fedml_flash_fwd_sm90 takes bfloat16, fedml_flash_fwd_f32_sm90 float32 at
-// Dh 128 and 256. Returns the cudaError_t of the launch.
+// contiguous outputs. Float32 at Dh 64 only (is_bf16 = 0): every other
+// head dim and bfloat16 have kernels of their own (ops/flash_attention.py's
+// route). Returns the cudaError_t of the launch.
 extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                                int B, int H, int T, int Dh, int is_bf16, int causal, long long sb,
                                long long st, long long sh, float scale, void* stream) {
-  if (!args_ok(B, H, T)) return (int)cudaErrorInvalidValue;
+  if (!args_ok(B, H, T) || Dh != 64 || is_bf16) return (int)cudaErrorInvalidValue;
   const Args a{B, H, T, sb, st, sh, scale, causal};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
-    case 128: return (int)launch_fwd<64>(q, k, v, o, lse, a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_fwd<64>(q, k, v, o, lse, a, (cudaStream_t)stream);
 }
 
 // dq (B, T, H, Dh) contiguous from q, k, v (strided as for the forward), dout
 // (B, T, H, Dh) contiguous, and the forward's lse and delta = rowsum(dO * O),
-// both (B*H, T) float32. Float32 at Dh 64 and 128 only (is_bf16 = 0):
-// fedml_flash_dq_sm90 takes bfloat16, fedml_flash_dq_f32_sm90 float32 at
-// Dh 256.
+// both (B*H, T) float32. Float32 at Dh 64 only (is_bf16 = 0).
 extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                               const float* lse, const float* delta, void* dq, int B, int H, int T,
                               int Dh, int is_bf16, int causal, long long sb, long long st,
                               long long sh, float scale, void* stream) {
-  if (!args_ok(B, H, T)) return (int)cudaErrorInvalidValue;
+  if (!args_ok(B, H, T) || Dh != 64 || is_bf16) return (int)cudaErrorInvalidValue;
   const Args a{B, H, T, sb, st, sh, scale, causal};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
-    case 128: return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, a, s);
-    case 256: return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, a, (cudaStream_t)stream);
 }
 
 // dk and dv (B, T, H, Dh) contiguous, from the same inputs as dq. Float32
-// at Dh 64 and 128 only (is_bf16 = 0): fedml_flash_dkv_sm90 takes bfloat16,
-// fedml_flash_dkv_f32_sm90 float32 at Dh 256.
+// at Dh 64 only (is_bf16 = 0).
 extern "C" int fedml_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                                const float* lse, const float* delta, void* dk, void* dv, int B,
                                int H, int T, int Dh, int is_bf16, int causal, long long sb,
                                long long st, long long sh, float scale, void* stream) {
-  if (!args_ok(B, H, T)) return (int)cudaErrorInvalidValue;
+  if (!args_ok(B, H, T) || Dh != 64 || is_bf16) return (int)cudaErrorInvalidValue;
   const Args a{B, H, T, sb, st, sh, scale, causal};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (Dh * 2 + (is_bf16 ? 1 : 0)) {
-    case 128: return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, a, s);
-    case 256: return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, a, (cudaStream_t)stream);
 }

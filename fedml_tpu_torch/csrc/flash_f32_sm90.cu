@@ -1,10 +1,10 @@
 // Flash attention for float32 inputs on the Hopper tensor cores, exact to
 // float32 through three TF32 products (3xTF32, tf32x3.cuh): the forward at
 // Dh 128, 256 and 384, dq and dk/dv at Dh 256 and 384. dq and dk/dv at Dh
-// 128 and every float32 kernel at Dh 64 keep the FMA kernels of
-// flash_attention.cu; bf16 inputs run the wgmma kernels (flash_dh256_sm90.cu
-// at Dh 256, flash_dh384_sm90.cu at Dh 384). ops/flash_attention.py's
-// route() picks.
+// 128 are flash_f32_wgmma_sm90.cu's; every float32 kernel at Dh 64 keeps
+// the FMA kernels of flash_attention.cu; bf16 inputs run the wgmma kernels
+// (flash_dh256_sm90.cu at Dh 256, flash_dh384_sm90.cu at Dh 384).
+// ops/flash_attention.py's route() picks.
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _flash_kernel (:66,
 // the forward, pallas_call :140) at Dh 128, 256 and 384, _dq_kernel (:167,

@@ -15,11 +15,12 @@ chunks). Float32 inputs run on the tensor cores too, in
 ``csrc/flash_f32_sm90.cu`` (``mma.sync`` as three TF32 products, exact to
 float32), for the forward, dq and dk/dv at Dh 256 and 384 and the forward
 at Dh 128 (at Dh 384 three warps split each row group's columns and add
-their partial scores in one fixed order), and at Dh 512-896 in
-``csrc/flash_wide_f32_sm90.cu`` (the same arithmetic, Dh / 128 warps a row
-group, their number set at launch); float32 dq and dk/dv at Dh 128 and
-every float32 kernel at Dh 64 run the FMA kernels of
-``csrc/flash_attention.cu`` (:func:`route`):
+their partial scores in one fixed order), in ``csrc/flash_f32_wgmma_sm90.cu``
+for dq and dk/dv at Dh 128 (the same arithmetic with every product on
+wgmma: two warpgroups, one a score product, hi terms in registers), and at
+Dh 512-896 in ``csrc/flash_wide_f32_sm90.cu`` (the same arithmetic, Dh /
+128 warps a row group, their number set at launch); every float32 kernel at
+Dh 64 runs the FMA kernels of ``csrc/flash_attention.cu`` (:func:`route`):
 
 - :func:`flash_forward` — online-softmax attention; returns ``out`` in q's
   dtype and the per-row logsumexp ``lse`` (B*H, 1, T) float32, the TPU
@@ -271,6 +272,9 @@ BF16_TMA = {256: "flash_dh256_sm90", 384: "flash_dh384_sm90"}
 # mma.sync) version for float32 inputs
 F32_TENSOR_CORE = {"fedml_flash_fwd": (128, 256, 384), "fedml_flash_dq": (256, 384),
                    "fedml_flash_dkv": (256, 384)}
+# the head dims at which the float32 backward has a version with its
+# products on wgmma (three TF32 products), and its library
+F32_WGMMA = {"fedml_flash_dq": (128,), "fedml_flash_dkv": (128,)}
 
 
 def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
@@ -279,10 +283,10 @@ def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
     ``flash_dh256_sm90``, at Dh 384 to ``flash_dh384_sm90``, at Dh 512-1536
     to ``flash_wide_sm90``, other bf16 calls to ``flash_attention_sm90``,
     the float32 forward at Dh 128, 256 and 384 and dq and dk/dv at Dh 256
-    and 384 to ``flash_f32_sm90``, all three at Dh 512-896 to
-    ``flash_wide_f32_sm90``, the rest of float32 (Dh 64; dq and dk/dv at Dh
-    128) to the FMA kernels of ``flash_attention``. All take the same
-    arguments."""
+    and 384 to ``flash_f32_sm90``, float32 dq and dk/dv at Dh 128 to
+    ``flash_f32_wgmma_sm90``, all three at Dh 512-896 to
+    ``flash_wide_f32_sm90``, the rest of float32 (Dh 64) to the FMA kernels
+    of ``flash_attention``. All take the same arguments."""
     if dtype == torch.bfloat16 and name in TENSOR_CORE:
         if Dh in BF16_TMA:
             return BF16_TMA[Dh], f"{name}_dh{Dh}_sm90"
@@ -291,6 +295,8 @@ def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
         return "flash_attention_sm90", name + "_sm90"
     if dtype == torch.float32 and name in TENSOR_CORE and Dh in F32_WIDE:
         return "flash_wide_f32_sm90", name + "_wide_f32_sm90"
+    if dtype == torch.float32 and Dh in F32_WGMMA.get(name, ()):
+        return "flash_f32_wgmma_sm90", name + "_f32wg_sm90"
     if dtype == torch.float32 and Dh in F32_TENSOR_CORE.get(name, ()):
         return "flash_f32_sm90", name + "_f32_sm90"
     return "flash_attention", name

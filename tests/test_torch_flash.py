@@ -233,14 +233,17 @@ def test_flash_kernels_match_plain_on_card(shape, dtype, causal):
 
 @pytest.mark.parametrize("Dh", [64, 128, 256])
 def test_route_sends_bf16_forward_and_dkv_to_the_tensor_cores(Dh):
-    """float32 to the FMA kernels, but for the forward, dq and dk/dv at Dh
-    256 and the forward at Dh 128, which run on the tensor cores in three
-    TF32 products; bf16 to the wgmma kernels, the forward, dq and dk/dv at
-    Dh 256 to their own design (scores once, TMA)."""
+    """float32 to the FMA kernels at Dh 64; the forward, dq and dk/dv at Dh
+    256 and the forward at Dh 128 run on the tensor cores in three TF32
+    products (flash_f32_sm90), dq and dk/dv at Dh 128 likewise on wgmma
+    (flash_f32_wgmma_sm90); bf16 to the wgmma kernels, the forward, dq and
+    dk/dv at Dh 256 to their own design (scores once, TMA)."""
     for name in ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv"):
         want = ("flash_attention", name)
         if Dh == 256 or (Dh == 128 and name == "fedml_flash_fwd"):
             want = ("flash_f32_sm90", name + "_f32_sm90")
+        elif Dh == 128:
+            want = ("flash_f32_wgmma_sm90", name + "_f32wg_sm90")
         assert tfa.route(name, torch.float32, Dh) == want
     if Dh == 256:
         fwd_dkv = ("flash_dh256_sm90", "_dh256_sm90")

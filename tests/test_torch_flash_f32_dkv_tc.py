@@ -45,7 +45,7 @@ from test_torch_conv import _split  # noqa: E402
 from test_torch_flash_dh256 import FWD_ATOL, GRAD_ATOL  # noqa: E402
 from test_torch_flash_f32_tc import (EXACT_TOL, _exact, _heads, _inputs,  # noqa: E402
                                      _jax_layout, _rel, _split_t, _tf32x3, _tiles,
-                                     emulate_forward)
+                                     emulate_forward, in_fragment_order)
 from test_torch_flash_f32_tc import _one_thread  # noqa: E402, F401  (autouse: one thread)
 
 jfa = importlib.import_module("fedml_tpu.ops.pallas.flash_attention")
@@ -54,33 +54,38 @@ KEY_ROWS = 64     # key rows of a dk/dv block
 DKV_QUERIES = 16  # rows of dk/dv's q and dO tiles
 
 
-def emulate_dkv(q, k, v, do, lse, delta, causal, terms=3, drop_query=None):
-    """From (H, T, 256) q, k, v, dO and (H, T) lse and delta -> (dk, dv),
-    both (H, T, 256). Every key block at once; causal q tiles before a key
-    block give p = 0 there, adding exact zeros where the kernel skips them.
-    ``drop_query``: the q tile that holds it is left out (a planted fault)."""
+def emulate_dkv(q, k, v, do, lse, delta, causal, terms=3, drop_query=None, key_rows=KEY_ROWS,
+                queries=DKV_QUERIES, key_order=None):
+    """From (H, T, Dh) q, k, v, dO and (H, T) lse and delta -> (dk, dv),
+    both (H, T, Dh), in blocks of ``key_rows`` keys and tiles of ``queries``
+    q/dO rows; P^T dO and dS^T Q with their queries paired by ``key_order``
+    (``in_fragment_order``). Every key block at once; causal q tiles before
+    a key block give p = 0 there, adding exact zeros where the kernel skips
+    them. ``drop_query``: the q tile that holds it is left out (a planted
+    fault)."""
     H, T, Dh = q.shape
-    nk, nq = -(-T // KEY_ROWS), -(-T // DKV_QUERIES)
+    nk, nq = -(-T // key_rows), -(-T // queries)
     scale = Dh ** -0.5
-    ks, vs = _split(_tiles(k, KEY_ROWS, nk)), _split(_tiles(v, KEY_ROWS, nk))
-    qt, ot = _tiles(q, DKV_QUERIES, nq), _tiles(do, DKV_QUERIES, nq)
-    lse_t, delta_t = (F.pad(x, (0, nq * DKV_QUERIES - T)).view(H, nq, 1, 1, DKV_QUERIES)
+    ks, vs = _split(_tiles(k, key_rows, nk)), _split(_tiles(v, key_rows, nk))
+    qt, ot = _tiles(q, queries, nq), _tiles(do, queries, nq)
+    lse_t, delta_t = (F.pad(x, (0, nq * queries - T)).view(H, nq, 1, 1, queries)
                       for x in (lse, delta))
-    keys = torch.arange(nk * KEY_ROWS).view(nk, KEY_ROWS, 1)
-    dk = torch.zeros(H, nk, KEY_ROWS, Dh)
-    dv = torch.zeros(H, nk, KEY_ROWS, Dh)
+    keys = torch.arange(nk * key_rows).view(nk, key_rows, 1)
+    dk = torch.zeros(H, nk, key_rows, Dh)
+    dv = torch.zeros(H, nk, key_rows, Dh)
     for j in range(nq):
-        if drop_query is not None and j == drop_query // DKV_QUERIES:
+        if drop_query is not None and j == drop_query // queries:
             continue
-        cols = torch.arange(j * DKV_QUERIES, (j + 1) * DKV_QUERIES)
-        qs, os_ = _split(qt[:, j, None]), _split(ot[:, j, None])
+        cols = torch.arange(j * queries, (j + 1) * queries)
         x = (scale * _tf32x3(ks, _split_t(qt[:, j, None]), terms)).masked_fill(
             causal & (keys > cols), tfa.NEG_INF)
         p = torch.exp(x - lse_t[:, j]).masked_fill(cols >= T, 0.0)
-        dv = dv + _tf32x3(_split(p), os_, terms)  # per q tile, from zero
+        pf, oj = in_fragment_order(p, ot[:, j, None], key_order)
+        dv = dv + _tf32x3(_split(pf), _split(oj), terms)  # per q tile, from zero
         ds = p * (_tf32x3(vs, _split_t(ot[:, j, None]), terms) - delta_t[:, j])
-        dk = dk + scale * _tf32x3(_split(ds), qs, terms)
-    return (dk.view(H, nk * KEY_ROWS, Dh)[:, :T], dv.view(H, nk * KEY_ROWS, Dh)[:, :T])
+        dsf, qj = in_fragment_order(ds, qt[:, j, None], key_order)
+        dk = dk + scale * _tf32x3(_split(dsf), _split(qj), terms)
+    return (dk.view(H, nk * key_rows, Dh)[:, :T], dv.view(H, nk * key_rows, Dh)[:, :T])
 
 
 # the sound arithmetic and its planted faults: (terms, a row whose tile is

@@ -125,30 +125,44 @@ def emulate_forward(q, k, v, causal, terms=3, drop_key=None, rows=ROWS, keys=FWD
     return out, (m + torch.log(ls)).view(H, nq * rows)[:, :T]
 
 
-def emulate_dq(q, k, v, do, lse, delta, causal, terms=3, drop_key=None):
-    """From (H, T, 256) q, k, v, dO and (H, T) lse and delta -> dq (H, T,
-    256). Every q tile at once; causal key tiles past a q tile's diagonal
-    give p = 0, adding exact zeros."""
+def in_fragment_order(f, x, key_order):
+    """The operands of an output product F X (f (..., M, K), x (..., K, N))
+    as a kernel pairs them when F comes from a score accumulator: the k
+    index j of each 8-step holds f's column a[j] and x's row b[j], key_order
+    = (a, b), permutations of range(8). Sound when a == b (the sum is F X in
+    another order); None keeps both in order."""
+    if key_order is None:
+        return f, x
+    a, b = (torch.tensor(o) + 8 * torch.arange(f.shape[-1] // 8)[:, None] for o in key_order)
+    return f[..., a.reshape(-1)], x[..., b.reshape(-1), :]
+
+
+def emulate_dq(q, k, v, do, lse, delta, causal, terms=3, drop_key=None, rows=ROWS,
+               keys=DQ_KEYS, key_order=None):
+    """From (H, T, Dh) q, k, v, dO and (H, T) lse and delta -> dq (H, T,
+    Dh), in blocks of ``rows`` q rows and tiles of ``keys`` k/v rows; dS K
+    with its keys paired by ``key_order`` (:func:`in_fragment_order`).
+    Every q tile at once; causal key tiles past a q tile's diagonal give p
+    = 0, adding exact zeros."""
     H, T, Dh = q.shape
-    nq, nk = -(-T // ROWS), -(-T // DQ_KEYS)
+    nq, nk = -(-T // rows), -(-T // keys)
     scale = Dh ** -0.5
-    qt, ot = _split(_tiles(q, ROWS, nq)), _split(_tiles(do, ROWS, nq))
-    kt, vt = _tiles(k, DQ_KEYS, nk), _tiles(v, DQ_KEYS, nk)
-    lse_t, delta_t = (F.pad(x, (0, nq * ROWS - T)).view(H, nq, ROWS, 1) for x in (lse, delta))
-    rows = torch.arange(nq * ROWS).view(nq, ROWS, 1)
-    dq = torch.zeros(H, nq, ROWS, Dh)
+    qt, ot = _split(_tiles(q, rows, nq)), _split(_tiles(do, rows, nq))
+    kt, vt = _tiles(k, keys, nk), _tiles(v, keys, nk)
+    lse_t, delta_t = (F.pad(x, (0, nq * rows - T)).view(H, nq, rows, 1) for x in (lse, delta))
+    qrows = torch.arange(nq * rows).view(nq, rows, 1)
+    dq = torch.zeros(H, nq, rows, Dh)
     for j in range(nk):
-        if drop_key is not None and j == drop_key // DQ_KEYS:
+        if drop_key is not None and j == drop_key // keys:
             continue
-        cols = torch.arange(j * DQ_KEYS, (j + 1) * DQ_KEYS)
-        ks = _split(kt[:, j, None])
-        x = (scale * _tf32x3(qt, tuple(t.transpose(-1, -2) for t in ks), terms)).masked_fill(
-            (cols >= T) | (causal & (cols > rows)), tfa.NEG_INF)
+        cols = torch.arange(j * keys, (j + 1) * keys)
+        x = (scale * _tf32x3(qt, _split_t(kt[:, j, None]), terms)).masked_fill(
+            (cols >= T) | (causal & (cols > qrows)), tfa.NEG_INF)
         p = torch.exp(x - lse_t)
         dp = _tf32x3(ot, _split_t(vt[:, j, None]), terms)
-        ds = p * (dp - delta_t)
-        dq = dq + scale * _tf32x3(_split(ds), ks, terms)  # per key tile, from zero
-    return dq.view(H, nq * ROWS, Dh)[:, :T]
+        ds, kj = in_fragment_order(p * (dp - delta_t), kt[:, j, None], key_order)
+        dq = dq + scale * _tf32x3(_split(ds), _split(kj), terms)  # per key tile, from zero
+    return dq.view(H, nq * rows, Dh)[:, :T]
 
 
 def _inputs(shape, seed):
@@ -285,14 +299,16 @@ def test_f32_dh256_arithmetic_at_ragged_t_matches_jax_dense(causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_sends_f32_tensor_core_kernels_to_flash_f32_sm90(Dh, dtype):
     """The float32 forward, dq and dk/dv at Dh 256 and the float32 forward
-    at Dh 128 go to flash_f32_sm90; float32 dq and dk/dv at Dh 128 and every
-    float32 kernel at Dh 64 keep the FMA kernels, bf16 keeps the wgmma
-    kernels."""
-    assert "flash_f32_sm90" in tops.KERNELS
+    at Dh 128 go to flash_f32_sm90; float32 dq and dk/dv at Dh 128 to
+    flash_f32_wgmma_sm90; every float32 kernel at Dh 64 keeps the FMA
+    kernels, bf16 keeps the wgmma kernels."""
+    assert "flash_f32_sm90" in tops.KERNELS and "flash_f32_wgmma_sm90" in tops.KERNELS
     for name in ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv"):
         lib, entry = tfa.route(name, dtype, Dh)
         if dtype == torch.float32 and (Dh == 256 or (Dh == 128 and name == "fedml_flash_fwd")):
             assert (lib, entry) == ("flash_f32_sm90", name + "_f32_sm90")
+        elif dtype == torch.float32 and Dh == 128:
+            assert (lib, entry) == ("flash_f32_wgmma_sm90", name + "_f32wg_sm90")
         elif dtype == torch.float32:
             assert (lib, entry) == ("flash_attention", name)
         else:
