@@ -27,9 +27,12 @@ non-zero exit code and no result line:
 2. build — nvcc builds every kernel of the port from csrc/, in parallel,
    and csrc/tc_rate.cu; tc_rate — the TF32 and bf16 rates mma.sync
    reaches on this card (the float32 and bf16 conv forwards'
-   instructions), against the dense peaks the bounds count, and the TF32
+   instructions), against the dense peaks the bounds count, the TF32
    rate of wgmma.m64nNk8 at N 16, 32 and 64 with A from shared memory or
-   from registers (the float32 Dh-128 backward's instruction);
+   from registers (the float32 Dh-128 backward's instruction), and the
+   cluster probe (cluster_exchange: the exchange of the float32 Dh-512
+   clusters alone, in the pull form and in the kernels' own,
+   beside the clusters the card holds at once);
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and a few ragged ones, with timings of the
    kernel, the plain version and (where one exists) a library call: the
@@ -51,7 +54,8 @@ non-zero exit code and no result line:
    flash_dkv; SDPA as the library call, with the backend it ran; bf16
    inputs on the tensor cores, float32 on flash_f32_sm90.cu's three TF32
    products at Dh 256 and 384 and for the forward at Dh 128, on
-   flash_f32_wgmma_sm90.cu's for dq and dk/dv at Dh 128, on the FMA
+   flash_f32_wgmma_sm90.cu's for dq and dk/dv at Dh 128 and, as clusters
+   of four blocks (their resident clusters printed), at Dh 512, on the FMA
    kernels at Dh 64), at Dh 64 (the _f32 entries at small_lm's shape), at
    Dh 128 (the _dh128_f32 entries at small_lm_128's shape and the
    _dh128_f32_mid ones at lm_mid_f32's: the forward on flash_f32_sm90.cu,
@@ -67,10 +71,13 @@ non-zero exit code and no result line:
    _dh1536_small ones at small_lm_1536's, on flash_wide_sm90.cu, checked at
    all nine of its head dims (512 ... 1536), each timed at one causal head
    of T 4224, its column slices held bit-equal on inputs whose slices
-   repeat; the _dh512_f32 entries at lm_xxl_f32's shape and the
+   repeat; the _dh512_f32 entries at lm_xxl_f32's shape (the forward on
+   flash_wide_f32_sm90.cu, dq and dk/dv on flash_f32_wgmma_sm90.cu's
+   clusters, with the mma.sync kernels' time beside as was_ms) and the
    _dh896_f32_small ones at small_lm_896_f32's, on flash_wide_f32_sm90.cu,
    checked at its four head dims (512 ... 896), timed at one head of T
-   4224, causal and full, its warps' column parts held bit-equal; each
+   4224, causal and full, its warps' (and clusters') column parts held
+   bit-equal; each
    swept head dim with its bound and SDPA's times); each redesigned kernel
    with the earlier design's time as was_ms;
 4. small — the robust FedAvg path at a small size on the card against the
@@ -168,11 +175,13 @@ non-zero exit code and no result line:
 23. lm_xxl_f32 — the Cheetah example at --dim 4096 --seq_len 4224
     --ce_chunk 128 (vocab 32000, 8 heads of 512, 8 layers, 1,890.4 M
     parameters) trained in float32 at B 8 (auto dispatch picks flash) for 3
-    steps: 16 forward, 8 dq and 8 dk/dv launches a step on
-    flash_wide_f32_sm90.cu; lm_xxl_f32_profile, one warm step under
-    torch.profiler;
-24. small_lm_896_f32 — one float32 head of Dh 896 at T 4224 in one layer
-    (auto picks flash), card against CPU under small_lm's float32 gates.
+    steps: 16 forward launches a step on flash_wide_f32_sm90.cu, 8 dq and 8
+    dk/dv on flash_f32_wgmma_sm90.cu's four-block clusters (the routes are
+    checked); lm_xxl_f32_profile, one warm step under torch.profiler;
+24. small_lm_512_f32 and small_lm_896_f32 — one float32 head of Dh 512
+    (dq and dk/dv on the clusters, the routes checked) and one of Dh 896
+    at T 4224 in one layer (auto picks flash), card against CPU under
+    small_lm's float32 gates.
 
 Every LM profile must show as many flash kernels a step as the wrappers
 count (profile_run's ``calls``), and every device_ms profile as many events
@@ -461,7 +470,42 @@ def phase_tc_rate(dev):
                 emit("tc_rate", instruction=f"wgmma.m64n{n}k8 tf32, A from " +
                      ("registers" if rs else "shared memory"), blocks_per_sm=per_sm, ms=ms,
                      tflops=rate / 1e12, share_of_peak=rate / TF32_OPS_PER_S)
+    phase_cluster_probe(dev)
     return tuple(rates)
+
+
+# the forms of csrc/tc_rate.cu's cluster probe, by its mode
+CLUSTER_FORMS = ("pull: 16 KB stored, the peers' 48 KB read, two cluster barriers",
+                 "reduce-scatter and gather of one tile on mbarriers (dq's exchange)",
+                 "reduce-scatter and gather of two tiles on mbarriers (dk/dv's exchange)")
+CLUSTER_PROBE_ITERS = 2000
+
+
+def phase_cluster_probe(dev):
+    """Microseconds per exchange of flash_f32_wgmma_sm90.cu's Dh-512
+    clusters alone (csrc/tc_rate.cu's cluster probe): as many clusters of
+    four 256-thread blocks of 226 KB as the card holds at once
+    (cudaOccupancyMaxActiveClusters, printed; it raises if none fits), each
+    exchanging two 64 x 32 float32 tiles a block CLUSTER_PROBE_ITERS times in
+    each of CLUSTER_FORMS."""
+    import ctypes
+
+    from fedml_tpu_torch.ops import _build
+
+    clusters = _build.function("tc_rate", "fedml_cluster_exchange_clusters", [])()
+    if clusters <= 0:
+        raise AssertionError(f"no cluster of four 226-KB blocks fits the card ({clusters})")
+    fn = _build.function("tc_rate", "fedml_cluster_exchange",
+                         [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    out = torch.empty(clusters * 4 * 256, device=dev)
+    for mode, form in enumerate(CLUSTER_FORMS):
+        def run():
+            _build.check(fn(out.data_ptr(), clusters, CLUSTER_PROBE_ITERS, mode,
+                            torch.cuda.current_stream(dev).cuda_stream), "cluster probe")
+
+        ms = time_ms(run, reps=1, rounds=3)
+        emit("cluster_exchange", form=form, clusters=clusters, blocks_per_cluster=4,
+             smem_bytes_per_block=226 * 1024, us_per_exchange=ms * 1e3 / CLUSTER_PROBE_ITERS)
 
 
 def special_values(C, m, seed):
@@ -1990,9 +2034,11 @@ FLASH_WIDE_SWEEP_T = 4224
 FLASH_SMALL_LM_1536 = (1, FLASH_WIDE_SWEEP_T, 1, 1536)
 # lm_xxl_f32's attention: the same model trained in float32 at T 4224 (where
 # auto picks flash with 4-byte items), 8 heads of 512; then every float32
-# head dim of flash_wide_f32_sm90.cu (Dh = 128 n, 512 ... 896): one head of
-# T 4224, causal (small_lm_896_f32's at Dh 896) and full, timed, and ragged
-# causal and full cases with B, H > 1 through the projection's strided views
+# head dim of flash_wide_f32_sm90.cu (Dh = 128 n, 512 ... 896; at 512 dq and
+# dk/dv run flash_f32_wgmma_sm90.cu's four-block clusters): one head of T
+# 4224, causal (small_lm_512_f32's and small_lm_896_f32's) and full, timed,
+# and ragged causal and full cases with B, H > 1 through the projection's
+# strided views
 FLASH_XXL_F32 = (8, FLASH_WIDE_SWEEP_T, 8, 512)
 FLASH_F32_WIDE_DIMS = (512, 640, 768, 896)
 FLASH_SMALL_LM_896 = (1, FLASH_WIDE_SWEEP_T, 1, 896)
@@ -2015,10 +2061,11 @@ FLASH_CASES = ((FLASH_SLICE, torch.bfloat16, True), (FLASH_F32_128, torch.float3
     for case in (((1, FLASH_WIDE_SWEEP_T, 1, Dh), torch.bfloat16, True),
                  ((2, 333, 3, Dh), torch.bfloat16, False))) + (
     (FLASH_XXL_F32, torch.float32, True), ((2, 333, 3, 512), torch.float32, True),
+    ((3, 130, 2, 512), torch.float32, False),
     ((3, 130, 2, 640), torch.float32, False), ((2, 333, 3, 768), torch.float32, False),
     ((3, 130, 2, 896), torch.float32, True)) + tuple(
     ((1, FLASH_WIDE_SWEEP_T, 1, Dh), torch.float32, causal)
-    for Dh in FLASH_F32_WIDE_DIMS[1:] for causal in (True, False))
+    for Dh in FLASH_F32_WIDE_DIMS for causal in (True, False))
 # the timed (shape, dtype) pairs, causal as the paths run them, and the
 # suffix of their kernels line entries (the launch counts of lm_main,
 # lm_wide, lm_wide_f32, small_lm_256, small_lm, small_lm_128, lm_mid_f32,
@@ -2046,11 +2093,13 @@ FLASH_TIMED = {(FLASH_SLICE, torch.bfloat16): "", (FLASH_WIDE, torch.bfloat16): 
 # FLASH_WIDE_F32 and FLASH_SMALL_LM_256 of the float32 Dh-256 forward, dq
 # and dk/dv, at FLASH_SMALL_LM_128 of the float32 Dh-128 forward, dq and
 # dk/dv and at FLASH_MID_F32 of the float32 Dh-128 dq and dk/dv, of
-# flash_attention.cu's FMA kernels, each measured by this script on an H100
-# 80GB HBM3 at 700 W before its redesign; `flash DIR` times both designs in
-# one call
+# flash_attention.cu's FMA kernels, and at FLASH_XXL_F32 of the float32
+# Dh-512 dq and dk/dv of flash_wide_f32_sm90.cu's mma.sync kernels, each
+# measured by this script on an H100 80GB HBM3 at 700 W before its redesign;
+# `flash DIR` times both designs in one call
 _WAS_BF16 = "flash_attention_sm90.cu's two-warpgroup Dh-256 design"
 _WAS_F32 = "flash_attention.cu's float32 FMA kernel"
+_WAS_WIDE_F32 = "flash_wide_f32_sm90.cu's mma.sync kernel"
 FLASH_WAS_MS = {"flash_fwd_dh256": (5.208, _WAS_BF16), "flash_dkv_dh256": (9.373, _WAS_BF16),
                 "flash_dq_dh256": (7.771, _WAS_BF16),
                 "flash_fwd_dh256_f32": (20.61, _WAS_F32),
@@ -2063,7 +2112,9 @@ FLASH_WAS_MS = {"flash_fwd_dh256": (5.208, _WAS_BF16), "flash_dkv_dh256": (9.373
                 "flash_dq_dh128_f32": (0.9749, _WAS_F32),
                 "flash_dkv_dh128_f32": (1.238, _WAS_F32),
                 "flash_dq_dh128_f32_mid": (17.09, _WAS_F32),
-                "flash_dkv_dh128_f32_mid": (21.51, _WAS_F32)}
+                "flash_dkv_dh128_f32_mid": (21.51, _WAS_F32),
+                "flash_dq_dh512_f32": (53.35, _WAS_WIDE_F32),
+                "flash_dkv_dh512_f32": (75.14, _WAS_WIDE_F32)}
 # |kernel - plain| / max|plain|, plain in float32. Each output sums up to
 # T * Dh = 5e5 float32 products in another order than the plain version's
 # cuBLAS calls: a random walk of sqrt(n) * 2^-24 ~ 4e-5 of the terms'
@@ -2256,8 +2307,17 @@ def check_flash(dev, tc_rate):
     flash_wide_f32_sm90) also reports its operations at the float32 FMA rate (fma_bound_ms) and
     at ``tc_rate``, the rate mma.sync TF32 reached in phase tc_rate
     (mma_sync_ms)."""
+    import ctypes
+
+    from fedml_tpu_torch.ops import _build
     from fedml_tpu_torch.ops import flash_attention as fa
 
+    clusters = _build.function("flash_f32_wgmma_sm90", "fedml_flash_f32wg_clusters",
+                               [ctypes.c_int])
+    resident = {"flash_dq": clusters(0), "flash_dkv": clusters(1)}
+    if min(resident.values()) <= 0:
+        raise AssertionError(f"the float32 Dh-512 clusters fit no SM set: {resident}")
+    emit("flash_f32_dh512_clusters", blocks_per_cluster=4, resident_clusters=resident)
     gen = torch.Generator().manual_seed(5)
     entries = []
     for shape, dtype, causal in FLASH_CASES:
@@ -2657,6 +2717,21 @@ def phase_lm_wide_f32():
                      LM_WIDE_F32_STEPS, "_dh256_f32", dtype=torch.float32)[:3]
 
 
+def _check_routes(phase, Dh, want):
+    """Raises unless the float32 forward, dq and dk/dv at head dim ``Dh``
+    route to the kernel libraries ``want``."""
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    routes = [fa.route(n, torch.float32, Dh)[0] for n in fa.TENSOR_CORE]
+    if routes != list(want):
+        raise AssertionError(f"{phase}'s flash calls route to {routes}, not {list(want)}")
+
+
+# the float32 XXL LM's routes: the forward on flash_wide_f32_sm90.cu, dq and
+# dk/dv on flash_f32_wgmma_sm90.cu's four-block clusters
+XXL_F32_ROUTES = ("flash_wide_f32_sm90", "flash_f32_wgmma_sm90", "flash_f32_wgmma_sm90")
+
+
 def phase_lm_mid_f32(check_routes=True):
     """The float32 LM at --dim 1024 for LM_MID_F32_STEPS steps under full
     remat: auto dispatch must pick flash, and per step the float32 Dh-128
@@ -2664,17 +2739,15 @@ def phase_lm_mid_f32(check_routes=True):
     (flash_f32_wgmma_sm90.cu) 8 times each, none on the FMA kernels
     (``check_routes``; ``lm_mid DIR`` runs an earlier checkout's routes).
     Returns (trainer, data, launches)."""
-    from fedml_tpu_torch.ops import flash_attention as fa
     from fedml_tpu_torch.ops.attention import auto_attention_impl
 
     H = LM_MID_F32_MODEL["num_heads"]
     Dh = LM_MID_F32_MODEL["dim"] // H
     if auto_attention_impl(LM_WIDE_B, H, LM_MID_F32_T, Dh, 4) != "flash":
         raise AssertionError(f"auto dispatch must pick flash at {LM_WIDE_B, H, LM_MID_F32_T}")
-    routes = [fa.route(n, torch.float32, Dh)[0] for n in fa.TENSOR_CORE]
-    if check_routes and routes != ["flash_f32_sm90", "flash_f32_wgmma_sm90",
-                                   "flash_f32_wgmma_sm90"]:
-        raise AssertionError(f"lm_mid_f32's flash calls route to {routes}")
+    if check_routes:
+        _check_routes("lm_mid_f32", Dh, ("flash_f32_sm90", "flash_f32_wgmma_sm90",
+                                         "flash_f32_wgmma_sm90"))
     return _lm_phase("lm_mid_f32", LM_MID_F32_MODEL, LM_TRAIN, LM_WIDE_B, LM_MID_F32_T,
                      LM_MID_F32_STEPS, "_dh128_f32_mid", dtype=torch.float32)[:3]
 
@@ -2717,17 +2790,20 @@ def phase_lm_xxl():
     return tr, data, launches
 
 
-def phase_lm_xxl_f32():
+def phase_lm_xxl_f32(check_routes=True):
     """The XXL LM in float32 for LM_XXL_STEPS steps under full remat: auto
     dispatch must pick flash, the model must hold the example's parameter
-    count, and per step the float32 forward, dq and dk/dv of
-    flash_wide_f32_sm90.cu launch 2 x 8, 8 and 8 times. Returns (trainer,
-    data, launches)."""
+    count, and per step the float32 forward (flash_wide_f32_sm90.cu)
+    launches 2 x 8 times, dq and dk/dv (flash_f32_wgmma_sm90.cu, as clusters
+    of four blocks) 8 times each (``check_routes``; ``lm_xxl_f32 DIR`` runs
+    an earlier checkout's routes). Returns (trainer, data, launches)."""
     from fedml_tpu_torch.ops.attention import auto_attention_impl
 
     H, T = LM_XXL_F32_MODEL["num_heads"], LM_XXL_F32_MODEL["max_len"]
     if auto_attention_impl(LM_WIDE_B, H, T, LM_XXL_F32_MODEL["dim"] // H, 4) != "flash":
         raise AssertionError(f"auto dispatch must pick flash at {LM_WIDE_B, H, T} in float32")
+    if check_routes:
+        _check_routes("lm_xxl_f32", LM_XXL_F32_MODEL["dim"] // H, XXL_F32_ROUTES)
     tr, data, launches, _ = _lm_phase("lm_xxl_f32", LM_XXL_F32_MODEL, LM_XXL_F32_TRAIN,
                                       LM_WIDE_B, T, LM_XXL_STEPS, "_dh512_f32",
                                       dtype=torch.float32)
@@ -2770,8 +2846,11 @@ SMALL_LM_512 = dict(SMALL_LM_384, dim=512)
 SMALL_LM_1536 = dict(SMALL_LM_384, dim=1536, num_layers=1, max_len=FLASH_WIDE_SWEEP_T)
 # the float32 kernels of flash_wide_f32_sm90.cu under the trainer: one head of
 # 896 (its widest row group, its fullest shared memory) at T 4224, where auto
-# picks flash in float32, in one layer, under small_lm's float32 gates
+# picks flash in float32, in one layer, under small_lm's float32 gates; and
+# one head of 512 likewise, whose dq and dk/dv run flash_f32_wgmma_sm90.cu's
+# four-block clusters (small_lm_512_f32)
 SMALL_LM_896 = dict(SMALL_LM_1536, dim=896)
+SMALL_LM_512_F32 = dict(SMALL_LM_1536, dim=512)
 # the bf16 small LMs' gate. bf16 GEMMs round differently on the card and on the
 # CPU, so small_lm's float32 bounds do not apply; the same comparison with
 # dense attention on both devices measures what that rounding alone does
@@ -2854,6 +2933,7 @@ def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
         "flash_fwd_f32tc_kernel", "flash_dq_f32tc_kernel", "flash_dkv_f32tc_kernel",
         "flash_fwd_f32tc_kernel<384>", "flash_dq_f32tc_kernel<384>",
         "flash_dkv_f32tc_kernel<384>", "flash_dq_f32wg_kernel", "flash_dkv_f32wg_kernel",
+        "flash_dq_f32wg_kernel<4>", "flash_dkv_f32wg_kernel<4>",
         "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
         unit="step", groups=LM_GROUPS, calls=want)
     launches = _flash_counts()
@@ -2894,7 +2974,7 @@ def main(argv):
                                                phase="lm_xl_f32_profile"),
          "lm_xxl": lambda: phase_lm_profile(*phase_lm_xxl()[:2], steps=1,
                                             phase="lm_xxl_profile"),
-         "lm_xxl_f32": lambda: phase_lm_profile(*phase_lm_xxl_f32()[:2], steps=1,
+         "lm_xxl_f32": lambda: phase_lm_profile(*phase_lm_xxl_f32(False)[:2], steps=1,
                                                 phase="lm_xxl_f32_profile")}[argv[0]]()
         return 0
     smi = phase_device()
@@ -2966,6 +3046,9 @@ def main(argv):
     phase_lm_profile(tr, data, steps=1, phase="lm_xxl_f32_profile")
     del tr
     torch.cuda.empty_cache()
+    _check_routes("small_lm_512_f32", SMALL_LM_512_F32["dim"], XXL_F32_ROUTES)
+    launches.update(phase_small_lm("small_lm_512_f32", SMALL_LM_512_F32,
+                                   suffix="_dh512_f32_small"))
     launches.update(phase_small_lm("small_lm_896_f32", SMALL_LM_896, suffix="_dh896_f32_small"))
     for e in entries:
         e["launches"] = launches[e["name"]]

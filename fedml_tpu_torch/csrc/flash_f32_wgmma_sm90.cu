@@ -1,12 +1,13 @@
 // Flash attention's backward (dq; dk and dv) for float32 inputs at Dh 128
-// on the Hopper tensor cores, exact to float32 through three TF32 products
-// (3xTF32, tf32x3.cuh), every product on TF32 wgmma. The float32 forward at
-// Dh 128 and every other float32 head dim are flash_f32_sm90.cu's and
+// and 512 on the Hopper tensor cores, exact to float32 through three TF32
+// products (3xTF32, tf32x3.cuh), every product on TF32 wgmma; at Dh 512 as a
+// cluster of four blocks (below). The float32 forward at Dh 128 and 512 and
+// every other float32 head dim are flash_f32_sm90.cu's and
 // flash_wide_f32_sm90.cu's (Dh 64: flash_attention.cu's FMA kernels).
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _dq_kernel (:167,
 // pallas_call :287) and _dkv_kernel (:213, pallas_call :299), both reached
-// from _flash_backward (:265), on float32 inputs at Dh 128. The TPU kernels
+// from _flash_backward (:265), on float32 inputs at Dh 128 and 512. The TPU kernels
 // walk a sequential (bh, q block, k block) grid with their sums in VMEM
 // scratch; here a block owns 64 q rows (dq) or 64 key rows (dk/dv) and
 // walks the other axis in a loop, with the sums in registers.
@@ -65,6 +66,44 @@
 // TFLOP a product; as three TF32 products at 495 TFLOP/s dq (three
 // products) takes 3.163 ms and dk/dv (four) 4.218 ms, at the float32 FMA
 // rate (67 TFLOP/s) 7.790 and 10.39 ms; bytes take under 0.1 ms.
+//
+// Dh 512: the cluster. One (64, 512) float32 tile split into hi and lo is
+// 256 KB, more than a block's 227 KB of shared memory, and a block must hold
+// two such tensors (q and dO; k and v). So a (b, h, 64-row tile) is a
+// thread-block cluster of P = 4 blocks on four SMs (the kernels' template
+// parameter P; P = 1 is the Dh-128 block above), and cluster rank c owns the
+// 128 columns 128 c .. 128 c + 127: it is the Dh-128 block on that slice of
+// q, k, v and dO, and it sums that slice of dq, dk and dv. Its score products
+// give the partial scores of its slice (S and dP in dq, S^T and dP^T in
+// dk/dv), each 128-column part from zero. Once a streamed tile the cluster
+// adds the four parts in rank order, ((part 0 + part 1) + part 2) + part 3,
+// through distributed shared memory (the exchange, below): a reduce-scatter
+// to the rows' owner, which forms ds (dq) or p and ds (dk/dv) from the sums,
+// and a gather of those to every block. So all four blocks hold the same
+// bits of p and ds, every score is computed once, and every byte of q, k, v
+// and dO is fetched once a cluster. Rows at or past T are zero-filled and
+// masked in every block alike. The launch asks for clusters of four along x
+// (grid 4 B H ceil(T / 64)); a cluster that finds no four free SMs is an
+// error (cudaErrorClusterOutOfResources), never a fallback. Shared memory:
+// dq 226 KB (the exchange takes the hand-over's 16 KB and 16 KB more), dk/dv
+// 226 KB (the exchange lives in the landing stage, between the split and the
+// next tile's copies). On the H100 (PERF.md; tc_rate.cu's cluster probe): one
+// barrier.cluster costs ~0.6 us and a block reads its peers' shared memory at
+// ~25-35 GB/s, so the first form (each block pulling its three peers' 16 KB
+// between two cluster barriers, 3.1 us a tile) took dq 59.7 ms and dk/dv 71.5
+// at the shape below; the mbarrier reduce-scatter and gather takes ~1.2 us
+// (dq) and ~1.4 us (dk/dv) a tile: dq 39.8 ms, dk/dv 57.6. dq then overlaps
+// its exchange with the next tile's score products (split its score tiles,
+// issue the products, and only then wait for ds): 36.0 ms, at 255 registers
+// with 52 bytes of spills (13 loop-invariant words, reloaded in the tile-end
+// split); unpipelined it held 223 registers and spilled nothing. dk/dv
+// (254 registers, no spill) cannot overlap: its exchange fills the landing
+// stage, so the next tile lands only after it.
+//
+// Bound on the H100 at the float32 XXL LM's shape (B 8, T 4224, H 8, Dh 512,
+// causal): 571,084,800 unmasked pairs x 1,024 operations = 0.5848 TFLOP a
+// product; as three TF32 products at 495 TFLOP/s dq takes 10.63 ms and dk/dv
+// 14.18 ms.
 
 #include "flash_sm90.cuh"
 #include "tf32x3.cuh"
@@ -72,7 +111,8 @@
 
 namespace {
 
-constexpr int kDh = 128;         // head dim
+constexpr int kDh = 128;         // head dim of a block (at Dh 512 its slice of the columns)
+constexpr int kParts = 4;        // blocks of a cluster at Dh 512
 constexpr int kRows = 64;        // rows a block owns: q rows (dq) or key rows (dk/dv)
 constexpr int kKeys = 32;        // rows of the streamed tiles: k and v (dq), q and dO (dk/dv)
 constexpr int kNK = kKeys / 8;   // 8-row k steps of a streamed tile
@@ -194,13 +234,13 @@ __device__ __forceinline__ void land(uint32_t dst, const float* src, int64_t st,
 __device__ __forceinline__ int kpos(int r) { return (r & ~7) + ((r & 7) >> 1) + 4 * (r & 1); }
 
 // The landed kKeys-row tile at raw split into hi and lo tiles (lo right
-// after hi) for the score products and, with TRANS, also into transposed hi
-// and lo tiles at thi (kDh rows of kKeys floats, K-major over the permuted
-// streamed rows) for the output products. Lane = streamed row; the block's
-// warps take the 16-byte column chunks in turn. No bank conflicts: a
+// after hi) for the score products (KMAJOR) and, with TRANS, into transposed
+// hi and lo tiles at thi (kDh rows of kKeys floats, K-major over the
+// permuted streamed rows) for the output products. Lane = streamed row; the
+// block's warps take the 16-byte column chunks in turn. No bank conflicts: a
 // quarter-warp's 16-byte stores hit eight rows of one chunk, a warp's
 // transposed 4-byte stores one 128-byte row.
-template <bool TRANS>
+template <bool TRANS, bool KMAJOR = true>
 __device__ __forceinline__ void split_tile(uint32_t hi, uint32_t thi, uint32_t raw) {
   constexpr int R = kKeys, CH = kDh / 4, WARPS = 2 * kWG / 32;
   static_assert(R == 32, "a lane a row");
@@ -214,8 +254,10 @@ __device__ __forceinline__ void split_tile(uint32_t hi, uint32_t thi, uint32_t r
     split_tf32(x.y, h[1], l[1]);
     split_tf32(x.z, h[2], l[2]);
     split_tf32(x.w, h[3], l[3]);
-    sts128(hi + swz<R>(r, c), h);
-    sts128(hi + tile_bytes<R>() + swz<R>(r, c), l);
+    if constexpr (KMAJOR) {
+      sts128(hi + swz<R>(r, c), h);
+      sts128(hi + tile_bytes<R>() + swz<R>(r, c), l);
+    }
     if constexpr (TRANS) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -294,15 +336,15 @@ __device__ __forceinline__ void out_product(float (&acc)[NT][4], uint64_t d0,
 
 // rows row0 (values e = 0, 1) and row0 + 8 (e = 2, 3) of a warp's (16, 8 NT)
 // sum acc[A0 ..] into columns c0 .. c0 + 8 NT - 1 of a contiguous (B, T, H,
-// kDh) output
-template <int NT, int A0, int NA>
+// DH) output
+template <int NT, int A0, int DH, int NA>
 __device__ __forceinline__ void store_rows(float* out, const float (&acc)[NA][4], int b, int h,
                                            int H, int Tn, int row0, int c0, int t) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 8 * half;
     if (row >= Tn) continue;
-    float* dst = out + (((int64_t)b * Tn + row) * H + h) * kDh + c0 + 2 * t;
+    float* dst = out + (((int64_t)b * Tn + row) * H + h) * DH + c0 + 2 * t;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<float2*>(dst + 8 * n) =
@@ -353,6 +395,132 @@ __device__ __forceinline__ void load_resident(uint32_t (&ah)[kDh / 8][4], uint32
   __syncthreads();
 }
 
+// --- the cluster (P > 1) --------------------------------------------------------
+//
+// The exchange of a streamed tile's partial scores is a reduce-scatter and a
+// gather through distributed shared memory, signalled by mbarriers: warp w
+// of each warpgroup (rows 16 w .. 16 w + 15) sends its partial tile to the
+// block of rank w, their owner (st.async, its bytes counted on the owner's
+// mbarrier `full_r`); the owner's two warps w add the four ranks' parts of
+// S and dP (dq) or S^T and dP^T (dk/dv) in rank order, each over half of
+// the tile's 8-key steps, form ds (dq) or p and ds (dk/dv) there, and send
+// them to every block of the cluster (counted on each one's `full_g`);
+// every warp then reads its rows' values. A block receives 16 KB of parts
+// a tile (12 KB from its peers) and 8 KB (dq) or 16 KB (dk/dv) of values.
+// Each mbarrier has one arrival a phase, its transaction bytes armed by one
+// thread right after that thread has seen the phase before complete. A
+// block sends tile i + 1's parts only after all of tile i's values have
+// reached it, so no tile's bytes reach an mbarrier before its phase before
+// has completed; and the owner formed those values from the parts it had
+// read, so tile i + 1's parts never overwrite unread parts of tile i. The
+// values are another matter: tile i + 1's values can come as soon as every
+// block has sent tile i + 1's parts. dk/dv reads tile i's values before it
+// sends those. dq's warps send them first (the next tile's products overlap
+// the exchange), so dq keeps two values buffers, by tile parity: tile i +
+// 2's values need parts that a warp sends only after it has used tile i's.
+// In dk/dv the exchange lives in the landing stage, so a block sends its
+// parts only once every owner has split its last landed tile (`ready`: four
+// arrivals a tile, one from each block after its split).
+
+// mbarrier at shared address bar: `count` arrivals a phase
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// this phase's arrival, with `bytes` more transaction bytes to come
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// an arrival at the mbarrier of another block (shared::cluster address)
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of the cluster meets (barrier.cluster, release / acquire):
+// after the mbarriers' set-up and before a block leaves
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of shared address a in the block of rank r
+__device__ __forceinline__ uint32_t peer(uint32_t a, uint32_t r) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(r));
+  return d;
+}
+
+// 16 bytes into another block's shared memory (shared::cluster address a),
+// counted on its mbarrier bar
+__device__ __forceinline__ void st_async(uint32_t a, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(a),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// byte offset of 16-byte chunk j of `lane` in slot `slot` of an exchange
+// buffer: a warp's 16 values a lane, chunk-major, so that a warp's accesses
+// are 512 contiguous bytes
+__device__ __forceinline__ uint32_t xoff(int slot, int j, int lane) {
+  return 16 * ((slot * 4 + j) * 32 + lane);
+}
+
+// this thread's partial scores (tensor `tensor`: role 0's S or S^T, role 1's
+// dP or dP^T) to the parts buffer of the block that owns its warp's rows,
+// at slot (this block's rank, tensor)
+__device__ __forceinline__ void send_parts(const float (&s)[kKeys / 2], uint32_t parts,
+                                           uint32_t full_r, int rank, int tensor, int warp,
+                                           int lane) {
+  const uint32_t to = peer(parts + xoff(rank * 2 + tensor, 0, lane), warp);
+  const uint32_t bar = peer(full_r, warp);
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j)
+    st_async(to + xoff(0, j, 0), make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]),
+             bar);
+}
+
+// the owner's sum of chunk j of `tensor` over the P ranks' parts, in rank
+// order: ((part 0 + part 1) + part 2) + part 3
+template <int P>
+__device__ __forceinline__ float4 sum_parts(uint32_t parts, int tensor, int j, int lane) {
+  float4 a = lds128(parts + xoff(tensor, j, lane));
+#pragma unroll
+  for (int r = 1; r < P; ++r) {
+    const float4 b = lds128(parts + xoff(r * 2 + tensor, j, lane));
+    a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+  }
+  return a;
+}
+
+// the owner's chunk v to slot `slot` of the values buffer of every block
+template <int P>
+__device__ __forceinline__ void send_values(float4 v, uint32_t values, uint32_t full_g, int slot,
+                                            int j, int lane) {
+#pragma unroll
+  for (int r = 0; r < P; ++r) st_async(peer(values + xoff(slot, j, lane), r), v, peer(full_g, r));
+}
+
 // A block's shared memory, byte offsets from its 1024-aligned base: the
 // resident lo tiles of the two tensors a warpgroup each holds (64 rows: q
 // and dO in dq, k and v in dk/dv); the streamed hi and lo tiles of the two
@@ -361,48 +529,87 @@ __device__ __forceinline__ void load_resident(uint32_t (&ah)[kDh / 8][4], uint32
 // products read (k's in dq; q's and dO's in dk/dv); the landing stage of
 // the streamed tiles; in dq the hand-over of p and of dp - delta between the
 // warpgroups, 64 x kKeys floats each (dk/dv hands p over in the landing
-// stage, between the split and the next tile's copies)
-template <bool DKV>
+// stage, between the split and the next tile's copies). In a cluster (P >
+// 1) the exchange instead: the parts (4 ranks x 2 tensors x 2 KB: dq in the
+// hand-over's place, dk/dv at the start of the landing stage), the values
+// (ds in dq, two buffers of 8 KB by tile parity, after the hand-over's
+// place; p and ds in dk/dv, 16 KB, in the landing stage after the parts),
+// then the mbarriers full_r, full_g and (dk/dv) ready (in dk/dv after the
+// landing stage, in the 1 KB that its 226 KB leave).
+template <bool DKV, int P>
 struct Smem {
   static constexpr uint32_t kLo0 = 0, kLo1 = tile_bytes<kRows>();
   static constexpr uint32_t kB0 = 2 * tile_bytes<kRows>(), kB1 = kB0 + 2 * tile_bytes<kKeys>();
   static constexpr uint32_t kT0 = kB0 + 4 * tile_bytes<kKeys>(), kT1 = kT0 + 2 * tile_bytes<kKeys>();
   static constexpr uint32_t kLand0 = DKV ? kT1 + 2 * tile_bytes<kKeys>() : kT1;
   static constexpr uint32_t kLand1 = kLand0 + kKeys * kLand * 4;
-  static constexpr uint32_t kP = DKV ? kLand0 : kLand1 + kKeys * kLand * 4;
-  static constexpr uint32_t kDs = kP + kRows * kKeys * 4;
-  static constexpr int kBytes = (DKV ? kLand1 + kKeys * kLand * 4 : kDs + kRows * kKeys * 4) +
-                                1024;  // + the alignment's slack
+  static constexpr uint32_t kLandEnd = kLand1 + kKeys * kLand * 4;
+  static constexpr uint32_t kSlot = kRows * kKeys * 4;  // one 64 x kKeys float tile
+  static constexpr uint32_t kP = DKV ? kLand0 : kLandEnd;
+  static constexpr uint32_t kDs = kP + kSlot;
+  static constexpr uint32_t kParts = DKV ? kLand0 : kP;
+  static constexpr uint32_t kPartsBytes = 2 * kSlot, kValuesBytes = DKV ? 2 * kSlot : kSlot;
+  static constexpr uint32_t kValues = DKV ? kLand0 + kPartsBytes : kDs + kSlot;
+  static constexpr uint32_t kValueBufs = DKV ? 1 : 2;  // dq's by tile parity (the exchange above)
+  static constexpr uint32_t kFullR = DKV ? kLandEnd : kValues + kValueBufs * kValuesBytes;
+  static constexpr uint32_t kFullG = kFullR + 8, kReady = kFullG + 8;
+  static constexpr uint32_t kEnd = P > 1 ? kReady + 8 : (DKV ? kLandEnd : kDs + kSlot);
+  static constexpr int kBytes = kEnd + 1024;  // + the alignment's slack
   static_assert(4 * tile_bytes<kKeys>() >= 2 * tile_bytes<kRows>(), "room for the hi tiles");
-  static_assert(!DKV || kRows * kKeys <= 2 * kKeys * kLand, "p's hand-over fits the landing");
+  static_assert(!DKV || kSlot <= 2 * kKeys * kLand * 4, "p's hand-over fits the landing stage");
+  static_assert(!DKV || kValues + kValuesBytes <= kLandEnd, "the exchange fits the landing stage");
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
-// One block per (bh, 64 q rows): dq (B, T, H, kDh) contiguous. dout is
-// contiguous; lse and delta are (B*H, T). k and v stream in kKeys-row tiles.
-// Two warpgroups: role 0 holds q's hi terms in registers and sums S = Q
-// K^T and p, role 1 holds dO's and sums dP = dO V^T and dp - delta; the
-// roles trade those (exchange_ds), both form ds, and each then adds scale
-// (dS K) over its half of the output columns.
+// The mbarriers' set-up, then the cluster meets: no block sends before every
+// block's mbarriers are armed
+template <bool DKV, int P>
+__device__ __forceinline__ void exchange_setup(uint32_t sm) {
+  using S = Smem<DKV, P>;
+  if (threadIdx.x == 0) {
+    mbar_init(sm + S::kFullR, 1);
+    mbar_init(sm + S::kFullG, 1);
+    if (DKV) mbar_init(sm + S::kReady, P);
+    mbar_expect(sm + S::kFullR, S::kPartsBytes);
+    mbar_expect(sm + S::kFullG, S::kValuesBytes);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+}
+
+// One block per (bh, 64 q rows), or a cluster of P blocks, one per
+// 128-column slice: dq (B, T, H, 128 P) contiguous. dout is contiguous; lse
+// and delta are (B*H, T). k and v stream in kKeys-row tiles. Two
+// warpgroups: role 0 holds q's hi terms in registers and sums S = Q K^T and
+// p, role 1 holds dO's and sums dP = dO V^T and dp - delta; the roles trade
+// those (exchange_ds), both form ds, and each then adds scale (dS K) over
+// its half of the block's output columns. In a cluster each role sums its
+// product over the block's slice, and the rows' owner block forms ds from
+// the parts and sends it to all (the exchange above).
+template <int P>
 __global__ void __launch_bounds__(2 * kWG, 1)
 flash_dq_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       float* __restrict__ dq, int H, int Tn, int64_t sb, int64_t st, int64_t sh,
                       float scale, int causal) {
-  constexpr int N = kKeys, TH = 2 * kWG;
-  using S = Smem<false>;
+  constexpr int N = kKeys, TH = 2 * kWG, DH = kDh * P;
+  using S = Smem<false, P>;
   extern __shared__ uint8_t smem[];
   uint32_t sm = smem_addr(align1024(smem));
   const int role = threadIdx.x / kWG, tid = threadIdx.x % kWG;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int nt = (Tn + kRows - 1) / kRows;
-  // the q tiles of one (b, h) in a row, its longest causal rows first
-  const int bh = (int)blockIdx.x / nt, b = bh / H, h = bh % H;
-  const int q0 = (nt - 1 - (int)blockIdx.x % nt) * kRows;
-  const int64_t off = (int64_t)b * sb + (int64_t)h * sh;
-  const int64_t doff = ((int64_t)b * Tn * H + h) * kDh;
+  // the q tiles of one (b, h) in a row, its longest causal rows first; a
+  // cluster's rank c owns columns 128 c ..
+  const int tile = (int)blockIdx.x / P, c0 = P > 1 ? kDh * (int)cluster_rank() : 0;
+  const int bh = tile / nt, b = bh / H, h = bh % H;
+  const int q0 = (nt - 1 - tile % nt) * kRows;
+  const int64_t off = (int64_t)b * sb + (int64_t)h * sh + c0;
+  const int64_t doff = ((int64_t)b * Tn * H + h) * DH + c0;
   const float *kg = k + off, *vg = v + off;
   const int ntk = (Tn + N - 1) / N;
+  if constexpr (P > 1) exchange_setup<false, P>(sm);
   // causal: no k tile past the block's last row
   const int nk = causal ? min((q0 + kRows) / N, ntk) : ntk;
   auto land_kv = [&](int i) {
@@ -419,11 +626,15 @@ flash_dq_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const uint32_t a_lo = role ? S::kLo1 : S::kLo0;
   uint32_t ah[kDh / 8][4];
   load_resident(ah, sm + S::kB0 + role * tile_bytes<kRows>(), sm + a_lo,
-                role ? dout + doff : q + off, role ? (int64_t)H * kDh : st, q0, Tn, tid);
+                role ? dout + doff : q + off, role ? (int64_t)H * DH : st, q0, Tn, tid);
   const int row0 = q0 + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
   // lse (role 0) or delta (role 1) of this thread's rows
   const float* rows = (role ? delta : lse) + (int64_t)bh * Tn;
   const float rv[2] = {row0 < Tn ? rows[row0] : 0.f, row0 + 8 < Tn ? rows[row0 + 8] : 0.f};
+  // in a cluster the owner warps need the other one too: lse (role 1), delta (role 0)
+  const float* others = (role ? lse : delta) + (int64_t)bh * Tn;
+  const float ov[2] = {P > 1 && row0 < Tn ? others[row0] : 0.f,
+                       P > 1 && row0 + 8 < Tn ? others[row0 + 8] : 0.f};
   float acc[8][4];  // dq's columns 64 role .. 64 role + 63
 #pragma unroll
   for (int n = 0; n < 8; ++n)
@@ -436,81 +647,187 @@ flash_dq_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (nk > 1) land_kv(1);
 
   float s[N / 2];  // S or dP (the first product starts it)
-  for (int i = 0; i < nk; ++i) {
-    const int k0 = i * N;
-    opaque(sm);
-    const uint64_t d0 = desc(sm, 16, 1024);
+  if constexpr (P == 1) {
+    for (int i = 0; i < nk; ++i) {
+      const int k0 = i * N;
+      opaque(sm);
+      const uint64_t d0 = desc(sm, 16, 1024);
+      wg_fence();
+      score_chain(s, d0, ah, a_lo, role ? S::kB1 : S::kB0);  // S = Q K^T, dP = dO V^T
+      wg_commit();
+      wg_wait<0>();
+      pin(s);
+      float f[N / 2];
+      // role 0: p = exp(scale s - lse), masked entries 0; role 1: dp - delta;
+      // each hands its values to the other, and both form ds = p (dp - delta)
+      if (role == 0) {
+        const bool edge = k0 + N > Tn || (causal && k0 + N - 1 > q0);
+#pragma unroll
+        for (int j = 0; j < kNK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * j + 2 * t + (e & 1), row = row0 + 8 * (e >> 1);
+            float x = scale * s[4 * j + e];
+            if (edge && (col >= Tn || (causal && col > row))) x = kNegInf;
+            f[4 * j + e] = expf(x - rv[e >> 1]);
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < N / 2; ++j) f[j] = s[j] - rv[(j >> 1) & 1];
+      }
+      exchange_ds(f, sm + S::kP, sm + S::kDs, role, tid);
+      uint32_t fh[kNK][4], fl[kNK][4];
+      fragments(f, fh, fl);
+      // dq += scale (dS K) over this role's 64 columns: rows 64 role .. of K^T
+      out_product<0>(acc, d0, fh, fl, S::kT0 + 64 * role * kRowBytes, scale);
+      if (i + 1 < nk) {
+        cp_async_wait_all();
+        __syncthreads();  // tile i + 1 has landed everywhere, and every warp is done with tile i
+        split_kv();
+        __syncthreads();
+        if (i + 2 < nk) land_kv(i + 2);
+      }
+    }
+  } else {
+    // The cluster's loop, pipelined: the next tile's score products run
+    // while this tile's exchange does. Per tile i: the owner warps form ds of
+    // their rows from the four parts and send it to every block (values
+    // buffer i % 2); the next tile's score tiles are split and its products
+    // issued; ds arrives; once the products are done the next tile's parts go
+    // out; then ds is read, dS K is added, the next tile's transposed k tile
+    // is split, and the landing stage takes tile i + 2. The products issued
+    // on the last tile (from its own score tiles again) are not used.
+    const int rank = c0 / kDh;
+    const float lr[2] = {role ? ov[0] : rv[0], role ? ov[1] : rv[1]};
+    const float dr[2] = {role ? rv[0] : ov[0], role ? rv[1] : ov[1]};
+    uint64_t d0 = desc(sm, 16, 1024);
     wg_fence();
     score_chain(s, d0, ah, a_lo, role ? S::kB1 : S::kB0);  // S = Q K^T, dP = dO V^T
     wg_commit();
     wg_wait<0>();
     pin(s);
-    // role 0: p = exp(scale s - lse), masked entries 0; role 1: dp - delta;
-    // each hands its values to the other, and both form ds = p (dp - delta)
-    float f[N / 2];
-    if (role == 0) {
-      const bool edge = k0 + N > Tn || (causal && k0 + N - 1 > q0);
+    send_parts(s, sm + S::kParts, sm + S::kFullR, rank, role, warp, lane);
+    for (int i = 0; i < nk; ++i) {
+      const int k0 = i * N, ph = i & 1;
+      opaque(sm);
+      const uint32_t vbuf = S::kValues + ph * S::kValuesBytes;  // this tile's values buffer
+      // the owner's warps: ds = p (dp - delta), p = exp(scale s - lse)
+      // (masked entries 0), for the 8-key steps 2 role and 2 role + 1
+      if (warp == rank) {
+        mbar_wait(sm + S::kFullR, ph);
+        if (role == 0 && lane == 0) mbar_expect(sm + S::kFullR, S::kPartsBytes);
+        const bool edge = k0 + N > Tn || (causal && k0 + N - 1 > q0);
 #pragma unroll
-      for (int j = 0; j < kNK; ++j)
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * role + jj;
+          const float4 sp = sum_parts<P>(sm + S::kParts, 0, j, lane);
+          const float4 dp = sum_parts<P>(sm + S::kParts, 1, j, lane);
+          const float sv[4] = {sp.x, sp.y, sp.z, sp.w}, dv[4] = {dp.x, dp.y, dp.z, dp.w};
+          float ds[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + 8 * j + 2 * t + (e & 1), row = row0 + 8 * (e >> 1);
-          float x = scale * s[4 * j + e];
-          if (edge && (col >= Tn || (causal && col > row))) x = kNegInf;
-          f[4 * j + e] = expf(x - rv[e >> 1]);
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * j + 2 * t + (e & 1), row = row0 + 8 * (e >> 1);
+            float x = scale * sv[e];
+            if (edge && (col >= Tn || (causal && col > row))) x = kNegInf;
+            ds[e] = expf(x - lr[e >> 1]) * (dv[e] - dr[e >> 1]);
+          }
+          send_values<P>(make_float4(ds[0], ds[1], ds[2], ds[3]), sm + vbuf, sm + S::kFullG,
+                         rank, j, lane);
         }
-    } else {
+      }
+      // the next tile's score tiles, and its products issued
+      if (i + 1 < nk) {
+        cp_async_wait_all();
+        __syncthreads();  // tile i + 1 has landed everywhere
+        split_tile<false>(sm + S::kB0, 0, sm + S::kLand0);
+        split_tile<false>(sm + S::kB1, 0, sm + S::kLand1);
+        fence_async();
+        __syncthreads();
+      }
+      opaque(sm);  // the descriptors derived here, not held across the tile
+      d0 = desc(sm, 16, 1024);
+      wg_fence();
+      score_chain(s, d0, ah, a_lo, role ? S::kB1 : S::kB0);
+      wg_commit();
+      // this tile's ds, from every owner, read once the products are done
+      // and the next tile's parts are out (nothing else held beside them;
+      // once those are out, tile i + 1's ds may come: hence two buffers)
+      mbar_wait(sm + S::kFullG, ph);
+      if (threadIdx.x == 0) mbar_expect(sm + S::kFullG, S::kValuesBytes);
+      wg_wait<0>();
+      pin(s);
+      if (i + 1 < nk) send_parts(s, sm + S::kParts, sm + S::kFullR, rank, role, warp, lane);
+      float f[N / 2];
 #pragma unroll
-      for (int j = 0; j < N / 2; ++j) f[j] = s[j] - rv[(j >> 1) & 1];
+      for (int j = 0; j < kNK; ++j) {
+        const float4 x = lds128(sm + vbuf + xoff(warp, j, lane));
+        f[4 * j] = x.x, f[4 * j + 1] = x.y, f[4 * j + 2] = x.z, f[4 * j + 3] = x.w;
+      }
+      uint32_t fh[kNK][4], fl[kNK][4];
+      fragments(f, fh, fl);
+      // dq += scale (dS K) over this role's 64 columns
+      opaque(sm);
+      d0 = desc(sm, 16, 1024);
+      out_product<0>(acc, d0, fh, fl, S::kT0 + 64 * role * kRowBytes, scale);
+      if (i + 1 < nk) {
+        __syncthreads();  // every warp is done with tile i's transposed k
+        split_tile<true, false>(0, sm + S::kT0, sm + S::kLand0);
+        fence_async();
+        __syncthreads();  // the landing stage is free
+        if (i + 2 < nk) land_kv(i + 2);
+      }
     }
-    exchange_ds(f, sm + S::kP, sm + S::kDs, role, tid);
-    uint32_t fh[kNK][4], fl[kNK][4];
-    fragments(f, fh, fl);
-    // dq += scale (dS K) over this role's 64 columns: rows 64 role .. of K^T
-    out_product<0>(acc, d0, fh, fl, S::kT0 + 64 * role * kRowBytes, scale);
-    if (i + 1 < nk) {
-      cp_async_wait_all();
-      __syncthreads();  // tile i + 1 has landed everywhere, and every warp is done with tile i
-      split_kv();
-      __syncthreads();
-      if (i + 2 < nk) land_kv(i + 2);
-    }
+    cluster_sync();  // no block leaves while its peers may still send
   }
-  store_rows<8, 0>(dq, acc, b, h, H, Tn, row0, 64 * role, t);
+  store_rows<8, 0, DH>(dq, acc, b, h, H, Tn, row0, c0 + 64 * role, t);
 }
 
-// One block per (bh, 64 key rows): dk and dv (B, T, H, kDh) contiguous.
-// dout is contiguous; lse and delta are (B*H, T). q and dO stream in
-// kKeys-row tiles. Two warpgroups: role 0 holds k's hi terms in registers
-// and sums S^T = K Q^T, p and dv += P^T dO; role 1 holds v's and sums dP^T =
-// V dO^T, takes p from role 0 (the lane of the same accumulator entry) and
-// sums dk += scale (dS^T Q). Each output product runs as two of 64 columns.
+// One block per (bh, 64 key rows), or a cluster of P blocks, one per
+// 128-column slice: dk and dv (B, T, H, 128 P) contiguous. dout is
+// contiguous; lse and delta are (B*H, T). q and dO stream in kKeys-row
+// tiles. Two warpgroups: role 0 holds k's hi terms in registers and sums
+// S^T = K Q^T, p and dv += P^T dO; role 1 holds v's and sums dP^T = V dO^T,
+// takes p from role 0 (the lane of the same accumulator entry) and sums dk
+// += scale (dS^T Q). Each output product runs as two of 64 columns. In a
+// cluster each role sums its product over the block's slice, and the rows'
+// owner block forms p and ds from the parts and sends both to all.
+template <int P>
 __global__ void __launch_bounds__(2 * kWG, 1)
 flash_dkv_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        float* __restrict__ dk, float* __restrict__ dv, int H, int Tn, int64_t sb,
                        int64_t st, int64_t sh, float scale, int causal) {
-  constexpr int N = kKeys, TH = 2 * kWG;
-  using S = Smem<true>;
+  constexpr int N = kKeys, TH = 2 * kWG, DH = kDh * P;
+  using S = Smem<true, P>;
   extern __shared__ uint8_t smem[];
   uint32_t sm = smem_addr(align1024(smem));
   const int role = threadIdx.x / kWG, tid = threadIdx.x % kWG;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int nt = (Tn + kRows - 1) / kRows;
-  // the key tiles of one (b, h) in a row, the keys the most causal rows see first
-  const int bh = (int)blockIdx.x / nt, b = bh / H, h = bh % H;
-  const int k0 = ((int)blockIdx.x % nt) * kRows;
-  const int64_t off = (int64_t)b * sb + (int64_t)h * sh;
-  const int64_t doff = ((int64_t)b * Tn * H + h) * kDh;
+  // the key tiles of one (b, h) in a row, the keys the most causal rows see
+  // first; a cluster's rank c owns columns 128 c ..
+  const int tile = (int)blockIdx.x / P, c0 = P > 1 ? kDh * (int)cluster_rank() : 0;
+  const int bh = tile / nt, b = bh / H, h = bh % H;
+  const int k0 = (tile % nt) * kRows;
+  const int64_t off = (int64_t)b * sb + (int64_t)h * sh + c0;
+  const int64_t doff = ((int64_t)b * Tn * H + h) * DH + c0;
   const float *qg = q + off, *og = dout + doff;
   const float* rows = (role ? delta : lse) + (int64_t)bh * Tn;  // lse (role 0), delta (role 1)
   const int ntq = (Tn + N - 1) / N;
   // causal: no row of an earlier q tile sees these keys
   const int first = causal ? k0 / N : 0;
+  if constexpr (P > 1) exchange_setup<true, P>(sm);
+  // in a cluster, this block's landing stage is free for the exchange: an
+  // arrival at every block's `ready`
+  auto landing_free = [&]() {
+    if constexpr (P > 1)
+      if (threadIdx.x == 0)
+        for (int r = 0; r < P; ++r) mbar_arrive_peer(peer(sm + S::kReady, r));
+  };
   auto land_qo = [&](int j) {
     land<N, TH>(sm + S::kLand0, qg, st, j * N, Tn);
-    land<N, TH>(sm + S::kLand1, og, (int64_t)H * kDh, j * N, Tn);
+    land<N, TH>(sm + S::kLand1, og, (int64_t)H * DH, j * N, Tn);
     cp_async_commit();
   };
   auto split_qo = [&]() {
@@ -534,6 +851,7 @@ flash_dkv_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();  // q tile `first` has landed
   split_qo();
   __syncthreads();
+  landing_free();
 
   float s[N / 2];  // S^T or dP^T (the first product starts it)
   for (int j = first; j < ntq; ++j) {
@@ -543,45 +861,93 @@ flash_dkv_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
     wg_fence();
     score_chain(s, d0, ah, a_lo, role ? S::kB1 : S::kB0);  // S^T = K Q^T, dP^T = V dO^T
     wg_commit();
-    // lse or delta of this lane's queries (0 past T) while the products run
+    // lse or delta of this lane's queries (0 past T) while the products run;
+    // in a cluster, the owner warps' lse and delta of their 8-key steps
     float rv[kNK][2];
 #pragma unroll
     for (int n = 0; n < kNK; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = q0 + 8 * n + 2 * t + e;
-        rv[n][e] = col < Tn ? rows[col] : 0.f;
+        if constexpr (P > 1) {  // rv[jj]: lse, rv[2 + jj]: delta of the step 2 role + jj
+          const int col = q0 + 8 * (2 * role + (n & 1)) + 2 * t + e;
+          const float* src = (n < 2 ? lse : delta) + (int64_t)bh * Tn;
+          rv[n][e] = col < Tn ? src[col] : 0.f;
+        } else {
+          const int col = q0 + 8 * n + 2 * t + e;
+          rv[n][e] = col < Tn ? rows[col] : 0.f;
+        }
       }
     wg_wait<0>();
     pin(s);
-    // role 0: p = exp(scale s - lse), 0 where causal masks (key > query) and
-    // past T, handed over; role 1: ds = p (dp - delta). (Both roles forming
-    // ds from a two-way hand-over, each summing half of dv and of dk, ran
-    // 2.5% slower here: 255 registers.)
     float f[N / 2];
-    const uint32_t slot = sm + S::kP + 4 * tid;
-    if (role == 0) {
+    if constexpr (P > 1) {
+      // the cluster's p (role 0) and ds (role 1): the parts to their owner;
+      // the owner's warps form p = exp(scale s - lse) (0 where causal masks
+      // and past T) and ds = p (dp - delta) for the 8-key steps 2 role and 2
+      // role + 1 and send both to every block
+      const int rank = c0 / kDh, ph = (j - first) & 1;
+      mbar_wait(sm + S::kReady, ph);  // every owner's landing stage is free
+      send_parts(s, sm + S::kParts, sm + S::kFullR, rank, role, warp, lane);
+      if (warp == rank) {
+        mbar_wait(sm + S::kFullR, ph);
+        if (role == 0 && lane == 0) mbar_expect(sm + S::kFullR, S::kPartsBytes);
 #pragma unroll
-      for (int n = 0; n < kNK; ++n)
+        for (int jj = 0; jj < 2; ++jj) {
+          const int jt = 2 * role + jj;
+          const float4 sp = sum_parts<P>(sm + S::kParts, 0, jt, lane);
+          const float4 dp = sum_parts<P>(sm + S::kParts, 1, jt, lane);
+          const float sv[4] = {sp.x, sp.y, sp.z, sp.w}, dv4[4] = {dp.x, dp.y, dp.z, dp.w};
+          float pv[4], ds[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = q0 + 8 * n + 2 * t + (e & 1), row = row0 + 8 * (e >> 1);
-          float x = scale * s[4 * n + e];
-          if (causal && row > col) x = kNegInf;
-          f[4 * n + e] = col < Tn ? expf(x - rv[n][e & 1]) : 0.f;
-          sts32(slot + 4 * kWG * (4 * n + e), __float_as_uint(f[4 * n + e]));
+          for (int e = 0; e < 4; ++e) {
+            const int col = q0 + 8 * jt + 2 * t + (e & 1), row = row0 + 8 * (e >> 1);
+            float x = scale * sv[e];
+            if (causal && row > col) x = kNegInf;
+            pv[e] = col < Tn ? expf(x - rv[jj][e & 1]) : 0.f;
+            ds[e] = pv[e] * (dv4[e] - rv[2 + jj][e & 1]);
+          }
+          send_values<P>(make_float4(pv[0], pv[1], pv[2], pv[3]), sm + S::kValues,
+                         sm + S::kFullG, rank, jt, lane);
+          send_values<P>(make_float4(ds[0], ds[1], ds[2], ds[3]), sm + S::kValues,
+                         sm + S::kFullG, 4 + rank, jt, lane);
         }
-      bar_arrive(1, TH);
+      }
+      mbar_wait(sm + S::kFullG, ph);
+      if (threadIdx.x == 0) mbar_expect(sm + S::kFullG, S::kValuesBytes);
+#pragma unroll
+      for (int n = 0; n < kNK; ++n) {
+        const float4 x = lds128(sm + S::kValues + xoff(4 * role + warp, n, lane));
+        f[4 * n] = x.x, f[4 * n + 1] = x.y, f[4 * n + 2] = x.z, f[4 * n + 3] = x.w;
+      }
     } else {
-      bar_sync(1, TH);
+      // role 0: p = exp(scale s - lse), 0 where causal masks (key > query) and
+      // past T, handed over; role 1: ds = p (dp - delta). (Both roles forming
+      // ds from a two-way hand-over, each summing half of dv and of dk, ran
+      // 2.5% slower here: 255 registers.)
+      const uint32_t slot = sm + S::kP + 4 * tid;
+      if (role == 0) {
 #pragma unroll
-      for (int n = 0; n < kNK; ++n)
+        for (int n = 0; n < kNK; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          f[4 * n + e] = __uint_as_float(lds32(slot + 4 * kWG * (4 * n + e))) *
-                         (s[4 * n + e] - rv[n][e & 1]);
+          for (int e = 0; e < 4; ++e) {
+            const int col = q0 + 8 * n + 2 * t + (e & 1), row = row0 + 8 * (e >> 1);
+            float x = scale * s[4 * n + e];
+            if (causal && row > col) x = kNegInf;
+            f[4 * n + e] = col < Tn ? expf(x - rv[n][e & 1]) : 0.f;
+            sts32(slot + 4 * kWG * (4 * n + e), __float_as_uint(f[4 * n + e]));
+          }
+        bar_arrive(1, TH);
+      } else {
+        bar_sync(1, TH);
+#pragma unroll
+        for (int n = 0; n < kNK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            f[4 * n + e] = __uint_as_float(lds32(slot + 4 * kWG * (4 * n + e))) *
+                           (s[4 * n + e] - rv[n][e & 1]);
+      }
     }
-    __syncthreads();  // p is read: the landing stage takes the next tile
+    __syncthreads();  // p (or the exchange) is read: the landing stage takes the next tile
     if (j + 1 < ntq) land_qo(j + 1);
     uint32_t fh[kNK][4], fl[kNK][4];
     fragments(f, fh, fl);
@@ -595,31 +961,56 @@ flash_dkv_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();  // q tile j + 1 has landed, and both roles are done with tile j
       split_qo();
       __syncthreads();
+      landing_free();
     }
   }
-  store_rows<kNT, 0>(role ? dk : dv, acc, b, h, H, Tn, row0, 0, t);
+  if constexpr (P > 1) cluster_sync();  // no block leaves while its peers may still send
+  store_rows<kNT, 0, DH>(role ? dk : dv, acc, b, h, H, Tn, row0, c0, t);
 }
 
 bool args_ok(int B, int H, int T, int Dh, int is_bf16) {
-  return !is_bf16 && Dh == kDh && B > 0 && H > 0 && T > 0 &&
-         (int64_t)B * H * ((T + kRows - 1) / kRows) <= 0x7fffffffLL;
+  return !is_bf16 && (Dh == kDh || Dh == kDh * kParts) && B > 0 && H > 0 && T > 0 &&
+         (int64_t)B * H * ((T + kRows - 1) / kRows) * (Dh / kDh) <= 0x7fffffffLL;
 }
 
-// one block per (bh, 64-row tile), the tiles of one bh consecutive
-dim3 grid(int B, int H, int T) { return dim3((unsigned)(B * H * ((T + kRows - 1) / kRows))); }
+// one block per (bh, 64-row tile), the tiles of one bh consecutive; P
+// blocks (a cluster) per tile at Dh = 128 P
+dim3 grid(int B, int H, int T, int P) {
+  return dim3((unsigned)(B * H * ((T + kRows - 1) / kRows) * P));
+}
 
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// the launch configuration of the Dh-512 kernels: clusters of kParts blocks
+// along x, 256 threads and `bytes` of dynamic shared memory a block
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(dim3 grid, int bytes, cudaStream_t s) : attr{}, cfg{} {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kParts;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(2 * kWG);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
 }  // namespace
 
-// dq (B, T, H, 128) contiguous from q, k, v (B, T, H, 128) float32 sharing
+// dq (B, T, H, Dh) contiguous from q, k, v (B, T, H, Dh) float32 sharing
 // the element strides (sb, st, sh), Dh contiguous, 16-byte aligned rows;
-// dout (B, T, H, 128) contiguous; the forward's lse and delta = rowsum(dO *
-// O), both (B*H, T) float32. Takes Dh 128 with is_bf16 = 0 only. Returns
-// the cudaError_t of the launch.
+// dout (B, T, H, Dh) contiguous; the forward's lse and delta = rowsum(dO *
+// O), both (B*H, T) float32. Takes Dh 128 (one block a tile) and 512 (a
+// cluster of four) with is_bf16 = 0 only. Returns the cudaError_t of the
+// launch.
 extern "C" int fedml_flash_dq_f32wg_sm90(const void* q, const void* k, const void* v,
                                          const void* dout, const float* lse,
                                          const float* delta, void* dq, int B, int H, int T,
@@ -627,18 +1018,28 @@ extern "C" int fedml_flash_dq_f32wg_sm90(const void* q, const void* k, const voi
                                          long long st, long long sh, float scale,
                                          void* stream) {
   if (!args_ok(B, H, T, Dh, is_bf16)) return (int)cudaErrorInvalidValue;
-  constexpr int bytes = Smem<false>::kBytes;
-  cudaError_t e = prepare(flash_dq_f32wg_kernel, bytes);
+  if (Dh == kDh) {
+    constexpr int bytes = Smem<false, 1>::kBytes;
+    cudaError_t e = prepare(flash_dq_f32wg_kernel<1>, bytes);
+    if (e != cudaSuccess) return (int)e;
+    flash_dq_f32wg_kernel<1><<<grid(B, H, T, 1), 2 * kWG, bytes, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
+        (float*)dq, H, T, sb, st, sh, scale, causal);
+    return (int)cudaGetLastError();
+  }
+  constexpr int bytes = Smem<false, kParts>::kBytes;
+  cudaError_t e = prepare(flash_dq_f32wg_kernel<kParts>, bytes);
   if (e != cudaSuccess) return (int)e;
-  flash_dq_f32wg_kernel<<<grid(B, H, T), 2 * kWG, bytes, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
-      (float*)dq, H, T, sb, st, sh, scale, causal);
-  return (int)cudaGetLastError();
+  ClusterLaunch l(grid(B, H, T, kParts), bytes, (cudaStream_t)stream);
+  e = cudaLaunchKernelEx(&l.cfg, flash_dq_f32wg_kernel<kParts>, (const float*)q,
+                         (const float*)k, (const float*)v, (const float*)dout, lse, delta,
+                         (float*)dq, H, T, (int64_t)sb, (int64_t)st, (int64_t)sh, scale, causal);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 
-// dk and dv (B, T, H, 128) contiguous, from the same inputs as dq. Takes Dh
-// 128 with is_bf16 = 0 only.
+// dk and dv (B, T, H, Dh) contiguous, from the same inputs as dq. Takes Dh
+// 128 and 512 with is_bf16 = 0 only.
 extern "C" int fedml_flash_dkv_f32wg_sm90(const void* q, const void* k, const void* v,
                                           const void* dout, const float* lse,
                                           const float* delta, void* dk, void* dv, int B, int H,
@@ -646,11 +1047,37 @@ extern "C" int fedml_flash_dkv_f32wg_sm90(const void* q, const void* k, const vo
                                           long long st, long long sh, float scale,
                                           void* stream) {
   if (!args_ok(B, H, T, Dh, is_bf16)) return (int)cudaErrorInvalidValue;
-  constexpr int bytes = Smem<true>::kBytes;
-  cudaError_t e = prepare(flash_dkv_f32wg_kernel, bytes);
+  if (Dh == kDh) {
+    constexpr int bytes = Smem<true, 1>::kBytes;
+    cudaError_t e = prepare(flash_dkv_f32wg_kernel<1>, bytes);
+    if (e != cudaSuccess) return (int)e;
+    flash_dkv_f32wg_kernel<1><<<grid(B, H, T, 1), 2 * kWG, bytes, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
+        (float*)dk, (float*)dv, H, T, sb, st, sh, scale, causal);
+    return (int)cudaGetLastError();
+  }
+  constexpr int bytes = Smem<true, kParts>::kBytes;
+  cudaError_t e = prepare(flash_dkv_f32wg_kernel<kParts>, bytes);
   if (e != cudaSuccess) return (int)e;
-  flash_dkv_f32wg_kernel<<<grid(B, H, T), 2 * kWG, bytes, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
-      (float*)dk, (float*)dv, H, T, sb, st, sh, scale, causal);
-  return (int)cudaGetLastError();
+  ClusterLaunch l(grid(B, H, T, kParts), bytes, (cudaStream_t)stream);
+  e = cudaLaunchKernelEx(&l.cfg, flash_dkv_f32wg_kernel<kParts>, (const float*)q,
+                         (const float*)k, (const float*)v, (const float*)dout, lse, delta,
+                         (float*)dk, (float*)dv, H, T, (int64_t)sb, (int64_t)st, (int64_t)sh,
+                         scale, causal);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The clusters of the Dh-512 dq (dkv = 0) or dk/dv (dkv = 1) kernel that
+// the card holds at once (cudaOccupancyMaxActiveClusters at the kernel's
+// shared memory), or minus the cudaError_t of the query.
+extern "C" int fedml_flash_f32wg_clusters(int dkv) {
+  const int bytes = dkv ? Smem<true, kParts>::kBytes : Smem<false, kParts>::kBytes;
+  const void* kernel = dkv ? (const void*)flash_dkv_f32wg_kernel<kParts>
+                           : (const void*)flash_dq_f32wg_kernel<kParts>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return -(int)e;
+  ClusterLaunch l(dim3(kParts * 64), bytes, 0);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kernel, &l.cfg);
+  return e == cudaSuccess ? n : -(int)e;
 }

@@ -1,13 +1,16 @@
-// Flash attention's forward, dq and dk/dv for float32 (B, T, H, Dh) inputs
-// at the head dims Dh = 128 n, 4 <= n <= 7 (512, 640, 768, 896), on the
-// Hopper tensor cores, exact to float32 through three TF32 products,
-// causal or full, any T: the Cheetah example's attention trained in
-// float32 at --dim 4096 (8 heads of 512) and the wider float32 head dims the
-// dispatch guard admits (past 896 its budget refuses float32 at every T).
+// Flash attention's forward for float32 (B, T, H, Dh) inputs at the head
+// dims Dh = 128 n, 4 <= n <= 7 (512, 640, 768, 896), and its dq and dk/dv at
+// Dh 640-896, on the Hopper tensor cores, exact to float32 through three
+// TF32 products, causal or full, any T: the forward of the Cheetah
+// example's attention trained in float32 at --dim 4096 (8 heads of 512) and
+// the wider float32 head dims the dispatch guard admits (past 896 its
+// budget refuses float32 at every T). The float32 dq and dk/dv at Dh 512 are
+// flash_f32_wgmma_sm90.cu's four-block clusters.
 //
-// Replaces: fedml_tpu/ops/pallas/flash_attention.py on float32 inputs at Dh
-// 512-896 — _flash_kernel (:66, the forward of _flash_forward :129, call
-// :140), _dq_kernel (:167, call :287) and _dkv_kernel (:213, call :299).
+// Replaces: fedml_tpu/ops/pallas/flash_attention.py on float32 inputs —
+// _flash_kernel (:66, the forward of _flash_forward :129, call :140) at Dh
+// 512-896, _dq_kernel (:167, call :287) and _dkv_kernel (:213, call :299)
+// at Dh 640-896.
 //
 // Arithmetic (flash_f32_sm90.cu's, unchanged): every product is three
 // mma.sync.m16n8k8 TF32 products (a_lo b_hi, a_hi b_lo, a_hi b_hi, small
@@ -38,21 +41,20 @@
 // bytes a float, against the 227 KB a block may take:
 //   forward  64 q rows at Dh 512 (16 warps), 32 at 640 and 768 (10, 12), 16
 //            at 896 (7), two stages of k and v: 202 / 166 / 199 / 172 KB.
-//   dq       32 q and dO rows at Dh 512, two stages of k and v (202 KB, 8
-//            warps); 16 from 640, where the v tile has one stage, refilled
-//            as soon as the group (the block there) has added its scores:
-//            at Dh 896 two stages and the resident rows would take 225 KB
-//            before the exchange. 146 / 175 / 204 KB at 640 / 768 / 896.
-//   dk/dv    32 key rows of k and v resident at Dh 512, two stages of q
-//            and dO (202 KB, 16 warps); 16 from 640, where the exchange
-//            lives in the ring stage that the next tile will fill, and that
-//            tile is issued once the exchange is read (at Dh 896 the
-//            resident rows and the ring alone take 225 KB): 161 / 193 / 225
-//            KB.
-// At Dh 512 these plans measured faster than 32 q rows with 16-row k/v
-// tiles (forward) and 16 key rows with 16-row q/dO tiles (dk/dv), 8 warps
-// each, on an H100: twice the warps an SM hide more of mma.sync's latency,
-// and the dk/dv blocks read each q/dO tile once for 32 keys.
+//   dq       16 q and dO rows (one row group, the block), two stages of k
+//            and one of v, refilled as soon as the block has added its
+//            scores: at Dh 896 two v stages and the resident rows would
+//            take 225 KB before the exchange. 146 / 175 / 204 KB at 640 /
+//            768 / 896.
+//   dk/dv    16 key rows of k and v resident, two stages of q and dO; the
+//            exchange lives in the ring stage that the next tile will fill,
+//            and that tile is issued once the exchange is read (at Dh 896
+//            the resident rows and the ring alone take 225 KB): 161 / 193 /
+//            225 KB.
+// At Dh 512 the forward's plan measured faster than 32 q rows with 16-row
+// k/v tiles, 8 warps, on an H100: twice the warps an SM hide more of
+// mma.sync's latency. (Until the clusters, dq and dk/dv at Dh 512 ran here
+// too, as 32 resident rows: 53.35 and 75.14 ms at the shape below, PERF.md.)
 // dk/dv's warps: a group's P warps sum dv (role 0) and P sum dk (role 1),
 // each over its 128 columns; role 0 writes its partial of S = K Q^T, role 1
 // its partial of dP = V dO^T, and after one barrier every warp adds the S
@@ -390,35 +392,31 @@ flash_fwd_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__
 
 // --- dq ------------------------------------------------------------------------
 
-// G row groups of 16 q and dO rows resident, two stages of k tiles, v tiles
-// in two stages (G > 1) or one (G = 1: refilled once the block, the one
-// group, has added its scores), the partial scores S and dP (one slot a warp)
-template <int G>
-constexpr int kDqVStages = G == 1 ? 1 : 2;
-
-template <int G>
+// 16 q and dO rows resident, two stages of k tiles, one of v tiles
+// (refilled once the block has added its scores), the partial scores S and
+// dP (one slot a warp)
 int dq_floats(int P) {
   const int ld = kWarpCols * P + 4;
-  return 2 * 16 * G * ld + (2 + kDqVStages<G>) * kTile * ld + G * P * 2 * 4 * 32;
+  return 2 * 16 * ld + 3 * kTile * ld + P * 2 * 4 * 32;
 }
 
-// One block per (bh, 16 G q rows), 32 G P threads: dq (B, T, H, Dh)
+// One block per (bh, 16 q rows), 32 P threads: dq (B, T, H, Dh)
 // contiguous. dout is contiguous; lse and delta are (B*H, T).
-template <int G, int MAXP>
-__global__ void __launch_bounds__(32 * G * MAXP, 1)
+template <int MAXP>
+__global__ void __launch_bounds__(32 * MAXP, 1)
 flash_dq_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          float* __restrict__ dq, int H, int Tn, int64_t sb, int64_t st,
                          int64_t sh, float scale, int causal, int P) {
-  constexpr int R = 16 * G, KT = kTile, VS = kDqVStages<G>;
+  constexpr int G = 1, R = 16 * G, KT = kTile;
   const int Dh = kWarpCols * P, LD = Dh + 4, TILE = KT * LD;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Os = Qs + R * LD;     // dO
   float* kr = Os + R * LD;     // k tiles, two stages
-  float* vr = kr + 2 * TILE;   // v tiles, VS stages
-  float* xs = vr + VS * TILE;  // the partial scores S and dP, one slot a warp
+  float* vr = kr + 2 * TILE;   // the v tile, one stage
+  float* xs = vr + TILE;       // the partial scores S and dP, one slot a warp
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int pr = warp % G, c0 = (warp / G) * kWarpCols;
   const Share share{pr, G, c0 + 4 * lane};
@@ -456,12 +454,10 @@ flash_dq_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     __syncthreads();
     if (i + 1 < nk) {
       stage_rows(kr + ((i + 1) & 1) * TILE, kg, st, (i + 1) * KT, KT, Tn, LD, share);
-      if constexpr (VS == 2)
-        stage_rows(vr + ((i + 1) & 1) * TILE, vg, st, (i + 1) * KT, KT, Tn, LD, share);
       cp_async_commit();
     }
     const float* Ks = kr + (i & 1) * TILE;
-    const float* Vs = vr + (VS == 2 ? (i & 1) * TILE : 0);
+    const float* Vs = vr;
     const int k0 = i * KT;
     // S = Q K^T (sp[0]) and dP = dO V^T (sp[1]) over this warp's 128
     // columns, each in two chains (even and odd 8-column steps) as scores()
@@ -496,7 +492,7 @@ flash_dq_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       for (int e = 0; e < 4; ++e) sp[n][e] += odd[n][e];
     group_add<2>(sp, xs, warp, pr, G, P, lane);
     // one v stage: the block has read this tile's v (the group is the block)
-    if (VS == 1 && i + 1 < nk) {
+    if (i + 1 < nk) {
       stage_rows(vr, vg, st, (i + 1) * KT, KT, Tn, LD, share);
       cp_async_commit();
     }
@@ -519,29 +515,25 @@ flash_dq_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 
 // --- dk/dv ---------------------------------------------------------------------
 
-// G groups of 16 key rows of k and v resident, two stages of q and dO
-// tiles; the partial scores in a region of their own (G > 1) or (G = 1)
-// in the ring stage the next tile will fill, which is issued once they are
-// read
-template <int G>
+// 16 key rows of k and v resident, two stages of q and dO tiles; the
+// partial scores in the ring stage the next tile will fill, which is issued
+// once they are read
 int dkv_floats(int P) {
   const int ld = kWarpCols * P + 4;
-  return 2 * 16 * G * ld + 2 * 2 * kTile * ld + (G == 1 ? 0 : 2 * G * P * 4 * 32);
+  return 2 * 16 * ld + 2 * 2 * kTile * ld;
 }
 
-// One block per (bh, 16 G key rows), 64 G P threads: dk and dv (B, T, H,
-// Dh) contiguous. dout is contiguous; lse and delta are (B*H, T). Warp w
-// serves keys 16 (w % G) .. 16 (w % G) + 15; w / G is role * P + part: role
-// 0 sums dv, role 1 dk, over columns 128 part ...
-template <int G, int MAXP>
-__global__ void __launch_bounds__(64 * G * MAXP, 1)
+// One block per (bh, 16 key rows), 64 P threads: dk and dv (B, T, H, Dh)
+// contiguous. dout is contiguous; lse and delta are (B*H, T). Warp w is
+// role * P + part: role 0 sums dv, role 1 dk, over columns 128 part ...
+template <int MAXP>
+__global__ void __launch_bounds__(64 * MAXP, 1)
 flash_dkv_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           float* __restrict__ dk, float* __restrict__ dv, int H, int Tn,
                           int64_t sb, int64_t st, int64_t sh, float scale, int causal, int P) {
-  constexpr int R = 16 * G, QT = kTile, kSlot = 4 * 32;
-  constexpr bool kExchangeInRing = G == 1;
+  constexpr int G = 1, R = 16 * G, QT = kTile, kSlot = 4 * 32;
   const int Dh = kWarpCols * P, LD = Dh + 4, STAGE = 2 * QT * LD;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
@@ -593,10 +585,9 @@ flash_dkv_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__
     }
     cp_async_wait_all();
     __syncthreads();  // tile j has landed, and every warp is done with tile j - 1
-    if (!kExchangeInRing && j + 1 < ntq) stage_qo(j + 1);
     const float* Qt = ring + (j & 1) * STAGE;
     const float* Ot = Qt + QT * LD;
-    float* xs = ring + (kExchangeInRing ? ((j + 1) & 1) : 2) * STAGE;
+    float* xs = ring + ((j + 1) & 1) * STAGE;  // the exchange, in the next tile's stage
     // this warp's partial of S = K Q^T (role 0) or dP = V dO^T (role 1)
     float s[1][4] = {{0.f, 0.f, 0.f, 0.f}}, dp[1][4] = {{0.f, 0.f, 0.f, 0.f}};
     scores(s[0], ra, b_lane(role ? Ot : Qt, lane, LD), c0);
@@ -605,10 +596,8 @@ flash_dkv_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__
     // S in the fixed order (both roles: the same bits), dP (role 1)
     sum_parts<1>(s, xs + pr * kSlot, G * kSlot, P, lane);
     if (role) sum_parts<1>(dp, xs + (G * P + pr) * kSlot, G * kSlot, P, lane);
-    if (kExchangeInRing) {
-      __syncthreads();  // the exchange is read: the next tile may fill its stage
-      if (j + 1 < ntq) stage_qo(j + 1);
-    }
+    __syncthreads();  // the exchange is read: the next tile may fill its stage
+    if (j + 1 < ntq) stage_qo(j + 1);
     // p = exp(scale s - lse), 0 where causal masks (key > query) and past T;
     // role 1 forms ds = p (dp - delta)
     float f[4];
@@ -660,39 +649,38 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
   return cudaGetLastError();
 }
 
-template <int G, int MAXP>
+template <int MAXP>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, const Args& a,
                       cudaStream_t s) {
-  const int floats = dq_floats<G>(a.P);
-  cudaError_t e = prepare(flash_dq_wide_f32_kernel<G, MAXP>, floats);
+  const int floats = dq_floats(a.P);
+  cudaError_t e = prepare(flash_dq_wide_f32_kernel<MAXP>, floats);
   if (e != cudaSuccess) return e;
-  flash_dq_wide_f32_kernel<G, MAXP><<<grid(a, 16 * G), 32 * G * a.P,
-                                      floats * sizeof(float), s>>>(
+  flash_dq_wide_f32_kernel<MAXP><<<grid(a, 16), 32 * a.P, floats * sizeof(float), s>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
       (float*)dq, a.H, a.T, a.sb, a.st, a.sh, a.scale, a.causal, a.P);
   return cudaGetLastError();
 }
 
-template <int G, int MAXP>
+template <int MAXP>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv,
                        const Args& a, cudaStream_t s) {
-  const int floats = dkv_floats<G>(a.P);
-  cudaError_t e = prepare(flash_dkv_wide_f32_kernel<G, MAXP>, floats);
+  const int floats = dkv_floats(a.P);
+  cudaError_t e = prepare(flash_dkv_wide_f32_kernel<MAXP>, floats);
   if (e != cudaSuccess) return e;
-  flash_dkv_wide_f32_kernel<G, MAXP><<<grid(a, 16 * G), 64 * G * a.P,
-                                       floats * sizeof(float), s>>>(
+  flash_dkv_wide_f32_kernel<MAXP><<<grid(a, 16), 64 * a.P, floats * sizeof(float), s>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
       (float*)dk, (float*)dv, a.H, a.T, a.sb, a.st, a.sh, a.scale, a.causal, a.P);
   return cudaGetLastError();
 }
 
-// the arguments, or false where no kernel here takes them
+// the arguments, or false where no kernel here takes them: Dh 512-896 (the
+// backward's entry points from `min_parts` parts, Dh 640)
 bool make_args(Args* a, int B, int H, int T, int Dh, int is_bf16, long long sb, long long st,
-               long long sh, float scale, int causal) {
+               long long sh, float scale, int causal, int min_parts = kMinParts) {
   const int P = Dh / kWarpCols;
-  if (is_bf16 || B <= 0 || H <= 0 || T <= 0 || Dh % kWarpCols || P < kMinParts ||
+  if (is_bf16 || B <= 0 || H <= 0 || T <= 0 || Dh % kWarpCols || P < min_parts ||
       P > kMaxParts || (int64_t)B * H * ((T + 15) / 16) > 0x7fffffffLL)
     return false;
   *a = Args{B, H, T, P, sb, st, sh, scale, causal};
@@ -721,7 +709,7 @@ extern "C" int fedml_flash_fwd_wide_f32_sm90(const void* q, const void* k, const
 
 // dq (B, T, H, Dh) contiguous from q, k, v (strided as for the forward),
 // dout (B, T, H, Dh) contiguous, and the forward's lse and delta =
-// rowsum(dO * O), both (B*H, T) float32. Takes Dh 512-896 as the forward.
+// rowsum(dO * O), both (B*H, T) float32. Takes Dh 640-896 with is_bf16 = 0.
 extern "C" int fedml_flash_dq_wide_f32_sm90(const void* q, const void* k, const void* v,
                                             const void* dout, const float* lse,
                                             const float* delta, void* dq, int B, int H, int T,
@@ -729,15 +717,13 @@ extern "C" int fedml_flash_dq_wide_f32_sm90(const void* q, const void* k, const 
                                             long long st, long long sh, float scale,
                                             void* stream) {
   Args a;
-  if (!make_args(&a, B, H, T, Dh, is_bf16, sb, st, sh, scale, causal))
+  if (!make_args(&a, B, H, T, Dh, is_bf16, sb, st, sh, scale, causal, kMinParts + 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (a.P == 4) return (int)launch_dq<2, 4>(q, k, v, dout, lse, delta, dq, a, s);
-  return (int)launch_dq<1, 7>(q, k, v, dout, lse, delta, dq, a, s);
+  return (int)launch_dq<kMaxParts>(q, k, v, dout, lse, delta, dq, a, (cudaStream_t)stream);
 }
 
 // dk and dv (B, T, H, Dh) contiguous, from the same inputs as dq. Takes Dh
-// 512-896 as the forward.
+// 640-896 as dq.
 extern "C" int fedml_flash_dkv_wide_f32_sm90(const void* q, const void* k, const void* v,
                                              const void* dout, const float* lse,
                                              const float* delta, void* dk, void* dv, int B,
@@ -745,9 +731,8 @@ extern "C" int fedml_flash_dkv_wide_f32_sm90(const void* q, const void* k, const
                                              long long sb, long long st, long long sh,
                                              float scale, void* stream) {
   Args a;
-  if (!make_args(&a, B, H, T, Dh, is_bf16, sb, st, sh, scale, causal))
+  if (!make_args(&a, B, H, T, Dh, is_bf16, sb, st, sh, scale, causal, kMinParts + 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (a.P == 4) return (int)launch_dkv<2, 4>(q, k, v, dout, lse, delta, dk, dv, a, s);
-  return (int)launch_dkv<1, 7>(q, k, v, dout, lse, delta, dk, dv, a, s);
+  return (int)launch_dkv<kMaxParts>(q, k, v, dout, lse, delta, dk, dv, a,
+                                    (cudaStream_t)stream);
 }

@@ -17,9 +17,12 @@ float32), for the forward, dq and dk/dv at Dh 256 and 384 and the forward
 at Dh 128 (at Dh 384 three warps split each row group's columns and add
 their partial scores in one fixed order), in ``csrc/flash_f32_wgmma_sm90.cu``
 for dq and dk/dv at Dh 128 (the same arithmetic with every product on
-wgmma: two warpgroups, one a score product, hi terms in registers), and at
-Dh 512-896 in ``csrc/flash_wide_f32_sm90.cu`` (the same arithmetic, Dh /
-128 warps a row group, their number set at launch); every float32 kernel at
+wgmma: two warpgroups, one a score product, hi terms in registers) and at
+Dh 512 (that block on each 128-column slice, a cluster of four blocks on
+four SMs adding their partial scores through distributed shared memory),
+and the forward at Dh 512 and all three at Dh 640-896 in
+``csrc/flash_wide_f32_sm90.cu`` (the same arithmetic on ``mma.sync``, Dh
+/ 128 warps a row group, their number set at launch); every float32 kernel at
 Dh 64 runs the FMA kernels of ``csrc/flash_attention.cu`` (:func:`route`):
 
 - :func:`flash_forward` — online-softmax attention; returns ``out`` in q's
@@ -273,8 +276,9 @@ BF16_TMA = {256: "flash_dh256_sm90", 384: "flash_dh384_sm90"}
 F32_TENSOR_CORE = {"fedml_flash_fwd": (128, 256, 384), "fedml_flash_dq": (256, 384),
                    "fedml_flash_dkv": (256, 384)}
 # the head dims at which the float32 backward has a version with its
-# products on wgmma (three TF32 products), and its library
-F32_WGMMA = {"fedml_flash_dq": (128,), "fedml_flash_dkv": (128,)}
+# products on wgmma (three TF32 products), and its library: at Dh 512 a
+# cluster of four blocks, one per 128-column slice
+F32_WGMMA = {"fedml_flash_dq": (128, 512), "fedml_flash_dkv": (128, 512)}
 
 
 def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
@@ -283,8 +287,9 @@ def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
     ``flash_dh256_sm90``, at Dh 384 to ``flash_dh384_sm90``, at Dh 512-1536
     to ``flash_wide_sm90``, other bf16 calls to ``flash_attention_sm90``,
     the float32 forward at Dh 128, 256 and 384 and dq and dk/dv at Dh 256
-    and 384 to ``flash_f32_sm90``, float32 dq and dk/dv at Dh 128 to
-    ``flash_f32_wgmma_sm90``, all three at Dh 512-896 to
+    and 384 to ``flash_f32_sm90``, float32 dq and dk/dv at Dh 128 and 512
+    to ``flash_f32_wgmma_sm90`` (at 512 as four-block clusters), the
+    forward at Dh 512 and all three at Dh 640-896 to
     ``flash_wide_f32_sm90``, the rest of float32 (Dh 64) to the FMA kernels
     of ``flash_attention``. All take the same arguments."""
     if dtype == torch.bfloat16 and name in TENSOR_CORE:
@@ -293,10 +298,10 @@ def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
         if Dh in BF16_WIDE:
             return "flash_wide_sm90", name + "_wide_sm90"
         return "flash_attention_sm90", name + "_sm90"
-    if dtype == torch.float32 and name in TENSOR_CORE and Dh in F32_WIDE:
-        return "flash_wide_f32_sm90", name + "_wide_f32_sm90"
     if dtype == torch.float32 and Dh in F32_WGMMA.get(name, ()):
         return "flash_f32_wgmma_sm90", name + "_f32wg_sm90"
+    if dtype == torch.float32 and name in TENSOR_CORE and Dh in F32_WIDE:
+        return "flash_wide_f32_sm90", name + "_wide_f32_sm90"
     if dtype == torch.float32 and Dh in F32_TENSOR_CORE.get(name, ()):
         return "flash_f32_sm90", name + "_f32_sm90"
     return "flash_attention", name

@@ -55,17 +55,19 @@ DKV_QUERIES = 16  # rows of dk/dv's q and dO tiles
 
 
 def emulate_dkv(q, k, v, do, lse, delta, causal, terms=3, drop_query=None, key_rows=KEY_ROWS,
-                queries=DKV_QUERIES, key_order=None):
+                queries=DKV_QUERIES, key_order=None, combine=None, scale=None):
     """From (H, T, Dh) q, k, v, dO and (H, T) lse and delta -> (dk, dv),
     both (H, T, Dh), in blocks of ``key_rows`` keys and tiles of ``queries``
     q/dO rows; P^T dO and dS^T Q with their queries paired by ``key_order``
     (``in_fragment_order``). Every key block at once; causal q tiles before
     a key block give p = 0 there, adding exact zeros where the kernel skips
     them. ``drop_query``: the q tile that holds it is left out (a planted
-    fault)."""
+    fault). ``combine`` maps each score product (S^T, dP^T) before its use
+    (a cluster's sum of its column parts' partial scores, the heads then
+    being column parts); ``scale`` defaults to Dh ** -0.5."""
     H, T, Dh = q.shape
     nk, nq = -(-T // key_rows), -(-T // queries)
-    scale = Dh ** -0.5
+    scale = Dh ** -0.5 if scale is None else scale
     ks, vs = _split(_tiles(k, key_rows, nk)), _split(_tiles(v, key_rows, nk))
     qt, ot = _tiles(q, queries, nq), _tiles(do, queries, nq)
     lse_t, delta_t = (F.pad(x, (0, nq * queries - T)).view(H, nq, 1, 1, queries)
@@ -77,12 +79,15 @@ def emulate_dkv(q, k, v, do, lse, delta, causal, terms=3, drop_query=None, key_r
         if drop_query is not None and j == drop_query // queries:
             continue
         cols = torch.arange(j * queries, (j + 1) * queries)
-        x = (scale * _tf32x3(ks, _split_t(qt[:, j, None]), terms)).masked_fill(
-            causal & (keys > cols), tfa.NEG_INF)
+        s = _tf32x3(ks, _split_t(qt[:, j, None]), terms)
+        dp = _tf32x3(vs, _split_t(ot[:, j, None]), terms)
+        if combine is not None:
+            s, dp = combine(s), combine(dp)
+        x = (scale * s).masked_fill(causal & (keys > cols), tfa.NEG_INF)
         p = torch.exp(x - lse_t[:, j]).masked_fill(cols >= T, 0.0)
         pf, oj = in_fragment_order(p, ot[:, j, None], key_order)
         dv = dv + _tf32x3(_split(pf), _split(oj), terms)  # per q tile, from zero
-        ds = p * (_tf32x3(vs, _split_t(ot[:, j, None]), terms) - delta_t[:, j])
+        ds = p * (dp - delta_t[:, j])
         dsf, qj = in_fragment_order(ds, qt[:, j, None], key_order)
         dk = dk + scale * _tf32x3(_split(dsf), _split(qj), terms)
     return (dk.view(H, nk * key_rows, Dh)[:, :T], dv.view(H, nk * key_rows, Dh)[:, :T])

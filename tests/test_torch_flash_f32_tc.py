@@ -138,15 +138,17 @@ def in_fragment_order(f, x, key_order):
 
 
 def emulate_dq(q, k, v, do, lse, delta, causal, terms=3, drop_key=None, rows=ROWS,
-               keys=DQ_KEYS, key_order=None):
+               keys=DQ_KEYS, key_order=None, combine=None, scale=None):
     """From (H, T, Dh) q, k, v, dO and (H, T) lse and delta -> dq (H, T,
     Dh), in blocks of ``rows`` q rows and tiles of ``keys`` k/v rows; dS K
     with its keys paired by ``key_order`` (:func:`in_fragment_order`).
     Every q tile at once; causal key tiles past a q tile's diagonal give p
-    = 0, adding exact zeros."""
+    = 0, adding exact zeros. ``combine`` maps each score product (S, dP)
+    before its use (a cluster's sum of its column parts' partial scores,
+    the heads then being column parts); ``scale`` defaults to Dh ** -0.5."""
     H, T, Dh = q.shape
     nq, nk = -(-T // rows), -(-T // keys)
-    scale = Dh ** -0.5
+    scale = Dh ** -0.5 if scale is None else scale
     qt, ot = _split(_tiles(q, rows, nq)), _split(_tiles(do, rows, nq))
     kt, vt = _tiles(k, keys, nk), _tiles(v, keys, nk)
     lse_t, delta_t = (F.pad(x, (0, nq * rows - T)).view(H, nq, rows, 1) for x in (lse, delta))
@@ -156,10 +158,12 @@ def emulate_dq(q, k, v, do, lse, delta, causal, terms=3, drop_key=None, rows=ROW
         if drop_key is not None and j == drop_key // keys:
             continue
         cols = torch.arange(j * keys, (j + 1) * keys)
-        x = (scale * _tf32x3(qt, _split_t(kt[:, j, None]), terms)).masked_fill(
-            (cols >= T) | (causal & (cols > qrows)), tfa.NEG_INF)
-        p = torch.exp(x - lse_t)
+        s = _tf32x3(qt, _split_t(kt[:, j, None]), terms)
         dp = _tf32x3(ot, _split_t(vt[:, j, None]), terms)
+        if combine is not None:
+            s, dp = combine(s), combine(dp)
+        x = (scale * s).masked_fill((cols >= T) | (causal & (cols > qrows)), tfa.NEG_INF)
+        p = torch.exp(x - lse_t)
         ds, kj = in_fragment_order(p * (dp - delta_t), kt[:, j, None], key_order)
         dq = dq + scale * _tf32x3(_split(ds), _split(kj), terms)  # per key tile, from zero
     return dq.view(H, nq * rows, Dh)[:, :T]

@@ -12,8 +12,9 @@ attention at Dh 640; a one-layer float32 Dh-512 LM through the port's
 ``DistributedLMTrainer`` loss (chunked cross-entropy at chunk 128, full
 remat) against the JAX trainer's loss function, with the weights carried
 across by ``variables_from_jax``; the route, which sends float32 at Dh
-512-896 to ``csrc/flash_wide_f32_sm90.cu`` and refuses the head dims the
-guard admits at no T; and the dispatch decisions at ``chip_smoke.py``'s
+512-896 to ``csrc/flash_wide_f32_sm90.cu`` (but dq and dk/dv at Dh 512 to
+``csrc/flash_f32_wgmma_sm90.cu``'s four-block clusters) and refuses the
+head dims the guard admits at no T; and the dispatch decisions at ``chip_smoke.py``'s
 float32 XXL shape. Inputs come from numpy seeds. The kernels' own order of
 sums is emulated in ``tests/test_torch_flash_wide_f32_tc.py``; the kernels
 are held to the plain versions on the card by the ``cuda``-marked case here
@@ -150,18 +151,21 @@ def test_f32_dh512_trainer_loss_and_grads_match_jax():
 
 def test_route_sends_f32_wide_head_dims_to_their_kernels():
     """Float32 at Dh 512, 640, 768 and 896 runs flash_wide_f32_sm90.cu's
-    three entry points, which the card's wrappers accept (bf16 there keeps
-    flash_wide_sm90.cu); float32 at Dh 1024 and 576 and bf16 at Dh 576 and
-    1664, head dims that the guard admits at no T, go to no kernel and are
-    refused, saying so."""
+    three entry points, but for dq and dk/dv at Dh 512, which run
+    flash_f32_wgmma_sm90.cu's four-block clusters; the card's wrappers accept
+    them all (bf16 there keeps flash_wide_sm90.cu); float32 at Dh 1024 and
+    576 and bf16 at Dh 576 and 1664, head dims that the guard admits at no T,
+    go to no kernel and are refused, saying so."""
     assert tfa.F32_WIDE == (512, 640, 768, 896)
-    assert "flash_wide_f32_sm90" in KERNELS
+    assert "flash_wide_f32_sm90" in KERNELS and "flash_f32_wgmma_sm90" in KERNELS
     assert "flash_wide_f32_sm90" in tfa._build.library_path("flash_wide_f32_sm90").name
     for Dh in tfa.F32_WIDE:
         tfa.check_head_dim(Dh, torch.float32)
         for name in NAMES:
-            assert tfa.route(name, torch.float32, Dh) == ("flash_wide_f32_sm90",
-                                                          name + "_wide_f32_sm90")
+            want = ("flash_f32_wgmma_sm90", name + "_f32wg_sm90") \
+                if Dh == 512 and name != "fedml_flash_fwd" \
+                else ("flash_wide_f32_sm90", name + "_wide_f32_sm90")
+            assert tfa.route(name, torch.float32, Dh) == want
             assert tfa.route(name, torch.bfloat16, Dh) == ("flash_wide_sm90",
                                                            name + "_wide_sm90")
     for name in NAMES:
@@ -187,12 +191,14 @@ def test_auto_dispatch_at_the_f32_xxl_shape_matches_jax(Dh):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,causal", [((2, 333, 3, 512), True), ((3, 130, 2, 640), False),
-                                          ((1, 300, 2, 768), True), ((3, 130, 2, 896), True)])
+@pytest.mark.parametrize("shape,causal", [((2, 333, 3, 512), True), ((3, 130, 2, 512), False),
+                                          ((3, 130, 2, 640), False), ((1, 300, 2, 768), True),
+                                          ((3, 130, 2, 896), True)])
 def test_f32_wide_kernels_match_plain_on_card(shape, causal):
-    """The float32 kernels of flash_wide_f32_sm90.cu against the plain
-    versions on the card, within test_torch_flash.CARD_TOL; dq, dk and dv
-    repeat bit for bit."""
+    """The float32 kernels at Dh 512-896 (flash_wide_f32_sm90.cu's, and at
+    Dh 512 flash_f32_wgmma_sm90.cu's dq and dk/dv clusters) against the
+    plain versions on the card, within test_torch_flash.CARD_TOL; dq, dk and
+    dv repeat bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     g = torch.Generator().manual_seed(19)
