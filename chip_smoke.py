@@ -8,9 +8,13 @@
                                        # 384, 256, 64 and 128 and float32 at
                                        # Dh 512, 384, 256 and 128, of the package
                                        # in checkout DIR (no result line)
-    python3 chip_smoke.py conv [DIR]   # the bf16 conv weight gradient's times
-                                       # at the ResNet-56 shapes, of the package
-                                       # in checkout DIR (no result line)
+    python3 chip_smoke.py conv [DIR]   # the bf16 conv forward's times (beside
+                                       # cuDNN's) and weight gradient's at the
+                                       # ResNet-56 shapes, of the package in
+                                       # checkout DIR (no result line)
+    python3 chip_smoke.py resnet_bf16 [DIR]  # resnet_bf16 (launches by route and
+                                             # shape, a profiled round) alone,
+                                             # likewise
     python3 chip_smoke.py lm_f32 [DIR] # lm_wide_f32 and its profile on the
                                        # package in checkout DIR (no result
                                        # line)
@@ -47,8 +51,12 @@ non-zero exit code and no result line:
    (the even schedule's clients), the same two in bf16 (use_bf16:
    conv3x3_bf16 and conv3x3_dw_bf16, the block convs' forward and weight
    gradient on bf16 tensor-core kernels, the latter with the FMA kernel's
-   time beside as was_ms; within one bf16 step of the rounded plain value,
-   with cuDNN's bf16 calls as the library yardstick), both again under two
+   time beside as was_ms, and conv3x3_stem_bf16, the stem's forward on a
+   tensor-core kernel of its own, with the FMA kernel's time beside as
+   was_ms; the tensor-core forwards' launch plans read back from the card
+   and held to their Python mirror; within one bf16 step of the rounded
+   plain value, with cuDNN's bf16 calls as the library yardstick), both
+   again under two
    vmap levels (DP-SGD's per-example gradients), and
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
    flash_dkv; SDPA as the library call, with the backend it ran; bf16
@@ -121,7 +129,8 @@ non-zero exit code and no result line:
 9c. resnet_bn — the example with norm: batch (auto: bucketed, as JAX's
    rule gives BatchNorm), the checkpoint's batch_stats, evaluation on the
    running statistics; resnet_bf16 — the same with use_bf16: true, on the
-   bf16 kernels, its round and device times beside resnet_bn's;
+   bf16 kernels (the forward's launches also by route and shape), its
+   round and device times beside resnet_bn's;
 10. small_lm — the Cheetah LM trainer at f32, T 4096 (auto dispatch picks
     flash) on the card against the same run on the CPU (plain versions);
     small_lm_128 the same with one head of Dh 128 at T 4608 (the forward
@@ -250,10 +259,13 @@ CONV_LAYERS = ((64, 32, 32, 3, 16), (64, 32, 32, 16, 16), (64, 16, 16, 32, 32),
 CONV_MAIN = tuple((L,) + s for L in (1, 2, 10) for s in CONV_LAYERS)
 CONV_EXTRA = ((1, 256, 32, 32, 16, 16),   # eval: no lanes, batch 256
               (3, 5, 7, 9, 5, 7))         # ragged channels, odd sizes
+# the eval's forwards: one lane, batch 256, at each layer shape
+CONV_EVAL = tuple((1, 256) + s[1:] for s in CONV_LAYERS)
 # the kernels line's shape: the packed main path's one lane, 18 of the 53
 # convs per step
 CONV_REPORTED = (1, 64, 32, 32, 16, 16)
-CONV_FWD_KERNELS = ("conv3x3_tf32_kernel", "conv3x3_fwd_kernel", "conv3x3_bf16_kernel")
+CONV_FWD_KERNELS = ("conv3x3_tf32_kernel", "conv3x3_fwd_kernel", "conv3x3_bf16_kernel",
+                    "conv3x3_bf16_cut_kernel", "conv3x3_stem_bf16_kernel")
 CONV_DW_KERNELS = ("conv3x3_dw_partial_kernel", "conv3x3_dw_reduce_kernel",
                    "conv3x3_dw_bf16_kernel")
 
@@ -1040,21 +1052,29 @@ def _bf16_gate(got, want32, mag, what):
     return _normalised_err(got.float(), want32, mag), share, steps
 
 
+# the stem's shape in the kernels line: the packed main path's one lane
+CONV_STEM_REPORTED = (1, 64, 32, 32, 3, 16)
+
+
 def check_conv_bf16(dev, bf16_rate):
     """Kernel 3a in bf16 (use_bf16: forward and dx) against its plain
     version (float32 products and sums of the same bf16 operands, rounded
     once) at CONV_MAIN and CONV_EXTRA, with the bf16 gate (_bf16_gate) and
     bit-equal across two calls; a lane-broadcast w at the even schedule's
-    block shape. ResNet's block convs run the bf16 tensor-core kernel
-    (bf16_tc), the stem and ragged shapes the FMA kernel (fma_bf16). Device
-    time beside cuDNN's grouped bf16 conv; the bound counts bf16 bytes and
-    the function's operations at the bf16 tensor-core rate, whichever
-    route runs them; mma_sync_ms: the bf16_tc route's operations at ``bf16_rate``, the rate
-    its instruction reached in phase tc_rate."""
+    block shape. ResNet's block convs run the bf16 tensor-core kernels
+    (bf16_tc), the stem its own (stem_bf16, whose line also gives the FMA
+    kernel's time on the shape as was_ms), ragged shapes the FMA kernel
+    (fma_bf16). On the two tensor-core routes the launch plan the card
+    reports equals ops/conv.py::fwd_tc_plan's. Device time beside cuDNN's
+    grouped bf16 conv; the bound counts bf16 bytes and the function's
+    operations at the bf16 tensor-core rate, whichever route runs them;
+    mma_sync_ms: a tensor-core route's operations at ``bf16_rate``, the
+    rate its instruction reached in phase tc_rate. Returns the kernels
+    line's entries of the block convs and of the stem."""
     from fedml_tpu_torch.ops import conv as C
 
     gen = torch.Generator().manual_seed(13)
-    entry = None
+    entries = []
     bf = torch.bfloat16
     for shape in CONV_MAIN + CONV_EXTRA:
         L, B, H, W, ci, co = shape
@@ -1078,22 +1098,33 @@ def check_conv_bf16(dev, bf16_rate):
                "library_ms": device_ms(lambda: F.conv2d(xn, wn, padding=1, groups=L), ("",)),
                "max_abs_err": (y.float() - yp.float()).abs().max().item(),
                **_bound(0, nbytes, bf16_ops=ops)}
-        if route == "bf16_tc":
+        plan = None
+        if route in ("bf16_tc", "stem_bf16"):
             row["mma_sync_ms"] = ops / bf16_rate * 1e3
+            plan = C.fwd_tc_plan_on_card(L, B, H, W, ci, co, dev)
+            if plan[:3] != C.fwd_tc_plan(L, B, H, W, ci, co, *plan[3:]):
+                raise AssertionError(f"conv3x3 bf16 at {shape}: the card's plan {plan} is not "
+                                     f"fwd_tc_plan's {C.fwd_tc_plan(L, B, H, W, ci, co, *plan[3:])}")
+        if route == "stem_bf16":
+            _bf16_gate(C.conv3x3_fwd_route(x, w, "fma_bf16"), want32, mag,
+                       f"conv3x3 fma_bf16 at {shape}")
+            row["was_ms"] = device_ms(lambda: C.conv3x3_fwd_route(x, w, "fma_bf16"),
+                                      CONV_FWD_KERNELS)
         emit("kernel_conv3x3_bf16", shape=list(shape), conv_route=route, normalised_err=err,
              mismatch_share=share, max_bf16_steps=steps, library_normalised_err=lib_err,
-             repeatable=True, gflop=ops / 1e9, **row)
-        if shape == CONV_REPORTED:
-            entry = {"name": "conv3x3_bf16", "route": "cuda",
-                     "source": "fedml_tpu_torch/csrc/" + C.FWD_ROUTES[route][0] + ".cu",
-                     "replaces": "fedml_tpu/ops/conv.py:181", **row}
+             repeatable=True, gflop=ops / 1e9, plan=plan, **row)
+        if shape in (CONV_REPORTED, CONV_STEM_REPORTED):
+            entries.append({"name": "conv3x3_bf16" if shape == CONV_REPORTED else
+                            "conv3x3_stem_bf16", "route": "cuda",
+                            "source": "fedml_tpu_torch/csrc/" + C.FWD_ROUTES[route][0] + ".cu",
+                            "replaces": "fedml_tpu/ops/conv.py:181", **row})
         if shape == (10,) + CONV_REPORTED[1:]:
             wb = w[:1].expand_as(w)
             _bf16_gate(C.conv3x3_lanes(x, wb), C.conv3x3_plain(x.float(), wb.float()),
                        C.conv3x3_plain(x.float().abs(), wb.float().abs()),
                        "conv3x3 bf16 with a broadcast w")
             emit("kernel_conv3x3_bf16", shape=list(shape), conv_route=route, w_lanes=1)
-    return entry
+    return entries
 
 
 def check_conv_dw_bf16(dev):
@@ -1530,9 +1561,10 @@ def _resnet_conv_want(args, sim, conv_channels, plans):
     clients), one forward per stride-1 3x3 conv, one dx per such conv but
     the stem (its input, the data, needs no gradient) and one dw per conv;
     per eval, one forward per conv and test batch of 256. Under use_bf16
-    the kernels are the bf16 routes (launches keyed ``conv3x3_bf16`` and
-    ``conv3x3_dw_bf16``). Launches per route: {"conv3x3": forward routes,
-    "conv3x3_dw": weight-gradient routes}."""
+    the kernels are the bf16 routes (launches keyed ``conv3x3_bf16``,
+    ``conv3x3_stem_bf16`` and ``conv3x3_dw_bf16``, _launch_keys). Launches
+    per route: {"conv3x3": forward routes, "conv3x3_dw": weight-gradient
+    routes}."""
     from fedml_tpu_torch.ops import conv as C
     from fedml_tpu_torch.simulation.fed_sim import EVAL_BATCH_SIZE
 
@@ -1548,9 +1580,6 @@ def _resnet_conv_want(args, sim, conv_channels, plans):
     else:
         steps = sum(n for _, n in plans) * (1 if sim.schedule == "packed" else epochs)
     dtype = torch.bfloat16 if getattr(args, "use_bf16", False) else torch.float32
-    suffix = "_bf16" if dtype == torch.bfloat16 else ""
-    want = {f"conv3x3{suffix}": steps * (convs + convs - 1) + evals * eval_batches * convs,
-            f"conv3x3_dw{suffix}": steps * convs}
     # per forward route: each conv's forward at its (Ci, Co), its dx (not
     # the stem's) at (Co, Ci); per weight-gradient route each conv's dw
     fwd, dw = dict.fromkeys(C.FWD_ROUTES, 0), dict.fromkeys(C.DW_ROUTES, 0)
@@ -1559,30 +1588,60 @@ def _resnet_conv_want(args, sim, conv_channels, plans):
         if i:
             fwd[C.fwd_route(co, ci, dtype)] += steps
         dw[C.dw_route(ci, co, dtype)] += steps
+    if (sum(fwd.values()), sum(dw.values())) != (
+            steps * (convs + convs - 1) + evals * eval_batches * convs, steps * convs):
+        raise AssertionError(f"the conv plans by route {fwd}, {dw} miss a launch")
+    want = {k: v for k, v in _launch_keys(fwd, dw).items() if v}
     return evals, eval_batches, want, {"conv3x3": fwd, "conv3x3_dw": dw}
 
 
-def _counted(run):
+def _launch_keys(fwd, dws):
+    """Conv launches keyed by the kernels line's names, from launches per
+    forward route (``fwd``) and weight-gradient route (``dws``)."""
+    return {"conv3x3": fwd["tf32x3"] + fwd["fma"], "conv3x3_dw": dws["fma"],
+            "conv3x3_bf16": fwd["bf16_tc"] + fwd["fma_bf16"],
+            "conv3x3_stem_bf16": fwd.get("stem_bf16", 0),  # a checkout may lack the route
+            "conv3x3_dw_bf16": dws["bf16_tc"] + dws["fma_bf16"]}
+
+
+def _counted(run, shapes=None):
     """``run()`` with the conv kernels' counts set to 0 just before it and
-    read just after: (its result, launches by dtype, launches per route:
-    {"conv3x3": forward routes, "conv3x3_dw": weight-gradient routes})."""
+    read just after: (its result, launches by kernel, launches per route:
+    {"conv3x3": forward routes, "conv3x3_dw": weight-gradient routes}).
+    With a dict ``shapes``, it also receives the forward launches by route
+    and (L, B, H, W, Ci, Co), counted around the route call the wrapper
+    makes."""
+    from collections import Counter
+
     from fedml_tpu_torch.ops import conv as C
+
+    by_shape = Counter()
+    fwd_route_call = C.conv3x3_fwd_route
+
+    def tallied(x, w, route):
+        by_shape[(route,) + tuple(x.shape) + (w.shape[-1],)] += 1
+        return fwd_route_call(x, w, route)
 
     C.conv3x3_lanes.launches = 0
     C.conv3x3_lanes.route_launches = dict.fromkeys(C.FWD_ROUTES, 0)
     C.conv3x3_dw_lanes.launches = 0
     C.conv3x3_dw_lanes.route_launches = dict.fromkeys(C.DW_ROUTES, 0)
-    out = run()
-    torch.cuda.synchronize()
+    if shapes is not None:
+        C.conv3x3_fwd_route = tallied
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        C.conv3x3_fwd_route = fwd_route_call
     routes = {"conv3x3": dict(C.conv3x3_lanes.route_launches),
               "conv3x3_dw": dict(C.conv3x3_dw_lanes.route_launches)}
-    fwd, dws = routes["conv3x3"], routes["conv3x3_dw"]
-    launches = {"conv3x3": fwd["tf32x3"] + fwd["fma"],
-                "conv3x3_dw": dws["fma"],
-                "conv3x3_bf16": fwd["bf16_tc"] + fwd["fma_bf16"],
-                "conv3x3_dw_bf16": dws["bf16_tc"] + dws["fma_bf16"]}
+    launches = _launch_keys(routes["conv3x3"], routes["conv3x3_dw"])
     if sum(launches.values()) != C.conv3x3_lanes.launches + C.conv3x3_dw_lanes.launches:
         raise AssertionError(f"conv launches by route {routes} do not add up")
+    if shapes is not None:
+        if sum(by_shape.values()) != C.conv3x3_lanes.launches:
+            raise AssertionError(f"conv forwards by shape {dict(by_shape)} do not add up")
+        shapes.update({" ".join(map(str, k)): n for k, n in sorted(by_shape.items())})
     return out, {k: v for k, v in launches.items() if v}, routes
 
 
@@ -1669,7 +1728,7 @@ def phase_resnet_profile():
     emit("resnet_profile", **out)
 
 
-def _stateful_resnet_phase(name, extra, want_schedule, check_ckpt):
+def _stateful_resnet_phase(name, extra, want_schedule, check_ckpt, by_shape=False):
     """One algorithm or model variant on the ResNet-56 example at full
     width: the YAML through load_arguments(--cf) with resnet_main's
     overrides and ``extra``, 1 round of one epoch with checkpoints in a
@@ -1677,8 +1736,9 @@ def _stateful_resnet_phase(name, extra, want_schedule, check_ckpt):
     of the simulator), conv launches equal to the round plans, the last
     round's checkpoint checked by ``check_ckpt(saved state, runner)``; then
     one more round on a fresh simulator (no checkpoints) under the
-    profiler: wall, device busy and idle share. Returns (its row, the
-    launches)."""
+    profiler: wall, device busy and idle share; with ``by_shape`` the
+    counted run's forward launches by route and shape (_counted). Returns
+    (its row, the launches)."""
     import tempfile
 
     import fedml_tpu_torch as ft
@@ -1699,8 +1759,9 @@ def _stateful_resnet_phase(name, extra, want_schedule, check_ckpt):
         plans = [_lanes(sim.build_round_inputs(r)) for r in range(rounds)]
         evals, eval_batches, want, want_routes = _resnet_conv_want(args, sim, conv_channels,
                                                                    plans)
+        shapes = {} if by_shape else None
         t = time.perf_counter()
-        hist, launches, routes = _counted(runner.run)
+        hist, launches, routes = _counted(runner.run, shapes)
         wall = time.perf_counter() - t
         ckpt = CheckpointManager(ckpt_dir)
         saved = ckpt.steps()
@@ -1723,6 +1784,8 @@ def _stateful_resnet_phase(name, extra, want_schedule, check_ckpt):
                test=[(r["round"], r["test_loss"], r["test_acc"]) for r in evals_seen],
                round_time_s=[r["round_time"] for r in hist], launches=launches,
                conv3x3_route_launches=routes, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if by_shape:
+        row["fwd_launches_by_route_shape"] = shapes
     if sim._arena is not None:
         row["arena_bytes"] = sim._arena.nbytes
         row["arena_capacity"] = sim._arena.capacity
@@ -1802,14 +1865,16 @@ def phase_resnet_bn():
 def phase_resnet_bf16(bn_row):
     """The same with use_bf16: true: bf16 compute over float32 parameters,
     every stride-1 3x3 conv on the bf16 kernels (the block convs' forward,
-    dx and dw on the tensor cores, the stem's forward and dw on the FMA
-    kernel; dw in float32 sums rounded to bf16), launches by route equal
-    the plans (zero on the float32 routes); the loss finite. Round and
-    device times beside resnet_bn's."""
+    dx and dw on the tensor cores, the stem's forward on its own
+    tensor-core kernel, its dw on the FMA kernel; dw in float32 sums
+    rounded to bf16), launches by route equal the plans (zero on the
+    float32 routes), the forward's also by shape; the loss finite. Round
+    and device times beside resnet_bn's."""
     row, launches = _stateful_resnet_phase("bf16", dict(norm="batch", use_bf16=True),
-                                           _bn_auto_rule, _bn_check)
+                                           _bn_auto_rule, _bn_check, by_shape=True)
     routes = row["conv3x3_route_launches"]
-    if not all(routes[k][r] for k in routes for r in ("bf16_tc", "fma_bf16")):
+    if not (all(routes["conv3x3"][r] for r in ("bf16_tc", "stem_bf16")) and
+            all(routes["conv3x3_dw"][r] for r in ("bf16_tc", "fma_bf16"))):
         raise AssertionError(f"resnet bf16 did not run every bf16 kernel: {routes}, {launches}")
     emit("resnet_bf16_vs_f32", round_time_s={"bn_f32": bn_row["round_time_s"],
                                              "bn_bf16": row["round_time_s"]},
@@ -2469,19 +2534,35 @@ def phase_flash_times(dev, reps=3, rounds=5):
 
 
 def phase_conv_times(dev):
-    """Device ms of the bf16 weight gradient (kernel 3b under use_bf16, on
-    the route conv3x3_dw_lanes picks) at CONV_MAIN, for the package first
-    on sys.path: with ``conv DIR`` a checkout's, so two commits compare in
-    one call (parent, change, change, parent)."""
+    """Device ms of the bf16 forward (kernel 3a under use_bf16, also dx) at
+    CONV_MAIN and CONV_EVAL, beside cuDNN's grouped bf16 conv and the
+    bound, and of the bf16 weight gradient (kernel 3b) at CONV_MAIN, each on
+    the route the wrapper picks, for the package first on sys.path: with
+    ``conv DIR`` a checkout's, so two commits compare in one call (parent,
+    change, change, parent)."""
     from fedml_tpu_torch.ops import conv as C
 
+    package = str(Path(C.__file__).parents[2])
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(13)
+    rows = []
+    for shape in CONV_MAIN + CONV_EVAL:
+        L, B, H, W, ci, co = shape
+        x, w, _, xn, wn, _ = (t.to(bf) for t in _conv_case(shape, gen, dev))
+        nbytes = (L * B * H * W * (ci + co) + L * 9 * ci * co) * 2
+        rows.append({"shape": list(shape), "route": C.fwd_route(ci, co, bf),
+                     "ms": device_ms(lambda: C.conv3x3_lanes(x, w), CONV_FWD_KERNELS),
+                     "library_ms": device_ms(lambda: F.conv2d(xn, wn, padding=1, groups=L),
+                                             ("",)),
+                     **_bound(0, nbytes, bf16_ops=_conv_ops(shape))})
+    emit("conv_fwd_bf16_times", package=package, rows=rows)
     gen = torch.Generator().manual_seed(14)
     rows = []
     for shape in CONV_MAIN:
-        x, _, dy, *_ = (t.to(torch.bfloat16) for t in _conv_case(shape, gen, dev))
+        x, _, dy, *_ = (t.to(bf) for t in _conv_case(shape, gen, dev))
         rows.append({"shape": list(shape),
                      "ms": device_ms(lambda: C.conv3x3_dw_lanes(x, dy), CONV_DW_KERNELS)})
-    emit("conv_dw_bf16_times", package=str(Path(C.__file__).parents[2]), rows=rows)
+    emit("conv_dw_bf16_times", package=package, rows=rows)
 
 
 def lm_data(vocab, B, T, seed=0):
@@ -2945,12 +3026,12 @@ def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
 
 
 def main(argv):
-    modes = (["agg"], ["flash"], ["conv"], ["lm_f32"], ["lm_mid"], ["lm_xl"], ["lm_xl_f32"],
-             ["lm_xxl"], ["lm_xxl_f32"])
+    modes = (["agg"], ["flash"], ["conv"], ["resnet_bf16"], ["lm_f32"], ["lm_mid"], ["lm_xl"],
+             ["lm_xl_f32"], ["lm_xxl"], ["lm_xxl_f32"])
     if not (argv in ([], ["kernels"]) or (argv[:1] in modes and len(argv) <= 2)):
         print("usage: python3 chip_smoke.py [kernels | agg [DIR] | flash [DIR] | conv [DIR] | "
-              "lm_f32 [DIR] | lm_mid [DIR] | lm_xl [DIR] | lm_xl_f32 [DIR] | lm_xxl [DIR] | "
-              "lm_xxl_f32 [DIR]]", file=sys.stderr)
+              "resnet_bf16 [DIR] | lm_f32 [DIR] | lm_mid [DIR] | lm_xl [DIR] | "
+              "lm_xl_f32 [DIR] | lm_xxl [DIR] | lm_xxl_f32 [DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2964,6 +3045,8 @@ def main(argv):
         phase_device()
         {"agg": phase_agg, "flash": lambda: phase_flash_times(dev),
          "conv": lambda: phase_conv_times(dev),
+         "resnet_bf16": lambda: _stateful_resnet_phase(
+             "bf16", dict(norm="batch", use_bf16=True), _bn_auto_rule, _bn_check, by_shape=True),
          "lm_f32": lambda: phase_lm_profile(*phase_lm_wide_f32()[:2], steps=1,
                                             phase="lm_wide_f32_profile"),
          "lm_mid": lambda: phase_lm_profile(*phase_lm_mid_f32(False)[:2], steps=1,
@@ -2981,7 +3064,8 @@ def main(argv):
     phase_build()
     tc_rate, bf16_rate = phase_tc_rate(dev)
     entries = [check_quant(dev), check_gram(dev), check_conv(dev, tc_rate), check_conv_dw(dev),
-               check_conv_bf16(dev, bf16_rate), check_conv_dw_bf16(dev), *check_flash(dev, tc_rate)]
+               *check_conv_bf16(dev, bf16_rate), check_conv_dw_bf16(dev),
+               *check_flash(dev, tc_rate)]
     check_conv_nested(dev)
     if argv == ["kernels"]:
         return 0

@@ -64,11 +64,13 @@
 // product and sum is float32 as in the TPU kernel (preferred_element_type
 // float32, conv.py:147 and :251); the forward rounds each output once to
 // bfloat16 (round to nearest even) on store, the weight gradient sums its
-// float32 partials in the fixed split order and rounds once. Both serve only
-// the stem (3 -> 16) and the widths conv3x3_sm90.cu's bf16 tensor-core
-// kernels do not take: ResNet's block convs (Ci = Co in {16, 32, 64}) run
-// their bf16 forward, dx and weight gradient there (ops/conv.py::fwd_route
-// and dw_route). Copies of 2-byte elements (Ci or
+// float32 partials in the fixed split order and rounds once. The bf16
+// forward serves only ragged widths (neither Ci = Co in {16, 32, 64} nor
+// the stem's 3 -> 16), the bf16 weight gradient those and the stem:
+// ResNet's block convs (Ci = Co in {16, 32, 64}) run their bf16 forward, dx
+// and weight gradient on conv3x3_sm90.cu's tensor-core kernels, and the
+// stem its bf16 forward there too (ops/conv.py::fwd_route and dw_route).
+// Copies of 2-byte elements (Ci or
 // Co not a multiple of 4: the stem's x) have no cp.async form and are plain
 // loads and shared-memory stores into the same ring; 4-element chunks are
 // 8-byte cp.async copies. Bound: half the bytes of float32, the same FMA

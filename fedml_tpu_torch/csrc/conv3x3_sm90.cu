@@ -4,10 +4,11 @@
 // the forward (and so dx, the forward of dy with the flipped,
 // channel-transposed kernel) for Ci = Co in {16, 32, 64}: ResNet's block
 // convs; in bfloat16 (use_bf16) the forward and the weight gradient (both
-// at the end of this file). Other channel counts (the stem's 3 -> 16,
-// ragged shapes), and the float32 weight gradient, keep the FMA kernels of
+// at the end of this file), and the stem's bf16 forward (3 -> 16). Other
+// channel counts (the float32 stem, ragged shapes), the stem's weight
+// gradient and the float32 weight gradient keep the FMA kernels of
 // conv3x3.cu; ops/conv.py::fwd_route and dw_route pick by (Ci, Co) and
-// dtype and mirror tc_channels() below.
+// dtype and mirror tc_channels() and kStemCI / kStemCO below.
 //
 // Replaces: fedml_tpu/ops/conv.py::conv2d_pallas — the forward Pallas kernel
 // _fwd_kernel (:143, pallas_call :208), which builds the [Bt H W, 9 Ci] patch
@@ -90,7 +91,8 @@
 //
 // Left for later: wgmma (both shared-memory operands K-major in TF32, A from
 // registers) for the rest of the tensor cores' rate; fewer integer
-// operations per split.
+// operations per split; in bfloat16, the column cut of Ci 64 (below) at Ci
+// 16 and 32, whose blocks still stage all of w with a transposing loop.
 //
 // bfloat16 (fedml_conv3x3_fwd_sm90_bf16, the JAX package's use_bf16: the
 // same Pallas kernel on bf16 x and w, a bf16 patch scratch, f32 sums by
@@ -101,12 +103,20 @@
 // nearest, over at most 9 x 4 k-steps into one accumulator); each output is
 // rounded once to bf16 on store, so the kernel is within one bf16 step of
 // the rounded float32 result (chip_smoke.py's bf16 conv gate). The halo is
-// staged as bf16 (half the float32 bytes) and w, all nine taps, once per
-// block, transposed to [tap][co][ci] so that both operands are read as one
-// 8-byte word per fragment row (see conv3x3_bf16_kernel). Bound at the
-// path's block shapes (L = 10, B = 64): 42.0, 21.0 and 10.5 MB of bytes,
-// 0.0125, 0.0063 and 0.0031 ms at 3.35 TB/s, against 2.9, 2.8 and 2.6 us of
-// operations (in-image taps) at 989 TFLOP/s: all three are bound by bytes.
+// staged as bf16 (half the float32 bytes). At Ci 16 and 32 w, all nine
+// taps, is staged once per block, transposed to [tap][co][ci] so that both
+// operands are read as one 8-byte word per fragment row (see
+// conv3x3_bf16_kernel); at Ci 64 each block takes one 32-column slice of
+// the output and stages only that slice of w, untransposed, with ldmatrix
+// reading both operands (conv3x3_bf16_cut_kernel); the stem (3 -> 16) has
+// its own kernel, its 27-deep contraction padded to two k-steps
+// (conv3x3_stem_bf16_kernel). Bound at the path's block shapes (L = 10, B
+// = 64): 42.0, 21.0 and 10.5 MB of bytes, 0.0125, 0.0063 and 0.0031 ms at
+// 3.35 TB/s, against 2.9, 2.8 and 2.6 us of operations (in-image taps) at
+// 989 TFLOP/s: all three are bound by bytes; the stem 24.9 MB, 0.0074 ms.
+// ptxas -v for sm_90a (chip_smoke.py's build phase): conv3x3_bf16_kernel
+// Ci 16 76 registers, Ci 32 102; conv3x3_bf16_cut_kernel 77;
+// conv3x3_stem_bf16_kernel 123 (cut for four blocks an SM); no spills.
 //
 // bfloat16 weight gradient (fedml_conv3x3_dw_sm90_bf16). Replaces the same
 // Pallas kernel's _dw_kernel (:152, pallas_call :240) on bf16 x and dy: dw =
@@ -632,33 +642,494 @@ conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   cp_async_wait<0>();
 }
 
+// The launch plan of a bf16 forward kernel that walks tiles: blocks per
+// unit (a lane, or one column slice of a lane) as the resident float32
+// kernel's, the SM slots shared among the units, then as few blocks as give
+// every block the same number of tiles (rounds). ops/conv.py::fwd_tc_plan
+// mirrors it for given sms and per_sm; fedml_conv3x3_fwd_sm90_bf16_plan
+// reports it from the card.
+struct Plan {
+  Geo g;
+  int units, tiles, blocks, rounds, bytes, per_sm, sms;
+};
+
+// p.g and p.bytes set; fills the rest for `units` units of the kernel
+template <class K>
+cudaError_t plan_blocks(K kernel, int nt, int64_t units, int B, Plan& p) {
+  const int64_t tiles = (int64_t)((B + p.g.imgs - 1) / p.g.imgs) * p.g.nh * p.g.nw;
+  if (tiles > 0x7fffffff || p.bytes > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+  int dev;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&p.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.per_sm, kernel, nt, p.bytes);
+  if (e != cudaSuccess) return e;
+  if (p.per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t slots = ((int64_t)p.sms * p.per_sm + units - 1) / units;
+  p.units = (int)units;
+  p.tiles = (int)tiles;
+  p.rounds = (int)((tiles + slots - 1) / slots);
+  p.blocks = (int)((tiles + p.rounds - 1) / p.rounds);
+  return cudaSuccess;
+}
+
+template <int CI, int WM, int MINB>
+cudaError_t plan_bf16(int L, int B, int H, int W, Plan& p) {
+  p.g = geometry<CfgBf16<CI, WM>>(B, H, W, p.bytes);
+  return plan_blocks(conv3x3_bf16_kernel<CI, WM, MINB>, CfgBf16<CI, WM>::NT, L, B, p);
+}
+
 template <int CI, int WM, int MINB>
 cudaError_t launch_bf16(const bf16* x, const bf16* w, bf16* y, int L, int B, int H, int W,
                         int64_t x_lane, int64_t w_lane, cudaStream_t st) {
-  using C = CfgBf16<CI, WM>;
-  int bytes;
-  const Geo g = geometry<C>(B, H, W, bytes);
-  const int64_t tiles = (int64_t)((B + g.imgs - 1) / g.imgs) * g.nh * g.nw;
-  if (tiles > 0x7fffffff || bytes > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = conv3x3_bf16_kernel<CI, WM, MINB>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  Plan p;
+  cudaError_t e = plan_bf16<CI, WM, MINB>(L, B, H, W, p);
   if (e != cudaSuccess) return e;
-  // blocks per lane as the resident float32 kernel's: the SM slots shared
-  // among the lanes, then as few as give every block the same tile count
-  int dev, sms, per_sm;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, C::NT, bytes);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int64_t slots = ((int64_t)sms * per_sm + L - 1) / L;
-  const int64_t rounds = (tiles + slots - 1) / slots;
-  const int64_t blocks = (tiles + rounds - 1) / rounds;
-  kernel<<<dim3((unsigned)blocks, (unsigned)L), C::NT, bytes, st>>>(x, w, y, B, H, W, x_lane,
-                                                                     w_lane, g, (int)tiles);
+  conv3x3_bf16_kernel<CI, WM, MINB><<<dim3(p.blocks, L), CfgBf16<CI, WM>::NT, p.bytes, st>>>(
+      x, w, y, B, H, W, x_lane, w_lane, p.g, p.tiles);
   return cudaGetLastError();
+}
+
+// --- bfloat16 at Ci = Co = 64: the output columns cut across blocks --------
+//
+// Replaces, at Ci 64, the resident-w form above (conv3x3_bf16_kernel<64>),
+// which held all of w (9 x 64 x 80 x 2 = 92 KB padded) beside two 128-slot
+// halos, one 256-thread block per SM, staged w through a scalar transposing
+// loop (144 two-byte loads and stores a thread) that nothing overlapped, and
+// at 8 x 8 images launched 32 blocks for L = 1 (two images a tile): 100 of
+// the 132 SMs idle, 14.4 us at (1, 64, 8, 8, 64, 64) against cuDNN's 11.0
+// (PERF.md). Here a block owns one column slice of NS outputs and so holds
+// w's slice only (9 x 64 x 32 x 2 = 36 KB, 45 KB padded), a tile is BM =
+// 16 WM = 64 slots (one 8 x 8 image), so L = 1, B = 64 launches 64 tiles x
+// 2 slices = 128 blocks, three resident per SM. w is staged as it lies in
+// HWIO ([tap][ci][co], the slice's 64 bytes of each row) by 16-byte
+// cp.async beside the halo, in three commit groups of three taps, so the
+// first taps' products start while the later taps land; ldmatrix reads
+// the A fragments from the halo (a pixel's 16 channels of a k-step are two
+// 16-byte rows) and ldmatrix.x4.trans turns the k-major w rows into the
+// row.col B fragments (two n8 tiles a load). Rows are padded (halo pixels
+// 72 elements, 144 bytes = 16 mod 128; w rows NS + 8 = 40, 80 bytes) so the
+// eight 16-byte rows of an ldmatrix matrix fall in distinct banks.
+// Arithmetic as the kernel above: one bf16 m16n8k16 product per 16-channel
+// k-step, channels in natural order, taps in order, the 36 k-steps of a
+// tile summed in one float32 accumulator, each output rounded once to bf16;
+// no split of the contraction and no atomics, so y repeats bit for bit.
+// Bound at (1, 64, 8, 8, 64, 64): 1,122,304 bytes, 0.335 us at 3.35 TB/s
+// (0.257 us of in-image operations at 989 TFLOP/s); at L = 10, 3.35 us.
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py conv, PERF.md): 5.2 us at
+// L = 1, 7.4 at L = 2, 22.7 at L = 10, against the resident form's 14.4 /
+// 14.4 / 25.5 and cuDNN's grouped bf16 conv's 11.1 / 11.9 / 32.2. Tried
+// and not kept: 16-column quarters (four blocks an SM, 56 KB) ran slower at
+// every shape (6.3 / 8.7 / 26.5); the tap loop rolled (65 registers)
+// 5.6 / 7.3 / 23.8. ptxas -v: 77 registers, no spills.
+
+// Ci = Co channels, NS output columns a block, WM warps of 16 pixel slots
+template <int CI, int NS, int WM>
+struct CfgCut {
+  using T = bf16;
+  static constexpr int CO = CI;
+  static constexpr int SLICES = CO / NS;
+  static constexpr int NT = 32 * WM;               // threads
+  static constexpr int BM = 16 * WM;               // pixel slots of a tile
+  static constexpr int N8 = NS / 8;                // 8-column mma tiles of a warp
+  static constexpr int XS = CI + 8;                // elements between halo pixels
+  static constexpr int WS = NS + 8;                // elements between w rows of the slice
+  static constexpr int WTAP = CI * WS;             // elements of one tap of the slice
+  static constexpr int WFLOATS = 9 * WTAP;         // elements of w (geometry's name)
+  static constexpr int HALOS = 2;
+  static constexpr int CPP = CI / 8;               // 16-byte chunks of a halo pixel
+  static constexpr int NPX = NT / CPP;             // halo pixels staged per pass
+  static constexpr int WCH = NS / 8;               // 16-byte chunks of a w row's slice
+  static_assert(CI % 16 == 0 && NS % 16 == 0 && CO % NS == 0 && NT % CPP == 0,
+                "channels the kernel takes");
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// One block per (tile, column slice, lane) unit slot, walking tiles tile0,
+// tile0 + gridDim.x, ...: w's slice staged once, the next tile's halo
+// staged while this one's products run (two buffers, one barrier a tile).
+template <int CI, int NS, int WM, int MINB>
+__global__ void __launch_bounds__(CfgCut<CI, NS, WM>::NT, MINB)
+conv3x3_bf16_cut_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                        bf16* __restrict__ y, int B, int H, int W, int64_t x_lane,
+                        int64_t w_lane, Geo g, int tiles) {
+  using C = CfgCut<CI, NS, WM>;
+  constexpr int CO = C::CO, XS = C::XS, WS = C::WS;
+  extern __shared__ float4 smem4[];
+  bf16* wbuf = reinterpret_cast<bf16*>(smem4);  // [9][CI][WS]: the slice's NS columns
+  bf16* halo = wbuf + C::WFLOATS;               // HALOS buffers of halo_px * XS
+  const int halo_elems = g.halo_px * XS;
+
+  const int t = threadIdx.x, n0 = blockIdx.y * NS, lane = blockIdx.z;
+  const bf16* xl = x + (int64_t)lane * x_lane;
+  const bf16* wl = w + (int64_t)lane * w_lane + n0;
+  bf16* yl = y + (int64_t)lane * B * H * W * CO + n0;
+
+  // halo staging as conv3x3_bf16_kernel's, 8 channels per 16-byte chunk
+  const int hcc = 8 * (t % C::CPP), hp0 = t / C::CPP;
+  const int pc0 = hp0 % g.hc, pr0 = (hp0 / g.hc) % g.hr, pi0 = hp0 / (g.hc * g.hr);
+  auto stage_halo = [&](bf16* dst, int tile) {
+    int b0, h0, w0;
+    tile_origin(tile, g, b0, h0, w0);
+    int pc = pc0, pr = pr0, img = pi0;
+    for (int p = hp0; p < g.halo_px; p += C::NPX) {
+      const int b = b0 + img, h = h0 + pr - 1, ww = w0 + pc - 1;
+      const bool ok = b < B && h >= 0 && h < H && ww >= 0 && ww < W;
+      cp_async16b(dst + p * XS + hcc, ok ? xl + (((int64_t)b * H + h) * W + ww) * CI + hcc : xl,
+                  ok);
+      pc += C::NPX;
+      while (pc >= g.hc) pc -= g.hc, ++pr;
+      while (pr >= g.hr) pr -= g.hr, ++img;
+    }
+  };
+  // taps [tap0, tap0 + 3) of w's slice: row (tap, ci) is NS contiguous
+  // elements at w[tap][ci][n0], 16-byte aligned
+  auto stage_w = [&](int tap0) {
+    for (int e = t; e < 3 * CI * C::WCH; e += C::NT) {
+      const int r = tap0 * CI + e / C::WCH, c = 8 * (e % C::WCH);
+      cp_async16b(wbuf + r * WS + c, wl + (int64_t)r * CO + c, true);
+    }
+  };
+
+  const int warp = t / 32, ln = t % 32, gid = ln >> 2, tig = ln & 3;
+  const int slots = g.imgs * g.rb * g.cb;
+  // A (16 slots x 16 channels, ldmatrix.x4): lanes 0-7 address slots 0-7 at
+  // channels 0-7, lanes 8-15 slots 8-15, lanes 16-31 the same at channels
+  // 8-15: the a0..a3 registers of the row.col fragment
+  int aoff;
+  {
+    const int s = warp * 16 + (ln & 7) + 8 * ((ln >> 3) & 1);
+    const int img = s / (g.rb * g.cb), r = (s / g.cb) % g.rb, c = s % g.cb;
+    aoff = (s < slots ? ((img * g.hr + r) * g.hc + c) * XS : 0) + 8 * (ln >> 4);
+  }
+  // B (16 channels x 16 columns of w, ldmatrix.x4.trans): lanes 0-7
+  // address rows (channels) 0-7 and lanes 8-15 rows 8-15 of columns 0-7,
+  // lanes 16-31 the same of columns 8-15: b0 b1 of two n8 tiles
+  const int boff = ((ln & 7) + 8 * ((ln >> 3) & 1)) * WS + 8 * (ln >> 4);
+
+  const int tile0 = blockIdx.x, stride = gridDim.x;
+  const int my_tiles = (tiles - tile0 + stride - 1) / stride;
+  // three commit groups: the first tile's halo with taps 0-2, taps 3-5,
+  // taps 6-8
+  stage_halo(halo, tile0);
+  stage_w(0);
+  cp_async_commit();
+  stage_w(3);
+  cp_async_commit();
+  stage_w(6);
+  cp_async_commit();
+
+#pragma unroll 1
+  for (int i = 0; i < my_tiles; ++i) {
+    const int tile = tile0 + i * stride;
+    const bf16* hb = halo + (i & 1) * halo_elems + aoff;
+    float acc[C::N8][4];
+#pragma unroll
+    for (int n = 0; n < C::N8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    if (i == 0)
+      cp_async_wait<2>();  // the halo and taps 0-2 have landed
+    else
+      cp_async_wait<0>();  // this tile's halo has landed
+    __syncthreads();       // ... for every thread, and the other buffer is free
+    if (i + 1 < my_tiles) stage_halo(halo + ((i + 1) & 1) * halo_elems, tile + stride);
+    cp_async_commit();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      if (i == 0 && (tap == 3 || tap == 6)) {  // the first tile waits for w's next taps
+        if (tap == 3)
+          cp_async_wait<2>();
+        else
+          cp_async_wait<1>();
+        __syncthreads();
+      }
+      const bf16* ht = hb + ((tap / 3) * g.hc + tap % 3) * XS;
+      const bf16* wt = wbuf + tap * C::WTAP + boff;
+#pragma unroll
+      for (int ks = 0; ks < CI / 16; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, ht + 16 * ks);
+#pragma unroll
+        for (int n16 = 0; n16 < NS / 16; ++n16) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, wt + 16 * ks * WS + 16 * n16);
+          mma_bf16(acc[2 * n16], a[0], a[1], a[2], a[3], b[0], b[1]);
+          mma_bf16(acc[2 * n16 + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
+        }
+      }
+    }
+
+    // c0, c1: row gid, columns 2 tig and + 1; c2, c3: row gid + 8; rounded
+    // once to bfloat16 (to nearest even) on store
+    int b0, h0, w0;
+    tile_origin(tile, g, b0, h0, w0);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int s = warp * 16 + gid + 8 * hh;
+      const int b = b0 + s / (g.rb * g.cb), h = h0 + (s / g.cb) % g.rb, ww = w0 + s % g.cb;
+      if (s >= slots || b >= B || h >= H || ww >= W) continue;
+      bf16* dst = yl + (((int64_t)b * H + h) * W + ww) * CO + 2 * tig;
+#pragma unroll
+      for (int n = 0; n < C::N8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(acc[n][2 * hh], acc[n][2 * hh + 1]);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int CI, int NS, int WM, int MINB>
+cudaError_t plan_bf16_cut(int L, int B, int H, int W, Plan& p) {
+  using C = CfgCut<CI, NS, WM>;
+  p.g = geometry<C>(B, H, W, p.bytes);
+  return plan_blocks(conv3x3_bf16_cut_kernel<CI, NS, WM, MINB>, C::NT, (int64_t)L * C::SLICES,
+                     B, p);
+}
+
+template <int CI, int NS, int WM, int MINB>
+cudaError_t launch_bf16_cut(const bf16* x, const bf16* w, bf16* y, int L, int B, int H, int W,
+                            int64_t x_lane, int64_t w_lane, cudaStream_t st) {
+  using C = CfgCut<CI, NS, WM>;
+  Plan p;
+  cudaError_t e = plan_bf16_cut<CI, NS, WM, MINB>(L, B, H, W, p);
+  if (e != cudaSuccess) return e;
+  conv3x3_bf16_cut_kernel<CI, NS, WM, MINB>
+      <<<dim3(p.blocks, C::SLICES, L), C::NT, p.bytes, st>>>(x, w, y, B, H, W, x_lane, w_lane,
+                                                             p.g, p.tiles);
+  return cudaGetLastError();
+}
+
+// --- bfloat16 stem (Ci 3 -> Co 16) on the tensor cores ----------------------
+//
+// Replaces, for the bf16 stem, conv3x3.cu's conv3x3_fwd_kernel<16, false,
+// bf16> (route fma_bf16): K = 27 as two 16-deep slices (11 of the second's
+// 16 rows live), A and B staged element by element with a run-time
+// division by Ci and a 2-byte load widened to float32 each, a 4 x 4 float32
+// FMA tile a thread: 12.4 us at (1, 64, 32, 32, 3, 16) against cuDNN's
+// 10.5 (PERF.md). Bound there: (64 x 1,024 x 19 + 432) x 2 = 2,491,232
+// bytes, 0.744 us at 3.35 TB/s (54.3 M in-image operations, 0.055 us at the
+// bf16 tensor-core rate, 0.81 at the float32 FMA rate); at L = 10, 7.44 us.
+//   Here the 27-deep contraction, k = 3 tap + ci, is padded with zeros to
+// 32 and runs as two mma.sync m16n8k16 k-steps; the 16 output columns are
+// two n8 tiles. A tile is kStemBM = 128 pixel slots, whole image rows (or
+// columns of a wider row), at most kStemPx halo pixels a thread; its halo
+// sits in shared memory with x's three channels padded to four, a pixel
+// one 8-byte word (channel 3 zero). x's pixels are 6 bytes, at 2-byte
+// alignment only (an odd pixel starts 2 mod 4 bytes), and cp.async copies
+// 4, 8 or 16 aligned bytes, so the halo is read by 2-byte global loads
+// into registers and stored as one 8-byte word a pixel: a thread loads the
+// next tile's pixels before this tile's products and stores them after,
+// so the loads are in flight while the products run (two buffers, one
+// barrier a tile). A fragments are gathered from the halo by 2-byte shared
+// loads through a per-thread table of the (tap, channel) offsets of its
+// eight k values, computed once; k >= 27 reads the pixel's zero channel 3
+// against w's zero rows 27-31, exact zeros. w (27 x 16, padded to 32 rows)
+// is staged once and its B fragments are held in registers for every tile.
+// bf16 x bf16 products are exact in float32, the sums are float32 (the
+// tensor core's, 27 terms from zero), each output is rounded once to bf16:
+// the TPU kernel's preferred_element_type=float32 and .astype
+// (fedml_tpu/ops/conv.py:143-149). No dx: the stem's input needs no
+// gradient. On an H100 80GB HBM3 at 700 W (chip_smoke.py conv, PERF.md):
+// 4.85 us at (1, 64, 32, 32, 3, 16), 6.4 at L = 2, 19.0 at L = 10, against
+// the FMA kernel's 12.5 / 20.5 / 87.0 and cuDNN's 10.5 / 21.1 / 108-158.
+// ptxas -v: 123 registers, no spills; cut for eight blocks an SM (64
+// registers) it spilled 128 bytes and ran slower (6.5 / 9.5 / 24.4).
+
+constexpr int kStemCI = 3, kStemCO = 16;
+constexpr int kStemNT = 128;  // threads: four warps of 32 pixel slots
+constexpr int kStemBM = 128;  // pixel slots of a tile
+constexpr int kStemPx = 2;    // halo pixels a thread stages
+constexpr int kStemHalo = kStemNT * kStemPx;  // halo pixels of a tile, at most
+constexpr int kStemK = 32;    // the contraction, padded
+// shared memory: two halos of 8-byte pixels, then w
+constexpr int kStemSmem = 2 * kStemHalo * 8 + kStemK * kStemCO * 2;
+
+// The stem's tile: as geometry<>'s, with fewer images, rows or columns
+// where the halo would pass kStemHalo pixels. ops/conv.py::fwd_tc_geometry
+// mirrors it.
+Geo stem_geometry(int B, int H, int W) {
+  Geo g;
+  g.cb = W < kStemBM ? W : kStemBM;
+  g.rb = g.cb < W ? 1 : (H < kStemBM / W ? H : kStemBM / W);
+  g.imgs = g.rb < H ? 1 : (B < kStemBM / (H * W) ? B : kStemBM / (H * W));
+  if (g.imgs < 1) g.imgs = 1;
+  auto px = [&] { return g.imgs * (g.rb + 2) * (g.cb + 2); };
+  while (px() > kStemHalo && g.imgs > 1) --g.imgs;
+  while (px() > kStemHalo && g.rb > 1) --g.rb;
+  while (px() > kStemHalo && g.cb > 1) g.cb = (g.cb + 1) / 2;
+  g.nh = (H + g.rb - 1) / g.rb;
+  g.nw = (W + g.cb - 1) / g.cb;
+  g.hr = g.rb + 2;
+  g.hc = g.cb + 2;
+  g.halo_px = g.imgs * g.hr * g.hc;
+  return g;
+}
+
+__device__ __forceinline__ uint32_t pack2(unsigned short lo, unsigned short hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+template <int MINB>
+__global__ void __launch_bounds__(kStemNT, MINB)
+conv3x3_stem_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                         bf16* __restrict__ y, int B, int H, int W, int64_t x_lane,
+                         int64_t w_lane, Geo g, int tiles) {
+  extern __shared__ float4 smem4[];
+  uint2* halo = reinterpret_cast<uint2*>(smem4);  // 2 x kStemHalo pixels: channels 0-2, 0
+  unsigned short* ws = reinterpret_cast<unsigned short*>(halo + 2 * kStemHalo);  // [k][co]
+
+  const int t = threadIdx.x, lane = blockIdx.y;
+  const unsigned short* xl = reinterpret_cast<const unsigned short*>(x) + lane * x_lane;
+  const unsigned short* wl = reinterpret_cast<const unsigned short*>(w) + lane * w_lane;
+  bf16* yl = y + (int64_t)lane * B * H * W * kStemCO;
+
+  for (int e = t; e < kStemK * kStemCO; e += kStemNT)
+    ws[e] = e < 9 * kStemCI * kStemCO ? wl[e] : (unsigned short)0;
+
+  // the halo pixels this thread stages: p = t + kStemNT j, at (img, pr, pc)
+  int pimg[kStemPx], prow[kStemPx], pcol[kStemPx];
+#pragma unroll
+  for (int j = 0; j < kStemPx; ++j) {
+    const int p = t + kStemNT * j;
+    pcol[j] = p % g.hc;
+    prow[j] = (p / g.hc) % g.hr;
+    pimg[j] = p < g.halo_px ? p / (g.hc * g.hr) : B;  // B: never in the image
+  }
+  uint2 next[kStemPx];
+  // x[b0 + img, h0 + pr - 1, w0 + pc - 1, :] of the tile's pixels, zero
+  // outside the image, into next
+  auto load = [&](int tile) {
+    int b0, h0, w0;
+    tile_origin(tile, g, b0, h0, w0);
+#pragma unroll
+    for (int j = 0; j < kStemPx; ++j) {
+      const int b = b0 + pimg[j], h = h0 + prow[j] - 1, ww = w0 + pcol[j] - 1;
+      unsigned short c0 = 0, c1 = 0, c2 = 0;
+      if (b < B && h >= 0 && h < H && ww >= 0 && ww < W) {
+        const unsigned short* src = xl + (((int64_t)b * H + h) * W + ww) * kStemCI;
+        c0 = __ldg(src);
+        c1 = __ldg(src + 1);
+        c2 = __ldg(src + 2);
+      }
+      next[j] = make_uint2(pack2(c0, c1), pack2(c2, 0));
+    }
+  };
+  auto store = [&](uint2* dst) {
+#pragma unroll
+    for (int j = 0; j < kStemPx; ++j)
+      if (t + kStemNT * j < g.halo_px) dst[t + kStemNT * j] = next[j];
+  };
+
+  const int warp = t / 32, gid = (t % 32) >> 2, tig = t & 3;
+  // k offsets (2-byte units in the halo, from the slot's tap (0, 0) pixel)
+  // of this thread's A values: k-step s holds k = 16 s + 2 tig, + 1, + 8, + 9
+  int koff[2][4];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = 16 * s + 2 * tig + (q & 1) + 8 * (q >> 1);
+      const int tap = k / kStemCI, ci = k % kStemCI;
+      koff[s][q] = k < 9 * kStemCI ? ((tap / 3) * g.hc + tap % 3) * 4 + ci : 3;
+    }
+  // per fragment row (mi, half): the slot's tap (0, 0) pixel, 2-byte units
+  int roff[2][2];
+  const int slots = g.imgs * g.rb * g.cb;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int s = warp * 32 + mi * 16 + gid + 8 * hh;
+      const int img = s / (g.rb * g.cb), r = (s / g.cb) % g.rb, c = s % g.cb;
+      roff[mi][hh] = s < slots ? ((img * g.hr + r) * g.hc + c) * 4 : 0;
+    }
+
+  const int tile0 = blockIdx.x, stride = gridDim.x;
+  const int my_tiles = (tiles - tile0 + stride - 1) / stride;
+  load(tile0);
+  store(halo);
+  __syncthreads();  // w and the first halo
+  // B: b0 (k 2 tig, + 1; column gid of n tile ni), b1 (k + 8, + 9)
+  uint32_t bfr[2][2][2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int k = 16 * s + 2 * tig + 8 * r, n = 8 * ni + gid;
+        bfr[s][ni][r] = pack2(ws[k * kStemCO + n], ws[(k + 1) * kStemCO + n]);
+      }
+
+#pragma unroll 1
+  for (int i = 0; i < my_tiles; ++i) {
+    const int tile = tile0 + i * stride;
+    if (i + 1 < my_tiles) load(tile + stride);  // in flight during the products
+    const unsigned short* hb =
+        reinterpret_cast<const unsigned short*>(halo + (i & 1) * kStemHalo);
+    float acc[2][2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const unsigned short* r0 = hb + roff[mi][0];
+      const unsigned short* r1 = hb + roff[mi][1];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const uint32_t a0 = pack2(r0[koff[s][0]], r0[koff[s][1]]);
+        const uint32_t a1 = pack2(r1[koff[s][0]], r1[koff[s][1]]);
+        const uint32_t a2 = pack2(r0[koff[s][2]], r0[koff[s][3]]);
+        const uint32_t a3 = pack2(r1[koff[s][2]], r1[koff[s][3]]);
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+          mma_bf16(acc[mi][ni], a0, a1, a2, a3, bfr[s][ni][0], bfr[s][ni][1]);
+      }
+    }
+    // c0, c1: row gid, columns 2 tig and + 1; c2, c3: row gid + 8
+    int b0, h0, w0;
+    tile_origin(tile, g, b0, h0, w0);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int s = warp * 32 + mi * 16 + gid + 8 * hh;
+        const int b = b0 + s / (g.rb * g.cb), h = h0 + (s / g.cb) % g.rb, ww = w0 + s % g.cb;
+        if (s >= slots || b >= B || h >= H || ww >= W) continue;
+        bf16* dst = yl + (((int64_t)b * H + h) * W + ww) * kStemCO + 2 * tig;
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * ni) =
+              __floats2bfloat162_rn(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
+      }
+    if (i + 1 < my_tiles) store(halo + ((i + 1) & 1) * kStemHalo);
+    __syncthreads();  // the next halo stored; this one's reads done
+  }
+}
+
+constexpr int kStemMinB = 4;  // blocks per SM the registers are cut for
+
+cudaError_t plan_stem(int L, int B, int H, int W, Plan& p) {
+  p.g = stem_geometry(B, H, W);
+  p.bytes = kStemSmem;
+  return plan_blocks(conv3x3_stem_bf16_kernel<kStemMinB>, kStemNT, L, B, p);
 }
 
 // --- bfloat16 weight gradient: mma.sync m16n8k16 over pixels --------------
@@ -705,12 +1176,6 @@ DwGeo dw_geometry(int H, int W) {
   g.hc = g.cb + 2;
   g.steps = (g.rb * g.cb + 15) / 16;
   return g;
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
 }
 
 // One block per (tile span s, row tile, lane): rows [ROWS rt, ROWS (rt + 1))
@@ -909,8 +1374,53 @@ extern "C" int fedml_conv3x3_fwd_sm90_bf16(const bf16* x, const bf16* w, bf16* y
   switch (Ci) {
     case 16: return (int)launch_bf16<16, 4, 2>(x, w, y, L, B, H, W, x_lane, w_lane, st);
     case 32: return (int)launch_bf16<32, 4, 2>(x, w, y, L, B, H, W, x_lane, w_lane, st);
-    default: return (int)launch_bf16<64, 4, 1>(x, w, y, L, B, H, W, x_lane, w_lane, st);
+    default: return (int)launch_bf16_cut<64, 32, 4, 3>(x, w, y, L, B, H, W, x_lane, w_lane, st);
   }
+}
+
+// The same for the bf16 stem, Ci 3 -> Co 16: x, w and y 2-byte aligned,
+// lane strides in elements.
+extern "C" int fedml_conv3x3_stem_sm90_bf16(const bf16* x, const bf16* w, bf16* y, int L,
+                                            int B, int H, int W, int Ci, int Co,
+                                            long long x_lane, long long w_lane, void* stream) {
+  if (Ci != kStemCI || Co != kStemCO || L <= 0 || L > 65535 || B <= 0 || H <= 0 || W <= 0 ||
+      (int64_t)H * W > (1LL << 30) || x_lane < 0 || w_lane < 0 || ((uintptr_t)y & 3))
+    return (int)cudaErrorInvalidValue;
+  Plan p;
+  cudaError_t e = plan_stem(L, B, H, W, p);
+  if (e != cudaSuccess) return (int)e;
+  conv3x3_stem_bf16_kernel<kStemMinB><<<dim3(p.blocks, L), kStemNT, p.bytes,
+                                        (cudaStream_t)stream>>>(x, w, y, B, H, W, x_lane,
+                                                                w_lane, p.g, p.tiles);
+  return (int)cudaGetLastError();
+}
+
+// The launch plan of the bf16 tensor-core forward at (L, B, H, W, Ci, Co),
+// Ci = Co in {16, 32, 64} or the stem's 3 -> 16: out = {blocks in all,
+// tiles a block walks at most, dynamic shared-memory bytes, SMs, blocks an
+// SM holds}. ops/conv.py::fwd_tc_plan mirrors the first three.
+extern "C" int fedml_conv3x3_fwd_sm90_bf16_plan(int L, int B, int H, int W, int Ci, int Co,
+                                                int* out) {
+  if (L <= 0 || B <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  Plan p;
+  cudaError_t e;
+  if (Ci == kStemCI && Co == kStemCO)
+    e = plan_stem(L, B, H, W, p);
+  else if (!tc_channels(Ci, Co))
+    return (int)cudaErrorInvalidValue;
+  else if (Ci == 16)
+    e = plan_bf16<16, 4, 2>(L, B, H, W, p);
+  else if (Ci == 32)
+    e = plan_bf16<32, 4, 2>(L, B, H, W, p);
+  else
+    e = plan_bf16_cut<64, 32, 4, 3>(L, B, H, W, p);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = p.blocks * p.units;
+  out[1] = p.rounds;
+  out[2] = p.bytes;
+  out[3] = p.sms;
+  out[4] = p.per_sm;
+  return 0;
 }
 
 // dw (L, 3, 3, Ci, Co) = sum over (B, H, W) of patches(x)^T dy per lane, for

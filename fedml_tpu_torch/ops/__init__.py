@@ -3,8 +3,8 @@ version: ``agg_quant.quantize_pack`` (codec q8/q4 stage),
 ``agg_robust.gram`` (Krum's Gram plane), ``conv.conv3x3_lanes`` /
 ``conv.conv3x3_dw_lanes`` (the 3x3 multi-weight conv in float32 or bf16,
 its forward on the tensor cores from ``conv3x3_sm90`` for ResNet's block
-convs, and its weight gradient, in bf16 at those widths from
-``conv3x3_sm90`` too) and ``flash_attention.flash_forward`` / ``flash_dq`` /
+convs and the bf16 stem, and its weight gradient, in bf16 at the block
+widths from ``conv3x3_sm90`` too) and ``flash_attention.flash_forward`` / ``flash_dq`` /
 ``flash_dkv`` (causal flash attention and its backward; bf16 inputs on
 the tensor cores from ``flash_attention_sm90``, at Dh 256 from
 ``flash_dh256_sm90``, at Dh 384 from ``flash_dh384_sm90``, at Dh 512-1536

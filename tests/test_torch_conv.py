@@ -298,6 +298,25 @@ def test_fwd_route_by_channels(ci, co, route):
     assert tconv.FWD_ROUTES[route][0] in ("conv3x3_sm90", "conv3x3")
 
 
+# (Ci, Co, route) of the same shapes in bfloat16 (use_bf16): the stem on its
+# own tensor-core kernel, the block convs on the bf16_tc kernels, ragged and
+# unequal widths on the FMA kernel's bf16 form
+RESNET56_ROUTES_BF16 = ((3, 16, "stem_bf16"), (16, 16, "bf16_tc"), (32, 32, "bf16_tc"),
+                        (64, 64, "bf16_tc"), (5, 7, "fma_bf16"), (16, 32, "fma_bf16"),
+                        (48, 48, "fma_bf16"))
+
+
+@pytest.mark.parametrize("ci,co,route", RESNET56_ROUTES_BF16)
+def test_fwd_route_by_channels_bf16(ci, co, route):
+    """bf16: the stem's 3 -> 16 and the block convs on the tensor cores of
+    conv3x3_sm90.cu, the rest on conv3x3.cu's FMA kernel; the float32 stem
+    stays on the FMA kernel."""
+    assert tconv.fwd_route(ci, co, torch.bfloat16) == route
+    assert tconv.ROUTE_DTYPE[route] == torch.bfloat16
+    assert tconv.FWD_ROUTES[route][0] == ("conv3x3" if route == "fma_bf16" else "conv3x3_sm90")
+    assert tconv.fwd_route(3, 16) == "fma"
+
+
 def _tf32_rna(t):
     """cvt.rna.tf32.f32 on the CPU: round the float32 bit pattern at
     mantissa bit 13, ties away from zero (add half of the dropped unit to
