@@ -61,9 +61,10 @@ non-zero exit code and no result line:
    flash attention's forward, dq and dk/dv (flash_fwd, flash_dq,
    flash_dkv; SDPA as the library call, with the backend it ran; bf16
    inputs on the tensor cores, float32 on flash_f32_sm90.cu's three TF32
-   products at Dh 256 and 384 and for the forward at Dh 128, on
-   flash_f32_wgmma_sm90.cu's for dq and dk/dv at Dh 128 and, as clusters
-   of four blocks (their resident clusters printed), at Dh 512, on the FMA
+   products at Dh 256, for dk/dv at Dh 384 and for the forward at Dh 128
+   and 384, on flash_f32_wgmma_sm90.cu's for dq and dk/dv at Dh 128 and, as
+   clusters of four blocks, at Dh 512, and for dq, as clusters of three
+   blocks, at Dh 384 (the resident clusters of both printed), on the FMA
    kernels at Dh 64), at Dh 64 (the _f32 entries at small_lm's shape), at
    Dh 128 (the _dh128_f32 entries at small_lm_128's shape and the
    _dh128_f32_mid ones at lm_mid_f32's: the forward on flash_f32_sm90.cu,
@@ -73,9 +74,11 @@ non-zero exit code and no result line:
    shape and the _dh256_f32_small ones at small_lm_256's, all three on
    flash_f32_sm90.cu; the _dh384 entries at lm_xl's bf16 shape, on
    flash_dh384_sm90.cu; the _dh384_f32 ones at lm_xl_f32's shape and the
-   _dh384_f32_small ones at small_lm_384_f32's, on flash_f32_sm90.cu, whose
-   column parts at Dh 384 are also held bit-equal on inputs with repeated
-   column parts; the _dh512 entries at lm_xxl's bf16 shape and the
+   _dh384_f32_small ones at small_lm_384_f32's, dq on the three-block
+   clusters with flash_f32_sm90.cu's mma.sync kernel timed beside as
+   was_ms, the forward and dk/dv on flash_f32_sm90.cu; their column parts
+   at Dh 384 are also held bit-equal on inputs with repeated column
+   parts; the _dh512 entries at lm_xxl's bf16 shape and the
    _dh1536_small ones at small_lm_1536's, on flash_wide_sm90.cu, checked at
    all nine of its head dims (512 ... 1536), each timed at one causal head
    of T 4224, its column slices held bit-equal on inputs whose slices
@@ -166,13 +169,14 @@ non-zero exit code and no result line:
     on flash_dh384_sm90.cu; lm_xl_profile, one warm step under
     torch.profiler;
 19. lm_xl_f32 — the same widths trained in float32 at B 8, T 4352 (auto
-    dispatch picks flash), 2 of the 8 layers, for 3 steps: 4 forward, 2 dq
-    and 2 dk/dv launches a step on flash_f32_sm90.cu's Dh-384 kernels;
-    lm_xl_f32_profile, one warm step under torch.profiler;
+    dispatch picks flash), 2 of the 8 layers, for 3 steps: 4 forward and 2
+    dk/dv launches a step on flash_f32_sm90.cu's Dh-384 kernels, 2 dq on
+    flash_f32_wgmma_sm90.cu's three-block clusters (the routes are
+    checked); lm_xl_f32_profile, one warm step under torch.profiler;
 20. small_lm_384 — one bf16 head of Dh 384 at T 4352 (auto picks flash),
     card against CPU, within SMALL_LM_384_FACTOR of the same comparison
     with dense attention; small_lm_384_f32 the same head in float32, under
-    small_lm's float32 gates;
+    small_lm's float32 gates (its dq on the clusters, the routes checked);
 21. lm_xxl — the Cheetah example at --dim 4096 --seq_len 4352 (vocab
     32000, 8 heads of 512, 8 layers, 1,890.9 M parameters, bf16, full
     remat, B 8) for 3 steps: 16 forward, 8 dq and 8 dk/dv launches a step
@@ -202,6 +206,7 @@ Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import statistics
@@ -2180,6 +2185,10 @@ FLASH_WAS_MS = {"flash_fwd_dh256": (5.208, _WAS_BF16), "flash_dkv_dh256": (9.373
                 "flash_dkv_dh128_f32_mid": (21.51, _WAS_F32),
                 "flash_dq_dh512_f32": (53.35, _WAS_WIDE_F32),
                 "flash_dkv_dh512_f32": (75.14, _WAS_WIDE_F32)}
+# the float32 Dh-384 dq, redesigned as three-block clusters: the earlier
+# kernel (flash_f32_sm90.cu's), timed beside it in this run as was_ms
+# through its C entry (_dq_f32_sm90)
+FLASH_WAS_LIVE = ("flash_dq_dh384_f32", "flash_dq_dh384_f32_small")
 # |kernel - plain| / max|plain|, plain in float32. Each output sums up to
 # T * Dh = 5e5 float32 products in another order than the plain version's
 # cuBLAS calls: a random walk of sqrt(n) * 2^-24 ~ 4e-5 of the terms'
@@ -2335,6 +2344,27 @@ def _column_parts_agree(fa, q, k, v, do, causal, n_fq, n_kv, what):
     return agree
 
 
+def _dq_f32_sm90(fa, q, k, v, do, lse, delta, causal):
+    """dq from flash_f32_sm90.cu's float32 entry (its mma.sync kernel, which
+    the route no longer takes at Dh 384), launched through its C entry on
+    contiguous float32 CUDA tensors and counting no launch: the was_ms of
+    FLASH_WAS_LIVE."""
+    import ctypes
+
+    from fedml_tpu_torch.ops import _build
+
+    B, T, H, Dh = q.shape
+    ts = [t.contiguous() for t in (q, k, v, do, lse, delta)]
+    dq = torch.empty_like(ts[0])
+    entry = "fedml_flash_dq_f32_sm90"
+    fn = _build.function("flash_f32_sm90", entry, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
+                         [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    _build.check(fn(*(t.data_ptr() for t in ts), dq.data_ptr(), B, H, T, Dh, 0, int(causal),
+                    *ts[0].stride()[:3], 1.0 / math.sqrt(Dh),
+                    torch.cuda.current_stream(q.device).cuda_stream), entry)
+    return dq
+
+
 def _check_flash_refusals(fa, dev):
     """The head dims no kernel takes raise on the card, saying that the
     shared guard admits them at no T, before any launch and with no
@@ -2378,11 +2408,12 @@ def check_flash(dev, tc_rate):
     from fedml_tpu_torch.ops import flash_attention as fa
 
     clusters = _build.function("flash_f32_wgmma_sm90", "fedml_flash_f32wg_clusters",
-                               [ctypes.c_int])
-    resident = {"flash_dq": clusters(0), "flash_dkv": clusters(1)}
-    if min(resident.values()) <= 0:
-        raise AssertionError(f"the float32 Dh-512 clusters fit no SM set: {resident}")
-    emit("flash_f32_dh512_clusters", blocks_per_cluster=4, resident_clusters=resident)
+                               [ctypes.c_int, ctypes.c_int])
+    resident = {"P3_dh384": {"flash_dq": clusters(0, 3)},
+                "P4_dh512": {"flash_dq": clusters(0, 4), "flash_dkv": clusters(1, 4)}}
+    if min(n for r in resident.values() for n in r.values()) <= 0:
+        raise AssertionError(f"the float32 clusters fit no SM set: {resident}")
+    emit("flash_f32_clusters", resident_clusters=resident)
     gen = torch.Generator().manual_seed(5)
     entries = []
     for shape, dtype, causal in FLASH_CASES:
@@ -2477,6 +2508,10 @@ def check_flash(dev, tc_rate):
             was = {}
             if entry["name"] in FLASH_WAS_MS:
                 was = dict(zip(("was_ms", "was_from"), FLASH_WAS_MS[entry["name"]]))
+            if entry["name"] in FLASH_WAS_LIVE:
+                was = {"was_ms": time_ms(lambda: _dq_f32_sm90(fa, q, k, v, do, lse, delta,
+                                                              causal), reps=3, rounds=3),
+                       "was_from": "flash_f32_sm90.cu's mma.sync kernel, timed in this run"}
             if tf32_ops:
                 was.update(fma_bound_ms=_bound(tf32_ops / 3, bytes_in + bytes_out)["bound_ms"],
                            mma_sync_ms=tf32_ops / tc_rate * 1e3)
@@ -2509,10 +2544,21 @@ FLASH_MODE_SHAPES = ((FLASH_XXL, torch.bfloat16, True), (FLASH_XL, torch.bfloat1
                      (FLASH_SMALL_LM_128, torch.float32, True))
 
 
+def _digest(*ts):
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes: two
+    runs' outputs are bit-equal where their digests are."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def phase_flash_times(dev, reps=3, rounds=5):
     """Kernel ms of flash forward, dq and dk/dv at FLASH_MODE_SHAPES for the
     package first on sys.path: with ``flash DIR`` a checkout's, so two
-    commits compare in one call (parent, change, change, parent)."""
+    commits compare in one call (parent, change, change, parent); with the
+    float32 backward's outputs' digests (dq; dk and dv), equal across the
+    commits where their kernels' bits are."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator().manual_seed(5)
@@ -2526,7 +2572,12 @@ def phase_flash_times(dev, reps=3, rounds=5):
                  refused=str(e))
             continue
         delta = fa.attention_delta(do, out)
+        bits = {}
+        if dtype == torch.float32:
+            bits = {"dq": _digest(fa.flash_dq(q, k, v, do, lse, delta, causal)),
+                    "dkv": _digest(*fa.flash_dkv(q, k, v, do, lse, delta, causal))}
         emit("flash_times", shape=list(shape), dtype=str(dtype), causal=causal, package=package,
+             **({"digests": bits} if bits else {}),
              fwd_ms=time_ms(lambda: fa.flash_forward(q, k, v, causal), reps, rounds),
              dq_ms=time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, causal), reps, rounds),
              dkv_ms=time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal), reps, rounds))
@@ -2811,6 +2862,9 @@ def _check_routes(phase, Dh, want):
 # the float32 XXL LM's routes: the forward on flash_wide_f32_sm90.cu, dq and
 # dk/dv on flash_f32_wgmma_sm90.cu's four-block clusters
 XXL_F32_ROUTES = ("flash_wide_f32_sm90", "flash_f32_wgmma_sm90", "flash_f32_wgmma_sm90")
+# the float32 XL LM's (Dh 384): the forward and dk/dv on flash_f32_sm90.cu,
+# dq on flash_f32_wgmma_sm90.cu's three-block clusters
+XL_F32_ROUTES = ("flash_f32_sm90", "flash_f32_wgmma_sm90", "flash_f32_sm90")
 
 
 def phase_lm_mid_f32(check_routes=True):
@@ -2894,18 +2948,22 @@ def phase_lm_xxl_f32(check_routes=True):
     return tr, data, launches
 
 
-def phase_lm_xl_f32():
+def phase_lm_xl_f32(check_routes=True):
     """The XL LM in float32 (two layers) for LM_XL_F32_STEPS steps under
     full remat: auto dispatch must pick flash, the model must hold the
-    two-layer parameter count, and per step the float32 Dh-384 forward, dq
-    and dk/dv (flash_f32_sm90.cu) launch 2 x 2, 2 and 2 times. Returns
-    (trainer, data, launches)."""
+    two-layer parameter count, and per step the float32 Dh-384 forward and
+    dk/dv (flash_f32_sm90.cu) launch 2 x 2 and 2 times, dq
+    (flash_f32_wgmma_sm90.cu's three-block clusters) 2 times
+    (``check_routes``; ``lm_xl_f32 DIR`` runs an earlier checkout's
+    routes). Returns (trainer, data, launches)."""
     from fedml_tpu_torch.ops.attention import auto_attention_impl
 
     H = LM_XL_F32_MODEL["num_heads"]
     if auto_attention_impl(LM_WIDE_B, H, LM_XL_T, LM_XL_F32_MODEL["dim"] // H, 4) != "flash":
         raise AssertionError(f"auto dispatch must pick flash at {LM_WIDE_B, H, LM_XL_T} in "
                              "float32")
+    if check_routes:
+        _check_routes("lm_xl_f32", LM_XL_F32_MODEL["dim"] // H, XL_F32_ROUTES)
     tr, data, launches, _ = _lm_phase("lm_xl_f32", LM_XL_F32_MODEL, LM_TRAIN, LM_WIDE_B,
                                       LM_XL_T, LM_XL_F32_STEPS, "_dh384_f32",
                                       dtype=torch.float32)
@@ -3014,7 +3072,7 @@ def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
         "flash_fwd_f32tc_kernel", "flash_dq_f32tc_kernel", "flash_dkv_f32tc_kernel",
         "flash_fwd_f32tc_kernel<384>", "flash_dq_f32tc_kernel<384>",
         "flash_dkv_f32tc_kernel<384>", "flash_dq_f32wg_kernel", "flash_dkv_f32wg_kernel",
-        "flash_dq_f32wg_kernel<4>", "flash_dkv_f32wg_kernel<4>",
+        "flash_dq_f32wg_kernel<3>", "flash_dq_f32wg_kernel<4>", "flash_dkv_f32wg_kernel<4>",
         "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
         unit="step", groups=LM_GROUPS, calls=want)
     launches = _flash_counts()
@@ -3053,7 +3111,7 @@ def main(argv):
                                             phase="lm_mid_f32_profile"),
          "lm_xl": lambda: phase_lm_profile(*phase_lm_xl()[:2], steps=1,
                                            phase="lm_xl_profile"),
-         "lm_xl_f32": lambda: phase_lm_profile(*phase_lm_xl_f32()[:2], steps=1,
+         "lm_xl_f32": lambda: phase_lm_profile(*phase_lm_xl_f32(False)[:2], steps=1,
                                                phase="lm_xl_f32_profile"),
          "lm_xxl": lambda: phase_lm_profile(*phase_lm_xxl()[:2], steps=1,
                                             phase="lm_xxl_profile"),
@@ -3117,6 +3175,7 @@ def main(argv):
     del tr
     torch.cuda.empty_cache()
     phase_small_lm_bf16()
+    _check_routes("small_lm_384_f32", SMALL_LM_384["dim"], XL_F32_ROUTES)
     launches.update(phase_small_lm("small_lm_384_f32", SMALL_LM_384, suffix="_dh384_f32_small"))
     tr, data, lm_launches = phase_lm_xxl()
     launches.update(lm_launches)

@@ -1,13 +1,15 @@
 // Flash attention's backward (dq; dk and dv) for float32 inputs at Dh 128
-// and 512 on the Hopper tensor cores, exact to float32 through three TF32
-// products (3xTF32, tf32x3.cuh), every product on TF32 wgmma; at Dh 512 as a
-// cluster of four blocks (below). The float32 forward at Dh 128 and 512 and
-// every other float32 head dim are flash_f32_sm90.cu's and
-// flash_wide_f32_sm90.cu's (Dh 64: flash_attention.cu's FMA kernels).
+// and 512, and dq at Dh 384, on the Hopper tensor cores, exact to float32
+// through three TF32 products (3xTF32, tf32x3.cuh), every product on TF32
+// wgmma; at Dh 384 and 512 as a cluster of three or four blocks (below).
+// The float32 forward at these head dims, dk/dv at Dh 384 and every other
+// float32 head dim are flash_f32_sm90.cu's and flash_wide_f32_sm90.cu's
+// (Dh 64: flash_attention.cu's FMA kernels).
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _dq_kernel (:167,
 // pallas_call :287) and _dkv_kernel (:213, pallas_call :299), both reached
-// from _flash_backward (:265), on float32 inputs at Dh 128 and 512. The TPU kernels
+// from _flash_backward (:265), on float32 inputs at Dh 128, 384 (dq) and
+// 512. The TPU kernels
 // walk a sequential (bh, q block, k block) grid with their sums in VMEM
 // scratch; here a block owns 64 q rows (dq) or 64 key rows (dk/dv) and
 // walks the other axis in a loop, with the sums in registers.
@@ -104,6 +106,25 @@
 // causal): 571,084,800 unmasked pairs x 1,024 operations = 0.5848 TFLOP a
 // product; as three TF32 products at 495 TFLOP/s dq takes 10.63 ms and dk/dv
 // 14.18 ms.
+//
+// Dh 384, dq only: the cluster of three (P = 3), the same blocks on three
+// 128-column slices. Three ranks cannot each own one 16-row warp's rows, so
+// ownership goes by 8-key step (the exchange below): rank r owns step r of
+// every warp, and step 3's eight row halves are spread 3 / 3 / 2 over the
+// ranks; every warp of a block sums its share, and the parts' sum keeps
+// rank order, (part 0 + part 1) + part 2. The streamed tiles stay 32 keys,
+// as at P = 1 and 4 (PERF.md says what 24-key tiles, built first, did and
+// did not show). Shared memory: 231,960 of the 232,448 bytes (the parts of
+// the largest owner, 16.5 KB, where P = 4's 16 KB sit). The exchange hides
+// behind the next tile's score products, and step 3's extra owner half is
+// what it costs; an owner loop kept rolled holds the spills to 84 bytes.
+// dk/dv at P = 3 ran slower than flash_f32_sm90.cu's Dh-384 kernel (its
+// exchange fills the landing stage, so it cannot overlap the next tile's
+// landing) and was taken out; the entry refuses Dh 384.
+//
+// Bound on the H100 at the float32 XL LM's shape (B 8, T 4352, H 8, Dh 384,
+// causal): 606,216,192 unmasked pairs x 768 operations = 0.4656 TFLOP a
+// product; as three TF32 products dq takes 8.465 ms.
 
 #include "flash_sm90.cuh"
 #include "tf32x3.cuh"
@@ -111,8 +132,7 @@
 
 namespace {
 
-constexpr int kDh = 128;         // head dim of a block (at Dh 512 its slice of the columns)
-constexpr int kParts = 4;        // blocks of a cluster at Dh 512
+constexpr int kDh = 128;         // head dim of a block (in a cluster its slice of the columns)
 constexpr int kRows = 64;        // rows a block owns: q rows (dq) or key rows (dk/dv)
 constexpr int kKeys = 32;        // rows of the streamed tiles: k and v (dq), q and dO (dk/dv)
 constexpr int kNK = kKeys / 8;   // 8-row k steps of a streamed tile
@@ -419,8 +439,20 @@ __device__ __forceinline__ void load_resident(uint32_t (&ah)[kDh / 8][4], uint32
 // the exchange), so dq keeps two values buffers, by tile parity: tile i +
 // 2's values need parts that a warp sends only after it has used tile i's.
 // In dk/dv the exchange lives in the landing stage, so a block sends its
-// parts only once every owner has split its last landed tile (`ready`: four
+// parts only once every owner has split its last landed tile (`ready`: P
 // arrivals a tile, one from each block after its split).
+//
+// dq's cluster of three (Dh 384) has three ranks for four 16-row warps, so
+// it owns by 8-key step instead: rank r owns step r of every warp's rows,
+// and step 3's eight row halves (warp w, rows g + 8 hh) go to rank (2 w +
+// hh) mod 3 (three, three and two of them). Warp w of each warpgroup sends
+// chunk j < 3 of its partial tile to rank j and the two halves of chunk 3
+// to their owners. In the owner every warp w of warpgroup `role` adds the
+// three ranks' parts of S and dP for rows g + 8 role of chunk (w, r), and
+// of chunk (w, 3) where it owns that half, in rank order (part 0 + part 1)
+// + part 2, forms ds there and sends it to every block. A block receives
+// 16.5 KB (ranks 0 and 1) or 15 KB (rank 2) of parts a tile and the same
+// values as at P = 4.
 
 // mbarrier at shared address bar: `count` arrivals a phase
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -480,10 +512,11 @@ __device__ __forceinline__ void st_async(uint32_t a, float4 v, uint32_t bar) {
 }
 
 // byte offset of 16-byte chunk j of `lane` in slot `slot` of an exchange
-// buffer: a warp's 16 values a lane, chunk-major, so that a warp's accesses
-// are 512 contiguous bytes
+// buffer: a warp's NK chunks a lane (NK 4: 16 values), chunk-major, so that
+// a warp's accesses are 512 contiguous bytes
+template <int NK = 4>
 __device__ __forceinline__ uint32_t xoff(int slot, int j, int lane) {
-  return 16 * ((slot * 4 + j) * 32 + lane);
+  return 16 * ((slot * NK + j) * 32 + lane);
 }
 
 // this thread's partial scores (tensor `tensor`: role 0's S or S^T, role 1's
@@ -521,6 +554,102 @@ __device__ __forceinline__ void send_values(float4 v, uint32_t values, uint32_t 
   for (int r = 0; r < P; ++r) st_async(peer(values + xoff(slot, j, lane), r), v, peer(full_g, r));
 }
 
+// --- the cluster of three: ownership by 8-key step ------------------------------
+
+__device__ __forceinline__ float2 lds64(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(a));
+  return v;
+}
+
+// 8 bytes into another block's shared memory, counted on its mbarrier bar
+__device__ __forceinline__ void st_async(uint32_t a, float2 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          a),
+      "f"(v.x), "f"(v.y), "r"(bar)
+      : "memory");
+}
+
+// Its parts buffer: first steps r's chunks, slot (2 c + tensor) 4 + warp for
+// rank c's part (512 bytes each, kStepBytes in all), then step 3's row halves
+// that this rank owns, slot (2 c + tensor) 3 + m for its m-th half (256
+// bytes each). Row half h = 2 w + hh has owner h % 3 and index m = h / 3.
+constexpr uint32_t kStepBytes = 3 * 2 * 4 * 512;
+constexpr uint32_t kHalfBytes = 3 * 2 * 3 * 256;
+
+// the bytes of parts rank r receives a tile: its step and (10 - r) / 3 halves
+__device__ __forceinline__ uint32_t parts_bytes3(int r) {
+  return kStepBytes + (10 - r) / 3 * 3 * 2 * 256;
+}
+
+__device__ __forceinline__ uint32_t half_off(int src, int tensor, int m, int lane) {
+  return kStepBytes + 8 * (((src * 2 + tensor) * 3 + m) * 32 + lane);
+}
+
+// this thread's partial scores (tensor `tensor`) to their owners: chunk j <
+// 3 to rank j, the halves of chunk 3 to theirs
+__device__ __forceinline__ void send_parts3(const float (&s)[16], uint32_t parts, uint32_t full_r,
+                                            int rank, int tensor, int warp, int lane) {
+  const uint32_t at = parts + xoff<1>((rank * 2 + tensor) * 4 + warp, 0, lane);
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    st_async(peer(at, j), make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]),
+             peer(full_r, j));
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int h = 2 * warp + hh, owner = h % 3;
+    st_async(peer(parts + half_off(rank, tensor, h / 3, lane), owner),
+             make_float2(s[12 + 2 * hh], s[13 + 2 * hh]), peer(full_r, owner));
+  }
+}
+
+// the owner's sum of `tensor` over the three ranks' parts, in rank order
+// (part 0 + part 1) + part 2: of rows g + 8 half of warp `warp`'s chunk of
+// the rank's step (m < 0), or of its m-th half of step 3
+__device__ __forceinline__ float2 sum_parts3(uint32_t parts, int tensor, int warp, int lane,
+                                             int half, int m) {
+  auto at = [&](int src) {
+    return parts + (m < 0 ? xoff<1>((src * 2 + tensor) * 4 + warp, 0, lane) + 8 * half
+                          : half_off(src, tensor, m, lane));
+  };
+  float2 a = lds64(at(0));
+#pragma unroll
+  for (int r = 1; r < 3; ++r) {
+    const float2 b = lds64(at(r));
+    a.x += b.x, a.y += b.y;
+  }
+  return a;
+}
+
+// the owner's half v (rows g + 8 half) of chunk j of slot `slot` to the
+// values buffer of every block (a rolled loop: dq 1% faster, fewer registers)
+__device__ __forceinline__ void send_half3(float2 v, uint32_t values, uint32_t full_g, int slot,
+                                           int j, int lane, int half) {
+  const uint32_t at = values + xoff(slot, j, lane) + 8 * half;
+#pragma unroll 1
+  for (int r = 0; r < 3; ++r) st_async(peer(at, r), v, peer(full_g, r));
+}
+
+// The cluster of three's owner work for this thread: values(j, s, d) forms
+// and sends ds of rows g + 8 role at key step j from the summed scores s
+// and dp d; once for the rank's step, once more for step 3 where the thread
+// owns that half (three of the eight row halves in ranks 0 and 1, two in
+// rank 2). The loop stays rolled: dq's pipelined loop then spills 84 bytes
+// instead of 160 and runs 8% faster.
+template <typename Values>
+__device__ __forceinline__ void own3(uint32_t parts, int rank, int warp, int lane, int role,
+                                     Values&& values) {
+  const int h = 2 * warp + role;
+#pragma unroll 1
+  for (int i = 0; i < 2; ++i) {
+    if (i == 1 && h % 3 != rank) break;
+    const int m = i ? h / 3 : -1;
+    values(i ? 3 : rank, sum_parts3(parts, 0, warp, lane, role, m),
+           sum_parts3(parts, 1, warp, lane, role, m));
+  }
+}
+
 // A block's shared memory, byte offsets from its 1024-aligned base: the
 // resident lo tiles of the two tensors a warpgroup each holds (64 rows: q
 // and dO in dq, k and v in dk/dv); the streamed hi and lo tiles of the two
@@ -530,7 +659,8 @@ __device__ __forceinline__ void send_values(float4 v, uint32_t values, uint32_t 
 // the streamed tiles; in dq the hand-over of p and of dp - delta between the
 // warpgroups, 64 x kKeys floats each (dk/dv hands p over in the landing
 // stage, between the split and the next tile's copies). In a cluster (P >
-// 1) the exchange instead: the parts (4 ranks x 2 tensors x 2 KB: dq in the
+// 1) the exchange instead: the parts (4 ranks x 2 tensors x 2 KB, or at P =
+// 3 the largest rank's 16.5 KB: dq in the
 // hand-over's place, dk/dv at the start of the landing stage), the values
 // (ds in dq, two buffers of 8 KB by tile parity, after the hand-over's
 // place; p and ds in dk/dv, 16 KB, in the landing stage after the parts),
@@ -548,8 +678,9 @@ struct Smem {
   static constexpr uint32_t kP = DKV ? kLand0 : kLandEnd;
   static constexpr uint32_t kDs = kP + kSlot;
   static constexpr uint32_t kParts = DKV ? kLand0 : kP;
-  static constexpr uint32_t kPartsBytes = 2 * kSlot, kValuesBytes = DKV ? 2 * kSlot : kSlot;
-  static constexpr uint32_t kValues = DKV ? kLand0 + kPartsBytes : kDs + kSlot;
+  static constexpr uint32_t kPartsBytes = P == 3 ? kStepBytes + kHalfBytes : 2 * kSlot;
+  static constexpr uint32_t kValuesBytes = DKV ? 2 * kSlot : kSlot;
+  static constexpr uint32_t kValues = kParts + kPartsBytes;
   static constexpr uint32_t kValueBufs = DKV ? 1 : 2;  // dq's by tile parity (the exchange above)
   static constexpr uint32_t kFullR = DKV ? kLandEnd : kValues + kValueBufs * kValuesBytes;
   static constexpr uint32_t kFullG = kFullR + 8, kReady = kFullG + 8;
@@ -561,6 +692,12 @@ struct Smem {
   static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
+// the bytes of parts this block receives a tile
+template <int P>
+__device__ __forceinline__ uint32_t parts_bytes() {
+  return P == 3 ? parts_bytes3((int)cluster_rank()) : P * 2 * 2048;
+}
+
 // The mbarriers' set-up, then the cluster meets: no block sends before every
 // block's mbarriers are armed
 template <bool DKV, int P>
@@ -570,7 +707,7 @@ __device__ __forceinline__ void exchange_setup(uint32_t sm) {
     mbar_init(sm + S::kFullR, 1);
     mbar_init(sm + S::kFullG, 1);
     if (DKV) mbar_init(sm + S::kReady, P);
-    mbar_expect(sm + S::kFullR, S::kPartsBytes);
+    mbar_expect(sm + S::kFullR, parts_bytes<P>());
     mbar_expect(sm + S::kFullG, S::kValuesBytes);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -700,22 +837,48 @@ flash_dq_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int rank = c0 / kDh;
     const float lr[2] = {role ? ov[0] : rv[0], role ? ov[1] : rv[1]};
     const float dr[2] = {role ? rv[0] : ov[0], role ? rv[1] : ov[1]};
+    // at P = 3 every thread owns rows g + 8 role: their lse and delta
+    const float lh = role ? lr[1] : lr[0], dh = role ? dr[1] : dr[0];
     uint64_t d0 = desc(sm, 16, 1024);
+    auto send = [&]() {
+      if constexpr (P == 3)
+        send_parts3(s, sm + S::kParts, sm + S::kFullR, rank, role, warp, lane);
+      else
+        send_parts(s, sm + S::kParts, sm + S::kFullR, rank, role, warp, lane);
+    };
     wg_fence();
     score_chain(s, d0, ah, a_lo, role ? S::kB1 : S::kB0);  // S = Q K^T, dP = dO V^T
     wg_commit();
     wg_wait<0>();
     pin(s);
-    send_parts(s, sm + S::kParts, sm + S::kFullR, rank, role, warp, lane);
+    send();
     for (int i = 0; i < nk; ++i) {
       const int k0 = i * N, ph = i & 1;
       opaque(sm);
       const uint32_t vbuf = S::kValues + ph * S::kValuesBytes;  // this tile's values buffer
-      // the owner's warps: ds = p (dp - delta), p = exp(scale s - lse)
-      // (masked entries 0), for the 8-key steps 2 role and 2 role + 1
-      if (warp == rank) {
+      if constexpr (P == 3) {
+        // every warp: ds of rows g + 8 role of its chunk of this rank's step
+        // (and of step 3 where it owns that half)
         mbar_wait(sm + S::kFullR, ph);
-        if (role == 0 && lane == 0) mbar_expect(sm + S::kFullR, S::kPartsBytes);
+        if (threadIdx.x == 0) mbar_expect(sm + S::kFullR, parts_bytes<P>());
+        const int row = row0 + 8 * role;
+        own3(sm + S::kParts, rank, warp, lane, role, [&](int j, float2 sp, float2 dp) {
+          const float sv[2] = {sp.x, sp.y}, dv[2] = {dp.x, dp.y};
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = k0 + 8 * j + 2 * t + e;
+            float x = scale * sv[e];
+            if (col >= Tn || (causal && col > row)) x = kNegInf;
+            ds[e] = expf(x - lh) * (dv[e] - dh);
+          }
+          send_half3(make_float2(ds[0], ds[1]), sm + vbuf, sm + S::kFullG, warp, j, lane, role);
+        });
+      } else if (warp == rank) {
+        // the owner's warps: ds = p (dp - delta), p = exp(scale s - lse)
+        // (masked entries 0), for the 8-key steps 2 role and 2 role + 1
+        mbar_wait(sm + S::kFullR, ph);
+        if (role == 0 && lane == 0) mbar_expect(sm + S::kFullR, parts_bytes<P>());
         const bool edge = k0 + N > Tn || (causal && k0 + N - 1 > q0);
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
@@ -756,7 +919,7 @@ flash_dq_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (threadIdx.x == 0) mbar_expect(sm + S::kFullG, S::kValuesBytes);
       wg_wait<0>();
       pin(s);
-      if (i + 1 < nk) send_parts(s, sm + S::kParts, sm + S::kFullR, rank, role, warp, lane);
+      if (i + 1 < nk) send();
       float f[N / 2];
 #pragma unroll
       for (int j = 0; j < kNK; ++j) {
@@ -798,6 +961,7 @@ flash_dkv_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        float* __restrict__ dk, float* __restrict__ dv, int H, int Tn, int64_t sb,
                        int64_t st, int64_t sh, float scale, int causal) {
+  static_assert(P == 1 || P == 4, "dk/dv: one block, or a cluster of four at Dh 512");
   constexpr int N = kKeys, TH = 2 * kWG, DH = kDh * P;
   using S = Smem<true, P>;
   extern __shared__ uint8_t smem[];
@@ -890,7 +1054,7 @@ flash_dkv_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
       send_parts(s, sm + S::kParts, sm + S::kFullR, rank, role, warp, lane);
       if (warp == rank) {
         mbar_wait(sm + S::kFullR, ph);
-        if (role == 0 && lane == 0) mbar_expect(sm + S::kFullR, S::kPartsBytes);
+        if (role == 0 && lane == 0) mbar_expect(sm + S::kFullR, parts_bytes<P>());
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
           const int jt = 2 * role + jj;
@@ -968,9 +1132,10 @@ flash_dkv_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<kNT, 0, DH>(role ? dk : dv, acc, b, h, H, Tn, row0, c0, t);
 }
 
-bool args_ok(int B, int H, int T, int Dh, int is_bf16) {
-  return !is_bf16 && (Dh == kDh || Dh == kDh * kParts) && B > 0 && H > 0 && T > 0 &&
-         (int64_t)B * H * ((T + kRows - 1) / kRows) * (Dh / kDh) <= 0x7fffffffLL;
+// the arguments an entry takes; dk/dv (dkv) has no Dh-384 form
+bool args_ok(int B, int H, int T, int Dh, int is_bf16, bool dkv) {
+  return !is_bf16 && (Dh == kDh || (Dh == 3 * kDh && !dkv) || Dh == 4 * kDh) && B > 0 && H > 0 &&
+         T > 0 && (int64_t)B * H * ((T + kRows - 1) / kRows) * (Dh / kDh) <= 0x7fffffffLL;
 }
 
 // one block per (bh, 64-row tile), the tiles of one bh consecutive; P
@@ -984,14 +1149,14 @@ cudaError_t prepare(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// the launch configuration of the Dh-512 kernels: clusters of kParts blocks
+// the launch configuration of the cluster kernels: clusters of P blocks
 // along x, 256 threads and `bytes` of dynamic shared memory a block
 struct ClusterLaunch {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  ClusterLaunch(dim3 grid, int bytes, cudaStream_t s) : attr{}, cfg{} {
+  ClusterLaunch(int P, dim3 grid, int bytes, cudaStream_t s) : attr{}, cfg{} {
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = kParts;
+    attr[0].val.clusterDim.x = P;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.gridDim = grid;
@@ -1003,40 +1168,78 @@ struct ClusterLaunch {
   }
 };
 
+// dq at Dh = 128 P: one block a tile (P = 1) or a cluster of P
+template <int P>
+cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
+                      const float* lse, const float* delta, float* dq, int B, int H, int T,
+                      int causal, int64_t sb, int64_t st, int64_t sh, float scale,
+                      cudaStream_t stream) {
+  constexpr int bytes = Smem<false, P>::kBytes;
+  cudaError_t e = prepare(flash_dq_f32wg_kernel<P>, bytes);
+  if (e != cudaSuccess) return e;
+  if constexpr (P == 1) {
+    flash_dq_f32wg_kernel<1><<<grid(B, H, T, 1), 2 * kWG, bytes, stream>>>(
+        q, k, v, dout, lse, delta, dq, H, T, sb, st, sh, scale, causal);
+    return cudaGetLastError();
+  } else {
+    ClusterLaunch l(P, grid(B, H, T, P), bytes, stream);
+    e = cudaLaunchKernelEx(&l.cfg, flash_dq_f32wg_kernel<P>, q, k, v, dout, lse, delta, dq, H, T,
+                           sb, st, sh, scale, causal);
+    return e != cudaSuccess ? e : cudaGetLastError();
+  }
+}
+
+// dk and dv at Dh = 128 P (P = 1 or 4), likewise
+template <int P>
+cudaError_t launch_dkv(const float* q, const float* k, const float* v, const float* dout,
+                       const float* lse, const float* delta, float* dk, float* dv, int B, int H,
+                       int T, int causal, int64_t sb, int64_t st, int64_t sh, float scale,
+                       cudaStream_t stream) {
+  constexpr int bytes = Smem<true, P>::kBytes;
+  cudaError_t e = prepare(flash_dkv_f32wg_kernel<P>, bytes);
+  if (e != cudaSuccess) return e;
+  if constexpr (P == 1) {
+    flash_dkv_f32wg_kernel<1><<<grid(B, H, T, 1), 2 * kWG, bytes, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, H, T, sb, st, sh, scale, causal);
+    return cudaGetLastError();
+  } else {
+    ClusterLaunch l(P, grid(B, H, T, P), bytes, stream);
+    e = cudaLaunchKernelEx(&l.cfg, flash_dkv_f32wg_kernel<P>, q, k, v, dout, lse, delta, dk, dv,
+                           H, T, sb, st, sh, scale, causal);
+    return e != cudaSuccess ? e : cudaGetLastError();
+  }
+}
+
+// the clusters of P blocks of kernel `kernel` at `bytes` that the card holds at once
+int resident_clusters(const void* kernel, int P, int bytes) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return -(int)e;
+  ClusterLaunch l(P, dim3(P * 64), bytes, 0);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kernel, &l.cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
 }  // namespace
 
 // dq (B, T, H, Dh) contiguous from q, k, v (B, T, H, Dh) float32 sharing
 // the element strides (sb, st, sh), Dh contiguous, 16-byte aligned rows;
 // dout (B, T, H, Dh) contiguous; the forward's lse and delta = rowsum(dO *
-// O), both (B*H, T) float32. Takes Dh 128 (one block a tile) and 512 (a
-// cluster of four) with is_bf16 = 0 only. Returns the cudaError_t of the
-// launch.
+// O), both (B*H, T) float32. Takes Dh 128 (one block a tile), 384 (a
+// cluster of three) and 512 (a cluster of four) with is_bf16 = 0 only.
+// Returns the cudaError_t of the launch.
 extern "C" int fedml_flash_dq_f32wg_sm90(const void* q, const void* k, const void* v,
                                          const void* dout, const float* lse,
                                          const float* delta, void* dq, int B, int H, int T,
                                          int Dh, int is_bf16, int causal, long long sb,
                                          long long st, long long sh, float scale,
                                          void* stream) {
-  if (!args_ok(B, H, T, Dh, is_bf16)) return (int)cudaErrorInvalidValue;
-  if (Dh == kDh) {
-    constexpr int bytes = Smem<false, 1>::kBytes;
-    cudaError_t e = prepare(flash_dq_f32wg_kernel<1>, bytes);
-    if (e != cudaSuccess) return (int)e;
-    flash_dq_f32wg_kernel<1><<<grid(B, H, T, 1), 2 * kWG, bytes, (cudaStream_t)stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
-        (float*)dq, H, T, sb, st, sh, scale, causal);
-    return (int)cudaGetLastError();
-  }
-  constexpr int bytes = Smem<false, kParts>::kBytes;
-  cudaError_t e = prepare(flash_dq_f32wg_kernel<kParts>, bytes);
-  if (e != cudaSuccess) return (int)e;
-  ClusterLaunch l(grid(B, H, T, kParts), bytes, (cudaStream_t)stream);
-  e = cudaLaunchKernelEx(&l.cfg, flash_dq_f32wg_kernel<kParts>, (const float*)q,
-                         (const float*)k, (const float*)v, (const float*)dout, lse, delta,
-                         (float*)dq, H, T, (int64_t)sb, (int64_t)st, (int64_t)sh, scale, causal);
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  if (!args_ok(B, H, T, Dh, is_bf16, false)) return (int)cudaErrorInvalidValue;
+  const auto launch = Dh == kDh ? launch_dq<1> : Dh == 3 * kDh ? launch_dq<3> : launch_dq<4>;
+  return (int)launch((const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse,
+                     delta, (float*)dq, B, H, T, causal, sb, st, sh, scale,
+                     (cudaStream_t)stream);
 }
-
 
 // dk and dv (B, T, H, Dh) contiguous, from the same inputs as dq. Takes Dh
 // 128 and 512 with is_bf16 = 0 only.
@@ -1046,38 +1249,24 @@ extern "C" int fedml_flash_dkv_f32wg_sm90(const void* q, const void* k, const vo
                                           int T, int Dh, int is_bf16, int causal, long long sb,
                                           long long st, long long sh, float scale,
                                           void* stream) {
-  if (!args_ok(B, H, T, Dh, is_bf16)) return (int)cudaErrorInvalidValue;
-  if (Dh == kDh) {
-    constexpr int bytes = Smem<true, 1>::kBytes;
-    cudaError_t e = prepare(flash_dkv_f32wg_kernel<1>, bytes);
-    if (e != cudaSuccess) return (int)e;
-    flash_dkv_f32wg_kernel<1><<<grid(B, H, T, 1), 2 * kWG, bytes, (cudaStream_t)stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
-        (float*)dk, (float*)dv, H, T, sb, st, sh, scale, causal);
-    return (int)cudaGetLastError();
-  }
-  constexpr int bytes = Smem<true, kParts>::kBytes;
-  cudaError_t e = prepare(flash_dkv_f32wg_kernel<kParts>, bytes);
-  if (e != cudaSuccess) return (int)e;
-  ClusterLaunch l(grid(B, H, T, kParts), bytes, (cudaStream_t)stream);
-  e = cudaLaunchKernelEx(&l.cfg, flash_dkv_f32wg_kernel<kParts>, (const float*)q,
-                         (const float*)k, (const float*)v, (const float*)dout, lse, delta,
-                         (float*)dk, (float*)dv, H, T, (int64_t)sb, (int64_t)st, (int64_t)sh,
-                         scale, causal);
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  if (!args_ok(B, H, T, Dh, is_bf16, true)) return (int)cudaErrorInvalidValue;
+  const auto launch = Dh == kDh ? launch_dkv<1> : launch_dkv<4>;
+  return (int)launch((const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse,
+                     delta, (float*)dk, (float*)dv, B, H, T, causal, sb, st, sh, scale,
+                     (cudaStream_t)stream);
 }
 
-// The clusters of the Dh-512 dq (dkv = 0) or dk/dv (dkv = 1) kernel that
-// the card holds at once (cudaOccupancyMaxActiveClusters at the kernel's
-// shared memory), or minus the cudaError_t of the query.
-extern "C" int fedml_flash_f32wg_clusters(int dkv) {
-  const int bytes = dkv ? Smem<true, kParts>::kBytes : Smem<false, kParts>::kBytes;
-  const void* kernel = dkv ? (const void*)flash_dkv_f32wg_kernel<kParts>
-                           : (const void*)flash_dq_f32wg_kernel<kParts>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return -(int)e;
-  ClusterLaunch l(dim3(kParts * 64), bytes, 0);
-  int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, kernel, &l.cfg);
-  return e == cudaSuccess ? n : -(int)e;
+// The clusters of P blocks (P = 3: dq at Dh 384; P = 4: Dh 512) of the dq
+// (dkv = 0) or dk/dv (dkv = 1) kernel that the card holds at once
+// (cudaOccupancyMaxActiveClusters at the kernel's shared memory), or minus
+// the cudaError_t of the query; cudaErrorInvalidValue for another form.
+extern "C" int fedml_flash_f32wg_clusters(int dkv, int P) {
+  if (P == 3 && !dkv)
+    return resident_clusters((const void*)flash_dq_f32wg_kernel<3>, 3, Smem<false, 3>::kBytes);
+  if (P == 4)
+    return dkv ? resident_clusters((const void*)flash_dkv_f32wg_kernel<4>, 4,
+                                   Smem<true, 4>::kBytes)
+               : resident_clusters((const void*)flash_dq_f32wg_kernel<4>, 4,
+                                   Smem<false, 4>::kBytes);
+  return -(int)cudaErrorInvalidValue;
 }

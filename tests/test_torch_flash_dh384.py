@@ -136,7 +136,9 @@ def test_dh384_transformer_lm_flash_loss_and_grads_match_jax():
 
 def test_route_sends_bf16_dh384_to_its_kernels_and_nothing_else():
     """bf16 at Dh 384 runs flash_dh384_sm90.cu's three entry points; float32
-    at Dh 384 runs flash_f32_sm90.cu's, which the card's wrappers accept too;
+    at Dh 384 runs flash_f32_sm90.cu's forward and dk/dv and
+    flash_f32_wgmma_sm90.cu's dq (three-block clusters), which the card's
+    wrappers accept too;
     Dh 512 and 1536 in either dtype go to neither: bf16 there runs
     flash_wide_sm90.cu's entry points, which the card's wrappers accept,
     float32 at Dh 512 flash_wide_f32_sm90.cu's, and float32 at Dh 1536,
@@ -144,7 +146,9 @@ def test_route_sends_bf16_dh384_to_its_kernels_and_nothing_else():
     that auto dispatch sends to flash, in both dtypes."""
     for name in ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv"):
         assert tfa.route(name, torch.bfloat16, 384) == ("flash_dh384_sm90", name + "_dh384_sm90")
-        assert tfa.route(name, torch.float32, 384) == ("flash_f32_sm90", name + "_f32_sm90")
+        assert tfa.route(name, torch.float32, 384) == (
+            ("flash_f32_wgmma_sm90", name + "_f32wg_sm90") if name == "fedml_flash_dq"
+            else ("flash_f32_sm90", name + "_f32_sm90"))
         for dtype, Dh in ((torch.bfloat16, 512), (torch.float32, 512),
                           (torch.bfloat16, 1536), (torch.float32, 1536)):
             assert tfa.route(name, dtype, Dh)[0] != "flash_dh384_sm90"

@@ -320,13 +320,16 @@ def test_f32_dh384_at_ragged_t_matches_jax_dense(dense_t130, causal, kernel, fau
 
 
 def test_route_sends_f32_dh384_to_flash_f32_sm90():
-    """The float32 forward, dq and dk/dv at Dh 384 go to flash_f32_sm90's
-    entry points, which the card's wrappers accept; bf16 at Dh 384 keeps
-    flash_dh384_sm90."""
-    assert "flash_f32_sm90" in tops.KERNELS
+    """The float32 forward and dk/dv at Dh 384 go to flash_f32_sm90's entry
+    points, dq to flash_f32_wgmma_sm90's three-block clusters, all of which
+    the card's wrappers accept; bf16 at Dh 384 keeps flash_dh384_sm90."""
+    assert {"flash_f32_sm90", "flash_f32_wgmma_sm90"} <= set(tops.KERNELS)
     tfa.check_head_dim(DH, torch.float32)
-    for name in ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv"):
+    for name in ("fedml_flash_fwd", "fedml_flash_dkv"):
         assert tfa.route(name, torch.float32, DH) == ("flash_f32_sm90", name + "_f32_sm90")
+    assert tfa.route("fedml_flash_dq", torch.float32, DH) == (
+        "flash_f32_wgmma_sm90", "fedml_flash_dq_f32wg_sm90")
+    for name in ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv"):
         assert tfa.route(name, torch.bfloat16, DH)[0] == "flash_dh384_sm90"
 
 

@@ -169,7 +169,8 @@ def test_route_sends_f32_wide_head_dims_to_their_kernels():
             assert tfa.route(name, torch.bfloat16, Dh) == ("flash_wide_sm90",
                                                            name + "_wide_sm90")
     for name in NAMES:
-        assert tfa.route(name, torch.float32, 384)[0] == "flash_f32_sm90"
+        assert tfa.route(name, torch.float32, 384)[0] == (
+            "flash_f32_wgmma_sm90" if name == "fedml_flash_dq" else "flash_f32_sm90")
     for Dh, dtype in ((1024, torch.float32), (576, torch.float32), (576, torch.bfloat16),
                       (1664, torch.bfloat16)):
         itemsize = torch.zeros(1, dtype=dtype).element_size()
