@@ -48,7 +48,10 @@ non-zero exit code and no result line:
    three TF32 products, the others on the FMA kernel, whose time at the
    block shapes is reported beside as was_ms) and its weight gradient
    (conv3x3_dw), both at L = 1, 2 (the packed schedule's lanes) and 10
-   (the even schedule's clients), the same two in bf16 (use_bf16:
+   (the even schedule's clients), the stem (conv3x3_stem: its float32
+   forward on a tensor-core kernel of its own, three TF32 products, with
+   the FMA kernel's time beside as was_ms and its launch plan read back
+   from the card), the same in bf16 (use_bf16:
    conv3x3_bf16 and conv3x3_dw_bf16, the block convs' forward and weight
    gradient on bf16 tensor-core kernels, the latter with the FMA kernel's
    time beside as was_ms, and conv3x3_stem_bf16, the stem's forward on a
@@ -63,7 +66,7 @@ non-zero exit code and no result line:
    inputs on the tensor cores, float32 on flash_f32_sm90.cu's three TF32
    products at Dh 256, for dk/dv at Dh 384 and for the forward at Dh 128
    and 384, on flash_f32_wgmma_sm90.cu's for dq and dk/dv at Dh 128 and, as
-   clusters of four blocks, at Dh 512, and for dq, as clusters of three
+   clusters of four blocks, for all three at Dh 512, and for dq, as clusters of three
    blocks, at Dh 384 (the resident clusters of both printed), on the FMA
    kernels at Dh 64), at Dh 64 (the _f32 entries at small_lm's shape), at
    Dh 128 (the _dh128_f32 entries at small_lm_128's shape and the
@@ -82,9 +85,10 @@ non-zero exit code and no result line:
    _dh1536_small ones at small_lm_1536's, on flash_wide_sm90.cu, checked at
    all nine of its head dims (512 ... 1536), each timed at one causal head
    of T 4224, its column slices held bit-equal on inputs whose slices
-   repeat; the _dh512_f32 entries at lm_xxl_f32's shape (the forward on
-   flash_wide_f32_sm90.cu, dq and dk/dv on flash_f32_wgmma_sm90.cu's
-   clusters, with the mma.sync kernels' time beside as was_ms) and the
+   repeat; the _dh512_f32 entries at lm_xxl_f32's shape (all three on
+   flash_f32_wgmma_sm90.cu's clusters, with the mma.sync kernels' time
+   beside as was_ms: the forward's, flash_wide_f32_sm90.cu's, timed in
+   this run through its C entry) and the
    _dh896_f32_small ones at small_lm_896_f32's, on flash_wide_f32_sm90.cu,
    checked at its four head dims (512 ... 896), timed at one head of T
    4224, causal and full, its warps' (and clusters') column parts held
@@ -188,11 +192,11 @@ non-zero exit code and no result line:
 23. lm_xxl_f32 — the Cheetah example at --dim 4096 --seq_len 4224
     --ce_chunk 128 (vocab 32000, 8 heads of 512, 8 layers, 1,890.4 M
     parameters) trained in float32 at B 8 (auto dispatch picks flash) for 3
-    steps: 16 forward launches a step on flash_wide_f32_sm90.cu, 8 dq and 8
-    dk/dv on flash_f32_wgmma_sm90.cu's four-block clusters (the routes are
+    steps: 16 forward, 8 dq and 8 dk/dv launches a step on
+    flash_f32_wgmma_sm90.cu's four-block clusters (the routes are
     checked); lm_xxl_f32_profile, one warm step under torch.profiler;
 24. small_lm_512_f32 and small_lm_896_f32 — one float32 head of Dh 512
-    (dq and dk/dv on the clusters, the routes checked) and one of Dh 896
+    (all three on the clusters, the routes checked) and one of Dh 896
     at T 4224 in one layer (auto picks flash), card against CPU under
     small_lm's float32 gates.
 
@@ -263,14 +267,24 @@ CONV_LAYERS = ((64, 32, 32, 3, 16), (64, 32, 32, 16, 16), (64, 16, 16, 32, 32),
 # schedule's 10 clients
 CONV_MAIN = tuple((L,) + s for L in (1, 2, 10) for s in CONV_LAYERS)
 CONV_EXTRA = ((1, 256, 32, 32, 16, 16),   # eval: no lanes, batch 256
+              (1, 256, 32, 32, 3, 16),    # the stem at the eval
               (3, 5, 7, 9, 5, 7))         # ragged channels, odd sizes
 # the eval's forwards: one lane, batch 256, at each layer shape
 CONV_EVAL = tuple((1, 256) + s[1:] for s in CONV_LAYERS)
 # the kernels line's shape: the packed main path's one lane, 18 of the 53
 # convs per step
 CONV_REPORTED = (1, 64, 32, 32, 16, 16)
+# the stem's shape in the kernels line: the packed main path's one lane
+CONV_STEM_REPORTED = (1, 64, 32, 32, 3, 16)
+# the stem under resnet8's DP-SGD (phase_algorithms' resnet8_dp_clip): a
+# lane per example, the cohort of 4 times the batch of 32, one image each
+CONV_DP_STEM = (128, 1, 32, 32, 3, 16)
+# the float32 stem's shapes: the packed and even lanes, the eval, DP-SGD
+CONV_STEM_F32 = tuple(s for s in CONV_MAIN if s[4:] == (3, 16)) + \
+    ((1, 256, 32, 32, 3, 16), CONV_DP_STEM)
 CONV_FWD_KERNELS = ("conv3x3_tf32_kernel", "conv3x3_fwd_kernel", "conv3x3_bf16_kernel",
-                    "conv3x3_bf16_cut_kernel", "conv3x3_stem_bf16_kernel")
+                    "conv3x3_bf16_cut_kernel", "conv3x3_stem_bf16_kernel",
+                    "conv3x3_stem_tf32_kernel")
 CONV_DW_KERNELS = ("conv3x3_dw_partial_kernel", "conv3x3_dw_reduce_kernel",
                    "conv3x3_dw_bf16_kernel")
 
@@ -962,22 +976,26 @@ def _bound(ops, nbytes, bf16_ops=0, tf32_ops=0):
 def check_conv(dev, tc_rate):
     """Kernel 3a (forward, also dx) within CONV_TOL of the plain version and
     bit-equal across two calls at the four layer shapes at L = 1, 2 and 10
-    lanes (CONV_MAIN), the eval shape and a ragged one, and with a
-    lane-broadcast w (the even schedule's first step). Times are device
+    lanes (CONV_MAIN), the eval shape, a ragged one and the stem under
+    DP-SGD (CONV_DP_STEM), and with a lane-broadcast w (the even schedule's
+    first step). Times are device
     time (the profiler), the kernel's and cuDNN's alike: at one or two lanes
     a kernel takes less than its wrapper's host time, so CUDA events around
     back-to-back calls (event_ms, beside) measure the host. Timings beside
-    cuDNN's grouped conv and, where the shape runs on the tensor cores, the
-    FMA kernel's time on it (was_ms). The bound counts the route's work:
-    three TF32 tensor-core products per multiply-add on the tf32x3 route,
-    one float32 FMA on the fma route (fma_bound_ms: the latter at every
-    shape); mma_sync_ms: the tf32x3 route's operations at ``tc_rate``, the
-    rate its instruction reached in phase tc_rate."""
+    cuDNN's grouped conv and, where the shape runs on the tensor cores
+    (the block convs on tf32x3, the stem on stem_tf32x3), the FMA kernel's
+    time on it (was_ms). The bound counts the route's work: three TF32
+    tensor-core products per multiply-add on the tensor-core routes, one
+    float32 FMA on the fma route (fma_bound_ms: the latter at every
+    shape); mma_sync_ms: a tensor-core route's operations at ``tc_rate``,
+    the rate its instruction reached in phase tc_rate. On stem_tf32x3 the
+    launch plan the card reports equals ops/conv.py::fwd_tc_plan's. Returns
+    the kernels line's entries of the block convs and of the stem."""
     from fedml_tpu_torch.ops import conv as C
 
     gen = torch.Generator().manual_seed(3)
-    entry = None
-    for shape in CONV_MAIN + CONV_EXTRA:
+    entries = []
+    for shape in CONV_MAIN + CONV_EXTRA + (CONV_DP_STEM,):
         L, B, H, W, ci, co = shape
         route = C.fwd_route(ci, co)
         x, w, _, xn, wn, _ = _conv_case(shape, gen, dev)
@@ -1001,22 +1019,30 @@ def check_conv(dev, tc_rate):
                "library_ms": device_ms(lambda: F.conv2d(xn, wn, padding=1, groups=L), ("",)),
                "library_event_ms": time_ms(lambda: F.conv2d(xn, wn, padding=1, groups=L)),
                "max_abs_err": (y - yp).abs().max().item(),
-               **(_bound(0, nbytes, tf32_ops=3 * ops) if route == "tf32x3" else fma_bound),
+               **(fma_bound if route == "fma" else _bound(0, nbytes, tf32_ops=3 * ops)),
                "fma_bound_ms": fma_bound["bound_ms"]}
-        if route == "tf32x3":
+        plan = None
+        if route != "fma":
             row["mma_sync_ms"] = 3 * ops / tc_rate * 1e3
             fma_err = _normalised_err(C.conv3x3_fwd_route(x, w, "fma"), yp, mag)
             if not fma_err <= CONV_TOL:
                 raise AssertionError(f"conv3x3 fma kernel at {shape}: {fma_err} > {CONV_TOL}")
             row["was_ms"] = device_ms(lambda: C.conv3x3_fwd_route(x, w, "fma"),
                                       ("conv3x3_fwd_kernel",))
+        if route == "stem_tf32x3":
+            plan = C.fwd_tc_plan_on_card(L, B, H, W, ci, co, dev, torch.float32)
+            mirror = C.fwd_tc_plan(L, B, H, W, ci, co, *plan[3:], torch.float32)
+            if plan[:3] != mirror:
+                raise AssertionError(f"conv3x3 stem at {shape}: the card's plan {plan} is not "
+                                     f"fwd_tc_plan's {mirror}")
         emit("kernel_conv3x3", shape=list(shape), conv_route=route, normalised_err=err,
              tol=CONV_TOL, library_normalised_err=lib_err, repeatable=True,
-             gflop=ops / 1e9, **row)
-        if shape == CONV_REPORTED:
-            entry = {"name": "conv3x3", "route": "cuda",
-                     "source": "fedml_tpu_torch/csrc/" + C.FWD_ROUTES[route][0] + ".cu",
-                     "replaces": "fedml_tpu/ops/conv.py:181", **row}
+             gflop=ops / 1e9, **({"plan": plan} if plan else {}), **row)
+        if shape in (CONV_REPORTED, CONV_STEM_REPORTED):
+            entries.append({"name": "conv3x3" if shape == CONV_REPORTED else "conv3x3_stem",
+                            "route": "cuda",
+                            "source": "fedml_tpu_torch/csrc/" + C.FWD_ROUTES[route][0] + ".cu",
+                            "replaces": "fedml_tpu/ops/conv.py:181", **row})
         if shape == (10,) + CONV_REPORTED[1:]:
             # the even schedule's first local step: every lane shares the
             # global weights (the packed schedule stacks them per lane)
@@ -1027,7 +1053,7 @@ def check_conv(dev, tc_rate):
                 raise AssertionError(f"conv3x3 with a broadcast w: {err_b} > {CONV_TOL}")
             emit("kernel_conv3x3", shape=list(shape), conv_route=route, w_lanes=1,
                  normalised_err=err_b)
-    return entry
+    return entries
 
 
 def _bf16_step(v):
@@ -1055,10 +1081,6 @@ def _bf16_gate(got, want32, mag, what):
                              f"rounded plain value (at most {allowed}), largest difference "
                              f"{steps} bf16 steps, {over} past the step")
     return _normalised_err(got.float(), want32, mag), share, steps
-
-
-# the stem's shape in the kernels line: the packed main path's one lane
-CONV_STEM_REPORTED = (1, 64, 32, 32, 3, 16)
 
 
 def check_conv_bf16(dev, bf16_rate):
@@ -1604,6 +1626,7 @@ def _launch_keys(fwd, dws):
     """Conv launches keyed by the kernels line's names, from launches per
     forward route (``fwd``) and weight-gradient route (``dws``)."""
     return {"conv3x3": fwd["tf32x3"] + fwd["fma"], "conv3x3_dw": dws["fma"],
+            "conv3x3_stem": fwd.get("stem_tf32x3", 0),  # a checkout may lack the route
             "conv3x3_bf16": fwd["bf16_tc"] + fwd["fma_bf16"],
             "conv3x3_stem_bf16": fwd.get("stem_bf16", 0),  # a checkout may lack the route
             "conv3x3_dw_bf16": dws["bf16_tc"] + dws["fma_bf16"]}
@@ -2104,8 +2127,8 @@ FLASH_WIDE_SWEEP_T = 4224
 FLASH_SMALL_LM_1536 = (1, FLASH_WIDE_SWEEP_T, 1, 1536)
 # lm_xxl_f32's attention: the same model trained in float32 at T 4224 (where
 # auto picks flash with 4-byte items), 8 heads of 512; then every float32
-# head dim of flash_wide_f32_sm90.cu (Dh = 128 n, 512 ... 896; at 512 dq and
-# dk/dv run flash_f32_wgmma_sm90.cu's four-block clusters): one head of T
+# head dim of Dh = 128 n, 512 ... 896 (at 512 flash_f32_wgmma_sm90.cu's
+# four-block clusters, above it flash_wide_f32_sm90.cu): one head of T
 # 4224, causal (small_lm_512_f32's and small_lm_896_f32's) and full, timed,
 # and ragged causal and full cases with B, H > 1 through the projection's
 # strided views
@@ -2187,8 +2210,10 @@ FLASH_WAS_MS = {"flash_fwd_dh256": (5.208, _WAS_BF16), "flash_dkv_dh256": (9.373
                 "flash_dkv_dh512_f32": (75.14, _WAS_WIDE_F32)}
 # the float32 Dh-384 dq, redesigned as three-block clusters: the earlier
 # kernel (flash_f32_sm90.cu's), timed beside it in this run as was_ms
-# through its C entry (_dq_f32_sm90)
-FLASH_WAS_LIVE = ("flash_dq_dh384_f32", "flash_dq_dh384_f32_small")
+# through its C entry (_dq_f32_sm90); the float32 Dh-512 forward,
+# redesigned as four-block clusters: the earlier kernel
+# (flash_wide_f32_sm90.cu's <4, 4>) likewise (_fwd_wide_f32)
+FLASH_WAS_LIVE = ("flash_dq_dh384_f32", "flash_dq_dh384_f32_small", "flash_fwd_dh512_f32")
 # |kernel - plain| / max|plain|, plain in float32. Each output sums up to
 # T * Dh = 5e5 float32 products in another order than the plain version's
 # cuBLAS calls: a random walk of sqrt(n) * 2^-24 ~ 4e-5 of the terms'
@@ -2254,8 +2279,9 @@ def _flash_products(name, dtype, Dh):
     a float32 probability or score, which is exact there only as three bf16
     terms, so each counts as three bf16 products. Float32 inputs: on
     flash_f32_sm90 (every kernel at Dh 256 and 384, the forward at Dh 128),
-    flash_f32_wgmma_sm90 (dq and dk/dv at Dh 128) and flash_wide_f32_sm90
-    (Dh 512-896) each product is three TF32 products; elsewhere every
+    flash_f32_wgmma_sm90 (dq and dk/dv at Dh 128, dq at 384, all three at
+    512) and flash_wide_f32_sm90 (Dh 640-896) each product is three TF32
+    products; elsewhere every
     product runs at the float32 rate."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
@@ -2365,6 +2391,25 @@ def _dq_f32_sm90(fa, q, k, v, do, lse, delta, causal):
     return dq
 
 
+def _fwd_wide_f32(fa, q, k, v, causal):
+    """(out, lse) from flash_wide_f32_sm90.cu's float32 forward entry (its
+    mma.sync kernel, which the route no longer takes at Dh 512), launched
+    on float32 CUDA tensors and counting no launch: the was_ms of
+    FLASH_WAS_LIVE."""
+    from fedml_tpu_torch.ops import _build
+
+    B, T, H, Dh = q.shape
+    q, k, v = fa._strided(q, k, v)
+    out = torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B * H, 1, T), dtype=torch.float32, device=q.device)
+    entry = "fedml_flash_fwd_wide_f32_sm90"
+    fn = _build.function("flash_wide_f32_sm90", entry, fa._argtypes(5))
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                    B, H, T, Dh, 0, int(causal), *q.stride()[:3], 1.0 / math.sqrt(Dh),
+                    torch.cuda.current_stream(q.device).cuda_stream), entry)
+    return out, lse
+
+
 def _check_flash_refusals(fa, dev):
     """The head dims no kernel takes raise on the card, saying that the
     shared guard admits them at no T, before any launch and with no
@@ -2393,8 +2438,8 @@ def _check_flash_refusals(fa, dev):
 
 def check_flash(dev, tc_rate):
     """Kernels 4a-4c (flash forward, dq, dk/dv) against their plain versions
-    at FLASH_CASES, and the head dims without a kernel refused; dq, dk and
-    dv repeat bit for bit; timings at the FLASH_TIMED shapes beside SDPA
+    at FLASH_CASES, and the head dims without a kernel refused; out, lse,
+    dq, dk and dv repeat bit for bit; timings at the FLASH_TIMED shapes beside SDPA
     (forward for 4a; its backward, which computes dq, dk and dv together,
     for 4b and 4c) and the backend it ran; at the swept head dims the
     kernels' times beside their bounds and SDPA's.
@@ -2410,7 +2455,8 @@ def check_flash(dev, tc_rate):
     clusters = _build.function("flash_f32_wgmma_sm90", "fedml_flash_f32wg_clusters",
                                [ctypes.c_int, ctypes.c_int])
     resident = {"P3_dh384": {"flash_dq": clusters(0, 3)},
-                "P4_dh512": {"flash_dq": clusters(0, 4), "flash_dkv": clusters(1, 4)}}
+                "P4_dh512": {"flash_fwd": clusters(2, 4), "flash_dq": clusters(0, 4),
+                             "flash_dkv": clusters(1, 4)}}
     if min(n for r in resident.values() for n in r.values()) <= 0:
         raise AssertionError(f"the float32 clusters fit no SM set: {resident}")
     emit("flash_f32_clusters", resident_clusters=resident)
@@ -2432,6 +2478,10 @@ def check_flash(dev, tc_rate):
         errs = {"out": _flash_err(out, out_p, dtype), "lse": _flash_err(lse, lse_p, torch.float32),
                 "dq": _flash_err(dq, dq_p, dtype), "dk": _flash_err(dk, dk_p, dtype),
                 "dv": _flash_err(dv, dv_p, dtype)}
+        out2, lse2 = fa.flash_forward(q, k, v, causal)
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"flash forward at {shape} is not repeatable")
+        del out2, lse2
         dk2, dv2 = fa.flash_dkv(q, k, v, do, lse, delta, causal)
         if not (torch.equal(dq, fa.flash_dq(q, k, v, do, lse, delta, causal))
                 and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
@@ -2508,10 +2558,18 @@ def check_flash(dev, tc_rate):
             was = {}
             if entry["name"] in FLASH_WAS_MS:
                 was = dict(zip(("was_ms", "was_from"), FLASH_WAS_MS[entry["name"]]))
-            if entry["name"] in FLASH_WAS_LIVE:
+            if entry["name"] in FLASH_WAS_LIVE and name == "flash_dq":
                 was = {"was_ms": time_ms(lambda: _dq_f32_sm90(fa, q, k, v, do, lse, delta,
                                                               causal), reps=3, rounds=3),
                        "was_from": "flash_f32_sm90.cu's mma.sync kernel, timed in this run"}
+            if entry["name"] in FLASH_WAS_LIVE and name == "flash_fwd":
+                # the earlier kernel, held to the plain version before it is timed
+                was = {"was_err": _flash_err(_fwd_wide_f32(fa, q, k, v, causal)[0], out_p,
+                                             dtype)[0],
+                       "was_ms": time_ms(lambda: _fwd_wide_f32(fa, q, k, v, causal), reps=3,
+                                         rounds=3),
+                       "was_from": ("flash_wide_f32_sm90.cu's mma.sync kernel <4, 4>, timed in "
+                                    "this run")}
             if tf32_ops:
                 was.update(fma_bound_ms=_bound(tf32_ops / 3, bytes_in + bytes_out)["bound_ms"],
                            mma_sync_ms=tf32_ops / tc_rate * 1e3)
@@ -2557,8 +2615,9 @@ def phase_flash_times(dev, reps=3, rounds=5):
     """Kernel ms of flash forward, dq and dk/dv at FLASH_MODE_SHAPES for the
     package first on sys.path: with ``flash DIR`` a checkout's, so two
     commits compare in one call (parent, change, change, parent); with the
-    float32 backward's outputs' digests (dq; dk and dv), equal across the
-    commits where their kernels' bits are."""
+    float32 outputs' digests (out and lse; dq; dk and dv, from the plain
+    forward's lse and delta), equal across the commits where their kernels'
+    bits are."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator().manual_seed(5)
@@ -2574,8 +2633,14 @@ def phase_flash_times(dev, reps=3, rounds=5):
         delta = fa.attention_delta(do, out)
         bits = {}
         if dtype == torch.float32:
-            bits = {"dq": _digest(fa.flash_dq(q, k, v, do, lse, delta, causal)),
-                    "dkv": _digest(*fa.flash_dkv(q, k, v, do, lse, delta, causal))}
+            # the backward's digests from the plain forward's lse and delta,
+            # the same inputs on both commits whatever their forwards give
+            out_p, lse_p = fa.flash_forward_plain(q, k, v, causal)
+            delta_p = fa.attention_delta(do, out_p)
+            bits = {"fwd": _digest(out, lse),
+                    "dq": _digest(fa.flash_dq(q, k, v, do, lse_p, delta_p, causal)),
+                    "dkv": _digest(*fa.flash_dkv(q, k, v, do, lse_p, delta_p, causal))}
+            del out_p, lse_p, delta_p
         emit("flash_times", shape=list(shape), dtype=str(dtype), causal=causal, package=package,
              **({"digests": bits} if bits else {}),
              fwd_ms=time_ms(lambda: fa.flash_forward(q, k, v, causal), reps, rounds),
@@ -2590,10 +2655,32 @@ def phase_conv_times(dev):
     bound, and of the bf16 weight gradient (kernel 3b) at CONV_MAIN, each on
     the route the wrapper picks, for the package first on sys.path: with
     ``conv DIR`` a checkout's, so two commits compare in one call (parent,
-    change, change, parent)."""
+    change, change, parent). Then the float32 stem at CONV_STEM_F32: the
+    route's kernel, the stem's tensor-core kernel (where the package has
+    it) and the FMA kernel, each held to the plain version, beside cuDNN."""
     from fedml_tpu_torch.ops import conv as C
 
     package = str(Path(C.__file__).parents[2])
+    gen = torch.Generator().manual_seed(12)
+    rows = []
+    for shape in CONV_STEM_F32:
+        L, B, H, W, ci, co = shape
+        x, w, _, xn, wn, _ = _conv_case(shape, gen, dev)
+        yp = C.conv3x3_plain(x, w)
+        mag = C.conv3x3_plain(x.abs(), w.abs())
+        row = {"shape": list(shape), "route": C.fwd_route(ci, co),
+               "ms": device_ms(lambda: C.conv3x3_lanes(x, w), CONV_FWD_KERNELS),
+               "library_ms": device_ms(lambda: F.conv2d(xn, wn, padding=1, groups=L), ("",))}
+        for route in ("stem_tf32x3", "fma"):
+            if route not in C.FWD_ROUTES:
+                continue
+            err = _normalised_err(C.conv3x3_fwd_route(x, w, route), yp, mag)
+            if not err <= CONV_TOL:
+                raise AssertionError(f"conv3x3 {route} at {shape}: {err} > {CONV_TOL}")
+            row[route + "_ms"] = device_ms(lambda: C.conv3x3_fwd_route(x, w, route),
+                                           CONV_FWD_KERNELS)
+        rows.append(row)
+    emit("conv_stem_f32_times", package=package, rows=rows)
     bf = torch.bfloat16
     gen = torch.Generator().manual_seed(13)
     rows = []
@@ -2859,9 +2946,9 @@ def _check_routes(phase, Dh, want):
         raise AssertionError(f"{phase}'s flash calls route to {routes}, not {list(want)}")
 
 
-# the float32 XXL LM's routes: the forward on flash_wide_f32_sm90.cu, dq and
-# dk/dv on flash_f32_wgmma_sm90.cu's four-block clusters
-XXL_F32_ROUTES = ("flash_wide_f32_sm90", "flash_f32_wgmma_sm90", "flash_f32_wgmma_sm90")
+# the float32 XXL LM's routes: all three on flash_f32_wgmma_sm90.cu's
+# four-block clusters
+XXL_F32_ROUTES = ("flash_f32_wgmma_sm90",) * 3
 # the float32 XL LM's (Dh 384): the forward and dk/dv on flash_f32_sm90.cu,
 # dq on flash_f32_wgmma_sm90.cu's three-block clusters
 XL_F32_ROUTES = ("flash_f32_sm90", "flash_f32_wgmma_sm90", "flash_f32_sm90")
@@ -2928,9 +3015,9 @@ def phase_lm_xxl():
 def phase_lm_xxl_f32(check_routes=True):
     """The XXL LM in float32 for LM_XXL_STEPS steps under full remat: auto
     dispatch must pick flash, the model must hold the example's parameter
-    count, and per step the float32 forward (flash_wide_f32_sm90.cu)
-    launches 2 x 8 times, dq and dk/dv (flash_f32_wgmma_sm90.cu, as clusters
-    of four blocks) 8 times each (``check_routes``; ``lm_xxl_f32 DIR`` runs
+    count, and per step the float32 forward launches 2 x 8 times, dq and
+    dk/dv 8 times each (all three on flash_f32_wgmma_sm90.cu, as clusters
+    of four blocks) (``check_routes``; ``lm_xxl_f32 DIR`` runs
     an earlier checkout's routes). Returns (trainer, data, launches)."""
     from fedml_tpu_torch.ops.attention import auto_attention_impl
 
@@ -2986,8 +3073,8 @@ SMALL_LM_1536 = dict(SMALL_LM_384, dim=1536, num_layers=1, max_len=FLASH_WIDE_SW
 # the float32 kernels of flash_wide_f32_sm90.cu under the trainer: one head of
 # 896 (its widest row group, its fullest shared memory) at T 4224, where auto
 # picks flash in float32, in one layer, under small_lm's float32 gates; and
-# one head of 512 likewise, whose dq and dk/dv run flash_f32_wgmma_sm90.cu's
-# four-block clusters (small_lm_512_f32)
+# one head of 512 likewise, whose forward, dq and dk/dv run
+# flash_f32_wgmma_sm90.cu's four-block clusters (small_lm_512_f32)
 SMALL_LM_896 = dict(SMALL_LM_1536, dim=896)
 SMALL_LM_512_F32 = dict(SMALL_LM_1536, dim=512)
 # the bf16 small LMs' gate. bf16 GEMMs round differently on the card and on the
@@ -3073,7 +3160,7 @@ def phase_lm_profile(tr, data, steps=2, phase="lm_profile"):
         "flash_fwd_f32tc_kernel<384>", "flash_dq_f32tc_kernel<384>",
         "flash_dkv_f32tc_kernel<384>", "flash_dq_f32wg_kernel", "flash_dkv_f32wg_kernel",
         "flash_dq_f32wg_kernel<3>", "flash_dq_f32wg_kernel<4>", "flash_dkv_f32wg_kernel<4>",
-        "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
+        "flash_fwd_f32wg_kernel", "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
         unit="step", groups=LM_GROUPS, calls=want)
     launches = _flash_counts()
     runs = steps * row["profiles_taken"]
@@ -3121,7 +3208,7 @@ def main(argv):
     smi = phase_device()
     phase_build()
     tc_rate, bf16_rate = phase_tc_rate(dev)
-    entries = [check_quant(dev), check_gram(dev), check_conv(dev, tc_rate), check_conv_dw(dev),
+    entries = [check_quant(dev), check_gram(dev), *check_conv(dev, tc_rate), check_conv_dw(dev),
                *check_conv_bf16(dev, bf16_rate), check_conv_dw_bf16(dev),
                *check_flash(dev, tc_rate)]
     check_conv_nested(dev)

@@ -4,8 +4,8 @@
 // the forward (and so dx, the forward of dy with the flipped,
 // channel-transposed kernel) for Ci = Co in {16, 32, 64}: ResNet's block
 // convs; in bfloat16 (use_bf16) the forward and the weight gradient (both
-// at the end of this file), and the stem's bf16 forward (3 -> 16). Other
-// channel counts (the float32 stem, ragged shapes), the stem's weight
+// at the end of this file), and the stem's forward (3 -> 16) in bf16 and
+// in float32. Other channel counts (ragged shapes), the stem's weight
 // gradient and the float32 weight gradient keep the FMA kernels of
 // conv3x3.cu; ops/conv.py::fwd_route and dw_route pick by (Ci, Co) and
 // dtype and mirror tc_channels() and kStemCI / kStemCO below.
@@ -1132,6 +1132,201 @@ cudaError_t plan_stem(int L, int B, int H, int W, Plan& p) {
   return plan_blocks(conv3x3_stem_bf16_kernel<kStemMinB>, kStemNT, L, B, p);
 }
 
+// --- float32 stem (Ci 3 -> Co 16) on the tensor cores ----------------------
+//
+// Replaces, for the float32 stem, conv3x3.cu's conv3x3_fwd_kernel<16, false,
+// float> (route fma): K = 27 staged element by element with a run-time
+// division by Ci, a 4 x 4 float32 FMA tile a thread: 12.2 us at (1, 64, 32,
+// 32, 3, 16) against cuDNN's 10.65 (PERF.md). Bound there: (64 x 1,024 x 19
+// + 432) x 4 = 4,982,464 bytes, 1.487 us at 3.35 TB/s (54.3 M in-image
+// operations as three TF32 products, 0.33 us at 495 TFLOP/s): bound by bytes.
+//   The form is the bf16 stem's (above) in three TF32 products: the same
+// tiles (stem_geometry, 128 pixel slots, at most kStemPx halo pixels a
+// thread) and the same walk, a thread loading the next tile's pixels into
+// registers before this tile's products and storing them after (two
+// buffers, one barrier a tile). A halo pixel is x's three channels padded
+// to four, one 16-byte word (channel 3 zero); x's pixels are 12 bytes, at
+// 4-byte alignment only, so they are read by 4-byte global loads. The
+// 27-deep contraction, k = 3 tap + ci, is padded with zeros to 32 and runs
+// as four mma.sync m16n8k8 k-steps, each as lo hi, hi lo and hi hi (small
+// terms first, tf32x3.cuh's split), into one accumulator from zero a tile:
+// 27 terms, as in the bf16 stem. A fragments are gathered from the halo by
+// 4-byte shared loads through a per-thread table of the (tap, channel)
+// offsets of its k values (k-step s holds k = 8 s + t and 8 s + t + 4),
+// computed once, and split where they are loaded; k >= 27 reads the
+// pixel's zero channel 3 against w's zero rows 27-31. w (27 x 16, padded to
+// 32 rows) is staged once and split once into hi and lo B fragments held in
+// registers for every tile. No atomics: y repeats bit for bit. No dx.
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py kernels, PERF.md): 5.29 us
+// at (1, 64, 32, 32, 3, 16), 7.49 at L = 2, 27.0 at L = 10, against the
+// FMA kernel's 12.1 / 20.5 / 87.0 and cuDNN's 10.7 / 21.7 / 400. ptxas -v:
+// 128 registers (cut for four blocks an SM), 12 bytes of spills.
+
+// shared memory: two halos of 16-byte pixels, then w as 32 x 16 floats
+constexpr int kStemSmemF32 = 2 * kStemHalo * 16 + kStemK * kStemCO * 4;
+
+template <int MINB>
+__global__ void __launch_bounds__(kStemNT, MINB)
+conv3x3_stem_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         float* __restrict__ y, int B, int H, int W, int64_t x_lane,
+                         int64_t w_lane, Geo g, int tiles) {
+  extern __shared__ float4 smem4[];
+  float4* halo = smem4;  // 2 x kStemHalo pixels: channels 0-2, 0
+  float* ws = reinterpret_cast<float*>(halo + 2 * kStemHalo);  // [k][co]
+
+  const int t = threadIdx.x, lane = blockIdx.y;
+  const float* xl = x + lane * x_lane;
+  const float* wl = w + lane * w_lane;
+  float* yl = y + (int64_t)lane * B * H * W * kStemCO;
+
+  for (int e = t; e < kStemK * kStemCO; e += kStemNT)
+    ws[e] = e < 9 * kStemCI * kStemCO ? wl[e] : 0.f;
+
+  // the halo pixels this thread stages: p = t + kStemNT j, at (img, pr, pc)
+  int pimg[kStemPx], prow[kStemPx], pcol[kStemPx];
+#pragma unroll
+  for (int j = 0; j < kStemPx; ++j) {
+    const int p = t + kStemNT * j;
+    pcol[j] = p % g.hc;
+    prow[j] = (p / g.hc) % g.hr;
+    pimg[j] = p < g.halo_px ? p / (g.hc * g.hr) : B;  // B: never in the image
+  }
+  float4 next[kStemPx];
+  // x[b0 + img, h0 + pr - 1, w0 + pc - 1, :] of the tile's pixels, zero
+  // outside the image, into next
+  auto load = [&](int tile) {
+    int b0, h0, w0;
+    tile_origin(tile, g, b0, h0, w0);
+#pragma unroll
+    for (int j = 0; j < kStemPx; ++j) {
+      const int b = b0 + pimg[j], h = h0 + prow[j] - 1, ww = w0 + pcol[j] - 1;
+      float c0 = 0.f, c1 = 0.f, c2 = 0.f;
+      if (b < B && h >= 0 && h < H && ww >= 0 && ww < W) {
+        const float* src = xl + (((int64_t)b * H + h) * W + ww) * kStemCI;
+        c0 = __ldg(src);
+        c1 = __ldg(src + 1);
+        c2 = __ldg(src + 2);
+      }
+      next[j] = make_float4(c0, c1, c2, 0.f);
+    }
+  };
+  auto store = [&](float4* dst) {
+#pragma unroll
+    for (int j = 0; j < kStemPx; ++j)
+      if (t + kStemNT * j < g.halo_px) dst[t + kStemNT * j] = next[j];
+  };
+
+  const int warp = t / 32, gid = (t % 32) >> 2, tig = t & 3;
+  // k offsets (floats in the halo, from the slot's tap (0, 0) pixel) of
+  // this thread's A values: k-step s holds k = 8 s + tig (a0, a1) and + 4
+  // (a2, a3)
+  int koff[4][2];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int k = 8 * s + tig + 4 * q;
+      const int tap = k / kStemCI, ci = k % kStemCI;
+      koff[s][q] = k < 9 * kStemCI ? ((tap / 3) * g.hc + tap % 3) * 4 + ci : 3;
+    }
+  // per fragment row (mi, half): the slot's tap (0, 0) pixel, in floats
+  int roff[2][2];
+  const int slots = g.imgs * g.rb * g.cb;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int s = warp * 32 + mi * 16 + gid + 8 * hh;
+      const int img = s / (g.rb * g.cb), r = (s / g.cb) % g.rb, c = s % g.cb;
+      roff[mi][hh] = s < slots ? ((img * g.hr + r) * g.hc + c) * 4 : 0;
+    }
+
+  const int tile0 = blockIdx.x, stride = gridDim.x;
+  const int my_tiles = (tiles - tile0 + stride - 1) / stride;
+  load(tile0);
+  store(halo);
+  __syncthreads();  // w and the first halo
+  // B, split once: b0 (k 8 s + tig; column gid of n tile ni), b1 (k + 4)
+  uint32_t bh[4][2][2], bl[4][2][2];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        split_tf32(ws[(8 * s + tig + 4 * r) * kStemCO + 8 * ni + gid], bh[s][ni][r],
+                   bl[s][ni][r]);
+
+#pragma unroll 1
+  for (int i = 0; i < my_tiles; ++i) {
+    const int tile = tile0 + i * stride;
+    if (i + 1 < my_tiles) load(tile + stride);  // in flight during the products
+    const float* hb = reinterpret_cast<const float*>(halo + (i & 1) * kStemHalo);
+    float acc[2][2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const float* r0 = hb + roff[mi][0];
+      const float* r1 = hb + roff[mi][1];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        // a0 (row gid, k 8 s + tig), a1 (row gid + 8), a2 and a3 at k + 4
+        uint32_t ah[4], al[4];
+        split_tf32(r0[koff[s][0]], ah[0], al[0]);
+        split_tf32(r1[koff[s][0]], ah[1], al[1]);
+        split_tf32(r0[koff[s][1]], ah[2], al[2]);
+        split_tf32(r1[koff[s][1]], ah[3], al[3]);
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni) {
+          mma_tf32(acc[mi][ni], al, bh[s][ni]);
+          mma_tf32(acc[mi][ni], ah, bl[s][ni]);
+          mma_tf32(acc[mi][ni], ah, bh[s][ni]);
+        }
+      }
+    }
+    // c0, c1: row gid, columns 2 tig and + 1; c2, c3: row gid + 8
+    int b0, h0, w0;
+    tile_origin(tile, g, b0, h0, w0);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int s = warp * 32 + mi * 16 + gid + 8 * hh;
+        const int b = b0 + s / (g.rb * g.cb), h = h0 + (s / g.cb) % g.rb, ww = w0 + s % g.cb;
+        if (s >= slots || b >= B || h >= H || ww >= W) continue;
+        float* dst = yl + (((int64_t)b * H + h) * W + ww) * kStemCO + 2 * tig;
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+          *reinterpret_cast<float2*>(dst + 8 * ni) =
+              make_float2(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
+      }
+    if (i + 1 < my_tiles) store(halo + ((i + 1) & 1) * kStemHalo);
+    __syncthreads();  // the next halo stored; this one's reads done
+  }
+}
+
+cudaError_t plan_stem_f32(int L, int B, int H, int W, Plan& p) {
+  p.g = stem_geometry(B, H, W);
+  p.bytes = kStemSmemF32;
+  return plan_blocks(conv3x3_stem_tf32_kernel<kStemMinB>, kStemNT, L, B, p);
+}
+
+// a plan entry's out: {blocks in all, tiles a block walks at most, dynamic
+// shared-memory bytes, SMs, blocks an SM holds}; 0
+int put_plan(const Plan& p, int* out) {
+  out[0] = p.blocks * p.units;
+  out[1] = p.rounds;
+  out[2] = p.bytes;
+  out[3] = p.sms;
+  out[4] = p.per_sm;
+  return 0;
+}
+
 // --- bfloat16 weight gradient: mma.sync m16n8k16 over pixels --------------
 
 // dw[tap, ci, co] = sum over the pixels m of x[m + shift(tap), ci] dy[m, co]:
@@ -1395,6 +1590,34 @@ extern "C" int fedml_conv3x3_stem_sm90_bf16(const bf16* x, const bf16* w, bf16* 
   return (int)cudaGetLastError();
 }
 
+// The same for the float32 stem, Ci 3 -> Co 16 (three TF32 products): x
+// and w 4-byte aligned, y 8-byte aligned, lane strides in floats.
+extern "C" int fedml_conv3x3_stem_sm90(const float* x, const float* w, float* y, int L, int B,
+                                       int H, int W, int Ci, int Co, long long x_lane,
+                                       long long w_lane, void* stream) {
+  if (Ci != kStemCI || Co != kStemCO || L <= 0 || L > 65535 || B <= 0 || H <= 0 || W <= 0 ||
+      (int64_t)H * W > (1LL << 30) || x_lane < 0 || w_lane < 0 || ((uintptr_t)y & 7))
+    return (int)cudaErrorInvalidValue;
+  Plan p;
+  cudaError_t e = plan_stem_f32(L, B, H, W, p);
+  if (e != cudaSuccess) return (int)e;
+  conv3x3_stem_tf32_kernel<kStemMinB><<<dim3(p.blocks, L), kStemNT, p.bytes,
+                                        (cudaStream_t)stream>>>(x, w, y, B, H, W, x_lane,
+                                                                w_lane, p.g, p.tiles);
+  return (int)cudaGetLastError();
+}
+
+// The launch plan of the float32 stem at (L, B, H, W, 3, 16), as
+// fedml_conv3x3_fwd_sm90_bf16_plan gives the bf16 forwards'.
+extern "C" int fedml_conv3x3_stem_sm90_plan(int L, int B, int H, int W, int Ci, int Co,
+                                            int* out) {
+  if (L <= 0 || B <= 0 || H <= 0 || W <= 0 || Ci != kStemCI || Co != kStemCO)
+    return (int)cudaErrorInvalidValue;
+  Plan p;
+  cudaError_t e = plan_stem_f32(L, B, H, W, p);
+  return e == cudaSuccess ? put_plan(p, out) : (int)e;
+}
+
 // The launch plan of the bf16 tensor-core forward at (L, B, H, W, Ci, Co),
 // Ci = Co in {16, 32, 64} or the stem's 3 -> 16: out = {blocks in all,
 // tiles a block walks at most, dynamic shared-memory bytes, SMs, blocks an
@@ -1414,13 +1637,7 @@ extern "C" int fedml_conv3x3_fwd_sm90_bf16_plan(int L, int B, int H, int W, int 
     e = plan_bf16<32, 4, 2>(L, B, H, W, p);
   else
     e = plan_bf16_cut<64, 32, 4, 3>(L, B, H, W, p);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = p.blocks * p.units;
-  out[1] = p.rounds;
-  out[2] = p.bytes;
-  out[3] = p.sms;
-  out[4] = p.per_sm;
-  return 0;
+  return e == cudaSuccess ? put_plan(p, out) : (int)e;
 }
 
 // dw (L, 3, 3, Ci, Co) = sum over (B, H, W) of patches(x)^T dy per lane, for

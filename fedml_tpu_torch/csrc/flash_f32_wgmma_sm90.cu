@@ -1,15 +1,18 @@
 // Flash attention's backward (dq; dk and dv) for float32 inputs at Dh 128
-// and 512, and dq at Dh 384, on the Hopper tensor cores, exact to float32
-// through three TF32 products (3xTF32, tf32x3.cuh), every product on TF32
-// wgmma; at Dh 384 and 512 as a cluster of three or four blocks (below).
-// The float32 forward at these head dims, dk/dv at Dh 384 and every other
-// float32 head dim are flash_f32_sm90.cu's and flash_wide_f32_sm90.cu's
-// (Dh 64: flash_attention.cu's FMA kernels).
+// and 512, dq at Dh 384 and the forward at Dh 512, on the Hopper tensor
+// cores, exact to float32 through three TF32 products (3xTF32, tf32x3.cuh),
+// every product on TF32 wgmma; at Dh 384 and 512 as a cluster of three or
+// four blocks (below). The float32 forward at the other head dims, dk/dv at
+// Dh 384 and every other float32 head dim are flash_f32_sm90.cu's and
+// flash_wide_f32_sm90.cu's (Dh 64: flash_attention.cu's FMA kernels).
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py — _dq_kernel (:167,
 // pallas_call :287) and _dkv_kernel (:213, pallas_call :299), both reached
 // from _flash_backward (:265), on float32 inputs at Dh 128, 384 (dq) and
-// 512. The TPU kernels
+// 512; and _flash_kernel (:66, the forward of _flash_forward :129,
+// pallas_call :140) on float32 inputs at Dh 512 (the forward's own section
+// below: its arithmetic is the JAX kernel's, as flash_wide_f32_sm90.cu's
+// header states it, with 32-key tiles). The TPU kernels
 // walk a sequential (bh, q block, k block) grid with their sums in VMEM
 // scratch; here a block owns 64 q rows (dq) or 64 key rows (dk/dv) and
 // walks the other axis in a loop, with the sums in registers.
@@ -125,6 +128,17 @@
 // Bound on the H100 at the float32 XL LM's shape (B 8, T 4352, H 8, Dh 384,
 // causal): 606,216,192 unmasked pairs x 768 operations = 0.4656 TFLOP a
 // product; as three TF32 products dq takes 8.465 ms.
+//
+// The forward at Dh 512: a cluster of four blocks per (b, h, 128 q rows),
+// block c on columns 128 c ..; each warpgroup holds 64 of the rows' q hi
+// terms in registers and sums their S over the block's 128 columns; the
+// rows' owner block adds the four parts in rank order, takes the
+// online-softmax step and gathers p, corr and l to all four, which add P V
+// over their columns (the forward's section below). Bound at the XXL
+// shape: its two products as three TF32 products, 7.088 ms. On the H100
+// there (PERF.md): 20.8 ms, against 33.3 for flash_wide_f32_sm90.cu's
+// mma.sync kernel and 29.9 for SDPA's forward; 250 registers, no spill,
+// 223,248 bytes of shared memory, 30 clusters resident.
 
 #include "flash_sm90.cuh"
 #include "tf32x3.cuh"
@@ -1132,6 +1146,307 @@ flash_dkv_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<kNT, 0, DH>(role ? dk : dv, acc, b, h, H, Tn, row0, c0, t);
 }
 
+// --- the forward at Dh 512: a cluster of four blocks ---------------------------
+//
+// 128 q rows a block, each warpgroup owning 64 of them over all of the
+// block's 128 columns (columns 128 c .. of rank c). Warpgroup r keeps the
+// hi terms of its q rows (64 r ..), scaled before the split, in registers
+// (16 k steps, as dq's resident tensors) and sums S over the block's 128
+// columns (m64n32k8, its q lo tile in shared memory). Warp w of each
+// warpgroup sends its rows' part to rank w (send_parts: slot 2 rank + r),
+// whose warp w of warpgroup r adds the four ranks' parts in rank order
+// (sum_parts), masks and takes the online-softmax step for both of its
+// lane's rows (new m, p = exp(s - m), corr, l = l corr + rowsum p), and
+// sends p and (corr, l) to every block (counted on full_g), so all four
+// blocks hold the same bits of p, corr and l. Every warpgroup then scales
+// its rows' 128 output columns by corr and adds P V as two m64n64k8 halves,
+// P from the values as register A fragments against v's transposed tile
+// (keys in the fragment's order), from zero a tile. As in dq, the next
+// tile's score products are issued before this tile's p arrives, and the
+// values keep two buffers by tile parity; the mbarriers' rules are dq's.
+// The owner writes lse = m + log l of its rows; every block divides its
+// columns by l. A first form, 64 q rows a block with the warpgroups
+// splitting each block's contraction (eight parts a row), ran no faster
+// than flash_wide_f32_sm90.cu's kernel: a tile costs mostly what it costs
+// whatever its rows (the k and v splits, four barriers, the exchange's
+// round trip), so 128 rows a block halve the tiles (PERF.md).
+
+constexpr int kFwdChunks = kNK + 1;  // values a lane: p's 8-key steps, then (corr, l)
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// acc[C0 + n] = acc[C0 + n] * corr + P X over 64 output columns: P (64 x
+// kKeys) from its fragments (fh, fl), X's columns the 64 rows of the
+// transposed hi tile at offset x (its lo tile after it), three TF32
+// products a k step from a zero accumulator; corr0 is the lane's row g's,
+// corr1 row g + 8's
+template <int C0, int NT>
+__device__ __forceinline__ void pv_product(float (&acc)[NT][4], uint64_t d0,
+                                           const uint32_t (&fh)[kNK][4],
+                                           const uint32_t (&fl)[kNK][4], uint32_t x, float corr0,
+                                           float corr1) {
+  constexpr uint32_t xl = tile_bytes<kKeys>();
+  float d[32];
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kNK; ++kk) {
+    WgTf32<64>::rs(d, fl[kk], kdesc<kDh>(d0, x, kk), kk > 0);
+    WgTf32<64>::rs(d, fh[kk], kdesc<kDh>(d0, x + xl, kk), 1);
+    WgTf32<64>::rs(d, fh[kk], kdesc<kDh>(d0, x, kk), 1);
+  }
+  wg_commit();
+  wg_wait<0>();
+  pin(d);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[C0 + n][e] = acc[C0 + n][e] * (e < 2 ? corr0 : corr1) + d[4 * n + e];
+}
+
+constexpr int kFwdRows = 2 * kRows;  // q rows of a block: 64 a warpgroup
+
+// The block's shared memory, byte offsets from its 1024-aligned base: each
+// warpgroup's q lo tile (64 rows); k's split hi and lo tiles and v's
+// transposed ones (at the start the stages of the two q hi tiles); the
+// landing stage of k and v; the parts (4 ranks x 2 warpgroups x 2 KB); the
+// values (p and (corr, l) of 128 rows, two buffers by tile parity); the
+// mbarriers full_r and full_g.
+struct FwdSmem {
+  static constexpr uint32_t kLo = 0, kK = 2 * tile_bytes<kRows>();
+  static constexpr uint32_t kVT = kK + 2 * tile_bytes<kKeys>();
+  static constexpr uint32_t kLand0 = kVT + 2 * tile_bytes<kKeys>();
+  static constexpr uint32_t kLand1 = kLand0 + kKeys * kLand * 4;
+  static constexpr uint32_t kParts = kLand1 + kKeys * kLand * 4;
+  static constexpr uint32_t kPartsBytes = 4 * 2 * 16 * kKeys * 4;
+  static constexpr uint32_t kValues = kParts + kPartsBytes;
+  static constexpr uint32_t kValuesBytes = 8 * kFwdChunks * 32 * 16;
+  static constexpr uint32_t kFullR = kValues + 2 * kValuesBytes, kFullG = kFullR + 8;
+  static constexpr int kBytes = kFullG + 8 + 1024;  // + the alignment's slack
+  static_assert(2 * tile_bytes<kKeys>() == tile_bytes<kRows>(), "a q hi tile fits k's place");
+  static_assert(kBytes <= 232448, "a block's shared memory");
+};
+
+// A warpgroup's 64 q rows from r0 (row stride st floats), scaled before
+// the split as the TPU kernel scales them (:93), into its lo tile at lo and
+// its hi tile at hi (a stage the streamed tiles take over), then this
+// lane's A fragments of all kDh columns: rows 16 warp + g (+ 8), columns 8
+// kk + t (+ 4). Rows at or past T zero. Ends with every thread past the read.
+__device__ __forceinline__ void load_q(uint32_t (&ah)[kDh / 8][4], uint32_t hi, uint32_t lo,
+                                       const float* src, int64_t st, int r0, int Tn,
+                                       float scale, int tid) {
+  constexpr int CH = kDh / 4;
+#pragma unroll
+  for (int j = 0; j < kRows * CH / kWG; ++j) {
+    const int i = tid + j * kWG, r = i / CH, c = i % CH;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < Tn) x = *reinterpret_cast<const float4*>(src + (int64_t)(r0 + r) * st + 4 * c);
+    put_split<kRows>(hi, lo, r, c,
+                     make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale));
+  }
+  __syncthreads();
+  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+#pragma unroll
+  for (int kk = 0; kk < kDh / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 16 * warp + g + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
+      ah[kk][i] = lds32(hi + swz<kRows>(r, col >> 2) + 4 * (col & 3));
+    }
+  __syncthreads();
+}
+
+// A cluster of P = 4 blocks per (bh, 128 q rows), one per 128-column slice:
+// o (B, T, H, 128 P) contiguous, lse (B*H, T). k and v stream in kKeys-row
+// tiles.
+template <int P>
+__global__ void __launch_bounds__(2 * kWG, 1)
+flash_fwd_f32wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       float* __restrict__ lse, int H, int Tn, int64_t sb, int64_t st,
+                       int64_t sh, float scale, int causal) {
+  static_assert(P == 4, "the forward: a cluster of four at Dh 512");
+  constexpr int N = kKeys, TH = 2 * kWG, DH = kDh * P;
+  using S = FwdSmem;
+  extern __shared__ uint8_t smem[];
+  uint32_t sm = smem_addr(align1024(smem));
+  const int role = threadIdx.x / kWG, tid = threadIdx.x % kWG;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int nt = (Tn + kFwdRows - 1) / kFwdRows;
+  // the q tiles of one (b, h) in a row, its longest causal rows first; rank
+  // c owns columns 128 c ..
+  const int tile = (int)blockIdx.x / P, rank = (int)cluster_rank(), c0 = kDh * rank;
+  const int bh = tile / nt, b = bh / H, h = bh % H;
+  const int q0 = (nt - 1 - tile % nt) * kFwdRows;
+  const int64_t off = (int64_t)b * sb + (int64_t)h * sh + c0;
+  const float *kg = k + off, *vg = v + off;
+  const int ntk = (Tn + N - 1) / N;
+  // causal: no k tile past the block's last row
+  const int nk = causal ? min((q0 + kFwdRows) / N, ntk) : ntk;
+  if (threadIdx.x == 0) {
+    mbar_init(sm + S::kFullR, 1);
+    mbar_init(sm + S::kFullG, 1);
+    mbar_expect(sm + S::kFullR, S::kPartsBytes);
+    mbar_expect(sm + S::kFullG, S::kValuesBytes);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // no block sends before every block's mbarriers are armed
+  auto land_kv = [&](int i) {
+    land<N, TH>(sm + S::kLand0, kg, st, i * N, Tn);
+    land<N, TH>(sm + S::kLand1, vg, st, i * N, Tn);
+    cp_async_commit();
+  };
+  land_kv(0);
+  const uint32_t a_lo = S::kLo + role * tile_bytes<kRows>();
+  uint32_t ah[kDh / 8][4];
+  load_q(ah, sm + S::kK + role * tile_bytes<kRows>(), sm + a_lo, q + off, st,
+         q0 + kRows * role, Tn, scale, tid);
+  const int row0 = q0 + kRows * role + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
+  float acc[kNT][4];  // o's columns c0 .., unnormalised
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();  // tile 0 has landed everywhere
+  split_tile<false>(sm + S::kK, 0, sm + S::kLand0);         // k: K-major
+  split_tile<true, false>(0, sm + S::kVT, sm + S::kLand1);  // v: transposed
+  fence_async();
+  __syncthreads();  // the split tiles are in, and the landing stage is free
+  if (nk > 1) land_kv(1);
+
+  // The loop, pipelined as dq's: per tile i the owner warps take the
+  // softmax step of their rows from the four parts and send p and (corr,
+  // l) to every block (values buffer i % 2); the next tile's k is split and
+  // its score products issued; the values arrive; once the products are
+  // done the next tile's parts go out; then P V is added, the next tile's
+  // v is split, and the landing stage takes tile i + 2. The products issued
+  // on the last tile (from its own k again) are not used.
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // the owner's, of rows g and g + 8
+  float lg[2] = {0.f, 0.f};  // l of this thread's rows, as the owners sent it
+  float s[N / 2];
+  uint64_t d0 = desc(sm, 16, 1024);
+  wg_fence();
+  score_chain(s, d0, ah, a_lo, S::kK);  // S = Q K^T over the block's columns
+  wg_commit();
+  wg_wait<0>();
+  pin(s);
+  send_parts(s, sm + S::kParts, sm + S::kFullR, rank, role, warp, lane);
+  for (int i = 0; i < nk; ++i) {
+    const int k0 = i * N, ph = i & 1;
+    opaque(sm);
+    const uint32_t vbuf = S::kValues + ph * S::kValuesBytes;  // this tile's values buffer
+    if (warp == rank) {
+      // the owner: its warpgroup's warp `rank`, rows g and g + 8
+      mbar_wait(sm + S::kFullR, ph);
+      if (role == 0 && lane == 0) mbar_expect(sm + S::kFullR, S::kPartsBytes);
+      const bool edge = k0 + N > Tn || (causal && k0 + N - 1 > row0 - g);
+      float x[kNK][4], mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kNK; ++j) {
+        const float4 a = sum_parts<P>(sm + S::kParts, role, j, lane);  // rank order
+        x[j][0] = a.x, x[j][1] = a.y, x[j][2] = a.z, x[j][3] = a.w;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1), row = row0 + 8 * (e >> 1);
+          if (edge && (col >= Tn || (causal && col > row))) x[j][e] = kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x[j][e]);
+        }
+      }
+      float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float nm = fmaxf(m[r], quad_max(mx[r]));
+        corr[r] = expf(m[r] - nm);
+        m[r] = nm;
+      }
+#pragma unroll
+      for (int j = 0; j < kNK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[j][e] = expf(x[j][e] - m[e >> 1]);
+          rs[e >> 1] += x[j][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(rs[r]);
+      const uint32_t at = sm + vbuf + xoff<kFwdChunks>(4 * role + warp, 0, lane);
+#pragma unroll
+      for (int r = 0; r < P; ++r) {
+        const uint32_t to = peer(at, r), bar = peer(sm + S::kFullG, r);
+#pragma unroll
+        for (int j = 0; j < kNK; ++j)
+          st_async(to + xoff<kFwdChunks>(0, j, 0), make_float4(x[j][0], x[j][1], x[j][2], x[j][3]),
+                   bar);
+        st_async(to + xoff<kFwdChunks>(0, kNK, 0), make_float4(corr[0], l[0], corr[1], l[1]),
+                 bar);
+      }
+    }
+    // the next tile's k split, and its score products issued
+    if (i + 1 < nk) {
+      cp_async_wait_all();
+      __syncthreads();  // tile i + 1 has landed everywhere
+      split_tile<false>(sm + S::kK, 0, sm + S::kLand0);
+      fence_async();
+      __syncthreads();
+    }
+    opaque(sm);  // the descriptors derived here, not held across the tile
+    d0 = desc(sm, 16, 1024);
+    wg_fence();
+    score_chain(s, d0, ah, a_lo, S::kK);
+    wg_commit();
+    // this tile's values, from every owner, read once the products are done
+    // and the next tile's parts are out
+    mbar_wait(sm + S::kFullG, ph);
+    if (threadIdx.x == 0) mbar_expect(sm + S::kFullG, S::kValuesBytes);
+    wg_wait<0>();
+    pin(s);
+    if (i + 1 < nk) send_parts(s, sm + S::kParts, sm + S::kFullR, rank, role, warp, lane);
+    float f[N / 2];
+#pragma unroll
+    for (int j = 0; j < kNK; ++j) {
+      const float4 x = lds128(sm + vbuf + xoff<kFwdChunks>(4 * role + warp, j, lane));
+      f[4 * j] = x.x, f[4 * j + 1] = x.y, f[4 * j + 2] = x.z, f[4 * j + 3] = x.w;
+    }
+    // (corr, l) of rows g and g + 8
+    const float4 cl = lds128(sm + vbuf + xoff<kFwdChunks>(4 * role + warp, kNK, lane));
+    lg[0] = cl.y, lg[1] = cl.w;
+    uint32_t fh[kNK][4], fl[kNK][4];
+    fragments(f, fh, fl);
+    // acc = acc corr + P V over the 128 columns, 64 at a time
+    opaque(sm);
+    d0 = desc(sm, 16, 1024);
+    pv_product<0>(acc, d0, fh, fl, S::kVT, cl.x, cl.z);
+    pv_product<8>(acc, d0, fh, fl, S::kVT + 64 * kRowBytes, cl.x, cl.z);
+    if (i + 1 < nk) {
+      __syncthreads();  // every warp is done with tile i's transposed v
+      split_tile<true, false>(0, sm + S::kVT, sm + S::kLand1);
+      fence_async();
+      __syncthreads();  // the landing stage is free
+      if (i + 2 < nk) land_kv(i + 2);
+    }
+  }
+  cluster_sync();  // no block leaves while its peers may still send
+  if (warp == rank && t == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < Tn) lse[(int64_t)bh * Tn + row0 + 8 * r] = m[r] + logf(fmaxf(l[r], 1e-30f));
+  const float ls0 = fmaxf(lg[0], 1e-30f), ls1 = fmaxf(lg[1], 1e-30f);
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    acc[n][0] /= ls0, acc[n][1] /= ls0;
+    acc[n][2] /= ls1, acc[n][3] /= ls1;
+  }
+  store_rows<kNT, 0, DH>(o, acc, b, h, H, Tn, row0, c0, t);
+}
+
 // the arguments an entry takes; dk/dv (dkv) has no Dh-384 form
 bool args_ok(int B, int H, int T, int Dh, int is_bf16, bool dkv) {
   return !is_bf16 && (Dh == kDh || (Dh == 3 * kDh && !dkv) || Dh == 4 * kDh) && B > 0 && H > 0 &&
@@ -1210,6 +1525,20 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v, const flo
   }
 }
 
+// the forward at Dh 512: a cluster of four blocks a 128-row q tile
+cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int B,
+                       int H, int T, int causal, int64_t sb, int64_t st, int64_t sh, float scale,
+                       cudaStream_t stream) {
+  constexpr int bytes = FwdSmem::kBytes;
+  cudaError_t e = prepare(flash_fwd_f32wg_kernel<4>, bytes);
+  if (e != cudaSuccess) return e;
+  const int tiles = B * H * ((T + kFwdRows - 1) / kFwdRows);
+  ClusterLaunch l(4, dim3((unsigned)(4 * tiles)), bytes, stream);
+  e = cudaLaunchKernelEx(&l.cfg, flash_fwd_f32wg_kernel<4>, q, k, v, o, lse, H, T, sb, st, sh,
+                         scale, causal);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 // the clusters of P blocks of kernel `kernel` at `bytes` that the card holds at once
 int resident_clusters(const void* kernel, int P, int bytes) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -1221,6 +1550,19 @@ int resident_clusters(const void* kernel, int P, int bytes) {
 }
 
 }  // namespace
+
+// o (B, T, H, Dh) contiguous and lse (B*H, T) from q, k, v (B, T, H, Dh)
+// float32 sharing the element strides (sb, st, sh), Dh contiguous, 16-byte
+// aligned rows. Takes Dh 512 (a cluster of four blocks a 128-row q tile)
+// with is_bf16 = 0 only. Returns the cudaError_t of the launch.
+extern "C" int fedml_flash_fwd_f32wg_sm90(const void* q, const void* k, const void* v, void* o,
+                                          float* lse, int B, int H, int T, int Dh, int is_bf16,
+                                          int causal, long long sb, long long st, long long sh,
+                                          float scale, void* stream) {
+  if (Dh != 4 * kDh || !args_ok(B, H, T, Dh, is_bf16, false)) return (int)cudaErrorInvalidValue;
+  return (int)launch_fwd((const float*)q, (const float*)k, (const float*)v, (float*)o, lse, B, H,
+                         T, causal, sb, st, sh, scale, (cudaStream_t)stream);
+}
 
 // dq (B, T, H, Dh) contiguous from q, k, v (B, T, H, Dh) float32 sharing
 // the element strides (sb, st, sh), Dh contiguous, 16-byte aligned rows;
@@ -1257,16 +1599,18 @@ extern "C" int fedml_flash_dkv_f32wg_sm90(const void* q, const void* k, const vo
 }
 
 // The clusters of P blocks (P = 3: dq at Dh 384; P = 4: Dh 512) of the dq
-// (dkv = 0) or dk/dv (dkv = 1) kernel that the card holds at once
-// (cudaOccupancyMaxActiveClusters at the kernel's shared memory), or minus
-// the cudaError_t of the query; cudaErrorInvalidValue for another form.
-extern "C" int fedml_flash_f32wg_clusters(int dkv, int P) {
-  if (P == 3 && !dkv)
+// (kind 0), dk/dv (kind 1) or forward (kind 2, Dh 512 only) kernel that
+// the card holds at once (cudaOccupancyMaxActiveClusters at the kernel's
+// shared memory), or minus the cudaError_t of the query;
+// cudaErrorInvalidValue for another form.
+extern "C" int fedml_flash_f32wg_clusters(int kind, int P) {
+  if (P == 3 && kind == 0)
     return resident_clusters((const void*)flash_dq_f32wg_kernel<3>, 3, Smem<false, 3>::kBytes);
-  if (P == 4)
-    return dkv ? resident_clusters((const void*)flash_dkv_f32wg_kernel<4>, 4,
-                                   Smem<true, 4>::kBytes)
-               : resident_clusters((const void*)flash_dq_f32wg_kernel<4>, 4,
-                                   Smem<false, 4>::kBytes);
+  if (P == 4 && kind == 0)
+    return resident_clusters((const void*)flash_dq_f32wg_kernel<4>, 4, Smem<false, 4>::kBytes);
+  if (P == 4 && kind == 1)
+    return resident_clusters((const void*)flash_dkv_f32wg_kernel<4>, 4, Smem<true, 4>::kBytes);
+  if (P == 4 && kind == 2)
+    return resident_clusters((const void*)flash_fwd_f32wg_kernel<4>, 4, FwdSmem::kBytes);
   return -(int)cudaErrorInvalidValue;
 }

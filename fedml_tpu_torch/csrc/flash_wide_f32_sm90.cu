@@ -4,8 +4,10 @@
 // TF32 products, causal or full, any T: the forward of the Cheetah
 // example's attention trained in float32 at --dim 4096 (8 heads of 512) and
 // the wider float32 head dims the dispatch guard admits (past 896 its
-// budget refuses float32 at every T). The float32 dq and dk/dv at Dh 512 are
-// flash_f32_wgmma_sm90.cu's four-block clusters.
+// budget refuses float32 at every T). On the route the float32 forward, dq
+// and dk/dv at Dh 512 are flash_f32_wgmma_sm90.cu's four-block clusters;
+// this forward's Dh-512 entry stays, timed beside them (chip_smoke.py's
+// was_ms).
 //
 // Replaces: fedml_tpu/ops/pallas/flash_attention.py on float32 inputs —
 // _flash_kernel (:66, the forward of _flash_forward :129, call :140) at Dh

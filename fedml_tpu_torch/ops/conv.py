@@ -7,9 +7,9 @@ package met the same problem on the TPU and wrote ``conv2d_pallas``; here
 the same op is hand-written CUDA: the forward (also dx) on the tensor cores
 in three TF32 products for ResNet's block convs (Ci = Co in {16, 32, 64},
 ``csrc/conv3x3_sm90.cu``), else on the CUDA cores (``csrc/conv3x3.cu``),
-except the bfloat16 stem (3 -> 16), which has a tensor-core kernel of its
-own in ``csrc/conv3x3_sm90.cu``; :func:`fwd_route` picks by channels and
-dtype. The weight gradient runs on
+except the stem (3 -> 16), which has tensor-core kernels of its own in
+``csrc/conv3x3_sm90.cu``, in bfloat16 and in float32; :func:`fwd_route`
+picks by channels and dtype. The weight gradient runs on
 the CUDA cores of ``csrc/conv3x3.cu``, except bfloat16 at those block
 widths, which runs on the tensor cores of ``csrc/conv3x3_sm90.cu``
 (:func:`dw_route`). Each kernel takes float32 or bfloat16 operands (the
@@ -225,9 +225,13 @@ FWD_ROUTES = {"tf32x3": ("conv3x3_sm90", "fedml_conv3x3_fwd_sm90"),
               "fma": ("conv3x3", "fedml_conv3x3_fwd"),
               "bf16_tc": ("conv3x3_sm90", "fedml_conv3x3_fwd_sm90_bf16"),
               "stem_bf16": ("conv3x3_sm90", "fedml_conv3x3_stem_sm90_bf16"),
+              "stem_tf32x3": ("conv3x3_sm90", "fedml_conv3x3_stem_sm90"),
               "fma_bf16": ("conv3x3", "fedml_conv3x3_fwd_bf16")}
 ROUTE_DTYPE = {"tf32x3": torch.float32, "fma": torch.float32, "bf16_tc": torch.bfloat16,
-               "stem_bf16": torch.bfloat16, "fma_bf16": torch.bfloat16}
+               "stem_bf16": torch.bfloat16, "stem_tf32x3": torch.float32,
+               "fma_bf16": torch.bfloat16}
+# the stem's routes by dtype (tensor-core kernels of conv3x3_sm90.cu)
+STEM_ROUTES = {torch.bfloat16: "stem_bf16", torch.float32: "stem_tf32x3"}
 TC_CHANNELS = (16, 32, 64)  # csrc conv3x3_sm90.cu tc_channels
 STEM_CHANNELS = (3, 16)     # csrc kStemCI, kStemCO
 # (kernel library, C entry point) of each weight-gradient route; all take the
@@ -245,15 +249,17 @@ def fwd_route(ci: int, co: int, dtype: torch.dtype = torch.float32) -> str:
     """The forward kernel for Ci -> Co channels of ``dtype``. Where Ci = Co
     in {16, 32, 64}, ResNet's block convs and their dx, the tensor cores
     of ``conv3x3_sm90.cu``: "tf32x3" (float32, three TF32 products) or
-    "bf16_tc" (bfloat16, one product, float32 sums); the bfloat16 stem
-    (3 -> 16) its own tensor-core kernel there, "stem_bf16" (the 27-deep
-    contraction padded to two 16-deep products); else the CUDA cores of
-    ``conv3x3.cu``: "fma" (float32, the stem too) or "fma_bf16" (ragged
-    channels)."""
-    tc = ci == co and ci in TC_CHANNELS
-    if dtype == torch.bfloat16:
-        return "bf16_tc" if tc else "stem_bf16" if (ci, co) == STEM_CHANNELS else "fma_bf16"
-    return "tf32x3" if tc else "fma"
+    "bf16_tc" (bfloat16, one product, float32 sums); the stem (3 -> 16)
+    its own tensor-core kernels there, "stem_bf16" (the 27-deep contraction
+    padded to two 16-deep products) and "stem_tf32x3" (padded to four
+    8-deep k-steps of three TF32 products each), at every lane count and
+    batch; else the CUDA cores of ``conv3x3.cu``: "fma" (float32) or
+    "fma_bf16" (bfloat16), the ragged channels."""
+    if ci == co and ci in TC_CHANNELS:
+        return "bf16_tc" if dtype == torch.bfloat16 else "tf32x3"
+    if (ci, co) == STEM_CHANNELS:
+        return STEM_ROUTES[dtype]
+    return "fma_bf16" if dtype == torch.bfloat16 else "fma"
 
 
 # The bf16 tensor-core forwards' tiles by Ci (csrc CfgBf16 at 16 and 32,
@@ -262,21 +268,23 @@ def fwd_route(ci: int, co: int, dtype: torch.dtype = torch.float32) -> str:
 # takes 32 of the 64 output columns and tiles of 64 slots.
 FWD_TC_TILES = {16: (128, 16, 9 * 16 * 16, 1), 32: (128, 48, 9 * 32 * 48, 1),
                 64: (64, 72, 9 * 64 * 40, 2)}
-# the stem's (csrc kStemBM, kStemHalo, kStemSmem): tile slots, halo pixels
-# at most, shared-memory bytes (two halos of 8-byte pixels, w as 32 x 16)
+# the stem's (csrc kStemBM, kStemHalo, kStemSmem, kStemSmemF32): tile
+# slots, halo pixels at most, shared-memory bytes by dtype (two halos of 8-
+# or 16-byte pixels, w as 32 x 16)
 STEM_SLOTS, STEM_HALO = 128, 256
-STEM_SMEM = 2 * STEM_HALO * 8 + 32 * 16 * 2
+STEM_SMEM = {torch.bfloat16: 2 * STEM_HALO * 8 + 32 * 16 * 2,
+             torch.float32: 2 * STEM_HALO * 16 + 32 * 16 * 4}
 MAX_SMEM = 232448  # bytes of shared memory a block may use (csrc kMaxSmem)
 
 
-def fwd_tc_geometry(B: int, H: int, W: int, ci: int,
-                    co: int) -> Tuple[int, int, int, int, int]:
+def fwd_tc_geometry(B: int, H: int, W: int, ci: int, co: int,
+                    dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int, int, int, int]:
     """(images, rows, columns, tiles, shared-memory bytes) of a tile of the
     bf16 tensor-core forward at Ci -> Co (csrc ``geometry`` on
-    ``FWD_TC_TILES``, or ``stem_geometry``): whole rows of as many images as
-    the slots hold, or the slots' worth of columns of one row; fewer images,
-    rows or columns where the shared memory (the stem: its halo's pixels)
-    would overflow."""
+    ``FWD_TC_TILES``), or of the stem in ``dtype`` (``stem_geometry``):
+    whole rows of as many images as the slots hold, or the slots' worth of
+    columns of one row; fewer images, rows or columns where the shared
+    memory (the stem: its halo's pixels) would overflow."""
     stem = (ci, co) == STEM_CHANNELS
     bm, xs, wel, _ = (STEM_SLOTS, 0, 0, 1) if stem else FWD_TC_TILES[ci]
     cb = min(W, bm)
@@ -294,19 +302,20 @@ def fwd_tc_geometry(B: int, H: int, W: int, ci: int,
     while over() and cb > 1:
         cb = (cb + 1) // 2
     tiles = _cdiv(B, imgs) * _cdiv(H, rb) * _cdiv(W, cb)
-    nbytes = STEM_SMEM if stem else 2 * (2 * imgs * (rb + 2) * (cb + 2) * xs + wel)
+    nbytes = STEM_SMEM[dtype] if stem else 2 * (2 * imgs * (rb + 2) * (cb + 2) * xs + wel)
     return imgs, rb, cb, tiles, nbytes
 
 
 def fwd_tc_plan(L: int, B: int, H: int, W: int, ci: int, co: int, sms: int,
-                per_sm: int) -> Tuple[int, int, int]:
+                per_sm: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int, int]:
     """(blocks, tiles a block walks at most, shared-memory bytes) of the
-    bf16 tensor-core forward on a card of ``sms`` SMs holding ``per_sm``
-    blocks each (csrc ``plan_blocks``, which asks the card for both): each
-    unit (a lane, or one column slice of a lane) gets its share of the SM
-    slots, then as few blocks as give every block the same tile count; a
-    unit's block j takes tiles j, j + blocks, ... ."""
-    tiles, nbytes = fwd_tc_geometry(B, H, W, ci, co)[3:]
+    bf16 tensor-core forward (or the stem in ``dtype``) on a card of
+    ``sms`` SMs holding ``per_sm`` blocks each (csrc ``plan_blocks``, which
+    asks the card for both): each unit (a lane, or one column slice of a
+    lane) gets its share of the SM slots, then as few blocks as give every
+    block the same tile count; a unit's block j takes tiles j, j + blocks,
+    ... ."""
+    tiles, nbytes = fwd_tc_geometry(B, H, W, ci, co, dtype)[3:]
     units = L * (1 if (ci, co) == STEM_CHANNELS else FWD_TC_TILES[ci][3])
     slots = _cdiv(sms * per_sm, units)
     rounds = _cdiv(tiles, slots)
@@ -314,13 +323,16 @@ def fwd_tc_plan(L: int, B: int, H: int, W: int, ci: int, co: int, sms: int,
 
 
 def fwd_tc_plan_on_card(L: int, B: int, H: int, W: int, ci: int, co: int,
-                        device: Optional[torch.device] = None) -> Tuple[int, ...]:
+                        device: Optional[torch.device] = None,
+                        dtype: torch.dtype = torch.bfloat16) -> Tuple[int, ...]:
     """(blocks, tiles a block, shared-memory bytes, SMs, blocks an SM
     holds) of the plan the kernel launches on the current card (csrc
-    ``fedml_conv3x3_fwd_sm90_bf16_plan``): what :func:`fwd_tc_plan`
-    mirrors, read back for a check on the card."""
+    ``fedml_conv3x3_fwd_sm90_bf16_plan``; the float32 stem's
+    ``fedml_conv3x3_stem_sm90_plan``): what :func:`fwd_tc_plan` mirrors,
+    read back for a check on the card."""
     out = (ctypes.c_int * 5)()
-    entry = "fedml_conv3x3_fwd_sm90_bf16_plan"
+    entry = "fedml_conv3x3_stem_sm90_plan" if dtype == torch.float32 else \
+        "fedml_conv3x3_fwd_sm90_bf16_plan"
     fn = _build.function("conv3x3_sm90", entry, [ctypes.c_int] * 6 + [ctypes.c_void_p])
     with torch.cuda.device(device):
         _build.check(fn(L, B, H, W, ci, co, ctypes.addressof(out)), entry)
@@ -353,7 +365,7 @@ def conv3x3_fwd_route(x: torch.Tensor, w: torch.Tensor, route: str) -> torch.Ten
                                            fwd_route(Ci, Co, x.dtype) != route):
         raise ValueError(f"the {route} kernel takes Ci = Co in {TC_CHANNELS} and a 16-byte "
                          f"aligned w, got {Ci} -> {Co}")
-    if route == "stem_bf16" and (Ci, Co) != STEM_CHANNELS:
+    if route in STEM_ROUTES.values() and (Ci, Co) != STEM_CHANNELS:
         raise ValueError(f"the {route} kernel takes {STEM_CHANNELS[0]} -> {STEM_CHANNELS[1]} "
                          f"channels, got {Ci} -> {Co}")
     lib, entry = FWD_ROUTES[route]

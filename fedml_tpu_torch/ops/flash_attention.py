@@ -18,10 +18,11 @@ float32), for the forward, dq and dk/dv at Dh 256 and the forward at Dh
 their partial scores in one fixed order), in ``csrc/flash_f32_wgmma_sm90.cu``
 for dq and dk/dv at Dh 128 (the same arithmetic with every product on
 wgmma: two warpgroups, one a score product, hi terms in registers), for dq
-at Dh 384 and both at Dh 512 (that block on each 128-column slice, a
+at Dh 384 and all three at Dh 512 (that block on each 128-column slice, a
 cluster of three or four blocks on as many SMs adding their partial scores
-through distributed shared memory),
-and the forward at Dh 512 and all three at Dh 640-896 in
+through distributed shared memory; the forward's rows' owner block takes
+the online-softmax step and sends p to all four),
+and all three at Dh 640-896 in
 ``csrc/flash_wide_f32_sm90.cu`` (the same arithmetic on ``mma.sync``, Dh
 / 128 warps a row group, their number set at launch); every float32 kernel at
 Dh 64 runs the FMA kernels of ``csrc/flash_attention.cu`` (:func:`route`):
@@ -276,11 +277,12 @@ BF16_TMA = {256: "flash_dh256_sm90", 384: "flash_dh384_sm90"}
 # mma.sync) version for float32 inputs
 F32_TENSOR_CORE = {"fedml_flash_fwd": (128, 256, 384), "fedml_flash_dq": (256,),
                    "fedml_flash_dkv": (256, 384)}
-# the head dims at which the float32 backward has a version with its
+# the head dims at which each float32 entry point has a version with its
 # products on wgmma (three TF32 products), and its library: dq at Dh 384 as
-# a cluster of three blocks, both at Dh 512 as a cluster of four, one block
-# per 128-column slice
-F32_WGMMA = {"fedml_flash_dq": (128, 384, 512), "fedml_flash_dkv": (128, 512)}
+# a cluster of three blocks, the forward, dq and dk/dv at Dh 512 as a
+# cluster of four, one block per 128-column slice
+F32_WGMMA = {"fedml_flash_fwd": (512,), "fedml_flash_dq": (128, 384, 512),
+             "fedml_flash_dkv": (128, 512)}
 
 
 def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
@@ -289,12 +291,12 @@ def route(name: str, dtype: torch.dtype, Dh: int) -> Tuple[str, str]:
     ``flash_dh256_sm90``, at Dh 384 to ``flash_dh384_sm90``, at Dh 512-1536
     to ``flash_wide_sm90``, other bf16 calls to ``flash_attention_sm90``,
     the float32 forward at Dh 128, 256 and 384, dq at Dh 256 and dk/dv at
-    Dh 256 and 384 to ``flash_f32_sm90``, float32 dq at Dh 128, 384 and 512
-    and dk/dv at Dh 128 and 512 to ``flash_f32_wgmma_sm90`` (at 384 and 512
-    as clusters of three and four blocks), the
-    forward at Dh 512 and all three at Dh 640-896 to
-    ``flash_wide_f32_sm90``, the rest of float32 (Dh 64) to the FMA kernels
-    of ``flash_attention``. All take the same arguments."""
+    Dh 256 and 384 to ``flash_f32_sm90``, the float32 forward at Dh 512, dq
+    at Dh 128, 384 and 512 and dk/dv at Dh 128 and 512 to
+    ``flash_f32_wgmma_sm90`` (at 384 and 512 as clusters of three and four
+    blocks), all three at Dh 640-896 to ``flash_wide_f32_sm90``, the rest of
+    float32 (Dh 64) to the FMA kernels of ``flash_attention``. All take the
+    same arguments."""
     if dtype == torch.bfloat16 and name in TENSOR_CORE:
         if Dh in BF16_TMA:
             return BF16_TMA[Dh], f"{name}_dh{Dh}_sm90"

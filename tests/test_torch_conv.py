@@ -286,14 +286,15 @@ def test_conv_kernels_match_plain_on_card(L, B, H, W, ci, co):
 # (Ci, Co, route) of every stride-1 3x3 conv shape of ResNet-56 and its dx:
 # the stem (its dx is never taken), the three block widths (forward and dx
 # alike, also at the eval batch), and a ragged shape
-RESNET56_ROUTES = ((3, 16, "fma"), (16, 16, "tf32x3"), (32, 32, "tf32x3"),
+RESNET56_ROUTES = ((3, 16, "stem_tf32x3"), (16, 16, "tf32x3"), (32, 32, "tf32x3"),
                    (64, 64, "tf32x3"), (5, 7, "fma"), (16, 32, "fma"), (48, 48, "fma"))
 
 
 @pytest.mark.parametrize("ci,co,route", RESNET56_ROUTES)
 def test_fwd_route_by_channels(ci, co, route):
     """ResNet's block convs (and so their dx, the same Ci = Co) run on the
-    tensor-core kernel; the stem, ragged and unequal widths on the FMA one."""
+    tensor-core kernel, the stem on its own tensor-core kernel; ragged and
+    unequal widths on the FMA one."""
     assert tconv.fwd_route(ci, co) == route
     assert tconv.FWD_ROUTES[route][0] in ("conv3x3_sm90", "conv3x3")
 
@@ -310,11 +311,11 @@ RESNET56_ROUTES_BF16 = ((3, 16, "stem_bf16"), (16, 16, "bf16_tc"), (32, 32, "bf1
 def test_fwd_route_by_channels_bf16(ci, co, route):
     """bf16: the stem's 3 -> 16 and the block convs on the tensor cores of
     conv3x3_sm90.cu, the rest on conv3x3.cu's FMA kernel; the float32 stem
-    stays on the FMA kernel."""
+    has a tensor-core kernel of its own beside the bf16 one."""
     assert tconv.fwd_route(ci, co, torch.bfloat16) == route
     assert tconv.ROUTE_DTYPE[route] == torch.bfloat16
     assert tconv.FWD_ROUTES[route][0] == ("conv3x3" if route == "fma_bf16" else "conv3x3_sm90")
-    assert tconv.fwd_route(3, 16) == "fma"
+    assert tconv.fwd_route(3, 16) == "stem_tf32x3"
 
 
 def _tf32_rna(t):

@@ -99,7 +99,7 @@ def test_head_dims_past_256_name_the_roadmap():
     """Dh 384-1536 pass the shared guard, as JAX's does. On the card both
     dtypes take Dh 384 (bf16 on flash_dh384_sm90.cu, float32 on
     flash_f32_sm90.cu) and Dh 512 (bf16 on flash_wide_sm90.cu, float32 on
-    flash_wide_f32_sm90.cu), and bf16 takes Dh 1536; float32 at Dh 1536,
+    flash_f32_wgmma_sm90.cu's clusters), and bf16 takes Dh 1536; float32 at Dh 1536,
     which the guard admits at no T with 4-byte items, has no kernel, and
     the wrappers refuse it, saying so."""
     for dtype in (torch.float32, torch.bfloat16):

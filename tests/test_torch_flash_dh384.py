@@ -141,7 +141,7 @@ def test_route_sends_bf16_dh384_to_its_kernels_and_nothing_else():
     wrappers accept too;
     Dh 512 and 1536 in either dtype go to neither: bf16 there runs
     flash_wide_sm90.cu's entry points, which the card's wrappers accept,
-    float32 at Dh 512 flash_wide_f32_sm90.cu's, and float32 at Dh 1536,
+    float32 at Dh 512 flash_f32_wgmma_sm90.cu's clusters, and float32 at Dh 1536,
     which the guard admits at no T, is refused. The XL LM's shape is one
     that auto dispatch sends to flash, in both dtypes."""
     for name in ("fedml_flash_fwd", "fedml_flash_dq", "fedml_flash_dkv"):

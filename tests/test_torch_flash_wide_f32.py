@@ -150,9 +150,10 @@ def test_f32_dh512_trainer_loss_and_grads_match_jax():
 
 
 def test_route_sends_f32_wide_head_dims_to_their_kernels():
-    """Float32 at Dh 512, 640, 768 and 896 runs flash_wide_f32_sm90.cu's
-    three entry points, but for dq and dk/dv at Dh 512, which run
-    flash_f32_wgmma_sm90.cu's four-block clusters; the card's wrappers accept
+    """Float32 at Dh 640, 768 and 896 runs flash_wide_f32_sm90.cu's three
+    entry points, and at Dh 512 all three run flash_f32_wgmma_sm90.cu's
+    four-block clusters (the forward's entry there stays, off the route,
+    timed beside the clusters on the card); the card's wrappers accept
     them all (bf16 there keeps flash_wide_sm90.cu); float32 at Dh 1024 and
     576 and bf16 at Dh 576 and 1664, head dims that the guard admits at no T,
     go to no kernel and are refused, saying so."""
@@ -163,7 +164,7 @@ def test_route_sends_f32_wide_head_dims_to_their_kernels():
         tfa.check_head_dim(Dh, torch.float32)
         for name in NAMES:
             want = ("flash_f32_wgmma_sm90", name + "_f32wg_sm90") \
-                if Dh == 512 and name != "fedml_flash_fwd" \
+                if Dh == 512 \
                 else ("flash_wide_f32_sm90", name + "_wide_f32_sm90")
             assert tfa.route(name, torch.float32, Dh) == want
             assert tfa.route(name, torch.bfloat16, Dh) == ("flash_wide_sm90",
@@ -197,7 +198,7 @@ def test_auto_dispatch_at_the_f32_xxl_shape_matches_jax(Dh):
                                           ((3, 130, 2, 896), True)])
 def test_f32_wide_kernels_match_plain_on_card(shape, causal):
     """The float32 kernels at Dh 512-896 (flash_wide_f32_sm90.cu's, and at
-    Dh 512 flash_f32_wgmma_sm90.cu's dq and dk/dv clusters) against the
+    Dh 512 flash_f32_wgmma_sm90.cu's four-block clusters) against the
     plain versions on the card, within test_torch_flash.CARD_TOL; dq, dk and
     dv repeat bit for bit."""
     if not torch.cuda.is_available():
